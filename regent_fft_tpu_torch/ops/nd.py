@@ -1,0 +1,28 @@
+"""N-D helpers: apply a batched 1-D split-pair transform along any axis.
+
+Counterpart: ``regent_fft_tpu/ops/nd.py``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def apply_along_axis(fn_1d: Callable, axis: int, xr, xi) -> Pair:
+    """Apply a (B, n) -> (B, k) split-pair transform along ``axis``.
+
+    Counterpart: ``regent_fft_tpu/ops/nd.py:23``.
+    """
+    axis = axis % xr.ndim
+    xr = xr.movedim(axis, -1)
+    xi = xi.movedim(axis, -1)
+    lead = xr.shape[:-1]
+    n = xr.shape[-1]
+    yr, yi = fn_1d(xr.reshape(-1, n), xi.reshape(-1, n))
+    k = yr.shape[-1]
+    yr = yr.reshape(*lead, k).movedim(-1, axis).contiguous()
+    yi = yi.reshape(*lead, k).movedim(-1, axis).contiguous()
+    return yr, yi

@@ -1,0 +1,117 @@
+"""Matmul-form DFT steps for the axes the butterfly kernels do not take.
+
+Counterpart: ``regent_fft_tpu/ops/stockham.py``.  A short axis is one dense
+DFT contraction (``direct``); a longer smooth one is a two-factor
+Cooley-Tukey pair of contractions with a twiddle between (``mixed2``).
+Both run as ``torch.matmul`` at full f32: callers on the card keep
+``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default).
+
+The general 1-D pipeline (deeper mixed radix, Rader, Bluestein) is ROADMAP
+Queue 1 #8 and raises here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from . import factor as _factor
+from . import twiddle as _twiddle
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _table(a, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
+
+
+def cmul_mat(ar, ai, br, bi, use_3m: bool = False) -> Pair:
+    """Complex matmul of split operands: (ar + i ai) @ (br + i bi).
+
+    4M (four real products) by default; 3M (Karatsuba) when ``use_3m``.
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:56``.
+    """
+    if use_3m:
+        t1 = ar @ br
+        t2 = ai @ bi
+        t3 = (ar + ai) @ (br + bi)
+        return t1 - t2, t3 - t1 - t2
+    return ar @ br - ai @ bi, ar @ bi + ai @ br
+
+
+def _dft_last(xr, xi, dr, di, use_3m: bool) -> Pair:
+    """Contract the last axis of split planes with the (n, k) matrix d."""
+    if use_3m:
+        return cmul_mat(xr, xi, dr, di, True)
+    # One product on K-concatenated operands, [xr | xi] @ [[dr, di], [-di, dr]]
+    # -> [yr | yi] (the JAX package's 'h4' form).
+    k = dr.shape[1]
+    m = torch.cat([torch.cat([dr, di], 1), torch.cat([-di, dr], 1)], 0)
+    y = torch.cat([xr, xi], -1) @ m
+    return y[..., :k], y[..., k:]
+
+
+def direct_dft_axis(xr, xi, axis: int, n: int, sign: int,
+                    use_3m: bool = False) -> Pair:
+    """Direct DFT along ``axis`` as one dense contraction.
+
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:137``.
+    """
+    axis = axis % xr.ndim
+    dr, di = _twiddle.dft_matrix(n, sign)
+    xr = xr.movedim(axis, -1)
+    xi = xi.movedim(axis, -1)
+    yr, yi = _dft_last(xr, xi, _table(dr, xr), _table(di, xr), use_3m)
+    return (yr.movedim(-1, axis).contiguous(),
+            yi.movedim(-1, axis).contiguous())
+
+
+def mixed_radix_fft_axis(xr, xi, axis: int, n: int, n1: int, sign: int,
+                         use_3m: bool = False) -> Pair:
+    """Two-stage Cooley-Tukey along ``axis``: n = n1 * n2.
+
+    x[j1*n2 + j2] -> DFT_n1 over j1 -> twiddle W_n^{k1*j2} -> DFT_n2 over
+    j2 -> output index k1 + n1*k2.
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:207``.
+    """
+    axis = axis % xr.ndim
+    n2 = n // n1
+    xr = xr.movedim(axis, -1)
+    xi = xi.movedim(axis, -1)
+    lead = xr.shape[:-1]
+    xr = xr.reshape(*lead, n1, n2)
+    xi = xi.reshape(*lead, n1, n2)
+    d1r, d1i = (_table(a, xr) for a in _twiddle.dft_matrix(n1, sign))
+    d2r, d2i = (_table(a, xr) for a in _twiddle.dft_matrix(n2, sign))
+    twr, twi = (_table(a, xr) for a in _twiddle.twiddle_outer(n1, n2, n, sign))
+    # stage 1 over j1: (n1, n1) @ (..., n1, n2); the DFT matrix is symmetric
+    ar, ai = cmul_mat(d1r, d1i, xr, xi, use_3m)
+    ar, ai = ar * twr - ai * twi, ar * twi + ai * twr
+    # stage 2 over j2: (..., n1, n2) @ (n2, n2)
+    cr, ci = _dft_last(ar, ai, d2r, d2i, use_3m)
+    cr = cr.transpose(-1, -2).reshape(*lead, n)
+    ci = ci.transpose(-1, -2).reshape(*lead, n)
+    return (cr.movedim(-1, axis).contiguous(),
+            ci.movedim(-1, axis).contiguous())
+
+
+def best_two_factor(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX):
+    """Most balanced split n = n1*n2 with both <= max_radix (None if none).
+
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:258``.
+    """
+    f = int(math.isqrt(n))
+    while f >= 2:
+        if n % f == 0 and f <= max_radix and n // f <= max_radix:
+            return (max(f, n // f), min(f, n // f))
+        f -= 1
+    return None
+
+
+def build_c2c_1d(n: int, *args, **kwargs):
+    """The general 1-D pipeline (mixed radix beyond two factors, Rader,
+    Bluestein).  Counterpart: ``regent_fft_tpu/ops/stockham.py:269``."""
+    raise NotImplementedError(
+        f"the general 1-D pipeline (n={n}: mixed radix beyond two factors, "
+        "Rader, Bluestein) is ROADMAP Queue 1 #8 of the PyTorch port")

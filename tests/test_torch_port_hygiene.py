@@ -1,0 +1,60 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+it never runs quietly on the host when the card is missing."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import regent_fft_tpu_torch as rt
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import sys
+import regent_fft_tpu_torch
+import regent_fft_tpu_torch.api, regent_fft_tpu_torch.plan
+import regent_fft_tpu_torch.ops._build, regent_fft_tpu_torch.ops.stockham_kernels
+import regent_fft_tpu_torch.ops.nd, regent_fft_tpu_torch.utils.verify
+import regent_fft_tpu_torch.utils.plog
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.")
+       or m == "regent_fft_tpu" or m.startswith("regent_fft_tpu.")]
+print(",".join(bad))
+"""
+
+
+def test_import_pulls_in_no_jax():
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == ""
+
+
+def test_no_source_file_names_jax():
+    for p in (REPO / "regent_fft_tpu_torch").rglob("*.py"):
+        for line in p.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")
+                        or s.startswith("import regent_fft_tpu ")
+                        or s.startswith("from regent_fft_tpu ")
+                        or s.startswith("from regent_fft_tpu.")
+                        or s.startswith("import regent_fft_tpu.")), (p, s)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rt.clear_plan_cache()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.make_plan((8, 1024))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.fft(torch.zeros(8, 1024, dtype=torch.complex64))
+    assert rt.cached_plans() == []
+
+
+def test_cpu_is_opt_in_and_output_is_complex64_on_device():
+    p = rt.make_plan((8, 1024), device="cpu")
+    assert p.spec.device == "cpu" and p.backend == "xla"
+    y = p(torch.zeros(8, 1024, dtype=torch.complex128))
+    assert y.dtype == torch.complex64 and y.device.type == "cpu"
