@@ -1,9 +1,11 @@
-"""numpy.fft-style one-shot C2C functions over the plan cache.
+"""numpy.fft-style one-shot functions over the plan cache: C2C, real
+(``rfft*``/``irfft*``) and Hermitian (``hfft*``/``ihfft*``).
 
-Counterpart: ``regent_fft_tpu/api.py`` (:102-147).  Each call plans
+Counterpart: ``regent_fft_tpu/api.py`` (:102-248).  Each call plans
 through the cache, so repeated calls for one problem reuse the plan.
 Extra keyword options (``device``, ``backend``, ...) go to
-:class:`PlanSpec`.  The real and Hermitian functions are ROADMAP slice 3.
+:class:`PlanSpec`.  Real input must be float32: float64 raises (ROADMAP
+slice 4).
 """
 from __future__ import annotations
 
@@ -124,22 +126,132 @@ def ifftn(x, s=None, axes=None, norm=None, **opts):
     return _c2c(x, axes_t, Direction.BACKWARD, norm, **opts)
 
 
-def _real_transform(name: str):
-    def fn(*args, **kwargs):
+def _real_input(x):
+    """The data of an R2C call as a numpy array or tensor.  float64 data
+    raises: it would be complex128 plans (ROADMAP slice 4), and the port
+    does not round it to float32 quietly."""
+    if isinstance(x, SplitComplex):
+        x = x.re
+    if not isinstance(x, (np.ndarray, torch.Tensor)):
+        x = torch.as_tensor(x)
+    if x.dtype in (np.float64, torch.float64):
         raise NotImplementedError(
-            f"{name} (real/Hermitian transforms) is ROADMAP slice 3 of the "
-            "PyTorch port")
-    fn.__name__ = name
-    fn.__doc__ = (f"Counterpart: ``regent_fft_tpu.api.{name}``; ROADMAP "
-                  "slice 3, raises NotImplementedError.")
-    return fn
+            "float64 input (complex128 plans) is ROADMAP slice 4 of the "
+            "PyTorch port; pass float32 data")
+    return x
 
 
-rfft = _real_transform("rfft")
-irfft = _real_transform("irfft")
-rfft2 = _real_transform("rfft2")
-irfft2 = _real_transform("irfft2")
-rfftn = _real_transform("rfftn")
-irfftn = _real_transform("irfftn")
-hfft = _real_transform("hfft")
-ihfft = _real_transform("ihfft")
+def rfft(x, n: Optional[int] = None, axis: int = -1, norm=None, **opts):
+    """1-D DFT of real input -> half spectrum.
+
+    Counterpart: ``regent_fft_tpu/api.py:150``.
+    """
+    return rfftn(x, s=(n,) if n is not None else None, axes=(axis,),
+                 norm=norm, **opts)
+
+
+def rfftn(x, s=None, axes=None, norm=None, **opts):
+    """N-D DFT of real float32 input; the last of ``axes`` is halved.
+
+    Counterpart: ``regent_fft_tpu/api.py:154``.
+    """
+    x = _real_input(x)
+    nd = x.ndim
+    if s is not None and axes is None:
+        axes = tuple(range(nd - len(s), nd))
+    axes_t = _axes_tuple(nd, axes=axes)
+    x = _padded(x, axes_t, s)
+    spec = PlanSpec(shape=tuple(x.shape), axes=axes_t, kind=Kind.R2C,
+                    direction=Direction.FORWARD, norm=_NORMS[norm], **opts)
+    return make_plan(spec)(x)
+
+
+def irfft(x, n: Optional[int] = None, axis: int = -1, norm=None, **opts):
+    """Inverse of :func:`rfft`: half spectrum -> real output of length
+    ``n`` (default 2*(m-1)).  Counterpart: ``regent_fft_tpu/api.py:168``.
+    """
+    return irfftn(x, s=(n,) if n is not None else None, axes=(axis,),
+                  norm=norm, **opts)
+
+
+def irfftn(x, s=None, axes=None, norm=None, **opts):
+    """Inverse of :func:`rfftn`: float32 output, the last of ``axes`` of
+    length s[-1] (default 2*(m-1)); the other axes are cropped or padded
+    to ``s``.  Counterpart: ``regent_fft_tpu/api.py:172``.
+    """
+    shape = _shape_of(x)
+    nd = len(shape)
+    if s is not None and axes is None:
+        axes = tuple(range(nd - len(s), nd))
+    axes_t = _axes_tuple(nd, axes=axes)
+    out_shape = list(shape)
+    if s is not None:
+        for ax, n in zip(axes_t, s):
+            if n is not None:
+                out_shape[ax] = n
+    if s is None or s[-1] is None:
+        out_shape[axes_t[-1]] = 2 * (shape[axes_t[-1]] - 1)
+    in_sizes = ([out_shape[a] for a in axes_t[:-1]]
+                + [out_shape[axes_t[-1]] // 2 + 1])
+    x = _padded(x, axes_t, in_sizes)
+    spec = PlanSpec(shape=tuple(out_shape), axes=axes_t, kind=Kind.C2R,
+                    direction=Direction.BACKWARD, norm=_NORMS[norm], **opts)
+    return make_plan(spec)(x)
+
+
+def rfft2(x, s=None, axes=(-2, -1), norm=None, **opts):
+    """Counterpart: ``regent_fft_tpu/api.py:201``."""
+    return rfftn(x, s=s, axes=axes, norm=norm, **opts)
+
+
+def irfft2(x, s=None, axes=(-2, -1), norm=None, **opts):
+    """Counterpart: ``regent_fft_tpu/api.py:197``."""
+    return irfftn(x, s=s, axes=axes, norm=norm, **opts)
+
+
+# Hermitian-input transforms: hfft(a) == irfft(conj(a)) at the swapped norm
+# (numpy.fft / scipy.fft semantics).  Counterpart: regent_fft_tpu/api.py:205.
+_SWAP_NORM = {None: "forward", "backward": "forward",
+              "forward": "backward", "ortho": "ortho", "none": "none"}
+
+
+def _conj(x):
+    if isinstance(x, SplitComplex):
+        return SplitComplex(x.re, -x.im)
+    if isinstance(x, np.ndarray):
+        return np.conj(x)
+    return torch.conj_physical(torch.as_tensor(x))
+
+
+def hfft(x, n: Optional[int] = None, axis: int = -1, norm=None, **opts):
+    """FFT of a Hermitian half spectrum -> real output of length ``n``
+    (default 2*(m-1)).  Counterpart: ``regent_fft_tpu/api.py:218``."""
+    return irfft(_conj(x), n=n, axis=axis, norm=_SWAP_NORM[norm], **opts)
+
+
+def ihfft(x, n: Optional[int] = None, axis: int = -1, norm=None, **opts):
+    """Inverse of :func:`hfft`: real input -> conjugated half spectrum.
+    Counterpart: ``regent_fft_tpu/api.py:224``."""
+    return _conj(rfft(x, n=n, axis=axis, norm=_SWAP_NORM[norm], **opts))
+
+
+def hfftn(x, s=None, axes=None, norm=None, **opts):
+    """N-D FFT of Hermitian input -> real output (scipy.fft.hfftn).
+    Counterpart: ``regent_fft_tpu/api.py:229``."""
+    return irfftn(_conj(x), s=s, axes=axes, norm=_SWAP_NORM[norm], **opts)
+
+
+def hfft2(x, s=None, axes=(-2, -1), norm=None, **opts):
+    """Counterpart: ``regent_fft_tpu/api.py:235``."""
+    return hfftn(x, s=s, axes=axes, norm=norm, **opts)
+
+
+def ihfftn(x, s=None, axes=None, norm=None, **opts):
+    """N-D inverse of :func:`hfftn` (scipy.fft.ihfftn).
+    Counterpart: ``regent_fft_tpu/api.py:240``."""
+    return _conj(rfftn(x, s=s, axes=axes, norm=_SWAP_NORM[norm], **opts))
+
+
+def ihfft2(x, s=None, axes=(-2, -1), norm=None, **opts):
+    """Counterpart: ``regent_fft_tpu/api.py:246``."""
+    return ihfftn(x, s=s, axes=axes, norm=norm, **opts)

@@ -1,330 +1,18 @@
-// Self-sorting Stockham FFT kernels for Hopper (sm_90a), complex64 as split
-// f32 re/im planes.
-//
-// One shared-memory tile routine (fft_tile) transforms `nt` independent
-// n-point sequences held in dynamic shared memory; three kernels differ only
-// in how they address global memory:
+// Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a), complex64 as
+// split f32 re/im planes.  The shared tile (fft_tile, rows_pass, cols_pass)
+// is in stockham_tile.cuh; the three kernels here differ only in how they
+// address global memory:
 //
 //   fft_last_kernel   replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
 //   fft_cols_kernel   replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
 //   fft_fused2_kernel replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
 //
-// What is ported is what the TPU kernels compute (one DFT along an axis, the
-// norm scale fused into the final write), not their block structure.  The
-// TPU tile (_stockham_tile) runs radix-4 head stages and finishes with a
-// dense mt-point DFT on the MXU; here every stage is an FFMA butterfly
-// (radix 4, one radix-2 stage when log2 of the power-of-two part is odd, and
-// one radix-3/5/7 stage for the mixed-radix lengths mt*4^s), since a dense
-// tail in FFMA costs ~8*mt flops per element.
-//
-// Arithmetic is exact f32 (no TF32, no fast-math intrinsics).  Twiddles come
-// from a host table generated in float64 and rounded once to f32
-// (regent_fft_tpu_torch/ops/stockham_kernels.py:_kernel_tables); the stage
-// list comes from the same module (_kernel_stages), so Python is the single
-// source of truth for the schedule and this file only validates it.
-//
-// Stage (radix R, Ns = product of the radices before it, m = n/R), for each
-// butterfly j in [0, m):
-//     v[r]  = x[j + r*m] * W_{Ns*R}^{r*(j mod Ns)}        r = 0..R-1
-//     y     = DFT_R(v)
-//     out[(j - j mod Ns)*R + j mod Ns + r*Ns] = y[r]
-// (Stockham autosort, decimation in time: natural order in and out.)  The
-// odd radix runs last, so every Ns is a power of two.
-//
-// A stage runs in place in one shared buffer: every thread first reads all
-// of its butterflies' inputs into registers, the block synchronises, then
-// every thread writes its outputs.  Each thread owns at most ELEMS values of
-// a transform, so the register arrays have compile-time sizes.
-//
-// Conventions: kernels launch on the caller's stream, never synchronise and
-// allocate nothing; each C entry returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a schedule it does not accept).
+// Each computes one DFT along an axis with the norm scale fused into the
+// final write.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stockham_tile.cuh"
 
 namespace {
-
-constexpr int THREADS = 512;     // threads per block, every kernel
-constexpr int ELEMS = 16;        // values of one transform a thread holds
-constexpr int MAX_STAGES = 12;
-
-struct StagePlan {
-  int n;
-  int nstages;
-  int radix[MAX_STAGES];
-  int lns[MAX_STAGES];     // log2(Ns) of each stage
-  int twoff[MAX_STAGES];   // offset of the stage's (R-1)*Ns twiddles
-};
-
-// Tile geometry: `tj` threads per transform, `nt` transforms per tile
-// (tj * nt == THREADS), `pitch` the shared-memory stride of one row (rows
-// layout only).
-struct Geo {
-  int tj;
-  int nt;
-  int lnt;
-  int pitch;
-};
-
-__host__ __device__ inline int pow2ceil(int x) {
-  int v = 1;
-  while (v < x) v <<= 1;
-  return v;
-}
-
-__host__ __device__ inline int ilog2(int x) {
-  int l = 0;
-  while ((1 << l) < x) ++l;
-  return l;
-}
-
-// Column tiles: element (t, j) at j*nt + t, so neighbouring threads take
-// neighbouring columns (coalesced global loads along the contiguous axis).
-__host__ __device__ inline Geo cols_geo(int n) {
-  Geo g;
-  g.tj = pow2ceil((n + ELEMS - 1) / ELEMS);
-  g.nt = THREADS / g.tj;
-  g.lnt = ilog2(g.nt);
-  g.pitch = 0;
-  return g;
-}
-
-// Row tiles: element (t, j) at t*pitch + j + j/32.  The one-word pad every
-// 32 words keeps the strided butterfly writes of the early stages free of
-// bank conflicts.
-__host__ __device__ inline Geo rows_geo(int n) {
-  Geo g;
-  int tj = pow2ceil((n + ELEMS - 1) / ELEMS);
-  g.tj = tj < 32 ? 32 : tj;
-  g.nt = THREADS / g.tj;
-  g.lnt = ilog2(g.nt);
-  g.pitch = n + (n >> 5);
-  return g;
-}
-
-inline size_t cols_smem_bytes(int n) {
-  return 2 * sizeof(float) * (size_t)n * cols_geo(n).nt;
-}
-
-inline size_t rows_smem_bytes(int n) {
-  Geo g = rows_geo(n);
-  return 2 * sizeof(float) * (size_t)g.nt * g.pitch;
-}
-
-template <bool ROWS>
-__device__ __forceinline__ int at(int t, int j, const Geo& g) {
-  return ROWS ? t * g.pitch + j + (j >> 5) : j * g.nt + t;
-}
-
-// cos/sin(2*pi*m/R) for the odd radices, rounded from float64.
-__constant__ float kCos3[3] = {1.0f, -0.5f, -0.5f};
-__constant__ float kSin3[3] = {0.0f, 0.8660254037844386f, -0.8660254037844386f};
-__constant__ float kCos5[5] = {1.0f, 0.30901699437494745f, -0.8090169943749473f,
-                               -0.8090169943749476f, 0.30901699437494723f};
-__constant__ float kSin5[5] = {0.0f, 0.9510565162951535f, 0.5877852522924732f,
-                               -0.587785252292473f, -0.9510565162951536f};
-__constant__ float kCos7[7] = {1.0f, 0.6234898018587336f, -0.22252093395631434f,
-                               -0.900968867902419f, -0.9009688679024191f,
-                               -0.2225209339563146f, 0.6234898018587334f};
-__constant__ float kSin7[7] = {0.0f, 0.7818314824680298f, 0.9749279121818236f,
-                               0.43388373911755823f, -0.433883739117558f,
-                               -0.9749279121818236f, -0.7818314824680299f};
-
-template <int R> __device__ __forceinline__ float rcos(int m);
-template <int R> __device__ __forceinline__ float rsin(int m);
-template <> __device__ __forceinline__ float rcos<3>(int m) { return kCos3[m]; }
-template <> __device__ __forceinline__ float rsin<3>(int m) { return kSin3[m]; }
-template <> __device__ __forceinline__ float rcos<5>(int m) { return kCos5[m]; }
-template <> __device__ __forceinline__ float rsin<5>(int m) { return kSin5[m]; }
-template <> __device__ __forceinline__ float rcos<7>(int m) { return kCos7[m]; }
-template <> __device__ __forceinline__ float rsin<7>(int m) { return kSin7[m]; }
-
-// In-register R-point DFT, y[k] = sum_r v[r] * exp(s*2*pi*i*r*k/R).
-template <int R>
-struct Dft {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    float yr[R], yi[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      yr[k] = vr[0];
-      yi[k] = vi[0];
-#pragma unroll
-      for (int m = 1; m < R; ++m) {
-        const float c = rcos<R>((m * k) % R);
-        const float sn = s * rsin<R>((m * k) % R);
-        yr[k] = fmaf(vr[m], c, fmaf(-vi[m], sn, yr[k]));
-        yi[k] = fmaf(vr[m], sn, fmaf(vi[m], c, yi[k]));
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      vr[k] = yr[k];
-      vi[k] = yi[k];
-    }
-  }
-};
-
-template <>
-struct Dft<2> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float) {
-    const float ar = vr[0] + vr[1], ai = vi[0] + vi[1];
-    vr[1] = vr[0] - vr[1];
-    vi[1] = vi[0] - vi[1];
-    vr[0] = ar;
-    vi[0] = ai;
-  }
-};
-
-// The radix-4 butterfly of pallas_stockham.py:_bfly_core.
-template <>
-struct Dft<4> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    const float t0r = vr[0] + vr[2], t0i = vi[0] + vi[2];
-    const float t1r = vr[0] - vr[2], t1i = vi[0] - vi[2];
-    const float t2r = vr[1] + vr[3], t2i = vi[1] + vi[3];
-    const float t3r = vr[1] - vr[3], t3i = vi[1] - vi[3];
-    const float it3r = -s * t3i, it3i = s * t3r;
-    vr[0] = t0r + t2r;
-    vi[0] = t0i + t2i;
-    vr[1] = t1r + it3r;
-    vi[1] = t1i + it3i;
-    vr[2] = t0r - t2r;
-    vi[2] = t0i - t2i;
-    vr[3] = t1r - it3r;
-    vi[3] = t1i - it3i;
-  }
-};
-
-// One in-place Stockham stage over the tile.  (t, jl) is this thread's
-// transform and its lane within the transform.
-template <int R, bool ROWS>
-__device__ __forceinline__ void stage(float* sr, float* si, int m, int lns,
-                                      const float2* __restrict__ tw, float s,
-                                      int t, int jl, const Geo& g) {
-  constexpr int MAXB = (ELEMS + R - 1) / R;
-  float vr[MAXB][R], vi[MAXB][R];
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
-    const int j = jl + b * g.tj;
-    if (j < m) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int a = at<ROWS>(t, j + r * m, g);
-        vr[b][r] = sr[a];
-        vi[b][r] = si[a];
-      }
-    }
-  }
-  __syncthreads();
-  const int ns = 1 << lns;
-#pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
-    const int j = jl + b * g.tj;
-    if (j < m) {
-      const int k = j & (ns - 1);
-      if (lns) {
-#pragma unroll
-        for (int r = 1; r < R; ++r) {
-          const float2 w = __ldg(&tw[(r - 1) * ns + k]);
-          const float xr = vr[b][r], xi = vi[b][r];
-          vr[b][r] = fmaf(xr, w.x, -xi * w.y);
-          vi[b][r] = fmaf(xr, w.y, xi * w.x);
-        }
-      }
-      Dft<R>::run(vr[b], vi[b], s);
-      const int base = (j - k) * R + k;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int a = at<ROWS>(t, base + r * ns, g);
-        sr[a] = vr[b][r];
-        si[a] = vi[b][r];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The shared tile routine: all stages of an n-point transform on every
-// transform of the tile.  Must be entered after a __syncthreads() that
-// follows the tile load; returns after one that follows the last stage.
-template <bool ROWS>
-__device__ void fft_tile(float* sr, float* si, const StagePlan& p,
-                         const float2* __restrict__ tw, float s, int t, int jl,
-                         const Geo& g) {
-  for (int st = 0; st < p.nstages; ++st) {
-    const int r = p.radix[st];
-    const int m = p.n / r;
-    const float2* tws = tw + p.twoff[st];
-    const int lns = p.lns[st];
-    switch (r) {
-      case 2: stage<2, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      case 3: stage<3, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      case 4: stage<4, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      case 5: stage<5, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      default: stage<7, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-    }
-  }
-}
-
-// Rows [r0, r0 + nt) of a (rows, n) plane pair -> transformed and scaled.
-// Rows at or past `nrows` are masked (zero-filled, not written).
-__device__ void rows_pass(const float* xr, const float* xi, float* yr, float* yi,
-                          long long r0, long long nrows, const StagePlan& p,
-                          const float2* __restrict__ tw, float s, float scale,
-                          float* sr, float* si) {
-  const Geo g = rows_geo(p.n);
-  const int n = p.n;
-  const int t = threadIdx.x >> ilog2(g.tj);
-  const int jl = threadIdx.x & (g.tj - 1);
-  const bool valid = r0 + t < nrows;
-  const size_t off = (size_t)(r0 + t) * n;
-  for (int j = jl; j < n; j += g.tj) {
-    const int a = at<true>(t, j, g);
-    sr[a] = valid ? xr[off + j] : 0.0f;
-    si[a] = valid ? xi[off + j] : 0.0f;
-  }
-  __syncthreads();
-  fft_tile<true>(sr, si, p, tw, s, t, jl, g);
-  if (valid) {
-    for (int j = jl; j < n; j += g.tj) {
-      const int a = at<true>(t, j, g);
-      yr[off + j] = sr[a] * scale;
-      yi[off + j] = si[a] * scale;
-    }
-  }
-  __syncthreads();
-}
-
-// Columns [c0, c0 + nt) of an (n, V) plane pair (row stride V) ->
-// transformed along n and scaled.  Columns at or past V are masked.
-__device__ void cols_pass(const float* xr, const float* xi, float* yr, float* yi,
-                          int c0, int V, const StagePlan& p,
-                          const float2* __restrict__ tw, float s, float scale,
-                          float* sr, float* si) {
-  const Geo g = cols_geo(p.n);
-  const int n = p.n;
-  const int t = threadIdx.x & (g.nt - 1);
-  const int jl = threadIdx.x >> g.lnt;
-  const bool valid = c0 + t < V;
-  for (int j = jl; j < n; j += g.tj) {
-    const int a = at<false>(t, j, g);
-    const size_t o = (size_t)j * V + c0 + t;
-    sr[a] = valid ? xr[o] : 0.0f;
-    si[a] = valid ? xi[o] : 0.0f;
-  }
-  __syncthreads();
-  fft_tile<false>(sr, si, p, tw, s, t, jl, g);
-  if (valid) {
-    for (int j = jl; j < n; j += g.tj) {
-      const int a = at<false>(t, j, g);
-      const size_t o = (size_t)j * V + c0 + t;
-      yr[o] = sr[a] * scale;
-      yi[o] = si[a] * scale;
-    }
-  }
-  __syncthreads();
-}
 
 // --------------------------------------------------------------------------
 // fft_last_kernel — replaces pallas_stockham.py:_runner_last (FFT along the
@@ -416,32 +104,6 @@ fft_fused2_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       rows_pass(yr + base, yi + base, yr + base, yi + base, r0, n1, p2, tw2, s,
                 scale, sr, si);
   }
-}
-
-// Validate a stage list from the host and fill the plan.  Radices must be
-// 2, 3, 4, 5 or 7, multiply to n, and every Ns must be a power of two.
-int make_plan(int n, int nstages, const int* radices, StagePlan* p) {
-  if (n < 2 || nstages < 1 || nstages > MAX_STAGES) return 1;
-  p->n = n;
-  p->nstages = nstages;
-  int ns = 1, off = 0;
-  for (int i = 0; i < nstages; ++i) {
-    const int r = radices[i];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7) return 1;
-    if (ns & (ns - 1)) return 1;
-    p->radix[i] = r;
-    p->lns[i] = ilog2(ns);
-    p->twoff[i] = off;
-    off += (r - 1) * ns;
-    ns *= r;
-  }
-  return ns == n ? 0 : 1;
-}
-
-cudaError_t set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace

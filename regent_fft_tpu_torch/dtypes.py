@@ -4,8 +4,9 @@ Counterpart: ``regent_fft_tpu/dtypes.py``.  The enums keep the JAX
 package's values so specs map across by value.
 
 Terminology: ``complex64`` means torch/numpy complex64 = 2 x float32 (not
-Regent's meaning of the name, see SURVEY.md).  This slice carries complex64
-only; complex32 (split bf16) and complex128 are ROADMAP slice 4.
+Regent's meaning of the name, see SURVEY.md); its real counterpart is
+float32.  The port carries complex64 only; complex32 (split bf16) and
+complex128 (with float64 real data) are ROADMAP slice 4.
 """
 from __future__ import annotations
 
@@ -95,6 +96,25 @@ def as_split(x, device) -> SplitComplex:
         return SplitComplex(x.real.contiguous(), x.imag.contiguous())
     xr = x.to(torch.float32).contiguous()
     return SplitComplex(xr, torch.zeros_like(xr))
+
+
+def as_real(x, device) -> torch.Tensor:
+    """Convert a real input (numpy array or tensor; a SplitComplex gives its
+    real plane) to one contiguous f32 plane on ``device``, the input of an
+    R2C plan.  Complex input raises.
+
+    Counterpart: the R2C branch of ``regent_fft_tpu/plan.py:1060``.
+    """
+    if isinstance(x, SplitComplex):
+        x = x.re
+    if isinstance(x, np.ndarray):
+        if np.iscomplexobj(x):
+            raise TypeError("R2C plans take real input, got a complex array")
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    x = torch.as_tensor(x)
+    if x.is_complex():
+        raise TypeError("R2C plans take real input, got a complex tensor")
+    return x.to(device=torch.device(device), dtype=torch.float32).contiguous()
 
 
 def from_split(s: SplitComplex) -> torch.Tensor:

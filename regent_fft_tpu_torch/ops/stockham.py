@@ -6,16 +6,20 @@ Cooley-Tukey pair of contractions with a twiddle between (``mixed2``).
 Both run as ``torch.matmul`` at full f32: callers on the card keep
 ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default).
 
-The general 1-D pipeline (deeper mixed radix, Rader, Bluestein) is ROADMAP
-Queue 1 #8 and raises here.
+:func:`build_c2c_1d` is the general 1-D pipeline on (B, n) planes: one
+direct product, or the recursive mixed-radix schedule of
+``factor.plan_factors``.  Its Rader and Bluestein branches are ROADMAP
+Queue 1 #8 and raise here.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
 
+from ..dtypes import Direction
 from . import factor as _factor
 from . import twiddle as _twiddle
 
@@ -38,6 +42,51 @@ def cmul_mat(ar, ai, br, bi, use_3m: bool = False) -> Pair:
         t3 = (ar + ai) @ (br + bi)
         return t1 - t2, t3 - t1 - t2
     return ar @ br - ai @ bi, ar @ bi + ai @ br
+
+
+def cmul_elem(ar, ai, br, bi) -> Pair:
+    """Elementwise complex multiply of split operands.
+
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:73``.
+    """
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def direct_dft(xr, xi, n: int, sign: int, use_3m: bool = False) -> Pair:
+    """Direct DFT over the last axis of (B, n) planes, one dense product.
+
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:78``.
+    """
+    dr, di = _twiddle.dft_matrix(n, sign)
+    return cmul_mat(xr, xi, _table(dr, xr), _table(di, xr), use_3m)
+
+
+def mixed_radix_fft(xr, xi, n: int, factors, sign: int,
+                    use_3m: bool = False) -> Pair:
+    """DFT over the last axis of (B, n) planes by recursive dense stages.
+
+    ``factors`` is the radix schedule (largest first, each <= max_radix):
+    x[j1*n2 + j2] -> DFT_n1 over j1 -> twiddle W_n^{k1*j2} -> the rest of
+    the schedule over j2 -> output index k1 + n1*k2.
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:84``.
+    """
+    if len(factors) == 1:
+        return direct_dft(xr, xi, n, sign, use_3m)
+    n1 = factors[0]
+    n2 = n // n1
+    b = xr.shape[0]
+    xr = xr.reshape(b, n1, n2)
+    xi = xi.reshape(b, n1, n2)
+    d1r, d1i = (_table(a, xr) for a in _twiddle.dft_matrix(n1, sign))
+    # (n1, n1) @ (b, n1, n2); the DFT matrix is symmetric
+    ar, ai = cmul_mat(d1r, d1i, xr, xi, use_3m)
+    twr, twi = (_table(a, xr) for a in _twiddle.twiddle_outer(n1, n2, n, sign))
+    ar, ai = cmul_elem(ar, ai, twr, twi)
+    cr, ci = mixed_radix_fft(ar.reshape(b * n1, n2), ai.reshape(b * n1, n2),
+                             n2, factors[1:], sign, use_3m)
+    cr = cr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+    ci = ci.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+    return cr, ci
 
 
 def _dft_last(xr, xi, dr, di, use_3m: bool) -> Pair:
@@ -109,9 +158,38 @@ def best_two_factor(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX):
     return None
 
 
-def build_c2c_1d(n: int, *args, **kwargs):
-    """The general 1-D pipeline (mixed radix beyond two factors, Rader,
-    Bluestein).  Counterpart: ``regent_fft_tpu/ops/stockham.py:269``."""
+def build_c2c_1d(n: int, direction: Direction,
+                 max_radix: int = _factor.DEFAULT_MAX_RADIX,
+                 use_3m: bool = False):
+    """fn((B, n) re, im) -> (re, im), an unscaled DFT of each row.
+
+    Dispatches direct / mixed radix by ``factor.plan_factors``; the Rader
+    and Bluestein branches raise (ROADMAP Queue 1 #8).
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:269``.
+    """
+    sign = int(direction)
+    kind, info = _factor.plan_factors(n, max_radix)
+    if kind == "direct":
+        return lambda xr, xi: direct_dft(xr, xi, n, sign, use_3m)
+    if kind == "mixed":
+        return lambda xr, xi: mixed_radix_fft(xr, xi, n, info, sign, use_3m)
     raise NotImplementedError(
-        f"the general 1-D pipeline (n={n}: mixed radix beyond two factors, "
-        "Rader, Bluestein) is ROADMAP Queue 1 #8 of the PyTorch port")
+        f"the general 1-D pipeline's {kind} branch (n={n}) is ROADMAP "
+        "Queue 1 #8 of the PyTorch port")
+
+
+@functools.lru_cache(maxsize=512)
+def schedule_description(n: int,
+                         max_radix: int = _factor.DEFAULT_MAX_RADIX) -> str:
+    """Human-readable schedule, for the plan's step lines.
+
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:300``.
+    """
+    kind, info = _factor.plan_factors(n, max_radix)
+    if kind == "direct":
+        return f"direct-dft-{n} (1 matmul)"
+    if kind == "mixed":
+        stages = " -> ".join(f"radix-{r}" for r in info)
+        return f"mixed({n} = {'*'.join(map(str, info))}): {stages}"
+    inner = schedule_description(info, max_radix)
+    return f"{kind}({n}, conv={info}: {inner})"

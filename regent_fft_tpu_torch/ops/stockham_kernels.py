@@ -1,15 +1,18 @@
 """Stockham butterfly kernels: schedule gates, wrappers and plain versions.
 
-Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Three hand-written
-CUDA kernels (``csrc/stockham.cu``) carry the C2C plan path:
+Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Five hand-written
+CUDA kernels carry the plan paths: three C2C kernels in
+``csrc/stockham.cu`` and the real-transform pair in ``csrc/real.cu``:
 
-=================  ===================================  =====================
-wrapper            replaces (pallas_stockham.py)        plain version
-=================  ===================================  =====================
-``fft_last``       ``_runner_last`` (:1267)             ``fft_last_plain``
-``fft_cols``       ``_runner_cols`` (:787)              ``fft_cols_plain``
-``fft_fused2``     ``_runner_fused2`` (:875)            ``fft_fused2_plain``
-=================  ===================================  =====================
+===================  ===================================  =======================
+wrapper              replaces (pallas_stockham.py)        plain version
+===================  ===================================  =======================
+``fft_last``         ``_runner_last`` (:1267)             ``fft_last_plain``
+``fft_cols``         ``_runner_cols`` (:787)              ``fft_cols_plain``
+``fft_fused2``       ``_runner_fused2`` (:875)            ``fft_fused2_plain``
+``fft_last_r2c``     ``_runner_last_r2c`` (:2395)         ``fft_last_r2c_plain``
+``ifft_last_c2r``    ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
+===================  ===================================  =======================
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device raises.  There is no fallback: a CUDA tensor
@@ -23,8 +26,9 @@ same DFT with FFMA butterflies all the way down (see the source note in
 ``csrc/stockham.cu``) from their own float64-generated table
 (:func:`_kernel_tables`).
 
-The gates (``kernel_len_ok``, ``fused2_supported``, the length caps) are
-the JAX package's, so a plan's step list is the same in both packages.
+The gates (``kernel_len_ok``, ``fused2_supported``, the ``r2c_*`` gates,
+the length caps) are the JAX package's, so a plan's step list is the same
+in both packages.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ MAX_STOCKHAM_N = 2048
 MAX_LAST_N = 2048
 MAX_FUSED2_ELEMS = 262144
 TAIL_MT = 64          # largest dense tail of the plain tile
+MAX_REAL_N = 1024     # pallas_stockham.py:2123
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +129,31 @@ def four_step_supported(n: int) -> bool:
         return False
     n1 = max(8, n // MAX_LAST_N)
     return n1 <= MAX_STOCKHAM_N and LANE_TILE <= n // n1 <= MAX_LAST_N
+
+
+def r2c_last_supported(n: int) -> bool:
+    """Can the row-pair r2c/c2r kernels run a last axis of length n?
+
+    Counterpart: ``pallas_stockham.py:2126``.
+    """
+    return 2 <= n <= MAX_REAL_N and n % 2 == 0 and (n & (n - 1)) == 0
+
+
+def r2c_half_supported(n: int) -> bool:
+    """Can the half-length conjugate-even reduction run its n/2-point
+    core on the last-axis kernel?  Counterpart: ``pallas_stockham.py:2140``.
+    """
+    m = n // 2
+    return (n % 2 == 0 and (n & (n - 1)) == 0
+            and LANE_TILE <= m <= MAX_LAST_N)
+
+
+def r2c_packed_supported(n: int) -> bool:
+    """Does a plan take the Nyquist-packed (n/2-wide) real layout for n?
+
+    Counterpart: ``pallas_stockham.py:2633``.
+    """
+    return r2c_last_supported(n) and (n // 2) % LANE_TILE == 0
 
 
 def _packed_tables(n: int, sign: int):
@@ -252,6 +282,67 @@ def fft_fused2_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     return yr.reshape(p, n1, n2), yi.reshape(p, n1, n2)
 
 
+def fft_last_r2c_plain(x, packed: bool = False, scale: float = 1.0) -> Pair:
+    """R2C along the last axis of (B, n) real rows, scale applied:
+    (B, n/2+1) planes, or (B, n/2) with the real bin n/2 in bin 0's
+    imaginary slot when ``packed``.
+
+    Rows 2p and 2p+1 are the real and imaginary parts of one complex row
+    z (an odd last row pairs with zeros); Z = FFT(z) untangles as
+    X1[k] = (Z[k] + conj Z[-k]) / 2, X2[k] = (Z[k] - conj Z[-k]) / 2i.
+    Counterpart: ``pallas_stockham.py:2395`` (``_runner_last_r2c``).
+    """
+    b, n = x.shape
+    m = n // 2
+    if b % 2:
+        x = torch.cat([x, x.new_zeros(1, n)], 0)
+    zr, zi = _stockham_tile_plain(x[0::2].T, x[1::2].T, n, -1)   # (n, P)
+    rev = (-torch.arange(n, device=x.device)) % n
+    cr, ci = zr[rev], zi[rev]                                    # Z[-k]
+    x1r, x1i = 0.5 * (zr + cr), 0.5 * (zi - ci)
+    x2r, x2i = 0.5 * (zi + ci), 0.5 * (cr - zr)
+    if packed:
+        x1i = torch.cat([x1r[m:m + 1], x1i[1:m]], 0)
+        x2i = torch.cat([x2r[m:m + 1], x2i[1:m]], 0)
+        w = m
+    else:
+        w = m + 1
+    yr = torch.stack([x1r[:w].T, x2r[:w].T], 1).reshape(-1, w)[:b]
+    yi = torch.stack([x1i[:w].T, x2i[:w].T], 1).reshape(-1, w)[:b]
+    return (yr * scale).contiguous(), (yi * scale).contiguous()
+
+
+def ifft_last_c2r_plain(xr, xi, n: int, packed: bool = False,
+                        scale: float = 1.0) -> torch.Tensor:
+    """n times the inverse of :func:`fft_last_r2c_plain`, scale applied:
+    (B, n/2+1) or packed (B, n/2) half spectra -> (B, n) real rows.  The
+    imaginary parts of bins 0 and n/2 are taken as zero (numpy ``irfft``).
+
+    Rows 2p and 2p+1 become one complex spectrum Z = X1 + i X2 (for
+    k > n/2, Z[k] = conj X1[n-k] + i conj X2[n-k]); one backward transform
+    gives row 2p in its real and row 2p+1 in its imaginary part.
+    Counterpart: ``pallas_stockham.py:2521`` (``_runner_last_c2r``).
+    """
+    b = xr.shape[0]
+    m = n // 2
+    zero = xr.new_zeros(b, 1)
+    if packed:
+        xr, xi = (torch.cat([xr, xi[:, :1]], 1),
+                  torch.cat([zero, xi[:, 1:m], zero], 1))
+    else:
+        xi = torch.cat([zero, xi[:, 1:m], zero], 1)
+    if b % 2:
+        xr = torch.cat([xr, torch.zeros_like(xr[:1])], 0)
+        xi = torch.cat([xi, torch.zeros_like(xi[:1])], 0)
+    x1r, x1i = xr[0::2].T, xi[0::2].T                            # (h, P)
+    x2r, x2i = xr[1::2].T, xi[1::2].T
+    zr = torch.cat([x1r - x2i, (x1r + x2i)[1:m].flip(0)], 0)     # (n, P)
+    zi = torch.cat([x1i + x2r, (x2r - x1i)[1:m].flip(0)], 0)
+    vr, vi = _stockham_tile_plain(zr, zi, n, 1)
+    y = torch.stack([vr.T, vi.T], 1).reshape(-1, n)[:b]
+    return (y * scale).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel schedule and tables
 # ---------------------------------------------------------------------------
@@ -312,7 +403,8 @@ def device_tables(n: int, sign: int, device: torch.device):
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0}
+LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
+            "fft_last_r2c": 0, "ifft_last_c2r": 0}
 
 
 def reset_launches():
@@ -331,7 +423,7 @@ def _on_cuda(name: str, *planes) -> bool:
         if p.device != dev or p.dtype != torch.float32 or not p.is_contiguous():
             raise ValueError(f"{name}: planes must be contiguous float32 on "
                              f"one device, got {p.dtype} on {p.device}")
-    if planes[0].shape != planes[1].shape:
+    if any(p.shape != planes[0].shape for p in planes):
         raise ValueError(f"{name}: re/im shapes differ")
     return True
 
@@ -401,6 +493,46 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     return yr, yi
 
 
+def fft_last_r2c(x, packed: bool = False, scale: float = 1.0) -> Pair:
+    """R2C along the last axis of (B, n) real f32 rows, scale fused:
+    (B, n/2+1) planes, or (B, n/2) Nyquist-packed when ``packed``.
+
+    CUDA rows launch ``fft_last_r2c_kernel``; CPU rows run
+    :func:`fft_last_r2c_plain`.  Counterpart: ``pallas_stockham.py:2395``.
+    """
+    if not _on_cuda("fft_last_r2c", x):
+        return fft_last_r2c_plain(x, packed, scale)
+    from . import _build
+    b, n = x.shape
+    w = n // 2 if packed else n // 2 + 1
+    yr, yi = x.new_empty((b, w)), x.new_empty((b, w))
+    tw, rad, k = device_tables(n, -1, x.device)
+    _launch("fft_last_r2c", _build.load().fft_last_r2c, x.device,
+            x.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n, int(packed),
+            scale, tw.data_ptr(), k, rad)
+    return yr, yi
+
+
+def ifft_last_c2r(xr, xi, n: int, packed: bool = False,
+                  scale: float = 1.0) -> torch.Tensor:
+    """n times the inverse R2C of (B, n/2+1) (or packed (B, n/2)) f32
+    half-spectrum planes -> (B, n) real rows, scale fused.
+
+    CUDA planes launch ``ifft_last_c2r_kernel``; CPU planes run
+    :func:`ifft_last_c2r_plain`.  Counterpart: ``pallas_stockham.py:2521``.
+    """
+    if not _on_cuda("ifft_last_c2r", xr, xi):
+        return ifft_last_c2r_plain(xr, xi, n, packed, scale)
+    from . import _build
+    b = xr.shape[0]
+    y = xr.new_empty((b, n))
+    tw, rad, k = device_tables(n, 1, xr.device)
+    _launch("ifft_last_c2r", _build.load().ifft_last_c2r, xr.device,
+            xr.data_ptr(), xi.data_ptr(), y.data_ptr(), b, n, int(packed),
+            scale, tw.data_ptr(), k, rad)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -447,3 +579,47 @@ def fft_axes2_stockham(xr, xi, direction: Direction,
     yr, yi = fft_fused2(xr.reshape(-1, n1, n2), xi.reshape(-1, n1, n2),
                         int(direction), float(scale))
     return yr.reshape(shape), yi.reshape(shape)
+
+
+def fft_last_r2c_stockham(x, padded: bool = False, packed: bool = False,
+                          scale: float = 1.0) -> Pair:
+    """R2C along the last axis of an N-D real f32 array in one kernel pass.
+
+    Returns the split (..., n/2+1) half spectrum, or with ``packed`` the
+    (..., n/2) layout whose bin 0 carries the real bin n/2 in its
+    imaginary slot.  The JAX package's lane-padded (..., n) layout
+    (``padded``) only keeps later TPU passes lane-aligned; the port's steps
+    take the narrow planes, so it raises here.
+    Counterpart: ``pallas_stockham.py:2638``.
+    """
+    shape = tuple(x.shape)
+    n = shape[-1]
+    if not r2c_last_supported(n):
+        raise ValueError(f"kernel r2c path needs even power-of-two n <= "
+                         f"{MAX_REAL_N}, got {n}")
+    if padded:
+        raise NotImplementedError(
+            "the lane-padded r2c layout is a TPU layout the PyTorch port "
+            "leaves out (ROADMAP); use the narrow or packed layout")
+    yr, yi = fft_last_r2c(x.reshape(-1, n), packed, float(scale))
+    out = shape[:-1] + (yr.shape[-1],)
+    return yr.reshape(out), yi.reshape(out)
+
+
+def ifft_last_c2r_stockham(xr, xi, n: int, packed: bool = False,
+                           scale: float = 1.0) -> torch.Tensor:
+    """n times the inverse of :func:`fft_last_r2c_stockham`: split
+    (..., n/2+1) or packed (..., n/2) planes -> (..., n) real, in one
+    kernel pass.  Counterpart: ``pallas_stockham.py:2690``.
+    """
+    if not r2c_last_supported(n):
+        raise ValueError(f"kernel c2r path needs even power-of-two n <= "
+                         f"{MAX_REAL_N}, got {n}")
+    shape = tuple(xr.shape)
+    w = n // 2 if packed else n // 2 + 1
+    if shape[-1] != w:
+        raise ValueError(f"c2r of n={n} takes {w} bins "
+                         f"({'packed' if packed else 'narrow'}), got {shape}")
+    y = ifft_last_c2r(xr.reshape(-1, w), xi.reshape(-1, w), n, packed,
+                      float(scale))
+    return y.reshape(shape[:-1] + (n,))

@@ -42,3 +42,14 @@ def twiddle_outer(n_rows: int, n_cols: int, denom: int, sign: int,
     ab = np.outer(np.arange(n_rows, dtype=np.int64),
                   np.arange(n_cols, dtype=np.int64))
     return _exp_table(ab, denom, sign, dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def halfcomplex_untangle(n: int, dtype=np.float32):
+    """w^k = exp(-2*pi*i*k/n) for k = 0..n/2 as an (re, im) pair: the r2c
+    untangle of an n/2-point FFT of reals packed z[m] = x[2m] + i*x[2m+1].
+
+    Counterpart: ``regent_fft_tpu/ops/twiddle.py:66``.
+    """
+    k = np.arange(n // 2 + 1, dtype=np.int64)
+    return _exp_table(k, n, -1, dtype)

@@ -1,4 +1,5 @@
-"""Plan lifecycle of the PyTorch port: complex64 C2C at any rank.
+"""Plan lifecycle of the PyTorch port: complex64 C2C, R2C and C2R at any
+rank.
 
 Counterpart: ``regent_fft_tpu/plan.py``.  A :class:`Plan` precomputes the
 per-axis step list (the same list the JAX package builds, so
@@ -9,32 +10,46 @@ plan's device:
   (``ops/stockham_kernels.fft_axis_stockham``);
 * ``stockham2`` one fused kernel pass over the trailing axis pair
   (``fft_axes2_stockham``);
-* ``direct`` / ``mixed2`` dense DFT contractions (``ops/stockham.py``).
+* ``direct`` / ``mixed2`` dense DFT contractions (``ops/stockham.py``);
+* ``general`` the 1-D pipeline of ``stockham.build_c2c_1d`` (direct or
+  mixed radix).
+
+A real plan (R2C/C2R) transforms its last listed axis as the real axis
+and the others with the steps above.  The real axis takes one of three
+routes, chosen as in the JAX package: the row-pair r2c/c2r kernels
+(``fft_last_r2c_stockham`` / ``ifft_last_c2r_stockham``, Nyquist-packed
+between the steps when ``r2c_packed_supported``), the half-length
+conjugate-even reduction on the last-axis kernel, or that reduction on
+the dense pipeline (``ops/real.py``).
 
 The norm scale rides the last kernel step's write when the list ends in
-one.  Plans live on ``device`` (default ``"cuda"``); ``device="cpu"`` is
-opt-in and runs the kernels' plain versions.
+one, else the real kernel's write.  Plans live on ``device`` (default
+``"cuda"``); ``device="cpu"`` is opt-in and runs the kernels' plain
+versions.
 
 Outside this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): R2C/C2R, complex32/complex128, the four-step last axis
-(``stockham4``, n > 2048), the general 1-D pipeline, ``backend="pallas"``,
-planners other than ``"estimate"``, the TPU leading-axis routes
-(``axis0_impl`` fourstep/dma) and ``precision`` other than
-``"highest"``.  The gap-fused pass (``stockham_gap``) is reachable in the
-JAX package only through an environment switch the port does not read.
+ROADMAP item): complex32/complex128, the four-step last axis
+(``stockham4``, n > 2048), the Rader and Bluestein branches of the general
+pipeline, ``backend="pallas"``, planners other than ``"estimate"``, the
+TPU leading-axis routes (``axis0_impl`` fourstep/dma) and ``precision``
+other than ``"highest"``.  The gap-fused pass (``stockham_gap``) is
+reachable in the JAX package only through an environment switch the port
+does not read.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .dtypes import (Direction, Kind, Norm, SplitComplex, as_split,
+from .dtypes import (Direction, Kind, Norm, SplitComplex, as_real, as_split,
                      check_dtype, from_split)
 from .ops import factor as _factor
+from .ops import nd as _nd
+from .ops import real as _real
 from .ops import stockham as _stockham
 from .ops import stockham_kernels as _sk
 
@@ -95,6 +110,8 @@ class PlanSpec:
                              f"got {self.f2_impl!r}")
         if self.max_radix < 2:
             raise ValueError(f"max_radix must be >= 2, got {self.max_radix}")
+        if self.packed_layout and self.kind not in (Kind.R2C, Kind.C2R):
+            raise ValueError("packed_layout applies to R2C/C2R plans only")
 
     @property
     def transform_lengths(self) -> Tuple[int, ...]:
@@ -134,8 +151,6 @@ def _unported(what: str, item: str):
 def _check_scope(spec: PlanSpec):
     """Raise for the parts of the JAX plan outside this slice."""
     check_dtype(spec.dtype)
-    if spec.kind != Kind.C2C:
-        _unported(f"{spec.kind.value.upper()} planning", "ROADMAP slice 3")
     if spec.backend == "pallas":
         _unported('backend="pallas" (matmul-form kernels)',
                   "ROADMAP Queue 2 (pallas_fft.py kernels)")
@@ -185,7 +200,8 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
     trailing pair fuses into one ``stockham2`` step when
     ``fused2_supported``; a kernel length within its cap is a
     ``stockham`` step; otherwise a ``direct`` (n <= xla_direct_max) or
-    ``mixed2`` contraction step.
+    ``mixed2`` contraction step, and the ``general`` 1-D pipeline for
+    lengths with no two-factor split.
     """
     steps = []
     ndim = len(spec.shape)
@@ -220,19 +236,25 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
             elif len(ov) == 2:
                 steps.append(("mixed2", a, (n, ov[0])))
             else:
-                _stockham.build_c2c_1d(n)
+                steps.append(("general", a, _general(spec, n)))
             continue
         if 2 <= n <= spec.xla_direct_max:
             steps.append(("direct", a, n))
             continue
         split = _stockham.best_two_factor(n, spec.max_radix)
         if split is None:
-            _stockham.build_c2c_1d(n)
-        steps.append(("mixed2", a, (n, split[0])))
+            steps.append(("general", a, _general(spec, n)))
+        else:
+            steps.append(("mixed2", a, (n, split[0])))
     return steps
 
 
-def _step_name(kind_: str, arg) -> str:
+def _general(spec: PlanSpec, n: int) -> Callable:
+    return _stockham.build_c2c_1d(n, spec.direction, spec.max_radix,
+                                  spec.use_3m)
+
+
+def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
     """The JAX package's trace-log string for a step (plan.py:439-553)."""
     if kind_ == "direct":
         return f"direct-einsum(n={arg})"
@@ -240,6 +262,9 @@ def _step_name(kind_: str, arg) -> str:
         return f"kernel-butterfly(n={arg})"
     if kind_ == "stockham2":
         return f"kernel-fused2{arg}"
+    if kind_ == "general":
+        return ("1d-pipeline["
+                f"{_stockham.schedule_description(spec.shape[a], spec.max_radix)}]")
     n, n1 = arg
     return f"einsum-mixed2({n}={n1}x{n // n1})"
 
@@ -259,6 +284,8 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
             xr, xi = _sk.fft_axis_stockham(xr, xi, a, direction, scale=ksc)
         elif kind_ == "stockham2":
             xr, xi = _sk.fft_axes2_stockham(xr, xi, direction, scale=ksc)
+        elif kind_ == "general":
+            xr, xi = _nd.apply_along_axis(arg, a, xr, xi)
         else:
             n, n1 = arg
             xr, xi = _stockham.mixed_radix_fft_axis(xr, xi, a, n, n1, s,
@@ -266,8 +293,127 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
     return xr, xi
 
 
+# ---------------------------------------------------------------------------
+# Real transforms
+# ---------------------------------------------------------------------------
+def _rev_freq(x, axes):
+    """Modular frequency negation x[k] -> x[(-k) mod n] along ``axes``.
+
+    Counterpart: ``regent_fft_tpu/plan.py:208``.
+    """
+    for a in axes:
+        n = x.shape[a]
+        x = torch.cat([x.narrow(a, 0, 1), x.narrow(a, 1, n - 1).flip(a)], a)
+    return x
+
+
+def _unpack_nyquist(yr, yi, axes):
+    """(..., n/2) Nyquist-packed planes -> (..., n/2+1) half spectrum.
+
+    After the other axes' transforms, bin 0 holds Z = F(X0) + i F(Nq),
+    X0 and Nq the real bin-0 and bin-n/2 slabs; they untangle as
+    F(X0) = (Z + conj Z[-k]) / 2, F(Nq) = (Z - conj Z[-k]) / 2i, with -k
+    the reversal along every transformed axis.
+    Counterpart: ``regent_fft_tpu/plan.py:218``.
+    """
+    zr, zi = yr[..., 0], yi[..., 0]
+    rr, ri = _rev_freq(zr, axes), _rev_freq(zi, axes)
+    x0r, x0i = 0.5 * (zr + rr), 0.5 * (zi - ri)
+    nqr, nqi = 0.5 * (zi + ri), -0.5 * (zr - rr)
+    return (torch.cat([x0r[..., None], yr[..., 1:], nqr[..., None]], -1),
+            torch.cat([x0i[..., None], yi[..., 1:], nqi[..., None]], -1))
+
+
+def _pack_nyquist(xr, xi, axes):
+    """(..., n/2+1) half spectrum -> (..., n/2) Nyquist-packed planes.
+
+    Bin 0 becomes X0 + i Nq, the bin-0 and bin-n/2 slabs each projected
+    onto its conjugate-even part along ``axes`` first: that is what
+    numpy's ``irfftn`` keeps of them (its last-axis irfft drops their
+    imaginary parts), and the identity for Hermitian input.
+    Counterpart: ``regent_fft_tpu/plan.py:242``.
+    """
+    m = xr.shape[-1] - 1
+
+    def herm(r, i):
+        return 0.5 * (r + _rev_freq(r, axes)), 0.5 * (i - _rev_freq(i, axes))
+
+    x0r, x0i = herm(xr[..., 0], xi[..., 0])
+    nqr, nqi = herm(xr[..., m], xi[..., m])
+    pr, pi = xr[..., :m].clone(), xi[..., :m].clone()
+    pr[..., 0] = x0r - nqi
+    pi[..., 0] = x0i + nqr
+    return pr, pi
+
+
+def _half_shape(spec: PlanSpec) -> Tuple[int, ...]:
+    """Complex-side shape of a real plan: (..., n/2+1), or (..., n/2) with
+    ``packed_layout``.  Counterpart: ``regent_fft_tpu/plan.py:1105``."""
+    shape = list(spec.shape)
+    ax = spec.axes[-1]
+    shape[ax] = shape[ax] // 2 if spec.packed_layout else shape[ax] // 2 + 1
+    return tuple(shape)
+
+
+class RealRoute(NamedTuple):
+    """How a real plan transforms its real axis."""
+
+    axis: int              # the real axis (the last listed one)
+    n: int                 # its real length
+    other: List[int]       # the axes the steps transform
+    route: str             # "kernel" | "half" | "einsum"
+    packed: bool           # Nyquist-packed planes between kernel and steps
+    fn: Optional[Callable]  # the 1-D r2c/c2r of the half and einsum routes
+    note: str              # describe()'s real-axis note
+
+
+def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
+    """The JAX package's choice for the real axis (plan.py:619-739): the
+    row-pair kernels where ``r2c_last_supported``, except that a 1-D C2R
+    plan prefers the half-length reduction on the last-axis kernel (as
+    does a 1-D R2C plan the row-pair kernel cannot take); else the
+    reduction on the dense pipeline."""
+    r2c = spec.kind == Kind.R2C
+    axis = spec.axes[-1]
+    n = spec.shape[axis]
+    other = [a for a in spec.axes if a != axis]
+    last = (backend in ("stockham", "hybrid")
+            and axis == len(spec.shape) - 1)
+    kernel = last and _sk.r2c_last_supported(n)
+    half = (not other and last and _sk.r2c_half_supported(n)
+            and not (r2c and kernel))
+    kernel = kernel and not half
+    packed = (kernel and bool(steps or spec.packed_layout)
+              and _sk.r2c_packed_supported(n))
+    if spec.packed_layout and not packed:
+        raise ValueError(
+            "packed_layout requires the kernel real-transform path: "
+            "power-of-two last axis with n/2 a lane multiple, and a "
+            "stockham/hybrid backend (pass backend='stockham' explicitly "
+            "on the CPU)")
+    fn = None
+    if not kernel:
+        core = None
+        if half:
+            def core(zr, zi):
+                return _sk.fft_axis_stockham(zr, zi, -1, spec.direction)
+        build = _real.build_r2c_1d if r2c else _real.build_c2r_1d
+        fn = build(n, spec.max_radix, spec.use_3m, core)
+    tag = "r2c" if r2c else "c2r"
+    if kernel:
+        route = "kernel"
+        note = ("shared-head row-pair kernel r2c" if r2c
+                else "fused kernel c2r")
+        note += " [nyquist-packed mids]" if packed else ""
+    elif half:
+        route, note = "half", f"half-length conjugate-even kernel {tag}"
+    else:
+        route, note = "einsum", f"conjugate-even einsum {tag}"
+    return RealRoute(axis, n, other, route, packed, fn, note)
+
+
 class Plan:
-    """An executable complex64 C2C plan on one device.
+    """An executable complex64 C2C, R2C or C2R plan on one device.
 
     Create with :func:`make_plan`.  Reusable for any input of the planned
     shape.  Counterpart: ``regent_fft_tpu/plan.py:790``.
@@ -283,14 +429,22 @@ class Plan:
             # contraction path elsewhere
             backend = "hybrid" if self.device.type == "cuda" else "xla"
         self.backend = backend
-        self.steps = axis_steps(spec, backend, sorted(spec.axes, reverse=True))
-        self.trace_log = {i: _step_name(k, arg)
-                          for i, (k, _, arg) in enumerate(self.steps)}
+        axes = spec.axes if spec.kind == Kind.C2C else spec.axes[:-1]
+        self.steps = axis_steps(spec, backend, sorted(axes, reverse=True))
+        self.real = (None if spec.kind == Kind.C2C
+                     else _real_route(spec, backend, self.steps))
+        self.trace_log = {i: _step_name(spec, k, a, arg)
+                          for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
+        sign = int(spec.direction)
+        lengths = [n for k, _, arg in self.steps
+                   if k in ("stockham", "stockham2")
+                   for n in (arg if k == "stockham2" else (arg,))]
+        if self.real is not None and self.real.route != "einsum":
+            lengths.append(self.real.n // (2 if self.real.route == "half"
+                                           else 1))
         self.tables = [] if self.device.type != "cuda" else [
-            _sk.device_tables(n, int(spec.direction), self.device)
-            for k, _, arg in self.steps if k in ("stockham", "stockham2")
-            for n in (arg if k == "stockham2" else (arg,))]
+            _sk.device_tables(n, sign, self.device) for n in lengths]
         self.scale = _norm_scale(spec)
         self.fused = bool(self.steps) and self.steps[-1][0] in ("stockham",
                                                                 "stockham2")
@@ -299,11 +453,12 @@ class Plan:
     # -- accounting ------------------------------------------------------
     @property
     def flops(self) -> float:
-        """Reported-flop convention: 5 N log2 N per transform.
+        """Reported-flop convention: 5 N log2 N per transform (2.5 real).
 
         Counterpart: ``regent_fft_tpu/plan.py:885``.
         """
-        return self.spec.batch * _factor.fft_flops_convention(self.spec.logical_n)
+        return self.spec.batch * _factor.fft_flops_convention(
+            self.spec.logical_n, self.spec.kind != Kind.C2C)
 
     @property
     def algorithm_flops(self) -> int:
@@ -325,13 +480,18 @@ class Plan:
                 total += (n_all // n) * (per // n if n else 0) * n
             else:
                 total += (n_all // n) * _factor.stage_flops(n, factors)
-        return int(self.spec.batch * total)
+        scale = 1.0 if self.spec.kind == Kind.C2C else 0.5
+        return int(self.spec.batch * total * scale)
 
     @property
     def bytes_ideal(self) -> int:
         """Least device-memory traffic: read the input once, write the
-        output once.  Counterpart: ``regent_fft_tpu/plan.py:935``."""
-        return 2 * int(np.prod(self.spec.shape)) * 8
+        output once (for a real plan, 4 B per real element and 8 B per
+        half-spectrum bin).  Counterpart: ``regent_fft_tpu/plan.py:935``."""
+        n_elems = int(np.prod(self.spec.shape))
+        if self.spec.kind == Kind.C2C:
+            return 2 * n_elems * 8
+        return n_elems * 4 + int(np.prod(_half_shape(self.spec))) * 8
 
     def describe(self) -> str:
         """fftw_print_plan analog, with the JAX package's step lines.
@@ -346,8 +506,15 @@ class Plan:
             f"precision={s.precision}{' 3M' if s.use_3m else ''} "
             f"device={s.device}"
         ]
+        real_line = (None if self.real is None else
+                     f"  (real axis {self.real.axis}: n={self.real.n} "
+                     f"{self.real.note})")
+        if s.kind == Kind.R2C:
+            lines.append(real_line)      # r2c: the real axis goes first
         for idx, (_, a, _) in enumerate(self.steps):
             lines.append(f"  (axis {a}: {self.trace_log[idx]})")
+        if s.kind == Kind.C2R:
+            lines.append(real_line)      # c2r: the real axis goes last
         lines.append(
             f"  (flops={self.flops:.3e} [5NlogN conv] "
             f"algo_flops={self.algorithm_flops:.3e} batch={s.batch}))")
@@ -362,28 +529,80 @@ class Plan:
                 f"dir={int(s.direction)}, dtype={s.dtype}, device={s.device})")
 
     # -- execution -------------------------------------------------------
+    def _steps(self, xr, xi):
+        return run_steps(self.steps, xr, xi, self.spec.direction,
+                         self.spec.use_3m,
+                         fuse_scale=self.scale if self.fused else 1.0)
+
     def execute_split(self, xr: torch.Tensor, xi: torch.Tensor):
-        """Run the steps on contiguous f32 planes already on the plan's
-        device; returns the output planes."""
-        yr, yi = run_steps(self.steps, xr, xi, self.spec.direction,
-                           self.spec.use_3m,
-                           fuse_scale=self.scale if self.fused else 1.0)
+        """Run a C2C or C2R plan on contiguous f32 planes already on the
+        plan's device: returns the output planes (C2C) or the real f32
+        output (C2R).  Counterpart: the JAX plan's core (plan.py:606,741).
+        """
+        if self.spec.kind == Kind.R2C:
+            raise TypeError("an R2C plan takes one real plane: execute_real")
+        r = self.real
+        if r is None:
+            yr, yi = self._steps(xr, xi)
+            if self.scale != 1.0 and not self.fused:
+                yr = yr * self.scale
+                yi = yi * self.scale
+            return yr, yi
+        if r.route == "kernel":
+            if r.packed and not self.spec.packed_layout:
+                xr, xi = _pack_nyquist(xr, xi, r.other)
+            xr, xi = self._steps(xr, xi)
+            return _sk.ifft_last_c2r_stockham(
+                xr, xi, r.n, packed=r.packed,
+                scale=1.0 if self.fused else self.scale)
+        xr, xi = self._steps(xr, xi)
+        y = _nd.apply_along_axis_real_out(r.fn, r.axis, xr, xi)
+        return y if self.fused or self.scale == 1.0 else y * self.scale
+
+    def execute_real(self, x: torch.Tensor):
+        """Run an R2C plan on one contiguous f32 real plane already on the
+        plan's device; returns the half-spectrum planes.
+        Counterpart: the JAX plan's R2C core (plan.py:674).
+        """
+        if self.spec.kind != Kind.R2C:
+            raise TypeError("only an R2C plan takes a real plane")
+        r = self.real
+        if r.route == "kernel":
+            yr, yi = _sk.fft_last_r2c_stockham(
+                x, packed=r.packed, scale=1.0 if self.fused else self.scale)
+            yr, yi = self._steps(yr, yi)
+            if r.packed and not self.spec.packed_layout:
+                yr, yi = _unpack_nyquist(yr, yi, r.other)
+            return yr, yi
+        yr, yi = self._steps(*_nd.apply_along_axis_real_in(r.fn, r.axis, x))
         if self.scale != 1.0 and not self.fused:
             yr = yr * self.scale
             yi = yi * self.scale
         return yr, yi
 
     def __call__(self, x) -> torch.Tensor:
-        """Transform ``x`` (numpy array, tensor or SplitComplex) and return
-        a ``torch.complex64`` tensor on the plan's device.
+        """Transform ``x`` on the plan's device.
 
-        Counterpart: ``regent_fft_tpu/plan.py:1056``.
+        C2C takes a numpy array, tensor or SplitComplex and returns
+        ``torch.complex64``; R2C takes a real array or tensor and returns
+        the complex64 half spectrum; C2R takes the half spectrum and
+        returns float32.  Counterpart: ``regent_fft_tpu/plan.py:1056``.
         """
         if self._destroyed:
             raise RuntimeError("plan was destroyed (destroy_plan); re-plan first")
+        s = self.spec
+        if s.kind == Kind.R2C:
+            x = as_real(x, self.device)
+            if tuple(x.shape) != s.shape:
+                raise ValueError(f"input shape {tuple(x.shape)} != planned "
+                                 f"{s.shape}")
+            return from_split(SplitComplex(*self.execute_real(x)))
         sx = as_split(x, self.device)
-        if sx.shape != self.spec.shape:
-            raise ValueError(f"input shape {sx.shape} != planned {self.spec.shape}")
+        expect = s.shape if s.kind == Kind.C2C else _half_shape(s)
+        if sx.shape != expect:
+            raise ValueError(f"input shape {sx.shape} != planned {expect}")
+        if s.kind == Kind.C2R:
+            return self.execute_split(sx.re, sx.im)
         return from_split(SplitComplex(*self.execute_split(sx.re, sx.im)))
 
     execute = __call__
@@ -399,6 +618,12 @@ class Plan:
                         else Norm.FORWARD)
         else:
             inv_norm = s.norm
+        if s.kind == Kind.R2C:
+            return make_plan(dataclasses.replace(
+                s, kind=Kind.C2R, direction=Direction.BACKWARD, norm=inv_norm))
+        if s.kind == Kind.C2R:
+            return make_plan(dataclasses.replace(
+                s, kind=Kind.R2C, direction=Direction.FORWARD, norm=inv_norm))
         d = (Direction.BACKWARD if s.direction == Direction.FORWARD
              else Direction.FORWARD)
         return make_plan(dataclasses.replace(s, direction=d, norm=inv_norm))

@@ -166,7 +166,7 @@ def test_spec_from_jax_maps_fields():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kind=Kind.R2C), dict(dtype="complex32"), dict(dtype="complex128"),
+    dict(f2_impl="ring"), dict(dtype="complex32"), dict(dtype="complex128"),
     dict(backend="pallas"), dict(planner="measure"),
     dict(axis0_impl="fourstep"), dict(precision="high"),
 ])
@@ -180,9 +180,9 @@ def test_out_of_slice_lengths_and_api_raise():
         rt.make_plan((2, 4096), backend="stockham", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         rt.make_plan((2053,), device="cpu")
-    for fn in (rt.rfft, rt.irfft, rt.rfftn, rt.irfftn, rt.hfft, rt.ihfft):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            fn(np.zeros(8, np.float32))
+    for fn in (rt.rfft, rt.rfftn, rt.rfft2, rt.ihfft, rt.ihfftn):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            fn(np.zeros((8, 8)), device="cpu")     # float64 data
 
 
 def test_use_3m_and_unfused_pair_match():

@@ -81,3 +81,26 @@ def test_tolerance_and_twiddle_outer_equal(n):
             for a, b in zip(ttwiddle.twiddle_outer(n1, n // n1, n, sign),
                             jtwiddle.twiddle_outer(n1, n // n1, n, sign)):
                 assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [2, 8, 30, 64, 256, 1024, 2048, 4096])
+def test_halfcomplex_untangle_equal(n):
+    for dtype in (np.float32, np.float64):
+        for a, b in zip(ttwiddle.halfcomplex_untangle(n, dtype),
+                        jtwiddle.halfcomplex_untangle(n, dtype)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_real_gates_equal_over_all_lengths():
+    assert tsk.MAX_REAL_N == jps.MAX_REAL_N
+    for n in range(0, 2 * tsk.MAX_LAST_N + 3):
+        assert tsk.r2c_last_supported(n) == jps.r2c_last_supported(n), n
+        assert tsk.r2c_half_supported(n) == jps.r2c_half_supported(n), n
+        assert tsk.r2c_packed_supported(n) == jps.r2c_packed_supported(n), n
+
+
+@pytest.mark.parametrize("n", [7, 31, 48, 100, 128, 2053, 4097, 32768])
+def test_schedule_description_equal(n):
+    for mr in (16, 128):
+        assert (tstockham.schedule_description(n, mr)
+                == jstockham.schedule_description(n, mr))
