@@ -13,11 +13,20 @@ Phases (any failure raises and the script exits non-zero):
    column counts, both signs) against torch.fft in float64, and every
    length the real-kernel gate admits (2..1024, an odd and an even batch,
    narrow and Nyquist-packed layouts) against torch.fft.rfft / irfft * n
-   in float64; then each kernel at the main path's shapes, held against
-   its plain PyTorch version on the card (rel_l2 <= tolerance(n)) and
-   timed (median of CUDA-event runs with the L2 flushed before each)
-   beside its bound, its plain version and one torch.fft call over the
-   same rows or axes (a yardstick the port never calls);
+   in float64; every four-step last-axis length (4096..2^21, batch 3,
+   through ``backend="stockham"`` plans), the leading-axis four-step at
+   every gated length (64..4096, axes 0 and 1) and the slab ring at every
+   kernel length (ragged trailing extent) and fused2 pair,
+   against torch.fft in float64; then each kernel at the main path's
+   shapes, held against its plain PyTorch version on the card
+   (rel_l2 <= tolerance(n)) and timed (median of CUDA-event runs with the
+   L2 flushed before each) beside its bound, its plain version and one
+   torch.fft call over the same rows or axes where one computes the same
+   function (a yardstick the port never calls).  The four-step kernels
+   (fft_cols_tw, a0fs_a, a0fs_b) have no such call; their entries
+   (fft_last_four_step, fft_axis0_fourstep) are timed whole beside
+   torch.fft.fft, the four-step last axis also by part (the two kernels
+   and the sub-axis swap);
 4. main path, C2C: the complex64 plans a user makes -- 3-D 512^3, 1-D
    4096 x 1024 and 2-D 16 x 512^2 -- with the default device and backend.
    The kernel launch counts are zeroed just before the three plans run
@@ -34,13 +43,21 @@ Phases (any failure raises and the script exits non-zero):
    tolerance(logical_n), must come back through ``plan.inverse()``, and a
    small input is held against numpy in float64; then each plan is timed
    beside its bytes bound and the torch.fft call, and one more call of
-   each is traced with torch.profiler for its device time by kernel.
+   each is traced with torch.profiler for its device time by kernel;
+6. main path, four-step and ring routes (``ROUTE_PLANS``): the 1-D
+   64 x 2^20 C2C plan (default device and backend: the four-step last
+   axis), 512^3 with ``axis0_impl="fourstep"``, ``"dma"`` and
+   ``f2_impl="ring"``, and 4 x 256^3 (axes 1-3) with
+   ``axis0_impl="fourstep"``.  Each plan is its own group: counts zeroed
+   just before its one run and read just after must equal the listed
+   launches exactly; then the checks, timings and profile of phase 4/5,
+   and the 512^3 times by route side by side.
 
-Prints one ``{"plans": [...]}`` line (seven plans), one
-``{"kernels": [...]}`` line (five kernels; ``launches`` sums both main-path
-runs, ``launches_by_path`` splits them), the nvidia-smi line, and last the
-device line.  Exits non-zero, with no result, when no CUDA device is
-present.
+Prints one ``{"plans": [...]}`` line (twelve plans), one
+``{"kernels": [...]}`` line (ten kernels; ``launches`` sums every
+main-path run, ``launches_by_path`` splits them), the nvidia-smi line, and
+last the device line.  Exits non-zero, with no result, when no CUDA device
+is present.
 """
 import json
 import math
@@ -56,12 +73,19 @@ PEAKS = [("H100 PCIe", 2.0e12, 51.2e12), ("H100 NVL", 3.9e12, 60.0e12),
 PS = "regent_fft_tpu/ops/pallas_stockham.py"
 STOCKHAM_CU = "regent_fft_tpu_torch/csrc/stockham.cu"
 REAL_CU = "regent_fft_tpu_torch/csrc/real.cu"
+FOURSTEP_CU = "regent_fft_tpu_torch/csrc/fourstep.cu"
+RING_CU = "regent_fft_tpu_torch/csrc/ring.cu"
 KERNELS = {   # name: (replaces, source)
     "fft_last": (f"{PS}:1267 (_runner_last)", STOCKHAM_CU),
     "fft_cols": (f"{PS}:787 (_runner_cols)", STOCKHAM_CU),
     "fft_fused2": (f"{PS}:875 (_runner_fused2)", STOCKHAM_CU),
     "fft_last_r2c": (f"{PS}:2395 (_runner_last_r2c)", REAL_CU),
     "ifft_last_c2r": (f"{PS}:2521 (_runner_last_c2r)", REAL_CU),
+    "fft_cols_tw": (f"{PS}:1010 (_runner_cols_tw)", STOCKHAM_CU),
+    "a0fs_a": (f"{PS}:1843 (_runner_a0fs, stage a)", FOURSTEP_CU),
+    "a0fs_b": (f"{PS}:1843 (_runner_a0fs, stage b)", FOURSTEP_CU),
+    "fft_axis_ring": (f"{PS}:1324 (_runner_axis0_dma)", RING_CU),
+    "fft_axes2_ring": (f"{PS}:1324 (_runner_axis0_dma, fuse_last)", RING_CU),
 }
 MAIN_PLANS = [((512, 512, 512), (0, 1, 2)), ((4096, 1024), (1,)),
               ((16, 512, 512), (1, 2))]
@@ -80,6 +104,30 @@ REAL_STEPS = {   # describe() step lines of REAL_PLANS, in order
 }
 REAL_LAUNCHES = {"fft_last": 1, "fft_cols": 4, "fft_fused2": 0,
                  "fft_last_r2c": 2, "ifft_last_c2r": 1}
+CUBE = (512, 512, 512)
+# The four-step and ring plans: (label, shape, axes, PlanSpec fields, step
+# lines, the launches of one run; every other count must stay 0).
+ROUTE_PLANS = [
+    ("fourstep_last", (64, 1048576), (1,), {},
+     ["(axis 1: kernel-fourstep-last(n=1048576))"],
+     {"fft_cols_tw": 1, "fft_last": 1}),
+    ("fourstep_ring", CUBE, (0, 1, 2), {"axis0_impl": "fourstep"},
+     ["(axis 1: kernel-fused2(512, 512))",
+      "(axis 0: kernel-fourstep-ring(n=512))"],
+     {"fft_fused2": 1, "a0fs_a": 1, "a0fs_b": 1}),
+    ("dma_ring", CUBE, (0, 1, 2), {"axis0_impl": "dma"},
+     ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-dma-ring(n=512))"],
+     {"fft_fused2": 1, "fft_axis_ring": 1}),
+    ("fused2_ring", CUBE, (0, 1, 2), {"f2_impl": "ring"},
+     ["(axis 1: kernel-fused2-ring(512, 512))",
+      "(axis 0: kernel-butterfly(n=512))"],
+     {"fft_axes2_ring": 1, "fft_cols": 1}),
+    ("fourstep_ring_mid", (4, 256, 256, 256), (1, 2, 3),
+     {"axis0_impl": "fourstep"},
+     ["(axis 2: kernel-fused2(256, 256))",
+      "(axis 1: kernel-fourstep-ring(n=256))"],
+     {"fft_fused2": 1, "a0fs_a": 1, "a0fs_b": 1}),
+]
 
 
 def _smi() -> str:
@@ -97,6 +145,7 @@ def main() -> int:
     import numpy as np
     import regent_fft_tpu_torch as rt
     from regent_fft_tpu_torch.ops import _build
+    from regent_fft_tpu_torch.ops import fourstep as fs
     from regent_fft_tpu_torch.ops import stockham_kernels as sk
     from regent_fft_tpu_torch.plan import _half_shape
     from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
@@ -240,6 +289,59 @@ def main() -> int:
     print(f"sweep: {len(real_lengths)} real lengths, batches 37/38, narrow "
           f"and packed: worst rel_l2 vs torch.fft.rfft/irfft {worst:.3e}")
 
+    # every four-step last-axis length, through the plans a user makes
+    fs_lengths = [1 << k for k in range(12, 22)]
+    worst = 0.0
+    for n in fs_lengths:
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = torch.complex(torch.randn((3, n), device=dev, generator=g),
+                          torch.randn((3, n), device=dev, generator=g))
+        for direction in (rt.FORWARD, rt.BACKWARD):
+            p = rt.make_plan((3, n), axes=(1,), backend="stockham",
+                             direction=direction)
+            if p.steps != [("stockham4", 1, n)]:
+                raise AssertionError(f"(3, {n}) steps {p.steps}")
+            xd = x.to(torch.complex128)
+            ref = (torch.fft.fft(xd) if direction == rt.FORWARD
+                   else torch.fft.ifft(xd))
+            err = rel_l2(p(x), ref)
+            if not err <= tolerance(n):
+                raise AssertionError(f"four-step (3, {n}) {direction}: "
+                                     f"rel_l2 {err} > {tolerance(n)}")
+            worst = max(worst, err)
+    print(f"sweep: {len(fs_lengths)} four-step lengths 4096..2^21, batch 3, "
+          f"both signs: worst rel_l2 vs torch.fft {worst:.3e}")
+
+    # the leading-axis four-step at every gated length; the ring at every
+    # kernel length (ragged trailing extent) and fused2 pair
+    def on_axis(fn, axis):
+        return lambda xr, xi, s, sc: fn(xr, xi, axis, rt.Direction(s), sc)
+
+    a0_lengths = [1 << k for k in range(6, 13)]
+    worst = 0.0
+    for n in a0_lengths:
+        for sign in (-1, 1):
+            worst = max(worst, check("fft_axis0_fourstep",
+                                     on_axis(fs.fft_axis0_fourstep, 0),
+                                     (n, 8, 128), (0,), sign))
+            worst = max(worst, check("fft_axis0_fourstep",
+                                     on_axis(fs.fft_axis0_fourstep, 1),
+                                     (2, n, 8, 128), (1,), sign))
+    ring_worst = 0.0
+    for n in lengths:
+        for sign in (-1, 1):
+            ring_worst = max(ring_worst, check(
+                "fft_axis_ring", fs.fft_axis_ring, (3, n, 36), (1,), sign))
+    for n1, n2 in pairs:
+        for sign in (-1, 1):
+            ring_worst = max(ring_worst, check(
+                "fft_axes2_ring",
+                lambda xr, xi, s, sc: fs.fft_axis_ring(xr, xi, s, sc, True),
+                (3, n1, n2), (1, 2), sign))
+    print(f"sweep: leading-axis four-step n = 64..4096 (axes 0 and 1), both "
+          f"signs: worst rel_l2 {worst:.3e}; ring: {len(lengths)} lengths "
+          f"and {len(pairs)} fused pairs: worst {ring_worst:.3e}")
+
     # 3b. kernels at the main path's shapes against their plain versions
     def kernel_case(shape, n, pairs, kern, plain, lib, nbytes, nflops):
         """`pairs`: (kernel thunk, plain thunk) pairs, each returning one
@@ -260,7 +362,15 @@ def main() -> int:
         return {"shape": list(shape), "n": n, "max_abs_err": max_abs,
                 "max_rel_err": max_rel, "tolerance": tolerance(n),
                 "ms": timed(kern), "plain_ms": timed(plain), "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": timed(lib)}
+                "bound_by": b_by,
+                "library_ms": None if lib is None else timed(lib)}
+
+    def entry_case(name, shape, kern, plain, lib, nbytes, nflops):
+        """An entry that runs several kernels, timed as a whole."""
+        b_ms, b_by = bound(nbytes, nflops)
+        return {"name": name, "shape": list(shape), "ms": timed(kern),
+                "plain_ms": timed(plain), "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed(lib)}
 
     def c2c_case(kname, shape, dims):
         kern = getattr(sk, kname)
@@ -316,15 +426,131 @@ def main() -> int:
         del h, hr, hi
         return case
 
+    def cols_tw_case(b, n):
+        """fft_cols_tw on the (b, n1, n2) view of a (b, n) last axis; its
+        entry fft_last_four_step timed whole and by part."""
+        n1, n2 = sk._four_step_split(n)
+        shape = (b, n1, n2)
+        xr, xi = planes(shape)
+        pairs = [(lambda s=s: torch.complex(*fs.fft_cols_tw(xr, xi, s)),
+                  lambda s=s: torch.complex(*fs.fft_cols_tw_plain(xr, xi, s)))
+                 for s in (-1, 1)]
+        case = kernel_case(shape, n, pairs, lambda: fs.fft_cols_tw(xr, xi, -1),
+                           lambda: fs.fft_cols_tw_plain(xr, xi, -1), None,
+                           16 * xr.numel(),
+                           (5 * math.log2(n1) + 6) * xr.numel())
+        fr, fi = xr.reshape(b, n), xi.reshape(b, n)
+        xc = torch.complex(fr, fi)
+
+        def swap(ar, ai):
+            return (ar.reshape(b, n1, n2).transpose(1, 2).contiguous(),
+                    ai.reshape(b, n1, n2).transpose(1, 2).contiguous())
+
+        def plain_entry():
+            ar, ai = fs.fft_cols_tw_plain(xr, xi, -1)
+            return swap(*sk.fft_last_plain(ar.reshape(b * n1, n2),
+                                           ai.reshape(b * n1, n2), -1))
+
+        case["entry"] = entry_case(
+            "fft_last_four_step", (b, n),
+            lambda: fs.fft_last_four_step(fr, fi, rt.FORWARD), plain_entry,
+            lambda: torch.fft.fft(xc, dim=1), 16 * fr.numel(),
+            5 * fr.numel() * math.log2(n))
+        ar, ai = (t.reshape(b * n1, n2) for t in fs.fft_cols_tw(xr, xi, -1))
+        br, bi = sk.fft_last(ar, ai, -1)
+        case["entry"]["parts_ms"] = {
+            "fft_cols_tw": case["ms"],
+            "fft_last": timed(lambda: sk.fft_last(ar, ai, -1)),
+            "swap": timed(lambda: swap(br, bi))}
+        del xr, xi, fr, fi, xc, ar, ai, br, bi
+        return case
+
+    a0fs_done = {}
+
+    def a0fs_case(stage, shape, axis):
+        """a0fs_a and a0fs_b on one input (stage b on stage a's plain
+        output); their entry fft_axis0_fourstep timed whole."""
+        key = (shape, axis)
+        if key not in a0fs_done:
+            n = shape[axis]
+            pre = int(np.prod(shape[:axis]))
+            post = int(np.prod(shape[axis + 1:]))
+            r1, r2 = sk._a0fs_split(n)
+            xr, xi = planes((pre, n, post))
+            scale = 1.0 / math.sqrt(n)
+            mid = {s: fs.a0fs_stage_plain("a", xr, xi, s) for s in (-1, 1)}
+            ca = kernel_case(
+                shape, n,
+                [(lambda s=s: torch.complex(*fs.a0fs_stage("a", xr, xi, s)),
+                  lambda s=s: torch.complex(*mid[s])) for s in (-1, 1)],
+                lambda: fs.a0fs_stage("a", xr, xi, -1),
+                lambda: fs.a0fs_stage_plain("a", xr, xi, -1), None,
+                16 * xr.numel(), (5 * math.log2(r1) + 6) * xr.numel())
+            cb = kernel_case(
+                shape, n,
+                [(lambda s=s: torch.complex(*fs.a0fs_stage("b", *mid[s], s,
+                                                           scale)),
+                  lambda s=s: torch.complex(*fs.a0fs_stage_plain(
+                      "b", *mid[s], s, scale))) for s in (-1, 1)],
+                lambda: fs.a0fs_stage("b", *mid[-1], -1),
+                lambda: fs.a0fs_stage_plain("b", *mid[-1], -1), None,
+                16 * xr.numel(), 5 * math.log2(r2) * xr.numel())
+            del mid
+            fr, fi = xr.reshape(shape), xi.reshape(shape)
+            xc = torch.complex(fr, fi)
+            ca["entry"] = cb["entry"] = entry_case(
+                "fft_axis0_fourstep", shape,
+                lambda: fs.fft_axis0_fourstep(fr, fi, axis, rt.FORWARD),
+                lambda: fs.a0fs_stage_plain(
+                    "b", *fs.a0fs_stage_plain("a", xr, xi, -1), -1),
+                lambda: torch.fft.fft(xc, dim=axis), 16 * xr.numel(),
+                5 * xr.numel() * math.log2(n))
+            a0fs_done[key] = {"a": ca, "b": cb}
+            del xr, xi, fr, fi, xc
+        return a0fs_done[key].pop(stage)
+
+    def ring_case(shape, fuse):
+        """fft_axis_ring over (pre, n, post), or with `fuse` over both
+        trailing axes of (pre, n1, n2)."""
+        xr, xi = planes(shape)
+        n = shape[1] * shape[2] if fuse else shape[1]
+        scale = 1.0 / math.sqrt(n)
+        pairs = [(lambda s=s: torch.complex(*fs.fft_axis_ring(xr, xi, s, scale,
+                                                              fuse)),
+                  lambda s=s: torch.complex(*fs.fft_axis_ring_plain(
+                      xr, xi, s, scale, fuse))) for s in (-1, 1)]
+        xc = torch.complex(xr, xi)
+        case = kernel_case(
+            shape, n, pairs, lambda: fs.fft_axis_ring(xr, xi, -1, 1.0, fuse),
+            lambda: fs.fft_axis_ring_plain(xr, xi, -1, 1.0, fuse),
+            (lambda: torch.fft.fft2(xc)) if fuse
+            else (lambda: torch.fft.fft(xc, dim=1)),
+            16 * xr.numel(), 5 * xr.numel() * math.log2(n))
+        del xr, xi, xc
+        return case
+
+    mid4 = (4, 256, 256, 256)
     cases = {
         "fft_last": [lambda: c2c_case("fft_last", (4096, 1024), (1,)),
-                     lambda: c2c_case("fft_last", (4096, 640), (1,))],
+                     lambda: c2c_case("fft_last", (4096, 640), (1,)),
+                     # stage 2 of the 64 x 2^20 four-step
+                     lambda: c2c_case("fft_last", (32768, 2048), (1,))],
         "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,))],
         "fft_fused2": [lambda: c2c_case("fft_fused2", (512, 512, 512),
+                                        (1, 2)),
+                       # the trailing pair of the 4 x 256^3 mid-axis plan
+                       lambda: c2c_case("fft_fused2", (1024, 256, 256),
                                         (1, 2))],
         "fft_last_r2c": [lambda: r2c_case((4096, 1024), False),
                          lambda: r2c_case((262144, 256), True)],
         "ifft_last_c2r": [lambda: c2r_case((262144, 256), True)],
+        "fft_cols_tw": [lambda: cols_tw_case(64, 1 << 20)],
+        "a0fs_a": [lambda: a0fs_case("a", CUBE, 0),
+                   lambda: a0fs_case("a", mid4, 1)],
+        "a0fs_b": [lambda: a0fs_case("b", CUBE, 0),
+                   lambda: a0fs_case("b", mid4, 1)],
+        "fft_axis_ring": [lambda: ring_case((1, 512, 262144), False)],
+        "fft_axes2_ring": [lambda: ring_case(CUBE, True)],
     }
     rows = {}
     for kname, makers in cases.items():
@@ -344,6 +570,8 @@ def main() -> int:
                        "bound_ms": first["bound_ms"],
                        "bound_by": first["bound_by"],
                        "library_ms": first["library_ms"], "cases": done}
+        if "entry" in first:
+            rows[kname]["entry"] = first["entry"]
 
     def expected_launches(plans):
         exp = {k: 0 for k in sk.LAUNCHES}
@@ -354,6 +582,12 @@ def main() -> int:
                 elif kind_ == "stockham":
                     is_last = a == len(p.spec.shape) - 1
                     exp["fft_last" if is_last else "fft_cols"] += 1
+                else:
+                    for k in {"stockham4": ("fft_cols_tw", "fft_last"),
+                              "fourstep_ring": ("a0fs_a", "a0fs_b"),
+                              "dma_ring": ("fft_axis_ring",),
+                              "fused2_ring": ("fft_axes2_ring",)}[kind_]:
+                        exp[k] += 1
             if p.real is not None and p.real.route == "half":
                 exp["fft_last"] += 1
             elif p.real is not None and p.real.route == "kernel":
@@ -454,7 +688,7 @@ def main() -> int:
         # a C2R plan gets a Hermitian half spectrum: the rfftn of a real x
         inputs.append(x if k == "r2c" else torch.fft.rfftn(x, dim=axes))
     outs, launches = run_counted("real", plans, inputs)
-    if launches != REAL_LAUNCHES:
+    if launches != {k: REAL_LAUNCHES.get(k, 0) for k in sk.LAUNCHES}:
         raise AssertionError(f"real launch counts {launches} != "
                              f"{REAL_LAUNCHES}")
     for kname, row in rows.items():
@@ -535,6 +769,72 @@ def main() -> int:
                              f"{err_c} on {ys.device}")
     print(f"small real (4,128,256) vs numpy float64: rfftn rel_l2 {err_r}, "
           f"irfftn {err_c}")
+
+    # 6. the four-step and ring routes, one group per plan: the counts are
+    # zeroed just before the plan's one run and read just after
+    route_ms = {}
+    for label, shape, axes, fields, want_steps, want in ROUTE_PLANS:
+        p = rt.make_plan(shape, axes=axes, **fields)
+        print(p.describe())
+        got = [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+        if got != want_steps:
+            raise AssertionError(f"{label} steps: {got}")
+        want = {k: want.get(k, 0) for k in sk.LAUNCHES}
+        if expected_launches([p]) != want:
+            raise AssertionError(f"{label}: steps {p.steps} launch "
+                                 f"{expected_launches([p])}, not {want}")
+        g = torch.Generator(device=dev).manual_seed(len(plan_rows))
+        x = torch.complex(torch.randn(shape, device=dev, generator=g),
+                          torch.randn(shape, device=dev, generator=g))
+        (y,), launches = run_counted(label, [p], [x])
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = launches[kname]
+            row["launches"] += launches[kname]
+        s = p.spec
+        if y.dtype != torch.complex64 or tuple(y.shape) != s.shape:
+            raise AssertionError(f"{label}: output {y.dtype} {tuple(y.shape)}")
+        if not bool(torch.isfinite(torch.view_as_real(y)).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        tol = tolerance(s.logical_n)
+        err = rel_l2(y, torch.fft.fftn(x, dim=s.axes))
+        back = rel_l2(p.inverse()(y), x)
+        if not (err <= tol and back <= tol):
+            raise AssertionError(f"{label}: rel_l2 {err}, roundtrip {back}, "
+                                 f"tolerance {tol}")
+        del y
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        ms = timed(lambda: p(x))
+        steps_ms = timed(lambda: p.execute_split(xr, xi))
+        lib_ms = timed(lambda: torch.fft.fftn(x, dim=s.axes))
+        b_ms = 1e3 * p.bytes_ideal / bw
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            p(x)
+            torch.cuda.synchronize()
+        by = sorted(((e.key, e.self_device_time_total / 1e3)
+                     for e in prof.key_averages()
+                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        plan_rows.append({
+            "kind": "c2c", "route": label, "shape": list(s.shape),
+            "axes": list(s.axes), "steps": got,
+            "rel_err_vs_torch_fft": err, "roundtrip_err": back,
+            "tolerance": tol, "ms": ms, "steps_ms": steps_ms,
+            "gflops": p.flops / (ms * 1e-3) / 1e9,
+            "hbm_bound_ms": b_ms, "bound_fraction": b_ms / ms,
+            "library_ms": lib_ms,
+            "device_ms_by_kernel": {k[:80]: v for k, v in by}})
+        route_ms[label] = ms
+        print(f"{label} {s.shape}: {ms:.4f} ms (steps {steps_ms:.4f}, bound "
+              f"{b_ms:.4f}, torch.fft {lib_ms:.4f}), rel_l2 {err:.3e}, "
+              f"roundtrip {back:.3e}; device "
+              f"{sum(v for _, v in by):.4f} ms: "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:6]))
+        del x, xr, xi
+        torch.cuda.empty_cache()
+    cube = plan_rows[0]
+    print(f"512^3 C2C by leading-axis / trailing-pair route (ms): grid "
+          f"{cube['ms']:.4f}, fourstep {route_ms['fourstep_ring']:.4f}, dma "
+          f"{route_ms['dma_ring']:.4f}, ring {route_ms['fused2_ring']:.4f}; "
+          f"torch.fft.fftn {cube['library_ms']:.4f}")
 
     print(json.dumps({"plans": plan_rows}))
     print(json.dumps({"kernels": list(rows.values())}))

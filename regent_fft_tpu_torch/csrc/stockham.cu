@@ -3,12 +3,13 @@
 // is in stockham_tile.cuh; the three kernels here differ only in how they
 // address global memory:
 //
-//   fft_last_kernel   replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
-//   fft_cols_kernel   replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
-//   fft_fused2_kernel replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
+//   fft_last_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
+//   fft_cols_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
+//   fft_cols_tw_kernel replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
+//   fft_fused2_kernel  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
 //
-// Each computes one DFT along an axis with the norm scale fused into the
-// final write.
+// Each computes one DFT along an axis with the norm scale (or, for
+// fft_cols_tw, the four-step twiddle) fused into the final write.
 
 #include "stockham_tile.cuh"
 
@@ -61,6 +62,33 @@ fft_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const size_t base = (size_t)pre * p.n * V;
   cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s, scale,
             sr, si);
+}
+
+// --------------------------------------------------------------------------
+// fft_cols_tw_kernel — replaces pallas_stockham.py:_runner_cols_tw, the first
+// pass of the large-last-axis four-step: over (b, n1, n2) planes (a last axis
+// of length N = n1 * n2 viewed as rows of n2), the n1-point FFT along the
+// middle axis, then the twiddle W_N^{k1 * j2} on the write.
+// Bound on H100: bytes (16 B per complex element, one pass; ~5*log2(n1) + 6
+// flops and one sincospif per element, far below the FP32 ridge).  Design:
+// fft_cols_kernel's column tiles; the twiddle is formed in the write from the
+// exact integer phase index k1 * j2 < N <= 2^21 (no table, no f32 product
+// k1 * j2 / N as on the TPU), so it costs no device-memory traffic.
+// --------------------------------------------------------------------------
+__global__ void __launch_bounds__(THREADS, 2)
+fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   float* __restrict__ yr, float* __restrict__ yi, int V,
+                   int ntiles, StagePlan p, const float2* __restrict__ tw,
+                   float s, int lN) {
+  extern __shared__ float smem[];
+  const Geo g = cols_geo(p.n);
+  float* sr = smem;
+  float* si = smem + p.n * g.nt;
+  const long long pre = blockIdx.x / ntiles;
+  const int c0 = (blockIdx.x % ntiles) * g.nt;
+  const size_t base = (size_t)pre * p.n * V;
+  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s, 1.0f,
+            sr, si, ColsOut{V, lN, 1});
 }
 
 // --------------------------------------------------------------------------
@@ -141,6 +169,29 @@ int fft_cols(const float* xr, const float* xi, float* yr, float* yi, long long P
   const long long grid = P * ntiles;
   fft_cols_kernel<<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, V, ntiles, p, tw, (float)sign, scale);
+  return cudaGetLastError();
+}
+
+// Four-step first pass over (P, n1, n2) f32 planes: n1-point FFT along the
+// middle axis times W_{n1*n2}^{k1*j2}; n1 * n2 a power of two <= 2^24.
+int fft_cols_tw(const float* xr, const float* xi, float* yr, float* yi,
+                long long P, int n1, int n2, int sign, const float2* tw,
+                int nstages, const int* radices, void* stream) {
+  StagePlan p;
+  if (make_plan(n1, nstages, radices, &p)) return cudaErrorInvalidValue;
+  const long long big_n = (long long)n1 * n2;
+  if (n2 < 1 || big_n > (1 << 24) || (big_n & (big_n - 1)))
+    return cudaErrorInvalidValue;
+  if (P <= 0) return cudaSuccess;
+  const size_t smem = cols_smem_bytes(n1);
+  cudaError_t e = set_smem((const void*)fft_cols_tw_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int nt = cols_geo(n1).nt;
+  const int ntiles = (n2 + nt - 1) / nt;
+  fft_cols_tw_kernel<<<(unsigned)(P * ntiles), THREADS, smem,
+                       (cudaStream_t)stream>>>(xr, xi, yr, yi, n2, ntiles, p,
+                                               tw, (float)sign,
+                                               ilog2((int)big_n));
   return cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@
 // split f32 re/im planes, one routine (fft_tile) that transforms `nt`
 // independent n-point sequences held in dynamic shared memory, and the
 // row / column passes that load a tile from global memory, transform it
-// and write it back.  Included by stockham.cu (the C2C kernels) and real.cu
-// (the R2C/C2R kernels); everything here has internal linkage, so each
+// and write it back (the column pass optionally to another layout, with the
+// four-step twiddle on the write).  Included by stockham.cu (the C2C
+// kernels), real.cu (R2C/C2R), fourstep.cu (the leading-axis four-step) and
+// ring.cu (the slab ring); everything here has internal linkage, so each
 // translation unit carries its own copy and the library needs no -rdc.
 //
 // What is ported is what the TPU tile computes (pallas_stockham.py:
@@ -294,34 +296,72 @@ __device__ void rows_pass(const float* xr, const float* xi, float* yr, float* yi
   __syncthreads();
 }
 
+// exp(s * 2*pi*i * e / 2^lN) for 0 <= e < 2^lN <= 2^24.  The phase index e
+// is an exact integer and 2e/N is exact in f32 (N a power of two), so the
+// only rounding is sincospif's own.
+__device__ __forceinline__ float2 twiddle_pow2(int e, int lN, float s) {
+  float sn, cs;
+  sincospif(ldexpf((float)e, 1 - lN), &sn, &cs);
+  return make_float2(cs, s * sn);
+}
+
+// Where a column pass writes: element (k, c) of the transformed tile goes to
+// y[k * stride + c], times scale and, when lN > 0, the four-step twiddle
+// W_N^{k * (c / tdiv)} with N = 2^lN (the caller keeps k * (c / tdiv) < N).
+struct ColsOut {
+  long long stride;
+  int lN;
+  int tdiv;
+};
+
 // Columns [c0, c0 + nt) of an (n, V) plane pair (row stride V) ->
-// transformed along n and scaled.  Columns at or past V are masked.
+// transformed along n, written as `out` says.  Columns at or past V are
+// masked.
 __device__ void cols_pass(const float* xr, const float* xi, float* yr, float* yi,
                           int c0, int V, const StagePlan& p,
                           const float2* __restrict__ tw, float s, float scale,
-                          float* sr, float* si) {
+                          float* sr, float* si, const ColsOut& out) {
   const Geo g = cols_geo(p.n);
   const int n = p.n;
   const int t = threadIdx.x & (g.nt - 1);
   const int jl = threadIdx.x >> g.lnt;
-  const bool valid = c0 + t < V;
+  const int c = c0 + t;
+  const bool valid = c < V;
   for (int j = jl; j < n; j += g.tj) {
     const int a = at<false>(t, j, g);
-    const size_t o = (size_t)j * V + c0 + t;
+    const size_t o = (size_t)j * V + c;
     sr[a] = valid ? xr[o] : 0.0f;
     si[a] = valid ? xi[o] : 0.0f;
   }
   __syncthreads();
   fft_tile<false>(sr, si, p, tw, s, t, jl, g);
   if (valid) {
+    const int b = out.lN ? c / out.tdiv : 0;
     for (int j = jl; j < n; j += g.tj) {
       const int a = at<false>(t, j, g);
-      const size_t o = (size_t)j * V + c0 + t;
-      yr[o] = sr[a] * scale;
-      yi[o] = si[a] * scale;
+      float vr = sr[a] * scale, vi = si[a] * scale;
+      if (out.lN) {
+        const float2 w = twiddle_pow2(j * b, out.lN, s);
+        const float ur = vr;
+        vr = fmaf(ur, w.x, -vi * w.y);
+        vi = fmaf(ur, w.y, vi * w.x);
+      }
+      const size_t o = (size_t)j * out.stride + c;
+      yr[o] = vr;
+      yi[o] = vi;
     }
   }
   __syncthreads();
+}
+
+// The plain column pass: the output has the input's layout, no twiddle.
+__device__ __forceinline__ void cols_pass(const float* xr, const float* xi,
+                                          float* yr, float* yi, int c0, int V,
+                                          const StagePlan& p,
+                                          const float2* __restrict__ tw,
+                                          float s, float scale, float* sr,
+                                          float* si) {
+  cols_pass(xr, xi, yr, yi, c0, V, p, tw, s, scale, sr, si, ColsOut{V, 0, 1});
 }
 
 // Validate a stage list from the host and fill the plan.  Radices must be

@@ -39,6 +39,12 @@ _SIGNATURES = {
                    _P, _I, _IP, _P, _I, _IP, _P],
     "fft_last_r2c": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],
     "ifft_last_c2r": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],
+    "fft_cols_tw": [_P, _P, _P, _P, _L, _I, _I, _I, _P, _I, _IP, _P],
+    "a0fs_a": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P, _I, _IP, _P],
+    "a0fs_b": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _F, _P, _I, _IP, _P],
+    "fft_axis_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _P, _I, _IP, _P],
+    "fft_axes2_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _F,
+                       _P, _I, _IP, _P, _I, _IP, _P],
 }
 
 _LIB = None

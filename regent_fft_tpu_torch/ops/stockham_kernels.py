@@ -1,8 +1,9 @@
 """Stockham butterfly kernels: schedule gates, wrappers and plain versions.
 
-Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Five hand-written
-CUDA kernels carry the plan paths: three C2C kernels in
-``csrc/stockham.cu`` and the real-transform pair in ``csrc/real.cu``:
+Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Ten hand-written
+CUDA entry points carry the plan paths.  This module holds the five of
+the butterfly passes, three C2C kernels in ``csrc/stockham.cu`` and the
+real-transform pair in ``csrc/real.cu``:
 
 ===================  ===================================  =======================
 wrapper              replaces (pallas_stockham.py)        plain version
@@ -14,10 +15,15 @@ wrapper              replaces (pallas_stockham.py)        plain version
 ``ifft_last_c2r``    ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
 ===================  ===================================  =======================
 
+``ops/fourstep.py`` holds the other five (the four-step twiddle pass
+``fft_cols_tw``, the leading-axis four-step stages ``a0fs_a``/``a0fs_b`` and
+the slab ring ``fft_axis_ring``/``fft_axes2_ring``) on this module's
+launch helpers, tables and gates.
+
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device raises.  There is no fallback: a CUDA tensor
 never reaches a plain version through a wrapper.  Each wrapper counts its
-kernel launches in ``LAUNCHES``.
+kernel launches in ``LAUNCHES`` (all ten).
 
 The plain versions follow the JAX tile (``_stockham_tile`` :709): radix-4
 head stages with the ``_packed_tables`` twiddles, then one dense mt-point
@@ -27,8 +33,8 @@ same DFT with FFMA butterflies all the way down (see the source note in
 (:func:`_kernel_tables`).
 
 The gates (``kernel_len_ok``, ``fused2_supported``, the ``r2c_*`` gates,
-the length caps) are the JAX package's, so a plan's step list is the same
-in both packages.
+the four-step and ring gates, the length caps) are the JAX package's, so a
+plan's step list is the same in both packages.
 """
 from __future__ import annotations
 
@@ -45,9 +51,10 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # The JAX package's gate constants (pallas_stockham.py:48-51, :177, :839).
 LANE_TILE = 128
+MAX_BLOCK_ELEMS = 262144
 MAX_STOCKHAM_N = 2048
 MAX_LAST_N = 2048
-MAX_FUSED2_ELEMS = 262144
+MAX_FUSED2_ELEMS = MAX_BLOCK_ELEMS
 TAIL_MT = 64          # largest dense tail of the plain tile
 MAX_REAL_N = 1024     # pallas_stockham.py:2123
 
@@ -122,13 +129,68 @@ def fused2_supported(n1: int, n2: int) -> bool:
             and n1 >= 16 and n2 >= 16)
 
 
+def _four_step_split(n: int):
+    """(n1, n2) for the four-step: n1 >= 8, n2 <= 2048.
+
+    Counterpart: ``pallas_stockham.py:1062``.
+    """
+    n1 = max(8, n // MAX_LAST_N)
+    return n1, n // n1
+
+
 def four_step_supported(n: int) -> bool:
-    """Last-axis lengths the JAX package runs as the four-step pipeline
-    (ROADMAP slice 2).  Counterpart: ``pallas_stockham.py:1068``."""
+    """Last-axis lengths run as cols+twiddle -> last -> swap (the
+    ``stockham4`` step).  Counterpart: ``pallas_stockham.py:1068``."""
     if n <= MAX_LAST_N or n & (n - 1):
         return False
-    n1 = max(8, n // MAX_LAST_N)
-    return n1 <= MAX_STOCKHAM_N and LANE_TILE <= n // n1 <= MAX_LAST_N
+    n1, n2 = _four_step_split(n)
+    return n1 <= MAX_STOCKHAM_N and LANE_TILE <= n2 <= MAX_LAST_N
+
+
+def axis0_dma_supported(n: int, post: int) -> bool:
+    """Can the slab-ring leading/mid-axis route take (n, post) planes?
+
+    Counterpart: ``pallas_stockham.py:1559``.
+    """
+    if not (16 <= n <= MAX_STOCKHAM_N and _fusable_len(n, False)):
+        return False
+    if post % 512 == 0 and post >= 2048 and (n * 512) <= MAX_BLOCK_ELEMS:
+        return True
+    return (post % 128 == 0 and 128 <= post <= 2048
+            and n * post <= MAX_BLOCK_ELEMS)
+
+
+def fused2_ring_supported(n1: int, n2: int) -> bool:
+    """Can the slab ring run both trailing axes of (n1, n2) planes?
+
+    Counterpart: ``pallas_stockham.py:1602``.
+    """
+    return (n1 >= 16 and n2 >= LANE_TILE
+            and _fusable_len(n1, False) and _fusable_len(n2, True)
+            and n1 <= MAX_STOCKHAM_N and n2 <= MAX_STOCKHAM_N
+            and n1 * n2 <= MAX_BLOCK_ELEMS)
+
+
+def _a0fs_split(n: int):
+    """Near-square power-of-two split n = r1 * r2 (r1 <= r2) of the
+    leading-axis four-step.  Counterpart: ``pallas_stockham.py:1630``."""
+    r1 = 1 << ((n.bit_length() - 1) // 2)
+    return r1, n // r1
+
+
+def axis0_fourstep_supported(n: int, post: int, x: int) -> bool:
+    """Can the two-pass four-step take a leading/mid axis of length n over
+    arrays whose trailing extent is ``post`` and last dim ``x``?
+
+    Counterpart: ``pallas_stockham.py:1691``.
+    """
+    if n & (n - 1) or n < 64:
+        return False
+    r1, r2 = _a0fs_split(n)
+    mid = post // x if x else 0
+    return (r1 >= 8 and 8 <= r2 <= 64
+            and x % 128 == 0 and 128 <= x <= 2048
+            and post % x == 0 and mid >= 8 and mid % 8 == 0)
 
 
 def r2c_last_supported(n: int) -> bool:
@@ -404,7 +466,10 @@ def device_tables(n: int, sign: int, device: torch.device):
 # Wrappers
 # ---------------------------------------------------------------------------
 LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
-            "fft_last_r2c": 0, "ifft_last_c2r": 0}
+            "fft_last_r2c": 0, "ifft_last_c2r": 0,
+            # the four-step and ring wrappers of ops/fourstep.py
+            "fft_cols_tw": 0, "a0fs_a": 0, "a0fs_b": 0,
+            "fft_axis_ring": 0, "fft_axes2_ring": 0}
 
 
 def reset_launches():

@@ -7,9 +7,17 @@ per-axis step list (the same list the JAX package builds, so
 plan's device:
 
 * ``stockham``  one butterfly-kernel pass along an axis
-  (``ops/stockham_kernels.fft_axis_stockham``);
+  (``ops/stockham_kernels.fft_axis_stockham``); on a non-last axis with
+  ``axis0_impl="fourstep"`` or ``"dma"`` it takes the two-stage four-step
+  (``fourstep_ring``, ``ops/fourstep.fft_axis0_fourstep``) or the slab
+  ring (``dma_ring``, ``fft_axis_dma``) where their gates hold
+  (:func:`route_steps`);
 * ``stockham2`` one fused kernel pass over the trailing axis pair
-  (``fft_axes2_stockham``);
+  (``fft_axes2_stockham``), or with ``f2_impl="ring"`` the slab ring
+  over whole planes (``fused2_ring``, ``fft_axes2_ring``);
+* ``stockham4`` the four-step last axis, n = 4096..2M
+  (``fft_last_four_step``: the twiddle column pass, the last-axis pass,
+  the sub-axis swap);
 * ``direct`` / ``mixed2`` dense DFT contractions (``ops/stockham.py``);
 * ``general`` the 1-D pipeline of ``stockham.build_c2c_1d`` (direct or
   mixed radix).
@@ -27,14 +35,12 @@ one, else the real kernel's write.  Plans live on ``device`` (default
 ``"cuda"``); ``device="cpu"`` is opt-in and runs the kernels' plain
 versions.
 
-Outside this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): complex32/complex128, the four-step last axis
-(``stockham4``, n > 2048), the Rader and Bluestein branches of the general
-pipeline, ``backend="pallas"``, planners other than ``"estimate"``, the
-TPU leading-axis routes (``axis0_impl`` fourstep/dma) and ``precision``
-other than ``"highest"``.  The gap-fused pass (``stockham_gap``) is
-reachable in the JAX package only through an environment switch the port
-does not read.
+Outside the port so far (each raises ``NotImplementedError`` naming its
+ROADMAP item): complex32/complex128, the Rader and Bluestein branches of
+the general pipeline, ``backend="pallas"``, planners other than
+``"estimate"`` and ``precision`` other than ``"highest"``.  The gap-fused
+pass (``stockham_gap``) is reachable in the JAX package only through an
+environment switch the port does not read.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import torch
 from .dtypes import (Direction, Kind, Norm, SplitComplex, as_real, as_split,
                      check_dtype, from_split)
 from .ops import factor as _factor
+from .ops import fourstep as _fs
 from .ops import nd as _nd
 from .ops import real as _real
 from .ops import stockham as _stockham
@@ -156,10 +163,6 @@ def _check_scope(spec: PlanSpec):
                   "ROADMAP Queue 2 (pallas_fft.py kernels)")
     if spec.planner != "estimate":
         _unported(f'planner="{spec.planner}"', "ROADMAP Queue 1 #11")
-    if spec.axis0_impl in ("fourstep", "dma"):
-        _unported(f'axis0_impl="{spec.axis0_impl}"', "ROADMAP slice 2")
-    if spec.f2_impl == "ring":
-        _unported('f2_impl="ring"', "ROADMAP slice 2")
     if spec.precision != "highest":
         _unported(f'precision="{spec.precision}"', "ROADMAP slice 4")
 
@@ -199,9 +202,11 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
     Counterpart: ``regent_fft_tpu/plan.py:333`` (``axis_steps``): the
     trailing pair fuses into one ``stockham2`` step when
     ``fused2_supported``; a kernel length within its cap is a
-    ``stockham`` step; otherwise a ``direct`` (n <= xla_direct_max) or
-    ``mixed2`` contraction step, and the ``general`` 1-D pipeline for
-    lengths with no two-factor split.
+    ``stockham`` step; a power-of-two last axis of 4096..2M is a
+    ``stockham4`` (four-step) step under ``stockham``, and under
+    ``hybrid`` when it has no two-factor split; otherwise a ``direct``
+    (n <= xla_direct_max) or ``mixed2`` contraction step, and the
+    ``general`` 1-D pipeline for lengths with no two-factor split.
     """
     steps = []
     ndim = len(spec.shape)
@@ -227,8 +232,8 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
             if is_last and _sk.four_step_supported(n):
                 split = _stockham.best_two_factor(n, spec.max_radix)
                 if backend == "stockham" or split is None:
-                    _unported(f"the four-step last axis (n={n})",
-                              "ROADMAP slice 2")
+                    steps.append(("stockham4", a, n))
+                    continue
         ov = _factor._SCHEDULE_OVERRIDES.get((n, spec.max_radix))
         if ov is not None:
             if len(ov) == 1:
@@ -249,6 +254,45 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
     return steps
 
 
+# The JAX package's REGENT_FFT_DMA_MIN_POST default (plan.py:467); the port
+# reads no environment knob.
+DMA_MIN_POST = 65536
+
+# Step kinds that end in a kernel write, so the norm scale can ride it.
+KERNEL_STEPS = ("stockham", "stockham2", "stockham4", "fourstep_ring",
+                "dma_ring", "fused2_ring")
+
+
+def route_steps(spec: PlanSpec, steps, shape):
+    """The kernel route of each butterfly step, on the planes of ``shape``
+    the steps transform.  Counterpart: the route choice inside
+    ``regent_fft_tpu/plan.py:459-532`` for an explicit impl: a non-last
+    ``stockham`` axis becomes ``fourstep_ring`` when
+    ``axis0_impl="fourstep"`` and ``dma_ring`` when ``axis0_impl="dma"``
+    (each when post >= DMA_MIN_POST and its gate holds), a ``stockham2``
+    pair becomes ``fused2_ring`` when ``f2_impl="ring"`` and
+    ``fused2_ring_supported``.  The JAX package takes these routes only on
+    the TPU and also under "auto"; the port takes them wherever they are
+    asked for (the plain versions on the CPU, the kernels on the card) and
+    keeps the butterfly and grid routes under "auto"."""
+    out = []
+    for kind_, a, arg in steps:
+        if kind_ == "stockham" and a != len(shape) - 1:
+            post = int(np.prod(shape[a + 1:]))
+            big = post >= DMA_MIN_POST
+            if (spec.axis0_impl == "fourstep" and big
+                    and _sk.axis0_fourstep_supported(arg, post, shape[-1])):
+                kind_ = "fourstep_ring"
+            elif (spec.axis0_impl == "dma" and big
+                    and _sk.axis0_dma_supported(arg, post)):
+                kind_ = "dma_ring"
+        elif (kind_ == "stockham2" and spec.f2_impl == "ring"
+                and _sk.fused2_ring_supported(*arg)):
+            kind_ = "fused2_ring"
+        out.append((kind_, a, arg))
+    return out
+
+
 def _general(spec: PlanSpec, n: int) -> Callable:
     return _stockham.build_c2c_1d(n, spec.direction, spec.max_radix,
                                   spec.use_3m)
@@ -262,6 +306,14 @@ def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
         return f"kernel-butterfly(n={arg})"
     if kind_ == "stockham2":
         return f"kernel-fused2{arg}"
+    if kind_ == "stockham4":
+        return f"kernel-fourstep-last(n={arg})"
+    if kind_ == "fourstep_ring":
+        return f"kernel-fourstep-ring(n={arg})"
+    if kind_ == "dma_ring":
+        return f"kernel-dma-ring(n={arg})"
+    if kind_ == "fused2_ring":
+        return f"kernel-fused2-ring{arg}"
     if kind_ == "general":
         return ("1d-pipeline["
                 f"{_stockham.schedule_description(spec.shape[a], spec.max_radix)}]")
@@ -275,7 +327,7 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
     that step is a kernel.  Counterpart: ``regent_fft_tpu/plan.py:439``."""
     s = int(direction)
     last_fusable = (len(steps) - 1 if steps
-                    and steps[-1][0] in ("stockham", "stockham2") else -1)
+                    and steps[-1][0] in KERNEL_STEPS else -1)
     for idx, (kind_, a, arg) in enumerate(steps):
         ksc = fuse_scale if idx == last_fusable else 1.0
         if kind_ == "direct":
@@ -284,6 +336,14 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
             xr, xi = _sk.fft_axis_stockham(xr, xi, a, direction, scale=ksc)
         elif kind_ == "stockham2":
             xr, xi = _sk.fft_axes2_stockham(xr, xi, direction, scale=ksc)
+        elif kind_ == "stockham4":
+            xr, xi = _fs.fft_last_four_step(xr, xi, direction, scale=ksc)
+        elif kind_ == "fourstep_ring":
+            xr, xi = _fs.fft_axis0_fourstep(xr, xi, a, direction, scale=ksc)
+        elif kind_ == "dma_ring":
+            xr, xi = _fs.fft_axis_dma(xr, xi, a, direction, scale=ksc)
+        elif kind_ == "fused2_ring":
+            xr, xi = _fs.fft_axes2_ring(xr, xi, direction, scale=ksc)
         elif kind_ == "general":
             xr, xi = _nd.apply_along_axis(arg, a, xr, xi)
         else:
@@ -412,6 +472,17 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
     return RealRoute(axis, n, other, route, packed, fn, note)
 
 
+def _kernel_lengths(kind_: str, arg) -> Tuple[int, ...]:
+    """The butterfly lengths whose tables a kernel step's kernels read."""
+    if kind_ in ("stockham2", "fused2_ring"):
+        return tuple(arg)
+    if kind_ == "stockham4":
+        return _sk._four_step_split(arg)
+    if kind_ == "fourstep_ring":
+        return _sk._a0fs_split(arg)
+    return (arg,)
+
+
 class Plan:
     """An executable complex64 C2C, R2C or C2R plan on one device.
 
@@ -430,24 +501,27 @@ class Plan:
             backend = "hybrid" if self.device.type == "cuda" else "xla"
         self.backend = backend
         axes = spec.axes if spec.kind == Kind.C2C else spec.axes[:-1]
-        self.steps = axis_steps(spec, backend, sorted(axes, reverse=True))
+        steps = axis_steps(spec, backend, sorted(axes, reverse=True))
         self.real = (None if spec.kind == Kind.C2C
-                     else _real_route(spec, backend, self.steps))
+                     else _real_route(spec, backend, steps))
+        step_shape = list(spec.shape)      # the planes the steps transform
+        if self.real is not None:
+            r = self.real
+            step_shape[r.axis] = r.n // 2 if r.packed else r.n // 2 + 1
+        self.steps = route_steps(spec, steps, step_shape)
         self.trace_log = {i: _step_name(spec, k, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
         sign = int(spec.direction)
-        lengths = [n for k, _, arg in self.steps
-                   if k in ("stockham", "stockham2")
-                   for n in (arg if k == "stockham2" else (arg,))]
+        lengths = [n for k, _, arg in self.steps if k in KERNEL_STEPS
+                   for n in _kernel_lengths(k, arg)]
         if self.real is not None and self.real.route != "einsum":
             lengths.append(self.real.n // (2 if self.real.route == "half"
                                            else 1))
         self.tables = [] if self.device.type != "cuda" else [
             _sk.device_tables(n, sign, self.device) for n in lengths]
         self.scale = _norm_scale(spec)
-        self.fused = bool(self.steps) and self.steps[-1][0] in ("stockham",
-                                                                "stockham2")
+        self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
         self._destroyed = False
 
     # -- accounting ------------------------------------------------------

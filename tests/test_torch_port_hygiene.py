@@ -18,6 +18,7 @@ import regent_fft_tpu_torch.api, regent_fft_tpu_torch.plan
 import regent_fft_tpu_torch.ops._build, regent_fft_tpu_torch.ops.stockham_kernels
 import regent_fft_tpu_torch.ops.nd, regent_fft_tpu_torch.utils.verify
 import regent_fft_tpu_torch.ops.real, regent_fft_tpu_torch.ops.stockham
+import regent_fft_tpu_torch.ops.fourstep
 import regent_fft_tpu_torch.utils.plog
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")

@@ -104,3 +104,16 @@ def test_schedule_description_equal(n):
     for mr in (16, 128):
         assert (tstockham.schedule_description(n, mr)
                 == jstockham.schedule_description(n, mr))
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_four_step_stage_tables_equal(n, sign):
+    from regent_fft_tpu_torch.ops import fourstep as tfs
+    r1, r2 = tsk._a0fs_split(n)
+    for a, b in zip(tfs._a0fs_tw_mats(n, sign), jps._a0fs_tw_mats(n, sign)):
+        assert a.shape == (r2, r1, r1)
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b)
+    for r in (r1, r2):
+        for a, b in zip(tfs._dft_mat(r, sign), jps._dft_mat(r, sign)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
