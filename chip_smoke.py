@@ -17,12 +17,18 @@ Phases (any failure raises and the script exits non-zero):
    through ``backend="stockham"`` plans), the leading-axis four-step at
    every gated length (64..4096, axes 0 and 1) and the slab ring at every
    kernel length (ragged trailing extent) and fused2 pair,
-   against torch.fft in float64; then each kernel at the main path's
+   against torch.fft in float64; the three C2C kernels on bf16 planes
+   (complex32) at every length of the C2C sweep and its fused2 pairs (odd
+   batches, both signs), each against its plain version and against
+   torch.fft in float64 of the bf16-rounded input, within
+   tolerance(n, "complex32"); then each kernel at the main path's
    shapes, held against its plain PyTorch version on the card
-   (rel_l2 <= tolerance(n)) and timed (median of CUDA-event runs with the
-   L2 flushed before each) beside its bound, its plain version and one
-   torch.fft call over the same rows or axes where one computes the same
-   function (a yardstick the port never calls).  The four-step kernels
+   (rel_l2 <= tolerance(n), of "complex32" for the bf16 kernels) and timed
+   (median of CUDA-event runs with the L2 flushed before each) beside its
+   bound, its plain version and one torch.fft call over the same rows or
+   axes where one computes the same function (a yardstick the port never
+   calls; for the bf16 kernels the torch.complex32 call, cuFFT in fp16,
+   where it runs, and the complex64 call beside it).  The four-step kernels
    (fft_cols_tw, a0fs_a, a0fs_b) have no such call; their entries
    (fft_last_four_step, fft_axis0_fourstep) are timed whole beside
    torch.fft.fft, the four-step last axis also by part (the two kernels
@@ -51,10 +57,21 @@ Phases (any failure raises and the script exits non-zero):
    ``axis0_impl="fourstep"``.  Each plan is its own group: counts zeroed
    just before its one run and read just after must equal the listed
    launches exactly; then the checks, timings and profile of phase 4/5,
-   and the 512^3 times by route side by side.
+   and the 512^3 times by route side by side;
+7. main path, data types (``DTYPE_PLANS``): complex32 C2C plans of 512^3
+   (its input a SplitComplex of bf16 planes on the card), 4096 x 1024 and
+   16 x 512^2, and complex128 C2C plans of 256^3 and 4096 x 1024, with the
+   default device and backend.  One group per plan as in phase 6: the
+   complex32 plans launch only the bf16 kernels, the complex128 plans
+   none.  Each is held against torch.fft in float64 (of the bf16-rounded
+   input for complex32) within tolerance(logical_n, dtype) and must
+   round-trip through ``plan.inverse()``; then timed beside its bytes
+   bound, torch.fft on complex64 of the same data and torch.fft on the
+   plan's own type where that runs (complex128; torch.complex32 for the
+   complex32 plans), and traced.
 
-Prints one ``{"plans": [...]}`` line (twelve plans), one
-``{"kernels": [...]}`` line (ten kernels; ``launches`` sums every
+Prints one ``{"plans": [...]}`` line (seventeen plans), one
+``{"kernels": [...]}`` line (thirteen kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them), the nvidia-smi line, and
 last the device line.  Exits non-zero, with no result, when no CUDA device
 is present.
@@ -86,6 +103,13 @@ KERNELS = {   # name: (replaces, source)
     "a0fs_b": (f"{PS}:1843 (_runner_a0fs, stage b)", FOURSTEP_CU),
     "fft_axis_ring": (f"{PS}:1324 (_runner_axis0_dma)", RING_CU),
     "fft_axes2_ring": (f"{PS}:1324 (_runner_axis0_dma, fuse_last)", RING_CU),
+    "fft_last_bf16": (f"{PS}:1267 (_runner_last, io=bf16: _direct_tile :614 "
+                      f"n<=512, _mxu_tile_tw :566 n=1024/2048, "
+                      f"_stockham_tile :709)", STOCKHAM_CU),
+    "fft_cols_bf16": (f"{PS}:787 (_runner_cols, io=bf16: the same bodies)",
+                      STOCKHAM_CU),
+    "fft_fused2_bf16": (f"{PS}:875 (_runner_fused2, io=bf16: the same bodies "
+                        f"on both axes)", STOCKHAM_CU),
 }
 MAIN_PLANS = [((512, 512, 512), (0, 1, 2)), ((4096, 1024), (1,)),
               ((16, 512, 512), (1, 2))]
@@ -127,6 +151,22 @@ ROUTE_PLANS = [
      ["(axis 2: kernel-fused2(256, 256))",
       "(axis 1: kernel-fourstep-ring(n=256))"],
      {"fft_fused2": 1, "a0fs_a": 1, "a0fs_b": 1}),
+]
+# The complex32 and complex128 plans: (label, shape, axes, dtype, step
+# lines, the launches of one run; every other count must stay 0).
+DTYPE_PLANS = [
+    ("complex32_cube", CUBE, (0, 1, 2), "complex32",
+     ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-butterfly(n=512))"],
+     {"fft_fused2_bf16": 1, "fft_cols_bf16": 1}),
+    ("complex32_1d", (4096, 1024), (1,), "complex32",
+     ["(axis 1: kernel-butterfly(n=1024))"], {"fft_last_bf16": 1}),
+    ("complex32_2d", (16, 512, 512), (1, 2), "complex32",
+     ["(axis 1: kernel-fused2(512, 512))"], {"fft_fused2_bf16": 1}),
+    ("complex128_cube", (256, 256, 256), (0, 1, 2), "complex128",
+     ["(axis 2: direct-einsum(n=256))", "(axis 1: direct-einsum(n=256))",
+      "(axis 0: direct-einsum(n=256))"], {}),
+    ("complex128_1d", (4096, 1024), (1,), "complex128",
+     ["(axis 1: einsum-mixed2(1024=32x32))"], {}),
 ]
 
 
@@ -251,6 +291,47 @@ def main() -> int:
     print(f"sweep: {len(lengths)} lengths (last/cols), {len(pairs)} fused2 "
           f"pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}")
 
+    # the C2C kernels on bf16 planes: the same lengths and pairs, against
+    # their plain versions and torch.fft in float64 of the bf16-rounded input
+    def cplx(yr, yi):
+        return torch.complex(yr.double(), yi.double())
+
+    def check_bf16(kname, shape, dims, sign, scale=0.5):
+        kern = getattr(sk, kname)
+        plain = getattr(sk, kname + "_plain")
+        xr, xi = (t.to(torch.bfloat16) for t in planes(shape))
+        yr, yi = kern(xr, xi, sign, scale)
+        if yr.dtype != torch.bfloat16 or yi.dtype != torch.bfloat16:
+            raise AssertionError(f"{kname}_bf16{shape}: output {yr.dtype}")
+        x = cplx(xr, xi)
+        ref = (torch.fft.fftn(x, dim=dims) if sign < 0
+               else torch.fft.ifftn(x, dim=dims, norm="forward")) * scale
+        n = int(np.prod([shape[d] for d in dims]))
+        y = cplx(yr, yi)
+        e_ref = rel_l2(y, ref)
+        e_plain = rel_l2(y, cplx(*plain(xr, xi, sign, scale)))
+        tol = tolerance(n, "complex32")
+        if not max(e_ref, e_plain) <= tol:
+            raise AssertionError(f"{kname}_bf16{shape} sign {sign}: rel_l2 vs "
+                                 f"torch.fft {e_ref}, vs plain {e_plain} > "
+                                 f"{tol}")
+        return e_ref, e_plain
+
+    bf_worst = {}
+    for kname, shape, dims in (
+            [("fft_last", (37, n), (1,)) for n in lengths
+             if sk.kernel_len_ok(n, True)]
+            + [("fft_cols", (3, n, 45), (1,)) for n in lengths]
+            + [("fft_fused2", (3, n1, n2), (1, 2)) for n1, n2 in pairs]):
+        for sign in (-1, 1):
+            e_ref, e_plain = check_bf16(kname, shape, dims, sign)
+            w = bf_worst.setdefault(kname + "_bf16", [0.0, 0.0, 0])
+            w[:] = max(w[0], e_ref), max(w[1], e_plain), w[2] + 1
+    for kname, (e_ref, e_plain, count) in bf_worst.items():
+        print(f"sweep bf16: {kname} {count} cases (odd batches, both signs): "
+              f"worst rel_l2 vs torch.fft float64 {e_ref:.3e}, vs plain "
+              f"{e_plain:.3e}")
+
     def packed_half(h, n):
         """(B, n/2+1) complex -> the packed (B, n/2) planes."""
         m = n // 2
@@ -343,24 +424,25 @@ def main() -> int:
           f"and {len(pairs)} fused pairs: worst {ring_worst:.3e}")
 
     # 3b. kernels at the main path's shapes against their plain versions
-    def kernel_case(shape, n, pairs, kern, plain, lib, nbytes, nflops):
+    def kernel_case(shape, n, pairs, kern, plain, lib, nbytes, nflops,
+                    dtype="complex64"):
         """`pairs`: (kernel thunk, plain thunk) pairs, each returning one
-        tensor, compared within tolerance(n); `kern`, `plain`, `lib`:
+        tensor, compared within tolerance(n, dtype); `kern`, `plain`, `lib`:
         thunks timed."""
         max_abs = max_rel = 0.0
         for k_fn, p_fn in pairs:
             k, p = k_fn(), p_fn()
             torch.cuda.synchronize()
             rel = rel_l2(k, p)
-            if not rel <= tolerance(n):
+            if not rel <= tolerance(n, dtype):
                 raise AssertionError(f"{shape}: kernel vs plain rel_l2 {rel} "
-                                     f"> {tolerance(n)}")
+                                     f"> {tolerance(n, dtype)}")
             max_rel = max(max_rel, rel)
             max_abs = max(max_abs, float(torch.max(torch.abs(k - p))))
             del k, p
         b_ms, b_by = bound(nbytes, nflops)
         return {"shape": list(shape), "n": n, "max_abs_err": max_abs,
-                "max_rel_err": max_rel, "tolerance": tolerance(n),
+                "max_rel_err": max_rel, "tolerance": tolerance(n, dtype),
                 "ms": timed(kern), "plain_ms": timed(plain), "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": None if lib is None else timed(lib)}
@@ -529,6 +611,72 @@ def main() -> int:
         del xr, xi, xc
         return case
 
+    def dev_rel(a, b):
+        """rel_l2 on the card, in float64."""
+        a, b = a.to(torch.complex128), b.to(torch.complex128)
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    def as_c32(xr, xi):
+        """torch.complex32 (fp16 halves) of the planes, or None with the
+        reason where PyTorch does not make one."""
+        try:
+            return torch.complex(xr.half(), xi.half()), None
+        except Exception as e:   # noqa: BLE001 - the yardstick may not exist
+            return None, repr(e)[:160]
+
+    def lib_c32(xh, dims):
+        """One torch.fft call on complex32 data, or None with the reason
+        where cuFFT does not take it."""
+        if xh is None:
+            return None, "no torch.complex32 tensor"
+        try:
+            torch.fft.fftn(xh, dim=dims)
+            torch.cuda.synchronize()
+            return (lambda: torch.fft.fftn(xh, dim=dims)), None
+        except Exception as e:   # noqa: BLE001
+            return None, repr(e)[:160]
+
+    def bf16_case(kname, shape, dims):
+        """A C2C kernel on bf16 planes against its plain version; both also
+        against torch.fft in float64 of the bf16-rounded input."""
+        kern = getattr(sk, kname)
+        plain = getattr(sk, kname + "_plain")
+        n = int(np.prod([shape[d] for d in dims]))
+        xr, xi = (t.to(torch.bfloat16) for t in planes(shape))
+        scale = 1.0 / math.sqrt(n)
+
+        def c64(yr, yi):
+            return torch.complex(yr.float(), yi.float())
+        pairs = [(lambda s=s: c64(*kern(xr, xi, s, scale)),
+                  lambda s=s: c64(*plain(xr, xi, s, scale))) for s in (-1, 1)]
+        ref = torch.fft.fftn(cplx(xr, xi), dim=dims) * scale
+        err = dev_rel(c64(*kern(xr, xi, -1, scale)), ref)
+        perr = dev_rel(c64(*plain(xr, xi, -1, scale)), ref)
+        del ref
+        xc = torch.complex(xr.float(), xi.float())
+        xh, why = as_c32(xr, xi)
+        lib, why32 = lib_c32(xh, dims)
+        case = kernel_case(shape, n, pairs, lambda: kern(xr, xi, -1, 1.0),
+                           lambda: plain(xr, xi, -1, 1.0),
+                           lib or (lambda: torch.fft.fftn(xc, dim=dims)),
+                           8 * xr.numel(), 5 * xr.numel() * math.log2(n),
+                           dtype="complex32")
+        case["library_call"] = ("torch.fft.fftn complex32" if lib
+                                else "torch.fft.fftn complex64")
+        case["library_c32_ms"] = case["library_ms"] if lib else None
+        case["library_c32_note"] = why or why32
+        case["library_c64_ms"] = timed(lambda: torch.fft.fftn(xc, dim=dims))
+        case["err_vs_f64"], case["plain_err_vs_f64"] = err, perr
+        print(f"{kname}_bf16 {shape}: {case['ms']:.4f} ms (bound "
+              f"{case['bound_ms']:.4f}, plain {case['plain_ms']:.4f}, "
+              f"torch.fft complex32 {case['library_c32_ms']}, complex64 "
+              f"{case['library_c64_ms']:.4f}); rel_l2 vs plain "
+              f"{case['max_rel_err']:.3e}, vs float64 {err:.3e} (plain "
+              f"{perr:.3e})")
+        del xr, xi, xc, xh
+        return case
+
     mid4 = (4, 256, 256, 256)
     cases = {
         "fft_last": [lambda: c2c_case("fft_last", (4096, 1024), (1,)),
@@ -551,6 +699,15 @@ def main() -> int:
                    lambda: a0fs_case("b", mid4, 1)],
         "fft_axis_ring": [lambda: ring_case((1, 512, 262144), False)],
         "fft_axes2_ring": [lambda: ring_case(CUBE, True)],
+        # bf16 planes: the complex32 plans' shapes, and 512 where the JAX
+        # body is _direct_tile (1024: _mxu_tile_tw)
+        "fft_last_bf16": [lambda: bf16_case("fft_last", (4096, 1024), (1,)),
+                          lambda: bf16_case("fft_last", (8192, 512), (1,))],
+        "fft_cols_bf16": [lambda: bf16_case("fft_cols", (1, 512, 262144),
+                                            (1,))],
+        "fft_fused2_bf16": [lambda: bf16_case("fft_fused2", CUBE, (1, 2)),
+                            lambda: bf16_case("fft_fused2", (16, 512, 512),
+                                              (1, 2))],
     }
     rows = {}
     for kname, makers in cases.items():
@@ -572,21 +729,27 @@ def main() -> int:
                        "library_ms": first["library_ms"], "cases": done}
         if "entry" in first:
             rows[kname]["entry"] = first["entry"]
+        for key in ("library_call", "library_c32_ms", "library_c64_ms",
+                    "err_vs_f64", "plain_err_vs_f64"):
+            if key in first:
+                rows[kname][key] = first[key]
 
     def expected_launches(plans):
         exp = {k: 0 for k in sk.LAUNCHES}
         for p in plans:
+            sfx = "_bf16" if p.cdtype == torch.bfloat16 else ""
             for kind_, a, _ in p.steps:
                 if kind_ == "stockham2":
-                    exp["fft_fused2"] += 1
+                    exp["fft_fused2" + sfx] += 1
                 elif kind_ == "stockham":
                     is_last = a == len(p.spec.shape) - 1
-                    exp["fft_last" if is_last else "fft_cols"] += 1
-                else:
+                    exp[("fft_last" if is_last else "fft_cols") + sfx] += 1
+                else:   # the contraction steps launch no kernel
                     for k in {"stockham4": ("fft_cols_tw", "fft_last"),
                               "fourstep_ring": ("a0fs_a", "a0fs_b"),
                               "dma_ring": ("fft_axis_ring",),
-                              "fused2_ring": ("fft_axes2_ring",)}[kind_]:
+                              "fused2_ring": ("fft_axes2_ring",)
+                              }.get(kind_, ()):
                         exp[k] += 1
             if p.real is not None and p.real.route == "half":
                 exp["fft_last"] += 1
@@ -835,6 +998,90 @@ def main() -> int:
           f"{cube['ms']:.4f}, fourstep {route_ms['fourstep_ring']:.4f}, dma "
           f"{route_ms['dma_ring']:.4f}, ring {route_ms['fused2_ring']:.4f}; "
           f"torch.fft.fftn {cube['library_ms']:.4f}")
+
+    # 7. the data types: complex32 and complex128 plans, one group each
+    for label, shape, axes, dtype, want_steps, want in DTYPE_PLANS:
+        p = rt.make_plan(shape, axes=axes, dtype=dtype)
+        print(p.describe())
+        got = [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+        if got != want_steps:
+            raise AssertionError(f"{label} steps: {got}")
+        want = {k: want.get(k, 0) for k in sk.LAUNCHES}
+        if expected_launches([p]) != want:
+            raise AssertionError(f"{label}: steps {p.steps} launch "
+                                 f"{expected_launches([p])}, not {want}")
+        g = torch.Generator(device=dev).manual_seed(len(plan_rows))
+        pd = {"complex32": torch.bfloat16, "complex128": torch.float64}[dtype]
+        xr = torch.randn(shape, device=dev, generator=g).to(pd)
+        xi = torch.randn(shape, device=dev, generator=g).to(pd)
+        x = (rt.SplitComplex(xr, xi) if dtype == "complex32"
+             else torch.complex(xr, xi))
+        (y,), launches = run_counted(label, [p], [x])
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = launches[kname]
+            row["launches"] += launches[kname]
+        s = p.spec
+        if dtype == "complex32":
+            ok = (isinstance(y, rt.SplitComplex)
+                  and y.re.dtype == y.im.dtype == torch.bfloat16)
+            yc = cplx(y.re, y.im) if ok else None
+        else:
+            ok = y.dtype == torch.complex128
+            yc = y
+        if not ok or tuple(yc.shape) != s.shape:
+            raise AssertionError(f"{label}: output {type(y)} "
+                                 f"{getattr(y, 'dtype', None)}")
+        if not bool(torch.isfinite(torch.view_as_real(yc)).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        tol = tolerance(s.logical_n, dtype)
+        xd = cplx(xr, xi)
+        err = dev_rel(yc, torch.fft.fftn(xd, dim=s.axes))
+        back = p.inverse()(y)
+        back = cplx(back.re, back.im) if dtype == "complex32" else back
+        back = dev_rel(back, xd)
+        del yc, y
+        if not (err <= tol and back <= tol):
+            raise AssertionError(f"{label}: rel_l2 {err}, roundtrip {back}, "
+                                 f"tolerance {tol}")
+        ms = timed(lambda: p(x))
+        steps_ms = timed(lambda: p.execute_split(xr, xi))
+        xc = torch.complex(xr.float(), xi.float())
+        lib64_ms = timed(lambda: torch.fft.fftn(xc, dim=s.axes))
+        if dtype == "complex32":
+            xh, why = as_c32(xr, xi)
+            lib, why32 = lib_c32(xh, s.axes)
+            own_ms = None if lib is None else timed(lib)
+            own_note = why or why32
+            del xh
+        else:
+            own_ms = timed(lambda: torch.fft.fftn(xd, dim=s.axes))
+            own_note = None
+        b_ms = 1e3 * p.bytes_ideal / bw
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            p(x)
+            torch.cuda.synchronize()
+        by = sorted(((e.key, e.self_device_time_total / 1e3)
+                     for e in prof.key_averages()
+                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        plan_rows.append({
+            "kind": "c2c", "dtype": dtype, "route": label,
+            "shape": list(s.shape), "axes": list(s.axes), "steps": got,
+            "rel_err_vs_torch_fft_f64": err, "roundtrip_err": back,
+            "tolerance": tol, "ms": ms, "steps_ms": steps_ms,
+            "gflops": p.flops / (ms * 1e-3) / 1e9,
+            "hbm_bound_ms": b_ms, "bound_fraction": b_ms / ms,
+            "library_ms": own_ms if own_ms is not None else lib64_ms,
+            "library_own_type_ms": own_ms, "library_own_type_note": own_note,
+            "library_complex64_ms": lib64_ms,
+            "device_ms_by_kernel": {k[:80]: v for k, v in by}})
+        print(f"{label} {s.shape} {dtype}: {ms:.4f} ms (steps {steps_ms:.4f}, "
+              f"bound {b_ms:.4f}, torch.fft {dtype} {own_ms} "
+              f"{own_note or ''}, complex64 {lib64_ms:.4f}), rel_l2 vs "
+              f"torch.fft float64 {err:.3e} (tolerance {tol:.3e}), roundtrip "
+              f"{back:.3e}; device {sum(v for _, v in by):.4f} ms: "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:6]))
+        del x, xr, xi, xc, xd
+        torch.cuda.empty_cache()
 
     print(json.dumps({"plans": plan_rows}))
     print(json.dumps({"kernels": list(rows.values())}))

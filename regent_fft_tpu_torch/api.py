@@ -4,8 +4,13 @@
 Counterpart: ``regent_fft_tpu/api.py`` (:102-248).  Each call plans
 through the cache, so repeated calls for one problem reuse the plan.
 Extra keyword options (``device``, ``backend``, ...) go to
-:class:`PlanSpec`.  Real input must be float32: float64 raises (ROADMAP
-slice 4).
+:class:`PlanSpec`.
+
+The plan dtype follows the input (:func:`_dtype_of`, api.py:32-45): a
+:class:`SplitComplex` is complex32 (bf16 planes out), float64 or
+complex128 data is complex128, anything else complex64.  The JAX package
+takes complex128 only under ``JAX_ENABLE_X64=1``; the port has no such
+switch and keeps float64 data in float64, as ``torch.fft`` does.
 """
 from __future__ import annotations
 
@@ -19,6 +24,18 @@ from .plan import PlanSpec, make_plan
 
 _NORMS = {None: Norm.BACKWARD, "backward": Norm.BACKWARD, "ortho": Norm.ORTHO,
           "forward": Norm.FORWARD, "none": Norm.NONE}
+
+
+def _dtype_of(x) -> str:
+    """The plan dtype of an input.  Counterpart: ``regent_fft_tpu/api.py:32``
+    (with x64 on)."""
+    if isinstance(x, SplitComplex):
+        return "complex32"
+    d = x.dtype if isinstance(x, (np.ndarray, torch.Tensor)) else \
+        torch.as_tensor(x).dtype
+    if d in (np.complex128, np.float64, torch.complex128, torch.float64):
+        return "complex128"
+    return "complex64"
 
 
 def _shape_of(x) -> Tuple[int, ...]:
@@ -73,6 +90,7 @@ def _padded(x, axes, sizes):
 
 def _c2c(x, axes_t, direction, norm, **opts):
     """Counterpart: ``regent_fft_tpu/api.py:102``."""
+    opts.setdefault("dtype", _dtype_of(x))
     spec = PlanSpec(shape=_shape_of(x), axes=axes_t, kind=Kind.C2C,
                     direction=direction, norm=_NORMS[norm], **opts)
     return make_plan(spec)(x)
@@ -127,17 +145,12 @@ def ifftn(x, s=None, axes=None, norm=None, **opts):
 
 
 def _real_input(x):
-    """The data of an R2C call as a numpy array or tensor.  float64 data
-    raises: it would be complex128 plans (ROADMAP slice 4), and the port
-    does not round it to float32 quietly."""
+    """The data of an R2C call as a numpy array or tensor (a SplitComplex
+    gives its real plane)."""
     if isinstance(x, SplitComplex):
         x = x.re
     if not isinstance(x, (np.ndarray, torch.Tensor)):
         x = torch.as_tensor(x)
-    if x.dtype in (np.float64, torch.float64):
-        raise NotImplementedError(
-            "float64 input (complex128 plans) is ROADMAP slice 4 of the "
-            "PyTorch port; pass float32 data")
     return x
 
 
@@ -151,7 +164,8 @@ def rfft(x, n: Optional[int] = None, axis: int = -1, norm=None, **opts):
 
 
 def rfftn(x, s=None, axes=None, norm=None, **opts):
-    """N-D DFT of real float32 input; the last of ``axes`` is halved.
+    """N-D DFT of real input; the last of ``axes`` is halved.  float64
+    data plans complex128, other data complex64.
 
     Counterpart: ``regent_fft_tpu/api.py:154``.
     """
@@ -161,6 +175,7 @@ def rfftn(x, s=None, axes=None, norm=None, **opts):
         axes = tuple(range(nd - len(s), nd))
     axes_t = _axes_tuple(nd, axes=axes)
     x = _padded(x, axes_t, s)
+    opts.setdefault("dtype", _dtype_of(x))
     spec = PlanSpec(shape=tuple(x.shape), axes=axes_t, kind=Kind.R2C,
                     direction=Direction.FORWARD, norm=_NORMS[norm], **opts)
     return make_plan(spec)(x)
@@ -175,9 +190,10 @@ def irfft(x, n: Optional[int] = None, axis: int = -1, norm=None, **opts):
 
 
 def irfftn(x, s=None, axes=None, norm=None, **opts):
-    """Inverse of :func:`rfftn`: float32 output, the last of ``axes`` of
-    length s[-1] (default 2*(m-1)); the other axes are cropped or padded
-    to ``s``.  Counterpart: ``regent_fft_tpu/api.py:172``.
+    """Inverse of :func:`rfftn`: real output (float32; float64 from
+    complex128 input, bfloat16 from a SplitComplex), the last of ``axes``
+    of length s[-1] (default 2*(m-1)); the other axes are cropped or
+    padded to ``s``.  Counterpart: ``regent_fft_tpu/api.py:172``.
     """
     shape = _shape_of(x)
     nd = len(shape)
@@ -194,6 +210,7 @@ def irfftn(x, s=None, axes=None, norm=None, **opts):
     in_sizes = ([out_shape[a] for a in axes_t[:-1]]
                 + [out_shape[axes_t[-1]] // 2 + 1])
     x = _padded(x, axes_t, in_sizes)
+    opts.setdefault("dtype", _dtype_of(x))
     spec = PlanSpec(shape=tuple(out_shape), axes=axes_t, kind=Kind.C2R,
                     direction=Direction.BACKWARD, norm=_NORMS[norm], **opts)
     return make_plan(spec)(x)

@@ -1,15 +1,34 @@
-// Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a), complex64 as
-// split f32 re/im planes.  The shared tile (fft_tile, rows_pass, cols_pass)
-// is in stockham_tile.cuh; the three kernels here differ only in how they
-// address global memory:
+// Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
+// planes: f32 (complex64) or bf16 (complex32).  The shared tile (fft_tile,
+// rows_pass, cols_pass) is in stockham_tile.cuh; the kernels here differ
+// only in how they address global memory:
 //
-//   fft_last_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
-//   fft_cols_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
-//   fft_cols_tw_kernel replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
-//   fft_fused2_kernel  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
+//   fft_last_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
+//   fft_cols_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
+//   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
+//   fft_fused2_kernel<T>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
 //
 // Each computes one DFT along an axis with the norm scale (or, for
 // fft_cols_tw, the four-step twiddle) fused into the final write.
+//
+// The bf16 instances (C entries fft_last_bf16, fft_cols_bf16,
+// fft_fused2_bf16) replace the same three runners with io="bf16", whose
+// bodies on the TPU are _direct_tile (a dense DFT_n MXU dot, n <= 512),
+// _mxu_tile_tw (the twiddle-folded four-step, n = 1024 and 2048) and
+// _stockham_tile with bf16 blocks (every other length).  The TPU used the
+// MXU because its vector unit is weak; on this card a dense DFT_n costs
+// 6*n flops per element in 3M form (3072 at n = 512) against ~5*log2(n) for
+// the butterflies, and the f32 kernels are bytes-bound well below the FP32
+// ridge, so the bf16 instances run the same f32 FFMA tile on bf16 blocks:
+// each element is read as 4 B (bf16 re + im) instead of 8 and written the
+// same, converted to f32 on load and rounded to nearest even on the store.
+// Bound on H100 for them: bytes, 8 B per complex element per pass (half the
+// f32 kernels' 16 B).  fft_fused2_bf16 keeps the f32 design (column pass
+// into the output planes, row pass in place), so its intermediate is
+// rounded to bf16 between the two passes; the TPU kernel keeps it f32 in
+// VMEM.  That costs one more bf16 rounding (the error class of the two
+// bf16 roundings inside _mxu_tile_tw) and saves the 8 B per element of an
+// f32 scratch plane.
 
 #include "stockham_tile.cuh"
 
@@ -25,9 +44,10 @@ namespace {
 // element); every butterfly stage stays in shared memory.  The ragged last
 // block is masked, not padded.
 // --------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi, long long B,
+fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                T* __restrict__ yr, T* __restrict__ yi, long long B,
                 StagePlan p, const float2* __restrict__ tw, float s,
                 float scale) {
   extern __shared__ float smem[];
@@ -48,9 +68,10 @@ fft_last_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // V % nt is masked.  nt is 16 at n = 512 (64 B runs, 64 KiB of shared
 // memory per block).
 // --------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-fft_cols_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi, int V,
+fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                T* __restrict__ yr, T* __restrict__ yi, int V,
                 int ntiles, StagePlan p, const float2* __restrict__ tw, float s,
                 float scale) {
   extern __shared__ float smem[];
@@ -105,9 +126,10 @@ fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // flight on every SM).  A thread-block-cluster / distributed-shared-memory
 // design that keeps the whole plane on chip is later work.
 // --------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-fft_fused2_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                  float* yr, float* yi, StagePlan p1, const float2* __restrict__ tw1,
+fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                  T* yr, T* yi, StagePlan p1, const float2* __restrict__ tw1,
                   StagePlan p2, const float2* __restrict__ tw2, float s,
                   float scale) {
   extern __shared__ float smem[];
@@ -134,6 +156,61 @@ fft_fused2_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// Host launchers, one per kernel template, shared by the f32 and bf16 C
+// entries below.
+template <typename T>
+cudaError_t launch_last(const T* xr, const T* xi, T* yr, T* yi, long long B,
+                        int n, int sign, float scale, const float2* tw,
+                        int nstages, const int* radices, void* stream) {
+  StagePlan p;
+  if (make_plan(n, nstages, radices, &p)) return cudaErrorInvalidValue;
+  if (B <= 0) return cudaSuccess;
+  const size_t smem = rows_smem_bytes(n);
+  cudaError_t e = set_smem((const void*)fft_last_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const long long grid = (B + rows_geo(n).nt - 1) / rows_geo(n).nt;
+  fft_last_kernel<T><<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, B, p, tw, (float)sign, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
+                        int n, int V, int sign, float scale, const float2* tw,
+                        int nstages, const int* radices, void* stream) {
+  StagePlan p;
+  if (make_plan(n, nstages, radices, &p)) return cudaErrorInvalidValue;
+  if (P <= 0 || V <= 0) return cudaSuccess;
+  const size_t smem = cols_smem_bytes(n);
+  cudaError_t e = set_smem((const void*)fft_cols_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const int nt = cols_geo(n).nt;
+  const int ntiles = (V + nt - 1) / nt;
+  const long long grid = P * ntiles;
+  fft_cols_kernel<T><<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, V, ntiles, p, tw, (float)sign, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
+                          int n1, int n2, int sign, float scale,
+                          const float2* tw1, int nstages1, const int* radices1,
+                          const float2* tw2, int nstages2, const int* radices2,
+                          void* stream) {
+  StagePlan p1, p2;
+  if (make_plan(n1, nstages1, radices1, &p1)) return cudaErrorInvalidValue;
+  if (make_plan(n2, nstages2, radices2, &p2)) return cudaErrorInvalidValue;
+  if (P <= 0) return cudaSuccess;
+  const size_t a = cols_smem_bytes(n1), b = rows_smem_bytes(n2);
+  const size_t smem = a > b ? a : b;
+  cudaError_t e = set_smem((const void*)fft_fused2_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  fft_fused2_kernel<T><<<(unsigned)P, THREADS, smem, (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, p1, tw1, p2, tw2, (float)sign, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -142,34 +219,34 @@ extern "C" {
 int fft_last(const float* xr, const float* xi, float* yr, float* yi, long long B,
              int n, int sign, float scale, const float2* tw, int nstages,
              const int* radices, void* stream) {
-  StagePlan p;
-  if (make_plan(n, nstages, radices, &p)) return cudaErrorInvalidValue;
-  if (B <= 0) return cudaSuccess;
-  const size_t smem = rows_smem_bytes(n);
-  cudaError_t e = set_smem((const void*)fft_last_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const long long grid = (B + rows_geo(n).nt - 1) / rows_geo(n).nt;
-  fft_last_kernel<<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, B, p, tw, (float)sign, scale);
-  return cudaGetLastError();
+  return launch_last(xr, xi, yr, yi, B, n, sign, scale, tw, nstages, radices,
+                     stream);
+}
+
+// FFT along the last axis of (B, n) bf16 planes (f32 compute).
+int fft_last_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                  __nv_bfloat16* yr, __nv_bfloat16* yi, long long B, int n,
+                  int sign, float scale, const float2* tw, int nstages,
+                  const int* radices, void* stream) {
+  return launch_last(xr, xi, yr, yi, B, n, sign, scale, tw, nstages, radices,
+                     stream);
 }
 
 // FFT along the middle axis of (P, n, V) f32 planes.
 int fft_cols(const float* xr, const float* xi, float* yr, float* yi, long long P,
              int n, int V, int sign, float scale, const float2* tw, int nstages,
              const int* radices, void* stream) {
-  StagePlan p;
-  if (make_plan(n, nstages, radices, &p)) return cudaErrorInvalidValue;
-  if (P <= 0 || V <= 0) return cudaSuccess;
-  const size_t smem = cols_smem_bytes(n);
-  cudaError_t e = set_smem((const void*)fft_cols_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const int nt = cols_geo(n).nt;
-  const int ntiles = (V + nt - 1) / nt;
-  const long long grid = P * ntiles;
-  fft_cols_kernel<<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, V, ntiles, p, tw, (float)sign, scale);
-  return cudaGetLastError();
+  return launch_cols(xr, xi, yr, yi, P, n, V, sign, scale, tw, nstages,
+                     radices, stream);
+}
+
+// FFT along the middle axis of (P, n, V) bf16 planes (f32 compute).
+int fft_cols_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                  __nv_bfloat16* yr, __nv_bfloat16* yi, long long P, int n,
+                  int V, int sign, float scale, const float2* tw, int nstages,
+                  const int* radices, void* stream) {
+  return launch_cols(xr, xi, yr, yi, P, n, V, sign, scale, tw, nstages,
+                     radices, stream);
 }
 
 // Four-step first pass over (P, n1, n2) f32 planes: n1-point FFT along the
@@ -201,17 +278,19 @@ int fft_fused2(const float* xr, const float* xi, float* yr, float* yi,
                const float2* tw1, int nstages1, const int* radices1,
                const float2* tw2, int nstages2, const int* radices2,
                void* stream) {
-  StagePlan p1, p2;
-  if (make_plan(n1, nstages1, radices1, &p1)) return cudaErrorInvalidValue;
-  if (make_plan(n2, nstages2, radices2, &p2)) return cudaErrorInvalidValue;
-  if (P <= 0) return cudaSuccess;
-  const size_t a = cols_smem_bytes(n1), b = rows_smem_bytes(n2);
-  const size_t smem = a > b ? a : b;
-  cudaError_t e = set_smem((const void*)fft_fused2_kernel, smem);
-  if (e != cudaSuccess) return e;
-  fft_fused2_kernel<<<(unsigned)P, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, p1, tw1, p2, tw2, (float)sign, scale);
-  return cudaGetLastError();
+  return launch_fused2(xr, xi, yr, yi, P, n1, n2, sign, scale, tw1, nstages1,
+                       radices1, tw2, nstages2, radices2, stream);
+}
+
+// FFT along both trailing axes of (P, n1, n2) bf16 planes (f32 compute; the
+// intermediate between the two passes is rounded to bf16).
+int fft_fused2_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                    __nv_bfloat16* yr, __nv_bfloat16* yi, long long P, int n1,
+                    int n2, int sign, float scale, const float2* tw1,
+                    int nstages1, const int* radices1, const float2* tw2,
+                    int nstages2, const int* radices2, void* stream) {
+  return launch_fused2(xr, xi, yr, yi, P, n1, n2, sign, scale, tw1, nstages1,
+                       radices1, tw2, nstages2, radices2, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,12 @@
 // The shared-memory Stockham tile of the Hopper (sm_90a) FFT kernels:
-// split f32 re/im planes, one routine (fft_tile) that transforms `nt`
-// independent n-point sequences held in dynamic shared memory, and the
-// row / column passes that load a tile from global memory, transform it
+// split re/im planes, one routine (fft_tile) that transforms `nt`
+// independent n-point sequences held in dynamic shared memory as f32, and
+// the row / column passes that load a tile from global memory, transform it
 // and write it back (the column pass optionally to another layout, with the
-// four-step twiddle on the write).  Included by stockham.cu (the C2C
+// four-step twiddle on the write).  The passes are templates on the element
+// types they load and store: f32 planes (complex64) or bf16 planes
+// (complex32, converted to f32 on load and rounded to nearest even on the
+// store, the scale applied in f32 first); the tile itself is f32 either way.  Included by stockham.cu (the C2C
 // kernels), real.cu (R2C/C2R), fourstep.cu (the leading-axis four-step) and
 // ring.cu (the slab ring); everything here has internal linkage, so each
 // translation unit carries its own copy and the library needs no -rdc.
@@ -40,6 +43,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -267,9 +271,26 @@ __device__ void fft_tile(float* sr, float* si, const StagePlan& p,
   }
 }
 
+// Element conversions of the passes.  Global accesses stay scalar (one
+// element a thread, neighbouring threads on neighbouring addresses), so a
+// 2-byte bf16 element needs no alignment beyond its own.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // Rows [r0, r0 + nt) of a (rows, n) plane pair -> transformed and scaled.
 // Rows at or past `nrows` are masked (zero-filled, not written).
-__device__ void rows_pass(const float* xr, const float* xi, float* yr, float* yi,
+template <typename TI, typename TO>
+__device__ void rows_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
                           long long r0, long long nrows, const StagePlan& p,
                           const float2* __restrict__ tw, float s, float scale,
                           float* sr, float* si) {
@@ -281,16 +302,16 @@ __device__ void rows_pass(const float* xr, const float* xi, float* yr, float* yi
   const size_t off = (size_t)(r0 + t) * n;
   for (int j = jl; j < n; j += g.tj) {
     const int a = at<true>(t, j, g);
-    sr[a] = valid ? xr[off + j] : 0.0f;
-    si[a] = valid ? xi[off + j] : 0.0f;
+    sr[a] = valid ? to_f32(xr[off + j]) : 0.0f;
+    si[a] = valid ? to_f32(xi[off + j]) : 0.0f;
   }
   __syncthreads();
   fft_tile<true>(sr, si, p, tw, s, t, jl, g);
   if (valid) {
     for (int j = jl; j < n; j += g.tj) {
       const int a = at<true>(t, j, g);
-      yr[off + j] = sr[a] * scale;
-      yi[off + j] = si[a] * scale;
+      yr[off + j] = from_f32<TO>(sr[a] * scale);
+      yi[off + j] = from_f32<TO>(si[a] * scale);
     }
   }
   __syncthreads();
@@ -317,7 +338,8 @@ struct ColsOut {
 // Columns [c0, c0 + nt) of an (n, V) plane pair (row stride V) ->
 // transformed along n, written as `out` says.  Columns at or past V are
 // masked.
-__device__ void cols_pass(const float* xr, const float* xi, float* yr, float* yi,
+template <typename TI, typename TO>
+__device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
                           int c0, int V, const StagePlan& p,
                           const float2* __restrict__ tw, float s, float scale,
                           float* sr, float* si, const ColsOut& out) {
@@ -330,8 +352,8 @@ __device__ void cols_pass(const float* xr, const float* xi, float* yr, float* yi
   for (int j = jl; j < n; j += g.tj) {
     const int a = at<false>(t, j, g);
     const size_t o = (size_t)j * V + c;
-    sr[a] = valid ? xr[o] : 0.0f;
-    si[a] = valid ? xi[o] : 0.0f;
+    sr[a] = valid ? to_f32(xr[o]) : 0.0f;
+    si[a] = valid ? to_f32(xi[o]) : 0.0f;
   }
   __syncthreads();
   fft_tile<false>(sr, si, p, tw, s, t, jl, g);
@@ -347,16 +369,17 @@ __device__ void cols_pass(const float* xr, const float* xi, float* yr, float* yi
         vi = fmaf(ur, w.y, vi * w.x);
       }
       const size_t o = (size_t)j * out.stride + c;
-      yr[o] = vr;
-      yi[o] = vi;
+      yr[o] = from_f32<TO>(vr);
+      yi[o] = from_f32<TO>(vi);
     }
   }
   __syncthreads();
 }
 
 // The plain column pass: the output has the input's layout, no twiddle.
-__device__ __forceinline__ void cols_pass(const float* xr, const float* xi,
-                                          float* yr, float* yi, int c0, int V,
+template <typename TI, typename TO>
+__device__ __forceinline__ void cols_pass(const TI* xr, const TI* xi,
+                                          TO* yr, TO* yi, int c0, int V,
                                           const StagePlan& p,
                                           const float2* __restrict__ tw,
                                           float s, float scale, float* sr,

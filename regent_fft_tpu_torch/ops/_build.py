@@ -46,6 +46,9 @@ _SIGNATURES = {
     "fft_axes2_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _F,
                        _P, _I, _IP, _P, _I, _IP, _P],
 }
+# the bf16-plane (complex32) instances take the f32 entries' arguments
+_SIGNATURES.update({k + "_bf16": _SIGNATURES[k]
+                    for k in ("fft_last", "fft_cols", "fft_fused2")})
 
 _LIB = None
 build_seconds = None   # wall time of this process's nvcc runs, if it ran them

@@ -28,6 +28,11 @@ each is bound and built.  The entries the plan steps call:
 * :func:`fft_axis_dma` (``kernel-dma-ring``) and :func:`fft_axes2_ring`
   (``kernel-fused2-ring``): one ring pass.
 
+These kernels take f32 planes.  The four-step last axis takes bf16 planes
+(complex32) as the JAX package does, through f32 (the cast at both ends);
+the leading-axis four-step and the ring raise on bf16 planes: their bf16
+forms (the 'hd' stage dots, the bf16 slab ring) are the next ROADMAP slice.
+
 The plain versions compute what the TPU kernels compute in torch ops at full
 f32: the four-step twiddle and the stage matrices are float64-generated and
 rounded once to f32, as in the JAX package (:func:`_a0fs_tw_mats`,
@@ -254,6 +259,14 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+def _no_bf16(what: str, xr):
+    if xr.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{what} on bf16 planes (complex32) is ROADMAP Queue 2 #8 of the "
+            "PyTorch port (the bf16 slab ring and the 'hd' stage dots, the "
+            "next slice); plan complex32 with axis0_impl/f2_impl 'auto'")
+
+
 def _pre_post(shape, axis: int):
     pre = int(np.prod(shape[:axis])) if axis else 1
     return pre, int(np.prod(shape[axis + 1:]))
@@ -266,13 +279,17 @@ def fft_last_four_step(xr, xi, direction: Direction,
     Four-step n = n1 * n2 (``_four_step_split``): the column pass over n1
     with the twiddle fused into its write, the last-axis pass over n2 with
     the norm scale, then the swap of the two sub-axes: output index
-    k = k1 + n1 * k2.  Counterpart: ``pallas_stockham.py:1076`` (its bf16
-    branch is slice 4).
+    k = k1 + n1 * k2.  bf16 planes run through f32: the intermediates stay
+    f32 and the output is rounded once to bf16.
+    Counterpart: ``pallas_stockham.py:1076``.
     """
     shape = tuple(xr.shape)
     n = shape[-1]
     if not _sk.four_step_supported(n):
         raise ValueError(f"four-step unsupported for n={n}")
+    if xr.dtype == torch.bfloat16:
+        yr, yi = fft_last_four_step(xr.float(), xi.float(), direction, scale)
+        return yr.to(torch.bfloat16), yi.to(torch.bfloat16)
     n1, n2 = _sk._four_step_split(n)
     sign = int(direction)
     b = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
@@ -299,6 +316,7 @@ def fft_axis0_fourstep(xr, xi, axis: int, direction: Direction,
     pre, post = _pre_post(shape, axis)
     if not _sk.axis0_fourstep_supported(n, post, shape[-1]):
         raise ValueError(f"axis0-fourstep unsupported for {shape} ax {axis}")
+    _no_bf16("the leading-axis four-step", xr)
     sign = int(direction)
     ar, ai = a0fs_stage("a", xr.reshape(pre, n, post),
                         xi.reshape(pre, n, post), sign)
@@ -318,6 +336,7 @@ def fft_axis_dma(xr, xi, axis: int, direction: Direction,
     pre, post = _pre_post(shape, axis)
     if not _sk.axis0_dma_supported(n, post):
         raise ValueError(f"axis-dma unsupported for {shape} axis {axis}")
+    _no_bf16("the slab ring", xr)
     yr, yi = fft_axis_ring(xr.reshape(pre, n, post), xi.reshape(pre, n, post),
                            int(direction), float(scale), False)
     return yr.reshape(shape), yi.reshape(shape)
@@ -333,6 +352,7 @@ def fft_axes2_ring(xr, xi, direction: Direction,
     n1, n2 = shape[-2], shape[-1]
     if not _sk.fused2_ring_supported(n1, n2):
         raise ValueError(f"fused2-ring unsupported for {shape}")
+    _no_bf16("the fused2 slab ring", xr)
     pre = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
     yr, yi = fft_axis_ring(xr.reshape(pre, n1, n2), xi.reshape(pre, n1, n2),
                            int(direction), float(scale), True)

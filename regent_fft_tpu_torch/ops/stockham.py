@@ -3,8 +3,11 @@
 Counterpart: ``regent_fft_tpu/ops/stockham.py``.  A short axis is one dense
 DFT contraction (``direct``); a longer smooth one is a two-factor
 Cooley-Tukey pair of contractions with a twiddle between (``mixed2``).
-Both run as ``torch.matmul`` at full f32: callers on the card keep
-``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default).
+Both run as ``torch.matmul`` at the planes' precision, f32 or f64 (a
+complex128 plan), with tables generated in float64 and rounded once to it:
+callers on the card keep ``torch.backends.cuda.matmul.allow_tf32`` False
+(PyTorch's default).  bf16 planes (complex32) reach these steps cast to
+f32 by the plan, as in the JAX package.
 
 :func:`build_c2c_1d` is the general 1-D pipeline on (B, n) planes: one
 direct product, or the recursive mixed-radix schedule of
@@ -17,6 +20,7 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..dtypes import Direction
@@ -24,6 +28,12 @@ from . import factor as _factor
 from . import twiddle as _twiddle
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _tab_dtype(like: torch.Tensor):
+    """Numpy table dtype of the planes' precision (f32/f64).
+    Counterpart: ``regent_fft_tpu/ops/stockham.py:43``."""
+    return np.float64 if like.dtype == torch.float64 else np.float32
 
 
 def _table(a, like: torch.Tensor) -> torch.Tensor:
@@ -57,7 +67,7 @@ def direct_dft(xr, xi, n: int, sign: int, use_3m: bool = False) -> Pair:
 
     Counterpart: ``regent_fft_tpu/ops/stockham.py:78``.
     """
-    dr, di = _twiddle.dft_matrix(n, sign)
+    dr, di = _twiddle.dft_matrix(n, sign, _tab_dtype(xr))
     return cmul_mat(xr, xi, _table(dr, xr), _table(di, xr), use_3m)
 
 
@@ -77,10 +87,12 @@ def mixed_radix_fft(xr, xi, n: int, factors, sign: int,
     b = xr.shape[0]
     xr = xr.reshape(b, n1, n2)
     xi = xi.reshape(b, n1, n2)
-    d1r, d1i = (_table(a, xr) for a in _twiddle.dft_matrix(n1, sign))
+    d1r, d1i = (_table(a, xr) for a in
+                _twiddle.dft_matrix(n1, sign, _tab_dtype(xr)))
     # (n1, n1) @ (b, n1, n2); the DFT matrix is symmetric
     ar, ai = cmul_mat(d1r, d1i, xr, xi, use_3m)
-    twr, twi = (_table(a, xr) for a in _twiddle.twiddle_outer(n1, n2, n, sign))
+    twr, twi = (_table(a, xr) for a in
+                _twiddle.twiddle_outer(n1, n2, n, sign, _tab_dtype(xr)))
     ar, ai = cmul_elem(ar, ai, twr, twi)
     cr, ci = mixed_radix_fft(ar.reshape(b * n1, n2), ai.reshape(b * n1, n2),
                              n2, factors[1:], sign, use_3m)
@@ -108,7 +120,7 @@ def direct_dft_axis(xr, xi, axis: int, n: int, sign: int,
     Counterpart: ``regent_fft_tpu/ops/stockham.py:137``.
     """
     axis = axis % xr.ndim
-    dr, di = _twiddle.dft_matrix(n, sign)
+    dr, di = _twiddle.dft_matrix(n, sign, _tab_dtype(xr))
     xr = xr.movedim(axis, -1)
     xi = xi.movedim(axis, -1)
     yr, yi = _dft_last(xr, xi, _table(dr, xr), _table(di, xr), use_3m)
@@ -131,9 +143,11 @@ def mixed_radix_fft_axis(xr, xi, axis: int, n: int, n1: int, sign: int,
     lead = xr.shape[:-1]
     xr = xr.reshape(*lead, n1, n2)
     xi = xi.reshape(*lead, n1, n2)
-    d1r, d1i = (_table(a, xr) for a in _twiddle.dft_matrix(n1, sign))
-    d2r, d2i = (_table(a, xr) for a in _twiddle.dft_matrix(n2, sign))
-    twr, twi = (_table(a, xr) for a in _twiddle.twiddle_outer(n1, n2, n, sign))
+    td = _tab_dtype(xr)
+    d1r, d1i = (_table(a, xr) for a in _twiddle.dft_matrix(n1, sign, td))
+    d2r, d2i = (_table(a, xr) for a in _twiddle.dft_matrix(n2, sign, td))
+    twr, twi = (_table(a, xr) for a in
+                _twiddle.twiddle_outer(n1, n2, n, sign, td))
     # stage 1 over j1: (n1, n1) @ (..., n1, n2); the DFT matrix is symmetric
     ar, ai = cmul_mat(d1r, d1i, xr, xi, use_3m)
     ar, ai = ar * twr - ai * twi, ar * twi + ai * twr

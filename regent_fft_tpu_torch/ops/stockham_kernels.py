@@ -1,19 +1,24 @@
 """Stockham butterfly kernels: schedule gates, wrappers and plain versions.
 
-Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Ten hand-written
-CUDA entry points carry the plan paths.  This module holds the five of
-the butterfly passes, three C2C kernels in ``csrc/stockham.cu`` and the
+Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Thirteen
+hand-written CUDA entry points carry the plan paths.  This module holds
+the eight of the butterfly passes: the three C2C kernels on f32 planes
+(complex64) and on bf16 planes (complex32) in ``csrc/stockham.cu``, and the
 real-transform pair in ``csrc/real.cu``:
 
-===================  ===================================  =======================
-wrapper              replaces (pallas_stockham.py)        plain version
-===================  ===================================  =======================
-``fft_last``         ``_runner_last`` (:1267)             ``fft_last_plain``
-``fft_cols``         ``_runner_cols`` (:787)              ``fft_cols_plain``
-``fft_fused2``       ``_runner_fused2`` (:875)            ``fft_fused2_plain``
-``fft_last_r2c``     ``_runner_last_r2c`` (:2395)         ``fft_last_r2c_plain``
-``ifft_last_c2r``    ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
-===================  ===================================  =======================
+=========================  ===================================  =======================
+wrapper (launch name)      replaces (pallas_stockham.py)        plain version
+=========================  ===================================  =======================
+``fft_last``               ``_runner_last`` (:1267)             ``fft_last_plain``
+(``fft_last``, bf16:
+``fft_last_bf16``)
+``fft_cols``               ``_runner_cols`` (:787)              ``fft_cols_plain``
+(``fft_cols``, ``fft_cols_bf16``)
+``fft_fused2``             ``_runner_fused2`` (:875)            ``fft_fused2_plain``
+(``fft_fused2``, ``fft_fused2_bf16``)
+``fft_last_r2c``           ``_runner_last_r2c`` (:2395)         ``fft_last_r2c_plain``
+``ifft_last_c2r``          ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
+=========================  ===================================  =======================
 
 ``ops/fourstep.py`` holds the other five (the four-step twiddle pass
 ``fft_cols_tw``, the leading-axis four-step stages ``a0fs_a``/``a0fs_b`` and
@@ -21,20 +26,27 @@ the slab ring ``fft_axis_ring``/``fft_axes2_ring``) on this module's
 launch helpers, tables and gates.
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
-tensors; any other device raises.  There is no fallback: a CUDA tensor
-never reaches a plain version through a wrapper.  Each wrapper counts its
-kernel launches in ``LAUNCHES`` (all ten).
+tensors; any other device, and a plane dtype the kernel does not take,
+raises.  There is no fallback: a CUDA tensor never reaches a plain version
+through a wrapper.  Each wrapper counts its kernel launches in
+``LAUNCHES`` (all thirteen).
 
-The plain versions follow the JAX tile (``_stockham_tile`` :709): radix-4
+The plain versions follow the JAX tile bodies that ``_tile_impl`` (:643)
+picks by block I/O.  f32 blocks take ``_stockham_tile`` (:709): radix-4
 head stages with the ``_packed_tables`` twiddles, then one dense mt-point
-DFT product through ``torch.matmul`` at full f32.  The kernels compute the
-same DFT with FFMA butterflies all the way down (see the source note in
-``csrc/stockham.cu``) from their own float64-generated table
+DFT product.  bf16 blocks (complex32) take ``_direct_tile`` (:614, one dense
+DFT_n product) for n <= 512, ``_mxu_tile_tw`` (:566, the twiddle-folded
+four-step) for n = 1024 and 2048, and ``_stockham_tile`` for every other
+length; the plain versions run them on the bf16 input cast to f32 and
+round the scaled output to bf16 once.  Every product is ``torch.matmul``
+at full f32.  The kernels compute the same DFT with FFMA butterflies all
+the way down, for both block types (see the source notes in
+``csrc/stockham.cu``), from their own float64-generated table
 (:func:`_kernel_tables`).
 
 The gates (``kernel_len_ok``, ``fused2_supported``, the ``r2c_*`` gates,
-the four-step and ring gates, the length caps) are the JAX package's, so a
-plan's step list is the same in both packages.
+the four-step and ring gates, the length caps, ``mxu_tile_supported``) are
+the JAX package's, so a plan's step list is the same in both packages.
 """
 from __future__ import annotations
 
@@ -251,8 +263,67 @@ def _packed_tables(n: int, sign: int):
     return wr, wi, offsets
 
 
+# The near-square split (n1 <= n2) of the bf16 four-step tile is the
+# leading-axis four-step's.  Counterpart: ``pallas_stockham.py:419``.
+_mxu_split = _a0fs_split
+
+
+def mxu_tile_supported(n: int) -> bool:
+    """Counterpart: ``pallas_stockham.py:425``."""
+    n1, n2 = _mxu_split(n)
+    return (n & (n - 1)) == 0 and n1 >= 8 and n2 >= 8 and n >= 64
+
+
+@functools.lru_cache(maxsize=64)
+def _mxu_tw_tables(n: int, sign: int):
+    """Packed planes of the twiddle-folded four-step tile: rows [0, n1) =
+    W1 (width n1), rows [n1, n1 + n1*n2) = W2T[k1, k2, j2] = W2[k2, j2] *
+    tw[k1, j2] flattened to (k1*n2 + k2, j2).
+    Counterpart: ``pallas_stockham.py:539`` (bit-identical)."""
+    n1, n2 = _mxu_split(n)
+    w = max(n1, n2)
+    k1 = np.arange(n1)
+    k2 = np.arange(n2)
+    j2 = np.arange(n2)
+    th1 = 2.0 * np.pi * float(sign) * np.outer(k1, k1) / n1
+    # (k1, k2, j2)
+    tht = 2.0 * np.pi * float(sign) * (
+        k2[None, :, None] * j2[None, None, :] / n2
+        + k1[:, None, None] * j2[None, None, :] / n)
+
+    def pad(a):
+        return np.pad(a, ((0, 0), (0, w - a.shape[1])))
+    wr = np.concatenate([pad(np.cos(th1)),
+                         pad(np.cos(tht).reshape(n1 * n2, n2))]
+                        ).astype(np.float32)
+    wi = np.concatenate([pad(np.sin(th1)),
+                         pad(np.sin(tht).reshape(n1 * n2, n2))]
+                        ).astype(np.float32)
+    return wr, wi
+
+
+@functools.lru_cache(maxsize=64)
+def _direct_tables(n: int, sign: int):
+    """Dense DFT_n matrix planes of the direct tile.
+    Counterpart: ``pallas_stockham.py:607`` (bit-identical)."""
+    k = np.arange(n)
+    th = 2.0 * np.pi * float(sign) * np.outer(k, k) / n
+    return np.cos(th).astype(np.float32), np.sin(th).astype(np.float32)
+
+
+def tile_impl(io: str, n: int) -> str:
+    """The JAX tile body for block I/O ``io`` ("f32" or "bf16") and length
+    n, by name: "direct_tile" (bf16, n <= 512), "mxu_tile_tw" (bf16 above)
+    or "stockham_tile".  Counterpart: ``pallas_stockham.py:643`` with
+    ``REGENT_FFT_MXU_IMPL`` at its default; the port reads no environment
+    knob."""
+    if io == "bf16" and mxu_tile_supported(n):
+        return "direct_tile" if n <= 512 else "mxu_tile_tw"
+    return "stockham_tile"
+
+
 # ---------------------------------------------------------------------------
-# Plain versions: the JAX tile in torch ops (any device, full f32)
+# Plain versions: the JAX tile bodies in torch ops (any device, full f32)
 # ---------------------------------------------------------------------------
 def _bfly4(q, s: float):
     """Radix-4 butterfly across four (re, im) slab pairs.
@@ -308,40 +379,109 @@ def _stockham_tile_plain(xr, xi, n: int, sign: int) -> Pair:
             yi.permute(1, 0, 2).reshape(n, v))
 
 
+def _direct_tile_plain(xr, xi, n: int, sign: int) -> Pair:
+    """ONE dense DFT_n product over axis 0 of (n, V) f32 planes, in the 3M
+    form.  Counterpart: ``pallas_stockham.py:614`` (``_direct_tile``)."""
+    wr, wi = (torch.from_numpy(t).to(xr.device)
+              for t in _direct_tables(n, sign))
+    t1 = wr @ xr
+    t2 = wi @ xi
+    t3 = (wr + wi) @ (xr + xi)
+    return t1 - t2, t3 - t1 - t2
+
+
+def _mxu_tile_tw_plain(xr, xi, n: int, sign: int) -> Pair:
+    """The twiddle-folded four-step over axis 0 of (n, V) f32 planes: a
+    DFT_n1 product on [xr; xi] stacked along j1, then per k1 one product
+    with the twiddle-folded DFT_n2 on [br; bi] stacked along j2, then the
+    (k1, k2) -> (k2, k1) transpose.
+    Counterpart: ``pallas_stockham.py:566`` (``_mxu_tile_tw``)."""
+    n1, n2 = _mxu_split(n)
+    v = xr.shape[-1]
+    wr_all, wi_all = (torch.from_numpy(t).to(xr.device)
+                      for t in _mxu_tw_tables(n, sign))
+    w1r, w1i = wr_all[:n1, :n1], wi_all[:n1, :n1]
+    w2tr = wr_all[n1:, :n2].reshape(n1, n2, n2)       # [k1, k2, j2]
+    w2ti = wi_all[n1:, :n2].reshape(n1, n2, n2)
+    l1r = torch.cat([w1r, -w1i], 1)                   # (n1, 2 n1)
+    l1i = torch.cat([w1i, w1r], 1)
+    l2r = torch.cat([w2tr, -w2ti], 2)                 # (n1, n2, 2 n2)
+    l2i = torch.cat([w2ti, w2tr], 2)
+    acat = torch.cat([xr.reshape(n1, n2 * v), xi.reshape(n1, n2 * v)], 0)
+    br = (l1r @ acat).reshape(n1, n2, v)              # (k1, j2, v)
+    bi = (l1i @ acat).reshape(n1, n2, v)
+    bcat = torch.cat([br, bi], 1)                     # (k1, 2 n2, v)
+    dr = torch.bmm(l2r, bcat).transpose(0, 1)         # (k2, k1, v)
+    di = torch.bmm(l2i, bcat).transpose(0, 1)
+    return dr.reshape(n, v), di.reshape(n, v)
+
+
+_TILES = {"direct_tile": _direct_tile_plain,
+          "mxu_tile_tw": _mxu_tile_tw_plain,
+          "stockham_tile": _stockham_tile_plain}
+
+
+def _io(x) -> str:
+    """Block I/O of the planes: "bf16" (complex32) or "f32"."""
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
+def _last_tile(io: str, xr, xi, sign: int) -> Pair:
+    """Unscaled f32 DFT along the last axis of (B, n) planes, by the tile
+    body ``tile_impl(io, n)`` picks."""
+    n = xr.shape[-1]
+    yr, yi = _TILES[tile_impl(io, n)](xr.float().T, xi.float().T, n, sign)
+    return yr.T, yi.T
+
+
+def _cols_tile(io: str, xr, xi, sign: int) -> Pair:
+    """Unscaled f32 DFT along the middle axis of (P, n, V) planes."""
+    p, n, v = xr.shape
+    yr, yi = _TILES[tile_impl(io, n)](
+        xr.float().permute(1, 0, 2).reshape(n, p * v),
+        xi.float().permute(1, 0, 2).reshape(n, p * v), n, sign)
+    return (yr.reshape(n, p, v).permute(1, 0, 2),
+            yi.reshape(n, p, v).permute(1, 0, 2))
+
+
+def _scaled(yr, yi, scale: float, dtype) -> Pair:
+    """The scale in f32, then one rounding to the planes' dtype."""
+    return ((yr * scale).to(dtype).contiguous(),
+            (yi * scale).to(dtype).contiguous())
+
+
 def fft_last_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the last axis of (B, n) planes, scale applied.
+    """FFT along the last axis of (B, n) f32 or bf16 planes, scale applied,
+    output in the input's dtype.
 
     Counterpart: ``pallas_stockham.py:1267`` (``_runner_last``).
     """
-    n = xr.shape[-1]
-    yr, yi = _stockham_tile_plain(xr.T, xi.T, n, sign)
-    return (yr.T * scale).contiguous(), (yi.T * scale).contiguous()
+    return _scaled(*_last_tile(_io(xr), xr, xi, sign), scale, xr.dtype)
 
 
 def fft_cols_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the middle axis of (P, n, V) planes, scale applied.
+    """FFT along the middle axis of (P, n, V) f32 or bf16 planes, scale
+    applied, output in the input's dtype.
 
     Counterpart: ``pallas_stockham.py:787`` (``_runner_cols``).
     """
-    p, n, v = xr.shape
-    yr, yi = _stockham_tile_plain(xr.permute(1, 0, 2).reshape(n, p * v),
-                                  xi.permute(1, 0, 2).reshape(n, p * v),
-                                  n, sign)
-    yr = yr.reshape(n, p, v).permute(1, 0, 2) * scale
-    yi = yi.reshape(n, p, v).permute(1, 0, 2) * scale
-    return yr.contiguous(), yi.contiguous()
+    return _scaled(*_cols_tile(_io(xr), xr, xi, sign), scale, xr.dtype)
 
 
 def fft_fused2_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along both trailing axes of (P, n1, n2) planes, scale applied.
+    """FFT along both trailing axes of (P, n1, n2) f32 or bf16 planes,
+    scale applied; the intermediate stays f32, as in the TPU kernel's
+    VMEM, and the output is rounded once to the input's dtype.
 
     Counterpart: ``pallas_stockham.py:875`` (``_runner_fused2``).
     """
-    ar, ai = fft_cols_plain(xr, xi, sign)
+    io = _io(xr)
     p, n1, n2 = xr.shape
-    yr, yi = fft_last_plain(ar.reshape(p * n1, n2), ai.reshape(p * n1, n2),
-                            sign, scale)
-    return yr.reshape(p, n1, n2), yi.reshape(p, n1, n2)
+    ar, ai = _cols_tile(io, xr, xi, sign)
+    yr, yi = _last_tile(io, ar.reshape(p * n1, n2), ai.reshape(p * n1, n2),
+                        sign)
+    return _scaled(yr.reshape(p, n1, n2), yi.reshape(p, n1, n2), scale,
+                   xr.dtype)
 
 
 def fft_last_r2c_plain(x, packed: bool = False, scale: float = 1.0) -> Pair:
@@ -469,7 +609,13 @@ LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
             "fft_last_r2c": 0, "ifft_last_c2r": 0,
             # the four-step and ring wrappers of ops/fourstep.py
             "fft_cols_tw": 0, "a0fs_a": 0, "a0fs_b": 0,
-            "fft_axis_ring": 0, "fft_axes2_ring": 0}
+            "fft_axis_ring": 0, "fft_axes2_ring": 0,
+            # the C2C kernels on bf16 planes (complex32)
+            "fft_last_bf16": 0, "fft_cols_bf16": 0, "fft_fused2_bf16": 0}
+
+# Plane dtypes of the C2C butterfly kernels, and the suffix of the C entry
+# point (and launch name) that takes each.
+C2C_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def reset_launches():
@@ -477,17 +623,24 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _on_cuda(name: str, *planes) -> bool:
-    """True for CUDA planes (checked for the kernel), False for CPU ones."""
+def _on_cuda(name: str, *planes, dtypes=(torch.float32,)) -> bool:
+    """True for CUDA planes (checked for the kernel), False for CPU ones.
+    Planes of a dtype outside ``dtypes`` raise on either device."""
     dev = planes[0].device
+    for p in planes:
+        if p.dtype not in dtypes:
+            raise ValueError(f"{name}: planes of {p.dtype}; the kernel takes "
+                             f"{', '.join(map(str, dtypes))}")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: planes on {dev}; expected cuda or cpu")
     for p in planes:
-        if p.device != dev or p.dtype != torch.float32 or not p.is_contiguous():
-            raise ValueError(f"{name}: planes must be contiguous float32 on "
-                             f"one device, got {p.dtype} on {p.device}")
+        if (p.device != dev or p.dtype != planes[0].dtype
+                or not p.is_contiguous()):
+            raise ValueError(f"{name}: planes must be contiguous, of one "
+                             f"dtype on one device, got {p.dtype} on "
+                             f"{p.device}")
     if any(p.shape != planes[0].shape for p in planes):
         raise ValueError(f"{name}: re/im shapes differ")
     return True
@@ -502,56 +655,67 @@ def _launch(name: str, fn, device, *args):
     LAUNCHES[name] += 1
 
 
-def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the last axis of (B, n) f32 planes, scale fused.
-
-    CUDA planes launch ``fft_last_kernel``; CPU planes run
-    :func:`fft_last_plain`.  Counterpart: ``pallas_stockham.py:1267``.
-    """
-    if not _on_cuda("fft_last", xr, xi):
-        return fft_last_plain(xr, xi, sign, scale)
+def _c2c_entry(name: str, xr):
+    """(launch name, bound C function) of a C2C kernel for these planes."""
     from . import _build
+    full = name + C2C_DTYPES[xr.dtype]
+    return full, getattr(_build.load(), full)
+
+
+def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
+    """FFT along the last axis of (B, n) f32 or bf16 planes, scale fused,
+    output in the input's dtype.
+
+    CUDA planes launch ``fft_last_kernel`` (f32) or its bf16 instance
+    (counted as ``fft_last_bf16``); CPU planes run :func:`fft_last_plain`.
+    Counterpart: ``pallas_stockham.py:1267``.
+    """
+    if not _on_cuda("fft_last", xr, xi, dtypes=tuple(C2C_DTYPES)):
+        return fft_last_plain(xr, xi, sign, scale)
     b, n = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     tw, rad, k = device_tables(n, sign, xr.device)
-    _launch("fft_last", _build.load().fft_last, xr.device,
+    _launch(*_c2c_entry("fft_last", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             b, n, sign, scale, tw.data_ptr(), k, rad)
     return yr, yi
 
 
 def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the middle axis of (P, n, V) f32 planes, scale fused.
+    """FFT along the middle axis of (P, n, V) f32 or bf16 planes, scale
+    fused, output in the input's dtype.
 
-    CUDA planes launch ``fft_cols_kernel``; CPU planes run
-    :func:`fft_cols_plain`.  Counterpart: ``pallas_stockham.py:787``.
+    CUDA planes launch ``fft_cols_kernel`` (f32) or its bf16 instance
+    (counted as ``fft_cols_bf16``); CPU planes run :func:`fft_cols_plain`.
+    Counterpart: ``pallas_stockham.py:787``.
     """
-    if not _on_cuda("fft_cols", xr, xi):
+    if not _on_cuda("fft_cols", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_cols_plain(xr, xi, sign, scale)
-    from . import _build
     p, n, v = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     tw, rad, k = device_tables(n, sign, xr.device)
-    _launch("fft_cols", _build.load().fft_cols, xr.device,
+    _launch(*_c2c_entry("fft_cols", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n, v, sign, scale, tw.data_ptr(), k, rad)
     return yr, yi
 
 
 def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along both trailing axes of (P, n1, n2) f32 planes, scale fused.
+    """FFT along both trailing axes of (P, n1, n2) f32 or bf16 planes,
+    scale fused, output in the input's dtype.
 
-    CUDA planes launch ``fft_fused2_kernel``; CPU planes run
+    CUDA planes launch ``fft_fused2_kernel`` (f32) or its bf16 instance
+    (counted as ``fft_fused2_bf16``; its column pass rounds the
+    intermediate to bf16 in the output planes); CPU planes run
     :func:`fft_fused2_plain`.  Counterpart: ``pallas_stockham.py:875``.
     """
-    if not _on_cuda("fft_fused2", xr, xi):
+    if not _on_cuda("fft_fused2", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_fused2_plain(xr, xi, sign, scale)
-    from . import _build
     p, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     tw1, rad1, k1 = device_tables(n1, sign, xr.device)
     tw2, rad2, k2 = device_tables(n2, sign, xr.device)
-    _launch("fft_fused2", _build.load().fft_fused2, xr.device,
+    _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n1, n2, sign, scale, tw1.data_ptr(), k1, rad1,
             tw2.data_ptr(), k2, rad2)

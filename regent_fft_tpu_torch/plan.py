@@ -1,5 +1,5 @@
-"""Plan lifecycle of the PyTorch port: complex64 C2C, R2C and C2R at any
-rank.
+"""Plan lifecycle of the PyTorch port: C2C, R2C and C2R at any rank, in
+complex64, complex32 and complex128.
 
 Counterpart: ``regent_fft_tpu/plan.py``.  A :class:`Plan` precomputes the
 per-axis step list (the same list the JAX package builds, so
@@ -35,10 +35,20 @@ one, else the real kernel's write.  Plans live on ``device`` (default
 ``"cuda"``); ``device="cpu"`` is opt-in and runs the kernels' plain
 versions.
 
+Data types (``_compute_dtype``, as in the JAX package): a complex64 plan
+runs f32 planes; a complex32 C2C plan keeps bf16 planes between its steps
+(the butterfly kernels read and write bf16 and compute in f32; the
+contraction steps and the four-step last axis cast to f32 around
+themselves) and returns a SplitComplex of bf16 planes; a complex32 real
+plan computes in f32 and rounds its output to bf16; a complex128 plan runs
+f64 planes through the contraction steps only, since the kernels compute
+in f32.
+
 Outside the port so far (each raises ``NotImplementedError`` naming its
-ROADMAP item): complex32/complex128, the Rader and Bluestein branches of
-the general pipeline, ``backend="pallas"``, planners other than
-``"estimate"`` and ``precision`` other than ``"highest"``.  The gap-fused
+ROADMAP item): the Rader and Bluestein branches of the general pipeline,
+``backend="pallas"``, planners other than ``"estimate"``, ``precision``
+other than ``"highest"`` (but complex32's ``"default"``), and the
+leading-axis four-step and ring routes on bf16 planes.  The gap-fused
 pass (``stockham_gap``) is reachable in the JAX package only through an
 environment switch the port does not read.
 """
@@ -96,6 +106,11 @@ class PlanSpec:
         object.__setattr__(self, "direction", Direction(self.direction))
         object.__setattr__(self, "norm", Norm(self.norm))
         object.__setattr__(self, "device", str(torch.device(self.device)))
+        if self.dtype == "complex32" and self.precision == "highest":
+            # plan.py:95-99: bf16 planes make exact f32 products pointless;
+            # the spec takes the fast precision and 3M products
+            object.__setattr__(self, "precision", "default")
+            object.__setattr__(self, "use_3m", True)
         if len(set(axes)) != len(axes):
             raise ValueError(f"duplicate axes: {self.axes}")
         if not axes:
@@ -104,6 +119,9 @@ class PlanSpec:
             raise ValueError("R2C transforms are forward-only (use C2R for inverse)")
         if self.kind == Kind.C2R and self.direction != Direction.BACKWARD:
             raise ValueError("C2R transforms are backward-only")
+        if self.precision not in ("highest", "high", "default"):
+            raise ValueError("precision must be one of "
+                             "['highest', 'high', 'default']")
         if self.backend not in ("auto", "xla", "stockham", "hybrid", "pallas"):
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.planner not in ("estimate", "model", "measure", "patient",
@@ -163,8 +181,26 @@ def _check_scope(spec: PlanSpec):
                   "ROADMAP Queue 2 (pallas_fft.py kernels)")
     if spec.planner != "estimate":
         _unported(f'planner="{spec.planner}"', "ROADMAP Queue 1 #11")
-    if spec.precision != "highest":
-        _unported(f'precision="{spec.precision}"', "ROADMAP slice 4")
+    if spec.precision != "highest" and not (spec.dtype == "complex32"
+                                            and spec.precision == "default"):
+        _unported(f'precision="{spec.precision}" with {spec.dtype}',
+                  "ROADMAP Queue 2 #13 (the contraction precision schemes)")
+
+
+def _compute_dtype(spec: PlanSpec) -> torch.dtype:
+    """The plane dtype a plan's steps run on.
+
+    Counterpart: ``regent_fft_tpu/plan.py:143``: f64 for complex128; bf16
+    planes between the passes of a complex32 C2C plan (the kernels read
+    and write bf16 blocks and compute in f32); f32 otherwise, a complex32
+    real plan included.  The JAX package needs ``JAX_ENABLE_X64`` for f64;
+    the port has no such switch.
+    """
+    if spec.dtype == "complex128":
+        return torch.float64
+    if spec.dtype == "complex32" and spec.kind == Kind.C2C:
+        return torch.bfloat16
+    return torch.float32
 
 
 def _resolve_device(spec: PlanSpec) -> torch.device:
@@ -206,12 +242,15 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
     ``stockham4`` (four-step) step under ``stockham``, and under
     ``hybrid`` when it has no two-factor split; otherwise a ``direct``
     (n <= xla_direct_max) or ``mixed2`` contraction step, and the
-    ``general`` 1-D pipeline for lengths with no two-factor split.
+    ``general`` 1-D pipeline for lengths with no two-factor split.  A
+    complex128 plan takes no kernel step (plan.py:331): the kernels
+    compute in f32.
     """
     steps = []
     ndim = len(spec.shape)
     axes_list = list(axes_list)
-    kernels = backend in ("stockham", "hybrid")
+    kernels = (backend in ("stockham", "hybrid")
+               and spec.dtype != "complex128")
     if (kernels and spec.f2_impl != "off"
             and len(axes_list) >= 2 and ndim >= 2
             and axes_list[0] == ndim - 1 and axes_list[1] == ndim - 2):
@@ -261,6 +300,8 @@ DMA_MIN_POST = 65536
 # Step kinds that end in a kernel write, so the norm scale can ride it.
 KERNEL_STEPS = ("stockham", "stockham2", "stockham4", "fourstep_ring",
                 "dma_ring", "fused2_ring")
+# The routes that take f32 planes only (their bf16 forms are not ported).
+F32_ROUTES = ("fourstep_ring", "dma_ring", "fused2_ring")
 
 
 def route_steps(spec: PlanSpec, steps, shape):
@@ -324,12 +365,18 @@ def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
 def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
               fuse_scale: float = 1.0):
     """Execute the steps; ``fuse_scale`` rides the last step's write when
-    that step is a kernel.  Counterpart: ``regent_fft_tpu/plan.py:439``."""
+    that step is a kernel.  bf16 planes go through the contraction steps
+    as f32 and come back bf16 (plan.py:450-455, 554-555).
+    Counterpart: ``regent_fft_tpu/plan.py:439``."""
     s = int(direction)
     last_fusable = (len(steps) - 1 if steps
                     and steps[-1][0] in KERNEL_STEPS else -1)
     for idx, (kind_, a, arg) in enumerate(steps):
         ksc = fuse_scale if idx == last_fusable else 1.0
+        bf = (xr.dtype == torch.bfloat16
+              and kind_ in ("direct", "mixed2", "general"))
+        if bf:
+            xr, xi = xr.float(), xi.float()
         if kind_ == "direct":
             xr, xi = _stockham.direct_dft_axis(xr, xi, a, arg, s, use_3m)
         elif kind_ == "stockham":
@@ -350,7 +397,15 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
             n, n1 = arg
             xr, xi = _stockham.mixed_radix_fft_axis(xr, xi, a, n, n1, s,
                                                     use_3m)
+        if bf:
+            xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
     return xr, xi
+
+
+def _apply_scale(y, scale: float):
+    """``y`` times the norm scale rounded to its dtype, as the JAX plan's
+    ``y * jnp.asarray(scale, y.dtype)``."""
+    return y * float(torch.tensor(scale, dtype=y.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +492,7 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
     axis = spec.axes[-1]
     n = spec.shape[axis]
     other = [a for a in spec.axes if a != axis]
-    last = (backend in ("stockham", "hybrid")
+    last = (backend in ("stockham", "hybrid") and spec.dtype != "complex128"
             and axis == len(spec.shape) - 1)
     kernel = last and _sk.r2c_last_supported(n)
     half = (not other and last and _sk.r2c_half_supported(n)
@@ -484,7 +539,8 @@ def _kernel_lengths(kind_: str, arg) -> Tuple[int, ...]:
 
 
 class Plan:
-    """An executable complex64 C2C, R2C or C2R plan on one device.
+    """An executable C2C, R2C or C2R plan on one device, in complex64,
+    complex32 or complex128.
 
     Create with :func:`make_plan`.  Reusable for any input of the planned
     shape.  Counterpart: ``regent_fft_tpu/plan.py:790``.
@@ -509,6 +565,12 @@ class Plan:
             r = self.real
             step_shape[r.axis] = r.n // 2 if r.packed else r.n // 2 + 1
         self.steps = route_steps(spec, steps, step_shape)
+        self.cdtype = _compute_dtype(spec)
+        if self.cdtype == torch.bfloat16:
+            for k, _, _ in self.steps:
+                if k in F32_ROUTES:
+                    _unported(f"the {k} route on complex32 (bf16 planes)",
+                              "ROADMAP Queue 2 #8, the next slice")
         self.trace_log = {i: _step_name(spec, k, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
@@ -560,12 +622,16 @@ class Plan:
     @property
     def bytes_ideal(self) -> int:
         """Least device-memory traffic: read the input once, write the
-        output once (for a real plan, 4 B per real element and 8 B per
-        half-spectrum bin).  Counterpart: ``regent_fft_tpu/plan.py:935``."""
+        output once, at 4, 8 or 16 B per complex element (complex32, 64,
+        128); a real element counts half of that.
+        Counterpart: ``regent_fft_tpu/plan.py:935``."""
+        itemsize = {"complex32": 4, "complex64": 8,
+                    "complex128": 16}[self.spec.dtype]
         n_elems = int(np.prod(self.spec.shape))
         if self.spec.kind == Kind.C2C:
-            return 2 * n_elems * 8
-        return n_elems * 4 + int(np.prod(_half_shape(self.spec))) * 8
+            return 2 * n_elems * itemsize
+        return (n_elems * itemsize // 2
+                + int(np.prod(_half_shape(self.spec))) * itemsize)
 
     def describe(self) -> str:
         """fftw_print_plan analog, with the JAX package's step lines.
@@ -609,9 +675,10 @@ class Plan:
                          fuse_scale=self.scale if self.fused else 1.0)
 
     def execute_split(self, xr: torch.Tensor, xi: torch.Tensor):
-        """Run a C2C or C2R plan on contiguous f32 planes already on the
-        plan's device: returns the output planes (C2C) or the real f32
-        output (C2R).  Counterpart: the JAX plan's core (plan.py:606,741).
+        """Run a C2C or C2R plan on contiguous planes of the plan's compute
+        dtype (``cdtype``) already on the plan's device: returns the output
+        planes (C2C) or the real output (C2R) in that dtype.
+        Counterpart: the JAX plan's core (plan.py:606,741).
         """
         if self.spec.kind == Kind.R2C:
             raise TypeError("an R2C plan takes one real plane: execute_real")
@@ -619,8 +686,8 @@ class Plan:
         if r is None:
             yr, yi = self._steps(xr, xi)
             if self.scale != 1.0 and not self.fused:
-                yr = yr * self.scale
-                yi = yi * self.scale
+                yr = _apply_scale(yr, self.scale)
+                yi = _apply_scale(yi, self.scale)
             return yr, yi
         if r.route == "kernel":
             if r.packed and not self.spec.packed_layout:
@@ -631,11 +698,13 @@ class Plan:
                 scale=1.0 if self.fused else self.scale)
         xr, xi = self._steps(xr, xi)
         y = _nd.apply_along_axis_real_out(r.fn, r.axis, xr, xi)
-        return y if self.fused or self.scale == 1.0 else y * self.scale
+        return (y if self.fused or self.scale == 1.0
+                else _apply_scale(y, self.scale))
 
     def execute_real(self, x: torch.Tensor):
-        """Run an R2C plan on one contiguous f32 real plane already on the
-        plan's device; returns the half-spectrum planes.
+        """Run an R2C plan on one contiguous real plane of the plan's
+        compute dtype already on the plan's device; returns the
+        half-spectrum planes.
         Counterpart: the JAX plan's R2C core (plan.py:674).
         """
         if self.spec.kind != Kind.R2C:
@@ -650,34 +719,39 @@ class Plan:
             return yr, yi
         yr, yi = self._steps(*_nd.apply_along_axis_real_in(r.fn, r.axis, x))
         if self.scale != 1.0 and not self.fused:
-            yr = yr * self.scale
-            yi = yi * self.scale
+            yr = _apply_scale(yr, self.scale)
+            yi = _apply_scale(yi, self.scale)
         return yr, yi
 
-    def __call__(self, x) -> torch.Tensor:
+    def __call__(self, x):
         """Transform ``x`` on the plan's device.
 
-        C2C takes a numpy array, tensor or SplitComplex and returns
-        ``torch.complex64``; R2C takes a real array or tensor and returns
-        the complex64 half spectrum; C2R takes the half spectrum and
-        returns float32.  Counterpart: ``regent_fft_tpu/plan.py:1056``.
+        C2C takes a numpy array, tensor or SplitComplex and returns the
+        plan dtype's representation: ``torch.complex64``,
+        ``torch.complex128``, or for complex32 a SplitComplex of bf16
+        planes.  R2C takes a real array or tensor and returns the half
+        spectrum in the same representation; C2R takes the half spectrum
+        and returns float32, float64 or bfloat16.
+        Counterpart: ``regent_fft_tpu/plan.py:1056``.
         """
         if self._destroyed:
             raise RuntimeError("plan was destroyed (destroy_plan); re-plan first")
         s = self.spec
         if s.kind == Kind.R2C:
-            x = as_real(x, self.device)
+            x = as_real(x, self.device, self.cdtype)
             if tuple(x.shape) != s.shape:
                 raise ValueError(f"input shape {tuple(x.shape)} != planned "
                                  f"{s.shape}")
-            return from_split(SplitComplex(*self.execute_real(x)))
-        sx = as_split(x, self.device)
+            return from_split(SplitComplex(*self.execute_real(x)), s.dtype)
+        sx = as_split(x, self.device, self.cdtype)
         expect = s.shape if s.kind == Kind.C2C else _half_shape(s)
         if sx.shape != expect:
             raise ValueError(f"input shape {sx.shape} != planned {expect}")
         if s.kind == Kind.C2R:
-            return self.execute_split(sx.re, sx.im)
-        return from_split(SplitComplex(*self.execute_split(sx.re, sx.im)))
+            y = self.execute_split(sx.re, sx.im)
+            return y.to(torch.bfloat16) if s.dtype == "complex32" else y
+        return from_split(SplitComplex(*self.execute_split(sx.re, sx.im)),
+                          s.dtype)
 
     execute = __call__
 

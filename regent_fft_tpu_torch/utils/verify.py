@@ -16,7 +16,9 @@ from ..dtypes import SplitComplex
 
 
 def to_numpy_complex(y) -> np.ndarray:
-    """Materialize any output representation as numpy complex128.
+    """Materialize any output representation as numpy complex128: numpy
+    arrays, tensors of any dtype and device (bf16, f32, f64, complex), and
+    SplitComplex planes of bf16 (complex32), f32 or f64.
 
     Counterpart: ``regent_fft_tpu/utils/verify.py:28``.
     """

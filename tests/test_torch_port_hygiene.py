@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-it never runs quietly on the host when the card is missing."""
+"""The port stands alone: neither it nor ``chip_smoke.py`` imports JAX or
+the JAX package, and it never runs quietly on the host when the card is
+missing."""
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +21,7 @@ import regent_fft_tpu_torch.ops.nd, regent_fft_tpu_torch.utils.verify
 import regent_fft_tpu_torch.ops.real, regent_fft_tpu_torch.ops.stockham
 import regent_fft_tpu_torch.ops.fourstep
 import regent_fft_tpu_torch.utils.plog
+import chip_smoke
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "regent_fft_tpu" or m.startswith("regent_fft_tpu.")]
@@ -34,8 +36,34 @@ def test_import_pulls_in_no_jax():
     assert r.stdout.strip() == ""
 
 
+# Every module of the port; a new module must be added here and to _PROBE.
+PORT_MODULES = {
+    "__init__.py", "api.py", "dtypes.py", "plan.py", "ops/__init__.py",
+    "ops/_build.py", "ops/factor.py", "ops/fourstep.py", "ops/nd.py",
+    "ops/real.py", "ops/stockham.py", "ops/stockham_kernels.py",
+    "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py"}
+# The port's CPU test files, one or more per slice.
+PORT_TESTS = {
+    "test_torch_port_hygiene.py", "test_torch_port_tables.py",
+    "test_torch_port_kernels.py", "test_torch_port_plan.py",
+    "test_torch_port_real.py", "test_torch_port_real_plan.py",
+    "test_torch_port_fourstep.py", "test_torch_port_complex32.py",
+    "test_torch_port_complex128.py"}
+
+
+def test_file_lists_cover_the_port():
+    pkg = REPO / "regent_fft_tpu_torch"
+    assert {str(p.relative_to(pkg)) for p in pkg.rglob("*.py")} == PORT_MODULES
+    assert {p.name for p in (REPO / "tests").glob("test_torch_port_*.py")} \
+        == PORT_TESTS
+    for name in PORT_TESTS - {"test_torch_port_hygiene.py"}:
+        text = (REPO / "tests" / name).read_text()
+        assert "regent_fft_tpu_torch" in text, name
+
+
 def test_no_source_file_names_jax():
-    for p in (REPO / "regent_fft_tpu_torch").rglob("*.py"):
+    files = list((REPO / "regent_fft_tpu_torch").rglob("*.py"))
+    for p in files + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")
