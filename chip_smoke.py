@@ -19,20 +19,25 @@ Phases (any failure raises and the script exits non-zero):
    kernel length (ragged trailing extent) and fused2 pair,
    against torch.fft in float64; the three C2C kernels on bf16 planes
    (complex32) at every length of the C2C sweep and its fused2 pairs (odd
-   batches, both signs), each against its plain version and against
-   torch.fft in float64 of the bf16-rounded input, within
-   tolerance(n, "complex32"); then each kernel at the main path's
-   shapes, held against its plain PyTorch version on the card
-   (rel_l2 <= tolerance(n), of "complex32" for the bf16 kernels) and timed
+   batches, both signs), each against its plain version (within
+   ``PLAIN_LIMIT``) and against torch.fft in float64 of the bf16-rounded
+   input (within tolerance(n, "complex32")); the bf16 slab ring at the
+   ring sweep's lengths and pairs (odd batches), the bf16 leading-axis
+   four-step at n = 64..4096 on axes 0 and 1 (f32 planes out where
+   r1 < 16; each stage also against its plain version), and the gap-fused
+   pass on the fused2 pairs (B = 2, Y = 3) in both types, the same way;
+   then each kernel at every shape the main path gives it, held against
+   its plain PyTorch version on the card (rel_l2 <= tolerance(n), or
+   ``PLAIN_LIMIT`` for the bf16 kernels) and timed
    (median of CUDA-event runs with the L2 flushed before each) beside its
    bound, its plain version and one torch.fft call over the same rows or
    axes where one computes the same function (a yardstick the port never
    calls; for the bf16 kernels the torch.complex32 call, cuFFT in fp16,
    where it runs, and the complex64 call beside it).  The four-step kernels
-   (fft_cols_tw, a0fs_a, a0fs_b) have no such call; their entries
-   (fft_last_four_step, fft_axis0_fourstep) are timed whole beside
-   torch.fft.fft, the four-step last axis also by part (the two kernels
-   and the sub-axis swap);
+   (fft_cols_tw, a0fs_a, a0fs_b and the bf16 stages) have no such call;
+   their entries (fft_last_four_step, fft_axis0_fourstep) are timed whole
+   beside torch.fft.fft, the four-step last axis also by part (the two
+   kernels and the sub-axis swap);
 4. main path, C2C: the complex64 plans a user makes -- 3-D 512^3, 1-D
    4096 x 1024 and 2-D 16 x 512^2 -- with the default device and backend.
    The kernel launch counts are zeroed just before the three plans run
@@ -59,7 +64,9 @@ Phases (any failure raises and the script exits non-zero):
    launches exactly; then the checks, timings and profile of phase 4/5,
    and the 512^3 times by route side by side;
 7. main path, data types (``DTYPE_PLANS``): complex32 C2C plans of 512^3
-   (its input a SplitComplex of bf16 planes on the card), 4096 x 1024 and
+   (its input a SplitComplex of bf16 planes on the card; the default route,
+   then ``axis0_impl="fourstep"``, ``"dma"`` and ``f2_impl="ring"``),
+   4 x 256^3 (axes 1-3) with ``axis0_impl="fourstep"``, 4096 x 1024 and
    16 x 512^2, and complex128 C2C plans of 256^3 and 4096 x 1024, with the
    default device and backend.  One group per plan as in phase 6: the
    complex32 plans launch only the bf16 kernels, the complex128 plans
@@ -68,16 +75,22 @@ Phases (any failure raises and the script exits non-zero):
    round-trip through ``plan.inverse()``; then timed beside its bytes
    bound, torch.fft on complex64 of the same data and torch.fft on the
    plan's own type where that runs (complex128; torch.complex32 for the
-   complex32 plans), and traced.
+   complex32 plans), and traced; the complex32 512^3 times by route side
+   by side;
+8. main path, the gap-fused route (``GAP_PLANS``): complex64 and complex32
+   512^3 plans built with ``REGENT_FFT_GAP_FUSED=1`` set for this group
+   only (the plan cache cleared before and after), checked, counted, timed
+   and traced as in phase 7.
 
-Prints one ``{"plans": [...]}`` line (seventeen plans), one
-``{"kernels": [...]}`` line (thirteen kernels; ``launches`` sums every
-main-path run, ``launches_by_path`` splits them), the nvidia-smi line, and
-last the device line.  Exits non-zero, with no result, when no CUDA device
-is present.
+Prints how long each phase took, one ``{"plans": [...]}`` line (23 plans),
+one ``{"kernels": [...]}`` line (19 kernels; ``launches`` sums every
+main-path run, ``launches_by_path`` splits them, and every kernel must
+have launched), the nvidia-smi line, and last the device line.  Exits
+non-zero, with no result, when no CUDA device is present.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -110,9 +123,31 @@ KERNELS = {   # name: (replaces, source)
                       STOCKHAM_CU),
     "fft_fused2_bf16": (f"{PS}:875 (_runner_fused2, io=bf16: the same bodies "
                         f"on both axes)", STOCKHAM_CU),
+    "fft_gap": (f"{PS}:1127 (_runner_fused2_gap)", STOCKHAM_CU),
+    "fft_gap_bf16": (f"{PS}:1127 (_runner_fused2_gap, io=bf16: _stockham_tile "
+                     f"on both axes)", STOCKHAM_CU),
+    "a0fs_a_bf16": (f"{PS}:1843 (_runner_a0fs, stage a, io=bf16: 'hd' dots "
+                    f"_dg0_3m :1800)", FOURSTEP_CU),
+    "a0fs_b_bf16": (f"{PS}:1843 (_runner_a0fs, stage b, io=bf16: 'hd' dots "
+                    f"_dg0_3m :1800)", FOURSTEP_CU),
+    "fft_axis_ring_bf16": (f"{PS}:1324 (_runner_axis0_dma, io=bf16)", RING_CU),
+    "fft_axes2_ring_bf16": (f"{PS}:1324 (_runner_axis0_dma, fuse_last, "
+                            f"io=bf16)", RING_CU),
 }
+# Kernel-vs-plain limits (rel_l2) of the bf16 kernels, set from what a
+# correct kernel reads (H100 runs): one bf16 rounding of an f32 result
+# leaves the one-pass kernels within about 7e-5 of their plain versions;
+# the two-pass ones (the bf16 intermediate between their two axes rounds
+# some values the other way) within about 2.6e-3.  tolerance(n,
+# "complex32") would sit 40-5000 times above these.  Every f32 kernel is
+# held to tolerance(n).
+PLAIN_LIMIT = {"fft_last_bf16": 1e-3, "fft_cols_bf16": 1e-3,
+               "fft_axis_ring_bf16": 1e-3, "a0fs_a_bf16": 1e-3,
+               "a0fs_b_bf16": 1e-3, "fft_fused2_bf16": 1e-2,
+               "fft_axes2_ring_bf16": 1e-2, "fft_gap_bf16": 1e-2}
 MAIN_PLANS = [((512, 512, 512), (0, 1, 2)), ((4096, 1024), (1,)),
               ((16, 512, 512), (1, 2))]
+C2C_LAUNCHES = {"fft_fused2": 2, "fft_cols": 1, "fft_last": 1}
 REAL_PLANS = [((4096, 1024), (1,), "r2c"), ((4096, 1024), (1,), "c2r"),
               ((4, 256, 256, 256), (1, 2, 3), "r2c"),
               ((4, 256, 256, 256), (1, 2, 3), "c2r")]
@@ -152,22 +187,62 @@ ROUTE_PLANS = [
       "(axis 1: kernel-fourstep-ring(n=256))"],
      {"fft_fused2": 1, "a0fs_a": 1, "a0fs_b": 1}),
 ]
-# The complex32 and complex128 plans: (label, shape, axes, dtype, step
-# lines, the launches of one run; every other count must stay 0).
+# The complex32 and complex128 plans: (label, shape, axes, dtype, PlanSpec
+# fields, step lines, the launches of one run; every other count must
+# stay 0).
 DTYPE_PLANS = [
-    ("complex32_cube", CUBE, (0, 1, 2), "complex32",
+    ("complex32_cube", CUBE, (0, 1, 2), "complex32", {},
      ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-butterfly(n=512))"],
      {"fft_fused2_bf16": 1, "fft_cols_bf16": 1}),
-    ("complex32_1d", (4096, 1024), (1,), "complex32",
+    ("complex32_fourstep_ring", CUBE, (0, 1, 2), "complex32",
+     {"axis0_impl": "fourstep"},
+     ["(axis 1: kernel-fused2(512, 512))",
+      "(axis 0: kernel-fourstep-ring(n=512))"],
+     {"fft_fused2_bf16": 1, "a0fs_a_bf16": 1, "a0fs_b_bf16": 1}),
+    ("complex32_dma_ring", CUBE, (0, 1, 2), "complex32", {"axis0_impl": "dma"},
+     ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-dma-ring(n=512))"],
+     {"fft_fused2_bf16": 1, "fft_axis_ring_bf16": 1}),
+    ("complex32_fused2_ring", CUBE, (0, 1, 2), "complex32", {"f2_impl": "ring"},
+     ["(axis 1: kernel-fused2-ring(512, 512))",
+      "(axis 0: kernel-butterfly(n=512))"],
+     {"fft_axes2_ring_bf16": 1, "fft_cols_bf16": 1}),
+    ("complex32_fourstep_ring_mid", (4, 256, 256, 256), (1, 2, 3), "complex32",
+     {"axis0_impl": "fourstep"},
+     ["(axis 2: kernel-fused2(256, 256))",
+      "(axis 1: kernel-fourstep-ring(n=256))"],
+     {"fft_fused2_bf16": 1, "a0fs_a_bf16": 1, "a0fs_b_bf16": 1}),
+    ("complex32_1d", (4096, 1024), (1,), "complex32", {},
      ["(axis 1: kernel-butterfly(n=1024))"], {"fft_last_bf16": 1}),
-    ("complex32_2d", (16, 512, 512), (1, 2), "complex32",
+    ("complex32_2d", (16, 512, 512), (1, 2), "complex32", {},
      ["(axis 1: kernel-fused2(512, 512))"], {"fft_fused2_bf16": 1}),
-    ("complex128_cube", (256, 256, 256), (0, 1, 2), "complex128",
+    ("complex128_cube", (256, 256, 256), (0, 1, 2), "complex128", {},
      ["(axis 2: direct-einsum(n=256))", "(axis 1: direct-einsum(n=256))",
       "(axis 0: direct-einsum(n=256))"], {}),
-    ("complex128_1d", (4096, 1024), (1,), "complex128",
+    ("complex128_1d", (4096, 1024), (1,), "complex128", {},
      ["(axis 1: einsum-mixed2(1024=32x32))"], {}),
 ]
+# The gap-fused plans, built under REGENT_FFT_GAP_FUSED=1 (same fields).
+GAP_STEPS = ["(axis 0: kernel-gap-fused(512, 512))",
+             "(axis 1: kernel-butterfly(n=512))"]
+GAP_PLANS = [
+    ("gap_complex64", CUBE, (0, 1, 2), "complex64", {}, GAP_STEPS,
+     {"fft_gap": 1, "fft_cols": 1}),
+    ("gap_complex32", CUBE, (0, 1, 2), "complex32", {}, GAP_STEPS,
+     {"fft_gap_bf16": 1, "fft_cols_bf16": 1}),
+]
+
+
+def _ptxas(log: str):
+    """One line per compiled kernel: its mangled name and what ptxas said
+    of its registers, stack and spills."""
+    props, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+            props[fn] = []
+        elif fn and ("spill" in ln or "registers" in ln):
+            props[fn].append(ln.replace("ptxas info    :", "").strip())
+    return [f"{fn}: {'; '.join(lines)}" for fn, lines in props.items()]
 
 
 def _smi() -> str:
@@ -178,10 +253,15 @@ def _smi() -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+
+    def phase(label):
+        print(f"phase {label} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     import numpy as np
     import regent_fft_tpu_torch as rt
     from regent_fft_tpu_torch.ops import _build
@@ -210,9 +290,10 @@ def main() -> int:
     _build.load()
     print(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
           f"{_build.build_seconds} s) -> {_build.library_path().name}")
-    ptxas = [ln for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print("ptxas: " + " | ".join(ln.strip() for ln in ptxas))
+    for ln in _ptxas(_build.build_log):
+        print("ptxas " + ln)
+
+    phase("2 (build)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB
@@ -292,13 +373,21 @@ def main() -> int:
           f"pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}")
 
     # the C2C kernels on bf16 planes: the same lengths and pairs, against
-    # their plain versions and torch.fft in float64 of the bf16-rounded input
+    # their plain versions (within PLAIN_LIMIT) and torch.fft in float64 of
+    # the bf16-rounded input (within tolerance(n, "complex32"))
     def cplx(yr, yi):
         return torch.complex(yr.double(), yi.double())
 
-    def check_bf16(kname, shape, dims, sign, scale=0.5):
-        kern = getattr(sk, kname)
-        plain = getattr(sk, kname + "_plain")
+    bf_worst = {}   # kernel: [worst vs float64, worst vs plain, cases]
+
+    def note_bf16(key, e_ref, e_plain):
+        w = bf_worst.setdefault(key, [0.0, 0.0, 0])
+        w[:] = max(w[0], e_ref), max(w[1], e_plain), w[2] + 1
+
+    def check_bf16(kname, shape, dims, sign, scale=0.5, kern=None,
+                   plain=None):
+        kern = kern or getattr(sk, kname)
+        plain = plain or getattr(sk, kname + "_plain")
         xr, xi = (t.to(torch.bfloat16) for t in planes(shape))
         yr, yi = kern(xr, xi, sign, scale)
         if yr.dtype != torch.bfloat16 or yi.dtype != torch.bfloat16:
@@ -310,27 +399,20 @@ def main() -> int:
         y = cplx(yr, yi)
         e_ref = rel_l2(y, ref)
         e_plain = rel_l2(y, cplx(*plain(xr, xi, sign, scale)))
-        tol = tolerance(n, "complex32")
-        if not max(e_ref, e_plain) <= tol:
+        tol, lim = tolerance(n, "complex32"), PLAIN_LIMIT[kname + "_bf16"]
+        if not (e_ref <= tol and e_plain <= lim):
             raise AssertionError(f"{kname}_bf16{shape} sign {sign}: rel_l2 vs "
-                                 f"torch.fft {e_ref}, vs plain {e_plain} > "
-                                 f"{tol}")
-        return e_ref, e_plain
+                                 f"torch.fft {e_ref} (limit {tol}), vs plain "
+                                 f"{e_plain} (limit {lim})")
+        note_bf16(kname + "_bf16", e_ref, e_plain)
 
-    bf_worst = {}
     for kname, shape, dims in (
             [("fft_last", (37, n), (1,)) for n in lengths
              if sk.kernel_len_ok(n, True)]
             + [("fft_cols", (3, n, 45), (1,)) for n in lengths]
             + [("fft_fused2", (3, n1, n2), (1, 2)) for n1, n2 in pairs]):
         for sign in (-1, 1):
-            e_ref, e_plain = check_bf16(kname, shape, dims, sign)
-            w = bf_worst.setdefault(kname + "_bf16", [0.0, 0.0, 0])
-            w[:] = max(w[0], e_ref), max(w[1], e_plain), w[2] + 1
-    for kname, (e_ref, e_plain, count) in bf_worst.items():
-        print(f"sweep bf16: {kname} {count} cases (odd batches, both signs): "
-              f"worst rel_l2 vs torch.fft float64 {e_ref:.3e}, vs plain "
-              f"{e_plain:.3e}")
+            check_bf16(kname, shape, dims, sign)
 
     def packed_half(h, n):
         """(B, n/2+1) complex -> the packed (B, n/2) planes."""
@@ -423,26 +505,94 @@ def main() -> int:
           f"signs: worst rel_l2 {worst:.3e}; ring: {len(lengths)} lengths "
           f"and {len(pairs)} fused pairs: worst {ring_worst:.3e}")
 
+    # the bf16 ring at the same lengths (post % 8 == 0, ragged against the
+    # slab width) and pairs, against its plain version and float64
+    def ring_fn(fuse, plain=False):
+        f = fs.fft_axis_ring_plain if plain else fs.fft_axis_ring
+        return lambda xr, xi, s, sc: f(xr, xi, s, sc, fuse)
+
+    for fuse, shapes in ((False, [(3, n, 40) for n in lengths]),
+                         (True, [(3, n1, n2) for n1, n2 in pairs])):
+        rname = "fft_axes2_ring" if fuse else "fft_axis_ring"
+        for shape in shapes:
+            for sign in (-1, 1):
+                check_bf16(rname, shape, (1, 2) if fuse else (1,), sign,
+                           kern=ring_fn(fuse), plain=ring_fn(fuse, True))
+    # the gap-fused pass on the fused2 pairs, B = 2 and Y = 3, both types
+    gap_worst = 0.0
+    for n1, n2 in pairs:
+        if not sk.fused_gap_supported(n1, n2):
+            raise AssertionError(f"gap pair {(n1, n2)} not supported")
+        for sign in (-1, 1):
+            gap_worst = max(gap_worst, check("fft_gap", sk.fft_axes_gap,
+                                             (2, n1, 3, n2), (1, 3), sign))
+            check_bf16("fft_gap", (2, n1, 3, n2), (1, 3), sign,
+                       kern=sk.fft_axes_gap, plain=sk.fft_axes_gap_plain)
+    print(f"sweep: fft_gap {len(pairs)} pairs (B = 2, Y = 3), both signs: "
+          f"worst rel_l2 vs torch.fft {gap_worst:.3e}")
+    # the bf16 leading-axis four-step at every gated length: bf16 out from
+    # r1 = 16 (n = 256), f32 planes out below, as in the JAX package; each
+    # stage also against its plain version (stage b on the plain stage a)
+    worst = worst_stage = 0.0
+    for n in a0_lengths:
+        r1 = sk._a0fs_split(n)[0]
+        want = torch.bfloat16 if r1 >= 16 else torch.float32
+        lim = PLAIN_LIMIT["a0fs_a_bf16"] if r1 >= 16 else tolerance(n)
+        for shape, axis in (((n, 8, 128), 0), ((2, n, 8, 128), 1)):
+            xr, xi = (t.to(torch.bfloat16) for t in planes(shape))
+            xd = cplx(xr, xi)
+            sr, si = (t.to(want).reshape(shape[0] if axis else 1, n, 1024)
+                      for t in (xr, xi))
+            for sign in (-1, 1):
+                yr, yi = fs.fft_axis0_fourstep(xr, xi, axis,
+                                               rt.Direction(sign), 0.5)
+                if yr.dtype != want:
+                    raise AssertionError(f"bf16 four-step {shape}: {yr.dtype}")
+                ref = (torch.fft.fft(xd, dim=axis) if sign < 0 else
+                       torch.fft.ifft(xd, dim=axis, norm="forward")) * 0.5
+                err = rel_l2(cplx(yr, yi), ref)
+                mid = fs.a0fs_stage_plain("a", sr, si, sign)
+                e_a = rel_l2(cplx(*fs.a0fs_stage("a", sr, si, sign)),
+                             cplx(*mid))
+                e_b = rel_l2(cplx(*fs.a0fs_stage("b", *mid, sign, 0.5)),
+                             cplx(*fs.a0fs_stage_plain("b", *mid, sign, 0.5)))
+                if not (err <= tolerance(n, "complex32")
+                        and max(e_a, e_b) <= lim):
+                    raise AssertionError(
+                        f"bf16 four-step {shape} sign {sign}: rel_l2 {err}; "
+                        f"stages vs plain {e_a}, {e_b} (limit {lim})")
+                worst = max(worst, err)
+                worst_stage = max(worst_stage, e_a, e_b)
+    print(f"sweep bf16: leading-axis four-step n = 64..4096 (axes 0 and 1), "
+          f"both signs: worst rel_l2 vs torch.fft float64 {worst:.3e}, "
+          f"stages vs plain {worst_stage:.3e}")
+    for kname, (e_ref, e_plain, count) in bf_worst.items():
+        print(f"sweep bf16: {kname} {count} cases (odd batches, both signs): "
+              f"worst rel_l2 vs torch.fft float64 {e_ref:.3e}, vs plain "
+              f"{e_plain:.3e} (limit {PLAIN_LIMIT[kname]})")
+    phase("3a (sweeps)")
+
     # 3b. kernels at the main path's shapes against their plain versions
     def kernel_case(shape, n, pairs, kern, plain, lib, nbytes, nflops,
-                    dtype="complex64"):
+                    limit=None):
         """`pairs`: (kernel thunk, plain thunk) pairs, each returning one
-        tensor, compared within tolerance(n, dtype); `kern`, `plain`, `lib`:
-        thunks timed."""
+        tensor, compared within `limit` (default tolerance(n)); `kern`,
+        `plain`, `lib`: thunks timed."""
+        limit = limit or tolerance(n)
         max_abs = max_rel = 0.0
         for k_fn, p_fn in pairs:
             k, p = k_fn(), p_fn()
             torch.cuda.synchronize()
-            rel = rel_l2(k, p)
-            if not rel <= tolerance(n, dtype):
+            rel = dev_rel(k, p)
+            if not rel <= limit:
                 raise AssertionError(f"{shape}: kernel vs plain rel_l2 {rel} "
-                                     f"> {tolerance(n, dtype)}")
+                                     f"> {limit}")
             max_rel = max(max_rel, rel)
             max_abs = max(max_abs, float(torch.max(torch.abs(k - p))))
             del k, p
         b_ms, b_by = bound(nbytes, nflops)
         return {"shape": list(shape), "n": n, "max_abs_err": max_abs,
-                "max_rel_err": max_rel, "tolerance": tolerance(n, dtype),
+                "max_rel_err": max_rel, "plain_limit": limit,
                 "ms": timed(kern), "plain_ms": timed(plain), "bound_ms": b_ms,
                 "bound_by": b_by,
                 "library_ms": None if lib is None else timed(lib)}
@@ -454,9 +604,9 @@ def main() -> int:
                 "plain_ms": timed(plain), "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": timed(lib)}
 
-    def c2c_case(kname, shape, dims):
-        kern = getattr(sk, kname)
-        plain = getattr(sk, kname + "_plain")
+    def c2c_case(kname, shape, dims, kern=None, plain=None):
+        kern = kern or getattr(sk, kname)
+        plain = plain or getattr(sk, kname + "_plain")
         n = int(np.prod([shape[d] for d in dims]))
         xr, xi = planes(shape)
         scale = 1.0 / math.sqrt(n)
@@ -549,46 +699,59 @@ def main() -> int:
 
     a0fs_done = {}
 
-    def a0fs_case(stage, shape, axis):
-        """a0fs_a and a0fs_b on one input (stage b on stage a's plain
-        output); their entry fft_axis0_fourstep timed whole."""
-        key = (shape, axis)
+    def a0fs_case(stage, shape, axis, bf16=False):
+        """a0fs_a and a0fs_b (or their bf16 instances) on one input (stage
+        b on stage a's plain output); their entry fft_axis0_fourstep timed
+        whole."""
+        key = (shape, axis, bf16)
         if key not in a0fs_done:
             n = shape[axis]
             pre = int(np.prod(shape[:axis]))
             post = int(np.prod(shape[axis + 1:]))
             r1, r2 = sk._a0fs_split(n)
             xr, xi = planes((pre, n, post))
+            if bf16:
+                xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+            eb = 8 if bf16 else 16
             scale = 1.0 / math.sqrt(n)
             mid = {s: fs.a0fs_stage_plain("a", xr, xi, s) for s in (-1, 1)}
+
+            def c64(yr, yi):
+                return torch.complex(yr.float(), yi.float())
             ca = kernel_case(
                 shape, n,
-                [(lambda s=s: torch.complex(*fs.a0fs_stage("a", xr, xi, s)),
-                  lambda s=s: torch.complex(*mid[s])) for s in (-1, 1)],
+                [(lambda s=s: c64(*fs.a0fs_stage("a", xr, xi, s)),
+                  lambda s=s: c64(*mid[s])) for s in (-1, 1)],
                 lambda: fs.a0fs_stage("a", xr, xi, -1),
                 lambda: fs.a0fs_stage_plain("a", xr, xi, -1), None,
-                16 * xr.numel(), (5 * math.log2(r1) + 6) * xr.numel())
+                eb * xr.numel(), (5 * math.log2(r1) + 6) * xr.numel(),
+                PLAIN_LIMIT["a0fs_a_bf16"] if bf16 else None)
             cb = kernel_case(
                 shape, n,
-                [(lambda s=s: torch.complex(*fs.a0fs_stage("b", *mid[s], s,
-                                                           scale)),
-                  lambda s=s: torch.complex(*fs.a0fs_stage_plain(
-                      "b", *mid[s], s, scale))) for s in (-1, 1)],
+                [(lambda s=s: c64(*fs.a0fs_stage("b", *mid[s], s, scale)),
+                  lambda s=s: c64(*fs.a0fs_stage_plain("b", *mid[s], s,
+                                                       scale)))
+                 for s in (-1, 1)],
                 lambda: fs.a0fs_stage("b", *mid[-1], -1),
                 lambda: fs.a0fs_stage_plain("b", *mid[-1], -1), None,
-                16 * xr.numel(), 5 * math.log2(r2) * xr.numel())
+                eb * xr.numel(), 5 * math.log2(r2) * xr.numel(),
+                PLAIN_LIMIT["a0fs_b_bf16"] if bf16 else None)
             del mid
             fr, fi = xr.reshape(shape), xi.reshape(shape)
-            xc = torch.complex(fr, fi)
+            xc = torch.complex(fr.float(), fi.float())
+            xh, _ = as_c32(fr, fi) if bf16 else (None, None)
+            lib, _ = lib_c32(xh, (axis,)) if bf16 else (None, None)
             ca["entry"] = cb["entry"] = entry_case(
                 "fft_axis0_fourstep", shape,
                 lambda: fs.fft_axis0_fourstep(fr, fi, axis, rt.FORWARD),
                 lambda: fs.a0fs_stage_plain(
                     "b", *fs.a0fs_stage_plain("a", xr, xi, -1), -1),
-                lambda: torch.fft.fft(xc, dim=axis), 16 * xr.numel(),
+                lib or (lambda: torch.fft.fft(xc, dim=axis)), eb * xr.numel(),
                 5 * xr.numel() * math.log2(n))
+            ca["entry"]["library_call"] = cb["entry"]["library_call"] = (
+                "torch.fft.fft complex32" if lib else "torch.fft.fft complex64")
             a0fs_done[key] = {"a": ca, "b": cb}
-            del xr, xi, fr, fi, xc
+            del xr, xi, fr, fi, xc, xh, lib
         return a0fs_done[key].pop(stage)
 
     def ring_case(shape, fuse):
@@ -637,11 +800,11 @@ def main() -> int:
         except Exception as e:   # noqa: BLE001
             return None, repr(e)[:160]
 
-    def bf16_case(kname, shape, dims):
-        """A C2C kernel on bf16 planes against its plain version; both also
+    def bf16_case(kname, shape, dims, kern=None, plain=None):
+        """A kernel on bf16 planes against its plain version; both also
         against torch.fft in float64 of the bf16-rounded input."""
-        kern = getattr(sk, kname)
-        plain = getattr(sk, kname + "_plain")
+        kern = kern or getattr(sk, kname)
+        plain = plain or getattr(sk, kname + "_plain")
         n = int(np.prod([shape[d] for d in dims]))
         xr, xi = (t.to(torch.bfloat16) for t in planes(shape))
         scale = 1.0 / math.sqrt(n)
@@ -661,7 +824,7 @@ def main() -> int:
                            lambda: plain(xr, xi, -1, 1.0),
                            lib or (lambda: torch.fft.fftn(xc, dim=dims)),
                            8 * xr.numel(), 5 * xr.numel() * math.log2(n),
-                           dtype="complex32")
+                           PLAIN_LIMIT[kname + "_bf16"])
         case["library_call"] = ("torch.fft.fftn complex32" if lib
                                 else "torch.fft.fftn complex64")
         case["library_c32_ms"] = case["library_ms"] if lib else None
@@ -678,16 +841,26 @@ def main() -> int:
         return case
 
     mid4 = (4, 256, 256, 256)
+    gap = {"kern": sk.fft_axes_gap, "plain": sk.fft_axes_gap_plain}
     cases = {
         "fft_last": [lambda: c2c_case("fft_last", (4096, 1024), (1,)),
                      lambda: c2c_case("fft_last", (4096, 640), (1,)),
                      # stage 2 of the 64 x 2^20 four-step
-                     lambda: c2c_case("fft_last", (32768, 2048), (1,))],
-        "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,))],
+                     lambda: c2c_case("fft_last", (32768, 2048), (1,)),
+                     # the half-length C2R of 4096 x 1024
+                     lambda: c2c_case("fft_last", (4096, 512), (1,))],
+        "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,)),
+                     # the mid axis of the 512^3 gap-fused plan
+                     lambda: c2c_case("fft_cols", CUBE, (1,)),
+                     # axes 2 and 1 of the packed 4 x 256^3 real plans
+                     lambda: c2c_case("fft_cols", (1024, 256, 128), (1,)),
+                     lambda: c2c_case("fft_cols", (4, 256, 32768), (1,))],
         "fft_fused2": [lambda: c2c_case("fft_fused2", (512, 512, 512),
                                         (1, 2)),
                        # the trailing pair of the 4 x 256^3 mid-axis plan
                        lambda: c2c_case("fft_fused2", (1024, 256, 256),
+                                        (1, 2)),
+                       lambda: c2c_case("fft_fused2", (16, 512, 512),
                                         (1, 2))],
         "fft_last_r2c": [lambda: r2c_case((4096, 1024), False),
                          lambda: r2c_case((262144, 256), True)],
@@ -704,10 +877,28 @@ def main() -> int:
         "fft_last_bf16": [lambda: bf16_case("fft_last", (4096, 1024), (1,)),
                           lambda: bf16_case("fft_last", (8192, 512), (1,))],
         "fft_cols_bf16": [lambda: bf16_case("fft_cols", (1, 512, 262144),
-                                            (1,))],
+                                            (1,)),
+                          lambda: bf16_case("fft_cols", CUBE, (1,))],
         "fft_fused2_bf16": [lambda: bf16_case("fft_fused2", CUBE, (1, 2)),
                             lambda: bf16_case("fft_fused2", (16, 512, 512),
+                                              (1, 2)),
+                            lambda: bf16_case("fft_fused2", (1024, 256, 256),
                                               (1, 2))],
+        # the gap-fused pass: 512^3 (B = 1) and 4 x 256^3 as (B, z, Y, x)
+        "fft_gap": [lambda: c2c_case("fft_gap", (1,) + CUBE, (1, 3), **gap),
+                    lambda: c2c_case("fft_gap", mid4, (1, 3), **gap)],
+        "fft_gap_bf16": [
+            lambda: bf16_case("fft_gap", (1,) + CUBE, (1, 3), **gap),
+            lambda: bf16_case("fft_gap", mid4, (1, 3), **gap)],
+        "a0fs_a_bf16": [lambda: a0fs_case("a", CUBE, 0, True),
+                        lambda: a0fs_case("a", mid4, 1, True)],
+        "a0fs_b_bf16": [lambda: a0fs_case("b", CUBE, 0, True),
+                        lambda: a0fs_case("b", mid4, 1, True)],
+        "fft_axis_ring_bf16": [lambda: bf16_case(
+            "fft_axis_ring", (1, 512, 262144), (1,), ring_fn(False),
+            ring_fn(False, True))],
+        "fft_axes2_ring_bf16": [lambda: bf16_case(
+            "fft_axes2_ring", CUBE, (1, 2), ring_fn(True), ring_fn(True, True))],
     }
     rows = {}
     for kname, makers in cases.items():
@@ -733,34 +924,16 @@ def main() -> int:
                     "err_vs_f64", "plain_err_vs_f64"):
             if key in first:
                 rows[kname][key] = first[key]
+        print(f"kernel {kname}: " + "; ".join(
+            f"{tuple(c['shape'])} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f}, "
+            f"plain {c['plain_ms']:.4f}, library {c['library_ms']}), rel_l2 vs "
+            f"plain {c['max_rel_err']:.3e}" for c in done), flush=True)
+    phase("3b (kernels at the main-path shapes)")
 
-    def expected_launches(plans):
-        exp = {k: 0 for k in sk.LAUNCHES}
-        for p in plans:
-            sfx = "_bf16" if p.cdtype == torch.bfloat16 else ""
-            for kind_, a, _ in p.steps:
-                if kind_ == "stockham2":
-                    exp["fft_fused2" + sfx] += 1
-                elif kind_ == "stockham":
-                    is_last = a == len(p.spec.shape) - 1
-                    exp[("fft_last" if is_last else "fft_cols") + sfx] += 1
-                else:   # the contraction steps launch no kernel
-                    for k in {"stockham4": ("fft_cols_tw", "fft_last"),
-                              "fourstep_ring": ("a0fs_a", "a0fs_b"),
-                              "dma_ring": ("fft_axis_ring",),
-                              "fused2_ring": ("fft_axes2_ring",)
-                              }.get(kind_, ()):
-                        exp[k] += 1
-            if p.real is not None and p.real.route == "half":
-                exp["fft_last"] += 1
-            elif p.real is not None and p.real.route == "kernel":
-                exp["fft_last_r2c" if p.spec.kind == rt.Kind.R2C
-                    else "ifft_last_c2r"] += 1
-        return exp
-
-    def run_counted(label, plans, inputs):
-        """Zero the counts, run each plan once, read the counts."""
-        expected = expected_launches(plans)
+    def run_counted(label, plans, inputs, want):
+        """Zero the counts, run each plan once, read the counts: they must
+        equal `want` (every kernel it does not name 0)."""
+        expected = {k: want.get(k, 0) for k in sk.LAUNCHES}
         sk.reset_launches()
         outs = [p(x) for p, x in zip(plans, inputs)]
         torch.cuda.synchronize()
@@ -784,10 +957,7 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(seed)
         inputs.append(torch.complex(torch.randn(shape, device=dev, generator=g),
                                     torch.randn(shape, device=dev, generator=g)))
-    outs, launches = run_counted("c2c", plans, inputs)
-    c2c_names = ("fft_last", "fft_cols", "fft_fused2")
-    if min(launches[k] for k in c2c_names) < 1:
-        raise AssertionError(f"a C2C kernel did not launch: {launches}")
+    outs, launches = run_counted("c2c", plans, inputs, C2C_LAUNCHES)
     for kname, row in rows.items():
         row["launches_by_path"]["c2c"] = launches[kname]
         row["launches"] += launches[kname]
@@ -834,6 +1004,8 @@ def main() -> int:
         raise AssertionError(f"small input: rel_l2 {err_small} on {ys.device}")
     print(f"small (4,128,256) vs numpy float64: rel_l2 {err_small}")
 
+    phase("4 (C2C plans)")
+
     # 5. the main path, real: R2C and C2R plans, default device and backend
     kinds = {"r2c": (rt.Kind.R2C, rt.FORWARD), "c2r": (rt.Kind.C2R, rt.BACKWARD)}
     plans = [rt.make_plan(shape, axes=axes, kind=kinds[k][0],
@@ -850,10 +1022,7 @@ def main() -> int:
         x = torch.randn(shape, device=dev, generator=g)
         # a C2R plan gets a Hermitian half spectrum: the rfftn of a real x
         inputs.append(x if k == "r2c" else torch.fft.rfftn(x, dim=axes))
-    outs, launches = run_counted("real", plans, inputs)
-    if launches != {k: REAL_LAUNCHES.get(k, 0) for k in sk.LAUNCHES}:
-        raise AssertionError(f"real launch counts {launches} != "
-                             f"{REAL_LAUNCHES}")
+    outs, launches = run_counted("real", plans, inputs, REAL_LAUNCHES)
     for kname, row in rows.items():
         row["launches_by_path"]["real"] = launches[kname]
         row["launches"] += launches[kname]
@@ -933,6 +1102,8 @@ def main() -> int:
     print(f"small real (4,128,256) vs numpy float64: rfftn rel_l2 {err_r}, "
           f"irfftn {err_c}")
 
+    phase("5 (real plans)")
+
     # 6. the four-step and ring routes, one group per plan: the counts are
     # zeroed just before the plan's one run and read just after
     route_ms = {}
@@ -942,14 +1113,10 @@ def main() -> int:
         got = [ln.strip() for ln in p.describe().splitlines()[1:-1]]
         if got != want_steps:
             raise AssertionError(f"{label} steps: {got}")
-        want = {k: want.get(k, 0) for k in sk.LAUNCHES}
-        if expected_launches([p]) != want:
-            raise AssertionError(f"{label}: steps {p.steps} launch "
-                                 f"{expected_launches([p])}, not {want}")
         g = torch.Generator(device=dev).manual_seed(len(plan_rows))
         x = torch.complex(torch.randn(shape, device=dev, generator=g),
                           torch.randn(shape, device=dev, generator=g))
-        (y,), launches = run_counted(label, [p], [x])
+        (y,), launches = run_counted(label, [p], [x], want)
         for kname, row in rows.items():
             row["launches_by_path"][label] = launches[kname]
             row["launches"] += launches[kname]
@@ -998,25 +1165,24 @@ def main() -> int:
           f"{cube['ms']:.4f}, fourstep {route_ms['fourstep_ring']:.4f}, dma "
           f"{route_ms['dma_ring']:.4f}, ring {route_ms['fused2_ring']:.4f}; "
           f"torch.fft.fftn {cube['library_ms']:.4f}")
+    phase("6 (four-step and ring routes)")
 
-    # 7. the data types: complex32 and complex128 plans, one group each
-    for label, shape, axes, dtype, want_steps, want in DTYPE_PLANS:
-        p = rt.make_plan(shape, axes=axes, dtype=dtype)
+    # 7. the data types: complex32, complex128 and, in phase 8, complex64
+    # plans, one group each
+    def dtype_plan(label, shape, axes, dtype, fields, want_steps, want):
+        p = rt.make_plan(shape, axes=axes, dtype=dtype, **fields)
         print(p.describe())
         got = [ln.strip() for ln in p.describe().splitlines()[1:-1]]
         if got != want_steps:
             raise AssertionError(f"{label} steps: {got}")
-        want = {k: want.get(k, 0) for k in sk.LAUNCHES}
-        if expected_launches([p]) != want:
-            raise AssertionError(f"{label}: steps {p.steps} launch "
-                                 f"{expected_launches([p])}, not {want}")
         g = torch.Generator(device=dev).manual_seed(len(plan_rows))
-        pd = {"complex32": torch.bfloat16, "complex128": torch.float64}[dtype]
+        pd = {"complex32": torch.bfloat16, "complex64": torch.float32,
+              "complex128": torch.float64}[dtype]
         xr = torch.randn(shape, device=dev, generator=g).to(pd)
         xi = torch.randn(shape, device=dev, generator=g).to(pd)
         x = (rt.SplitComplex(xr, xi) if dtype == "complex32"
              else torch.complex(xr, xi))
-        (y,), launches = run_counted(label, [p], [x])
+        (y,), launches = run_counted(label, [p], [x], want)
         for kname, row in rows.items():
             row["launches_by_path"][label] = launches[kname]
             row["launches"] += launches[kname]
@@ -1026,7 +1192,8 @@ def main() -> int:
                   and y.re.dtype == y.im.dtype == torch.bfloat16)
             yc = cplx(y.re, y.im) if ok else None
         else:
-            ok = y.dtype == torch.complex128
+            ok = y.dtype == {"complex64": torch.complex64,
+                             "complex128": torch.complex128}[dtype]
             yc = y
         if not ok or tuple(yc.shape) != s.shape:
             raise AssertionError(f"{label}: output {type(y)} "
@@ -1047,15 +1214,15 @@ def main() -> int:
         steps_ms = timed(lambda: p.execute_split(xr, xi))
         xc = torch.complex(xr.float(), xi.float())
         lib64_ms = timed(lambda: torch.fft.fftn(xc, dim=s.axes))
+        own_ms = own_note = None
         if dtype == "complex32":
             xh, why = as_c32(xr, xi)
             lib, why32 = lib_c32(xh, s.axes)
             own_ms = None if lib is None else timed(lib)
             own_note = why or why32
             del xh
-        else:
+        elif dtype == "complex128":
             own_ms = timed(lambda: torch.fft.fftn(xd, dim=s.axes))
-            own_note = None
         b_ms = 1e3 * p.bytes_ideal / bw
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             p(x)
@@ -1079,15 +1246,43 @@ def main() -> int:
               f"{own_note or ''}, complex64 {lib64_ms:.4f}), rel_l2 vs "
               f"torch.fft float64 {err:.3e} (tolerance {tol:.3e}), roundtrip "
               f"{back:.3e}; device {sum(v for _, v in by):.4f} ms: "
-              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:6]))
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:6]), flush=True)
         del x, xr, xi, xc, xd
         torch.cuda.empty_cache()
+        return ms
+
+    c32_ms = {case[0]: dtype_plan(*case) for case in DTYPE_PLANS}
+    print(f"512^3 complex32 C2C by route (ms): grid "
+          f"{c32_ms['complex32_cube']:.4f}, fourstep "
+          f"{c32_ms['complex32_fourstep_ring']:.4f}, dma "
+          f"{c32_ms['complex32_dma_ring']:.4f}, ring "
+          f"{c32_ms['complex32_fused2_ring']:.4f}")
+    phase("7 (data types)")
+
+    # 8. the gap-fused route: the switch is read when a plan is built, so it
+    # is set for this group only, with the plan cache cleared around it
+    rt.clear_plan_cache()
+    os.environ["REGENT_FFT_GAP_FUSED"] = "1"
+    try:
+        gap_ms = {case[0]: dtype_plan(*case) for case in GAP_PLANS}
+    finally:
+        del os.environ["REGENT_FFT_GAP_FUSED"]
+        rt.clear_plan_cache()
+    print(f"512^3 C2C gap-fused route (ms): complex64 "
+          f"{gap_ms['gap_complex64']:.4f} (grid {plan_rows[0]['ms']:.4f}), "
+          f"complex32 {gap_ms['gap_complex32']:.4f} (grid "
+          f"{c32_ms['complex32_cube']:.4f})")
+    phase("8 (gap-fused route)")
+    idle = [k for k, row in rows.items() if row["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels no main-path run launched: {idle}")
 
     print(json.dumps({"plans": plan_rows}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -7,9 +7,11 @@
 //   fft_cols_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
 //   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
 //   fft_fused2_kernel<T>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
+//   fft_gap_kernel<T>     replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2_gap
 //
-// Each computes one DFT along an axis with the norm scale (or, for
-// fft_cols_tw, the four-step twiddle) fused into the final write.
+// Each computes one DFT along an axis (two for fused2 and gap) with the norm
+// scale (or, for fft_cols_tw, the four-step twiddle) fused into the final
+// write.
 //
 // The bf16 instances (C entries fft_last_bf16, fft_cols_bf16,
 // fft_fused2_bf16) replace the same three runners with io="bf16", whose
@@ -28,7 +30,8 @@
 // rounded to bf16 between the two passes; the TPU kernel keeps it f32 in
 // VMEM.  That costs one more bf16 rounding (the error class of the two
 // bf16 roundings inside _mxu_tile_tw) and saves the 8 B per element of an
-// f32 scratch plane.
+// f32 scratch plane.  fft_gap_bf16, the bf16 instance of the gap kernel
+// (whose TPU body is _stockham_tile on either block type), does the same.
 
 #include "stockham_tile.cuh"
 
@@ -54,8 +57,8 @@ fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const Geo g = rows_geo(p.n);
   float* sr = smem;
   float* si = smem + g.nt * g.pitch;
-  rows_pass(xr, xi, yr, yi, (long long)blockIdx.x * g.nt, B, p, tw, s, scale,
-            sr, si);
+  rows_pass(xr, xi, yr, yi, (long long)blockIdx.x * g.nt, B, p.n, p, tw, s,
+            scale, sr, si);
 }
 
 // --------------------------------------------------------------------------
@@ -108,8 +111,8 @@ fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long pre = blockIdx.x / ntiles;
   const int c0 = (blockIdx.x % ntiles) * g.nt;
   const size_t base = (size_t)pre * p.n * V;
-  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s, 1.0f,
-            sr, si, ColsOut{V, lN, 1});
+  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, V, p, tw, s,
+            1.0f, sr, si, ColsOut{V, lN, 1});
 }
 
 // --------------------------------------------------------------------------
@@ -126,23 +129,27 @@ fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // flight on every SM).  A thread-block-cluster / distributed-shared-memory
 // design that keeps the whole plane on chip is later work.
 // --------------------------------------------------------------------------
+
+// The body of fft_fused2_kernel and fft_gap_kernel: the (n1, n2) plane at
+// `base` whose rows are `ld` elements apart, columns (n1) from x into y,
+// then rows (n2) of y in place with the scale.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                  T* yr, T* yi, StagePlan p1, const float2* __restrict__ tw1,
-                  StagePlan p2, const float2* __restrict__ tw2, float s,
-                  float scale) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void plane2(const T* xr, const T* xi, T* yr, T* yi,
+                                       size_t base, long long ld,
+                                       const StagePlan& p1,
+                                       const float2* __restrict__ tw1,
+                                       const StagePlan& p2,
+                                       const float2* __restrict__ tw2, float s,
+                                       float scale, float* smem) {
   const int n1 = p1.n, n2 = p2.n;
-  const size_t base = (size_t)blockIdx.x * n1 * n2;
   // column pass: axis n1, tiles of nt columns
   {
     const Geo g = cols_geo(n1);
     float* sr = smem;
     float* si = smem + n1 * g.nt;
     for (int c0 = 0; c0 < n2; c0 += g.nt)
-      cols_pass(xr + base, xi + base, yr + base, yi + base, c0, n2, p1, tw1, s,
-                1.0f, sr, si);
+      cols_pass(xr + base, xi + base, yr + base, yi + base, c0, n2, ld, p1,
+                tw1, s, 1.0f, sr, si, ColsOut{ld, 0, 1});
   }
   // cols_pass ended on __syncthreads(): the block's global writes above are
   // visible to all of its threads.
@@ -151,9 +158,49 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
     float* sr = smem;
     float* si = smem + g.nt * g.pitch;
     for (int r0 = 0; r0 < n1; r0 += g.nt)
-      rows_pass(yr + base, yi + base, yr + base, yi + base, r0, n1, p2, tw2, s,
-                scale, sr, si);
+      rows_pass(yr + base, yi + base, yr + base, yi + base, r0, n1, ld, p2,
+                tw2, s, scale, sr, si);
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                  T* yr, T* yi, StagePlan p1, const float2* __restrict__ tw1,
+                  StagePlan p2, const float2* __restrict__ tw2, float s,
+                  float scale) {
+  extern __shared__ float smem[];
+  plane2(xr, xi, yr, yi, (size_t)blockIdx.x * p1.n * p2.n, p2.n, p1, tw1, p2,
+         tw2, s, scale, smem);
+}
+
+// --------------------------------------------------------------------------
+// fft_gap_kernel — replaces pallas_stockham.py:_runner_fused2_gap (FFT along
+// axes -3 and -1 of (B, z, Y, x) planes, scale fused): one block per (b, y)
+// plane, the (z, x) block at b*z*Y*x + y*x with rows Y*x elements apart
+// (1 MiB in f32 at 512^3).
+// Bound on H100: bytes, as fft_fused2_kernel (16 B per complex element for
+// f32, 8 B for bf16, if the plane stayed on chip).  Design:
+// fft_fused2_kernel's two passes on the strided plane (plane2 with the row
+// stride Y*x): the z-point column pass from the input into the output, then
+// the x-point row pass in place.  Nothing is copied in or out around it.
+// Each column-pass row read is a run of nt elements (64 B in f32 at z = 512)
+// at a stride of Y*x; the TPU kernel pays the same big-stride gather once
+// for two axes (its VMEM strip rule, REGENT_FFT_GAP_STRIPS, has no
+// counterpart here).  The bf16 instance rounds the intermediate to bf16 in
+// the output planes, as fft_fused2_bf16 does; the TPU kernel keeps it f32.
+// --------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+fft_gap_kernel(const T* __restrict__ xr, const T* __restrict__ xi, T* yr,
+               T* yi, int Y, StagePlan p1, const float2* __restrict__ tw1,
+               StagePlan p2, const float2* __restrict__ tw2, float s,
+               float scale) {
+  extern __shared__ float smem[];
+  const long long ld = (long long)Y * p2.n;
+  const long long b = blockIdx.x / Y, y = blockIdx.x - b * Y;
+  plane2(xr, xi, yr, yi, (size_t)b * p1.n * ld + (size_t)y * p2.n, ld, p1,
+         tw1, p2, tw2, s, scale, smem);
 }
 
 // Host launchers, one per kernel template, shared by the f32 and bf16 C
@@ -208,6 +255,27 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
   if (e != cudaSuccess) return e;
   fft_fused2_kernel<T><<<(unsigned)P, THREADS, smem, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, p1, tw1, p2, tw2, (float)sign, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gap(const T* xr, const T* xi, T* yr, T* yi, long long B,
+                       int z, int Y, int x, int sign, float scale,
+                       const float2* tw1, int nstages1, const int* radices1,
+                       const float2* tw2, int nstages2, const int* radices2,
+                       void* stream) {
+  StagePlan p1, p2;
+  if (make_plan(z, nstages1, radices1, &p1)) return cudaErrorInvalidValue;
+  if (make_plan(x, nstages2, radices2, &p2)) return cudaErrorInvalidValue;
+  if (Y < 1 || B * Y > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (B <= 0) return cudaSuccess;
+  const size_t a = cols_smem_bytes(z), b = rows_smem_bytes(x);
+  const size_t smem = a > b ? a : b;
+  cudaError_t e = set_smem((const void*)fft_gap_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  fft_gap_kernel<T><<<(unsigned)(B * Y), THREADS, smem,
+                      (cudaStream_t)stream>>>(xr, xi, yr, yi, Y, p1, tw1, p2,
+                                              tw2, (float)sign, scale);
   return cudaGetLastError();
 }
 
@@ -291,6 +359,27 @@ int fft_fused2_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                     int nstages2, const int* radices2, void* stream) {
   return launch_fused2(xr, xi, yr, yi, P, n1, n2, sign, scale, tw1, nstages1,
                        radices1, tw2, nstages2, radices2, stream);
+}
+
+// FFT along axes -3 and -1 of (B, z, Y, x) f32 planes (one pass).
+int fft_gap(const float* xr, const float* xi, float* yr, float* yi,
+            long long B, int z, int Y, int x, int sign, float scale,
+            const float2* tw1, int nstages1, const int* radices1,
+            const float2* tw2, int nstages2, const int* radices2,
+            void* stream) {
+  return launch_gap(xr, xi, yr, yi, B, z, Y, x, sign, scale, tw1, nstages1,
+                    radices1, tw2, nstages2, radices2, stream);
+}
+
+// The same on bf16 planes (f32 compute; the intermediate between the two
+// passes is rounded to bf16).
+int fft_gap_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+                 __nv_bfloat16* yr, __nv_bfloat16* yi, long long B, int z,
+                 int Y, int x, int sign, float scale, const float2* tw1,
+                 int nstages1, const int* radices1, const float2* tw2,
+                 int nstages2, const int* radices2, void* stream) {
+  return launch_gap(xr, xi, yr, yi, B, z, Y, x, sign, scale, tw1, nstages1,
+                    radices1, tw2, nstages2, radices2, stream);
 }
 
 }  // extern "C"

@@ -287,19 +287,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
-// Rows [r0, r0 + nt) of a (rows, n) plane pair -> transformed and scaled.
+// Rows [r0, r0 + nt) of a (rows, n) plane pair whose rows are `ld`
+// elements apart -> transformed and scaled, written to the same place.
 // Rows at or past `nrows` are masked (zero-filled, not written).
 template <typename TI, typename TO>
 __device__ void rows_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
-                          long long r0, long long nrows, const StagePlan& p,
-                          const float2* __restrict__ tw, float s, float scale,
-                          float* sr, float* si) {
+                          long long r0, long long nrows, long long ld,
+                          const StagePlan& p, const float2* __restrict__ tw,
+                          float s, float scale, float* sr, float* si) {
   const Geo g = rows_geo(p.n);
   const int n = p.n;
   const int t = threadIdx.x >> ilog2(g.tj);
   const int jl = threadIdx.x & (g.tj - 1);
   const bool valid = r0 + t < nrows;
-  const size_t off = (size_t)(r0 + t) * n;
+  const size_t off = (size_t)(r0 + t) * ld;
   for (int j = jl; j < n; j += g.tj) {
     const int a = at<true>(t, j, g);
     sr[a] = valid ? to_f32(xr[off + j]) : 0.0f;
@@ -335,12 +336,12 @@ struct ColsOut {
   int tdiv;
 };
 
-// Columns [c0, c0 + nt) of an (n, V) plane pair (row stride V) ->
-// transformed along n, written as `out` says.  Columns at or past V are
-// masked.
+// Columns [c0, c0 + nt) of an (n, V) plane pair whose rows are `ld`
+// elements apart -> transformed along n, written as `out` says.  Columns at
+// or past V are masked.
 template <typename TI, typename TO>
 __device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
-                          int c0, int V, const StagePlan& p,
+                          int c0, int V, long long ld, const StagePlan& p,
                           const float2* __restrict__ tw, float s, float scale,
                           float* sr, float* si, const ColsOut& out) {
   const Geo g = cols_geo(p.n);
@@ -351,7 +352,7 @@ __device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
   const bool valid = c < V;
   for (int j = jl; j < n; j += g.tj) {
     const int a = at<false>(t, j, g);
-    const size_t o = (size_t)j * V + c;
+    const size_t o = (size_t)j * ld + c;
     sr[a] = valid ? to_f32(xr[o]) : 0.0f;
     si[a] = valid ? to_f32(xi[o]) : 0.0f;
   }
@@ -376,7 +377,8 @@ __device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
   __syncthreads();
 }
 
-// The plain column pass: the output has the input's layout, no twiddle.
+// The plain column pass over an (n, V) plane: the output has the input's
+// layout, no twiddle.
 template <typename TI, typename TO>
 __device__ __forceinline__ void cols_pass(const TI* xr, const TI* xi,
                                           TO* yr, TO* yi, int c0, int V,
@@ -384,7 +386,8 @@ __device__ __forceinline__ void cols_pass(const TI* xr, const TI* xi,
                                           const float2* __restrict__ tw,
                                           float s, float scale, float* sr,
                                           float* si) {
-  cols_pass(xr, xi, yr, yi, c0, V, p, tw, s, scale, sr, si, ColsOut{V, 0, 1});
+  cols_pass(xr, xi, yr, yi, c0, V, V, p, tw, s, scale, sr, si,
+            ColsOut{V, 0, 1});
 }
 
 // Validate a stage list from the host and fill the plan.  Radices must be

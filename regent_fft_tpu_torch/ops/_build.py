@@ -37,6 +37,8 @@ _SIGNATURES = {
     "fft_cols": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _P, _I, _IP, _P],
     "fft_fused2": [_P, _P, _P, _P, _L, _I, _I, _I, _F,
                    _P, _I, _IP, _P, _I, _IP, _P],
+    "fft_gap": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
+                _P, _I, _IP, _P, _I, _IP, _P],
     "fft_last_r2c": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],
     "ifft_last_c2r": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],
     "fft_cols_tw": [_P, _P, _P, _P, _L, _I, _I, _I, _P, _I, _IP, _P],
@@ -48,7 +50,9 @@ _SIGNATURES = {
 }
 # the bf16-plane (complex32) instances take the f32 entries' arguments
 _SIGNATURES.update({k + "_bf16": _SIGNATURES[k]
-                    for k in ("fft_last", "fft_cols", "fft_fused2")})
+                    for k in ("fft_last", "fft_cols", "fft_fused2", "fft_gap",
+                              "a0fs_a", "a0fs_b", "fft_axis_ring",
+                              "fft_axes2_ring")})
 
 _LIB = None
 build_seconds = None   # wall time of this process's nvcc runs, if it ran them

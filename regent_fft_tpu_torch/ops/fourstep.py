@@ -1,8 +1,9 @@
 """Four-step and slab-ring kernels: wrappers, plain versions and entries.
 
 Counterpart: the large-axis kernels of ``regent_fft_tpu/ops/pallas_stockham.py``.
-Three TPU kernels become five CUDA entry points, each counted under its
-own name in ``stockham_kernels.LAUNCHES``:
+Three TPU kernels become nine CUDA entry points (the stages and the ring
+on f32 and on bf16 planes), each counted under its own name in
+``stockham_kernels.LAUNCHES`` (a ``_bf16`` suffix for bf16 planes):
 
 ==========================  ==================================  ======================
 wrapper (launch name)       replaces (pallas_stockham.py)       plain version
@@ -28,17 +29,23 @@ each is bound and built.  The entries the plan steps call:
 * :func:`fft_axis_dma` (``kernel-dma-ring``) and :func:`fft_axes2_ring`
   (``kernel-fused2-ring``): one ring pass.
 
-These kernels take f32 planes.  The four-step last axis takes bf16 planes
-(complex32) as the JAX package does, through f32 (the cast at both ends);
-the leading-axis four-step and the ring raise on bf16 planes: their bf16
-forms (the 'hd' stage dots, the bf16 slab ring) are the next ROADMAP slice.
+``fft_cols_tw`` takes f32 planes; the four-step last axis takes bf16
+planes (complex32) as the JAX package does, through f32 (the cast at both
+ends).  The leading-axis four-step and the ring take bf16 planes in their
+own kernels (``a0fs_a_bf16``, ``a0fs_b_bf16``, ``fft_axis_ring_bf16``,
+``fft_axes2_ring_bf16``): bf16 loads and stores around the f32 tile, which
+replace the TPU's 'hd' stage dots and its bf16 slab ring.  As in the JAX
+package, a bf16 leading axis whose r1 is below 16 (n = 64, 128) runs the
+four-step on f32 planes and returns them f32.
 
 The plain versions compute what the TPU kernels compute in torch ops at full
 f32: the four-step twiddle and the stage matrices are float64-generated and
 rounded once to f32, as in the JAX package (:func:`_a0fs_tw_mats`,
-:func:`_dft_mat` are exact copies).  The CUDA kernels run the shared
-butterfly tile instead of the dense stage products and form the twiddles on
-the write (see ``csrc/fourstep.cu``).
+:func:`_dft_mat` are exact copies).  On bf16 planes they compute in f32 and
+round where the TPU kernels round: each stage's output (the ring's bf16
+bodies are those of ``fft_cols``/``fft_fused2``).  The CUDA kernels run the
+shared butterfly tile instead of the dense stage products and form the
+twiddles on the write (see ``csrc/fourstep.cu``).
 """
 from __future__ import annotations
 
@@ -138,11 +145,14 @@ def a0fs_stage_plain(stage: str, xr, xi, sign: int,
 
     Stage "a": row k1*r2 + b <- sum_a M_b[k1, a] x[a*r2 + b].
     Stage "b": row k2*r1 + k1 <- sum_b W_r2[k2, b] x[k1*r2 + b] * scale.
+    bf16 planes are computed in f32 and the output rounded to bf16.
     Counterpart: ``pallas_stockham.py:1843`` (``_runner_a0fs``).
     """
     _a0fs_launch_name(stage, scale)
     pre, n, post = xr.shape
     r1, r2 = _sk._a0fs_split(n)
+    dtype = xr.dtype
+    xr, xi = xr.float(), xi.float()
     if stage == "a":
         mr, mi = _on(xr.device, *_a0fs_tw_mats(n, sign))        # (b, k, a)
         yr, yi = _cmatmul("bka,pabc->pkbc", mr, mi,
@@ -157,8 +167,8 @@ def a0fs_stage_plain(stage: str, xr, xi, sign: int,
         yr, yi = _cmatmul("kb,pjbc->pkjc", mr, mi,
                           xr.reshape(pre, r1, r2, post),
                           xi.reshape(pre, r1, r2, post))
-    return (yr.reshape(pre, n, post).contiguous(),
-            yi.reshape(pre, n, post).contiguous())
+    return (yr.reshape(pre, n, post).to(dtype).contiguous(),
+            yi.reshape(pre, n, post).to(dtype).contiguous())
 
 
 def fft_axis_ring_plain(xr, xi, sign: int, scale: float = 1.0,
@@ -197,61 +207,61 @@ def fft_cols_tw(xr, xi, sign: int) -> Pair:
 
 
 def a0fs_stage(stage: str, xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """One stage of the leading-axis four-step over (pre, n, post) f32
-    planes (see :func:`a0fs_stage_plain`); the scale rides stage b.
+    """One stage of the leading-axis four-step over (pre, n, post) f32 or
+    bf16 planes (see :func:`a0fs_stage_plain`); the scale rides stage b.
 
-    CUDA planes launch ``a0fs_a_kernel`` or ``a0fs_b_kernel``; CPU planes
-    run :func:`a0fs_stage_plain`.  Counterpart: ``pallas_stockham.py:1843``.
+    CUDA planes launch ``a0fs_a_kernel`` or ``a0fs_b_kernel`` (counted as
+    ``a0fs_a``/``a0fs_b``, with ``_bf16`` for their bf16 instances); CPU
+    planes run :func:`a0fs_stage_plain`.
+    Counterpart: ``pallas_stockham.py:1843``.
     """
     name = _a0fs_launch_name(stage, scale)
-    if not _sk._on_cuda(name, xr, xi):
+    if not _sk._on_cuda(name, xr, xi, dtypes=tuple(_sk.C2C_DTYPES)):
         return a0fs_stage_plain(stage, xr, xi, sign, scale)
-    from . import _build
     pre, n, post = xr.shape
     r1, r2 = _sk._a0fs_split(n)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    lib = _build.load()
     ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr())
     if stage == "a":
         tw, rad, k = _sk.device_tables(r1, sign, xr.device)
-        _sk._launch(name, lib.a0fs_a, xr.device, *ptrs, pre, r1, r2, post,
-                    sign, tw.data_ptr(), k, rad)
+        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
+                    post, sign, tw.data_ptr(), k, rad)
     else:
         tw, rad, k = _sk.device_tables(r2, sign, xr.device)
-        _sk._launch(name, lib.a0fs_b, xr.device, *ptrs, pre, r1, r2, post,
-                    sign, float(scale), tw.data_ptr(), k, rad)
+        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
+                    post, sign, float(scale), tw.data_ptr(), k, rad)
     return yr, yi
 
 
 def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
                   fuse_last: bool = False) -> Pair:
-    """FFT along the middle axis of (pre, n, post) f32 planes, or with
-    ``fuse_last`` along both trailing axes of (pre, n1, n2) planes, through
-    a two-deep slab ring, scale fused.
+    """FFT along the middle axis of (pre, n, post) f32 or bf16 planes, or
+    with ``fuse_last`` along both trailing axes of (pre, n1, n2) planes,
+    through a two-deep slab ring, scale fused.
 
     CUDA planes launch ``fft_axis_ring_kernel`` (counted as
-    ``fft_axis_ring``, or ``fft_axes2_ring`` with ``fuse_last``); CPU planes
-    run :func:`fft_axis_ring_plain`.  Counterpart: ``pallas_stockham.py:1324``.
+    ``fft_axis_ring``, or ``fft_axes2_ring`` with ``fuse_last``, with
+    ``_bf16`` for its bf16 instances); CPU planes run
+    :func:`fft_axis_ring_plain`.  Counterpart: ``pallas_stockham.py:1324``.
     """
     name = "fft_axes2_ring" if fuse_last else "fft_axis_ring"
-    if not _sk._on_cuda(name, xr, xi):
+    if not _sk._on_cuda(name, xr, xi, dtypes=tuple(_sk.C2C_DTYPES)):
         return fft_axis_ring_plain(xr, xi, sign, scale, fuse_last)
-    from . import _build
     pre, n, post = xr.shape
-    if post % 4 or xr.data_ptr() % 16 or xi.data_ptr() % 16:
+    per = 16 // xr.element_size()      # elements per 16-byte copy
+    if post % per or xr.data_ptr() % 16 or xi.data_ptr() % 16:
         raise ValueError(f"{name}: 16-byte copies need the last extent a "
-                         f"multiple of 4 and 16-byte aligned planes")
+                         f"multiple of {per} and 16-byte aligned planes")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr())
     tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device)
-    lib = _build.load()
     if fuse_last:
         tw2, rad2, k2 = _sk.device_tables(post, sign, xr.device)
-        _sk._launch(name, lib.fft_axes2_ring, xr.device, *ptrs, pre, n, post,
+        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
                     sign, float(scale), tw1.data_ptr(), k1, rad1,
                     tw2.data_ptr(), k2, rad2)
     else:
-        _sk._launch(name, lib.fft_axis_ring, xr.device, *ptrs, pre, n, post,
+        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
                     sign, float(scale), tw1.data_ptr(), k1, rad1)
     return yr, yi
 
@@ -259,14 +269,6 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
-def _no_bf16(what: str, xr):
-    if xr.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{what} on bf16 planes (complex32) is ROADMAP Queue 2 #8 of the "
-            "PyTorch port (the bf16 slab ring and the 'hd' stage dots, the "
-            "next slice); plan complex32 with axis0_impl/f2_impl 'auto'")
-
-
 def _pre_post(shape, axis: int):
     pre = int(np.prod(shape[:axis])) if axis else 1
     return pre, int(np.prod(shape[axis + 1:]))
@@ -305,7 +307,9 @@ def fft_last_four_step(xr, xi, direction: Direction,
 def fft_axis0_fourstep(xr, xi, axis: int, direction: Direction,
                        scale: float = 1.0) -> Pair:
     """FFT along a leading or middle ``axis`` as the two four-step stages
-    (:func:`a0fs_stage`); output in natural order, scale on stage b.
+    (:func:`a0fs_stage`); output in natural order, scale on stage b.  bf16
+    planes whose r1 is below 16 run on f32 planes and come back f32, as in
+    the JAX package (its ``_plane_io(xr, r1)``).
 
     Counterpart: ``pallas_stockham.py:2020`` (its ring depth ``k`` is a
     VMEM choice with no counterpart here; nor has the DMA ring's below).
@@ -316,7 +320,8 @@ def fft_axis0_fourstep(xr, xi, axis: int, direction: Direction,
     pre, post = _pre_post(shape, axis)
     if not _sk.axis0_fourstep_supported(n, post, shape[-1]):
         raise ValueError(f"axis0-fourstep unsupported for {shape} ax {axis}")
-    _no_bf16("the leading-axis four-step", xr)
+    if xr.dtype == torch.bfloat16 and _sk._a0fs_split(n)[0] < 16:
+        xr, xi = xr.float(), xi.float()
     sign = int(direction)
     ar, ai = a0fs_stage("a", xr.reshape(pre, n, post),
                         xi.reshape(pre, n, post), sign)
@@ -336,7 +341,6 @@ def fft_axis_dma(xr, xi, axis: int, direction: Direction,
     pre, post = _pre_post(shape, axis)
     if not _sk.axis0_dma_supported(n, post):
         raise ValueError(f"axis-dma unsupported for {shape} axis {axis}")
-    _no_bf16("the slab ring", xr)
     yr, yi = fft_axis_ring(xr.reshape(pre, n, post), xi.reshape(pre, n, post),
                            int(direction), float(scale), False)
     return yr.reshape(shape), yi.reshape(shape)
@@ -352,7 +356,6 @@ def fft_axes2_ring(xr, xi, direction: Direction,
     n1, n2 = shape[-2], shape[-1]
     if not _sk.fused2_ring_supported(n1, n2):
         raise ValueError(f"fused2-ring unsupported for {shape}")
-    _no_bf16("the fused2 slab ring", xr)
     pre = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
     yr, yi = fft_axis_ring(xr.reshape(pre, n1, n2), xi.reshape(pre, n1, n2),
                            int(direction), float(scale), True)

@@ -1,10 +1,10 @@
 """Stockham butterfly kernels: schedule gates, wrappers and plain versions.
 
-Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Thirteen
+Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Nineteen
 hand-written CUDA entry points carry the plan paths.  This module holds
-the eight of the butterfly passes: the three C2C kernels on f32 planes
-(complex64) and on bf16 planes (complex32) in ``csrc/stockham.cu``, and the
-real-transform pair in ``csrc/real.cu``:
+the ten of the butterfly passes: the three C2C kernels and the gap-fused
+pass on f32 planes (complex64) and on bf16 planes (complex32) in
+``csrc/stockham.cu``, and the real-transform pair in ``csrc/real.cu``:
 
 =========================  ===================================  =======================
 wrapper (launch name)      replaces (pallas_stockham.py)        plain version
@@ -16,20 +16,23 @@ wrapper (launch name)      replaces (pallas_stockham.py)        plain version
 (``fft_cols``, ``fft_cols_bf16``)
 ``fft_fused2``             ``_runner_fused2`` (:875)            ``fft_fused2_plain``
 (``fft_fused2``, ``fft_fused2_bf16``)
+``fft_axes_gap``           ``_runner_fused2_gap`` (:1127)       ``fft_axes_gap_plain``
+(``fft_gap``, ``fft_gap_bf16``)
 ``fft_last_r2c``           ``_runner_last_r2c`` (:2395)         ``fft_last_r2c_plain``
 ``ifft_last_c2r``          ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
 =========================  ===================================  =======================
 
-``ops/fourstep.py`` holds the other five (the four-step twiddle pass
-``fft_cols_tw``, the leading-axis four-step stages ``a0fs_a``/``a0fs_b`` and
-the slab ring ``fft_axis_ring``/``fft_axes2_ring``) on this module's
-launch helpers, tables and gates.
+``ops/fourstep.py`` holds the other nine (the four-step twiddle pass
+``fft_cols_tw``, and on f32 and bf16 planes the leading-axis four-step
+stages ``a0fs_a``/``a0fs_b`` and the slab ring
+``fft_axis_ring``/``fft_axes2_ring``) on this module's launch helpers,
+tables and gates.
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device, and a plane dtype the kernel does not take,
 raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
-``LAUNCHES`` (all thirteen).
+``LAUNCHES`` (all nineteen).
 
 The plain versions follow the JAX tile bodies that ``_tile_impl`` (:643)
 picks by block I/O.  f32 blocks take ``_stockham_tile`` (:709): radix-4
@@ -38,15 +41,17 @@ DFT product.  bf16 blocks (complex32) take ``_direct_tile`` (:614, one dense
 DFT_n product) for n <= 512, ``_mxu_tile_tw`` (:566, the twiddle-folded
 four-step) for n = 1024 and 2048, and ``_stockham_tile`` for every other
 length; the plain versions run them on the bf16 input cast to f32 and
-round the scaled output to bf16 once.  Every product is ``torch.matmul``
+round the scaled output to bf16 once.  The gap-fused pass runs
+``_stockham_tile`` on both block types.  Every product is ``torch.matmul``
 at full f32.  The kernels compute the same DFT with FFMA butterflies all
 the way down, for both block types (see the source notes in
 ``csrc/stockham.cu``), from their own float64-generated table
 (:func:`_kernel_tables`).
 
-The gates (``kernel_len_ok``, ``fused2_supported``, the ``r2c_*`` gates,
-the four-step and ring gates, the length caps, ``mxu_tile_supported``) are
-the JAX package's, so a plan's step list is the same in both packages.
+The gates (``kernel_len_ok``, ``fused2_supported``,
+``fused_gap_supported``, the ``r2c_*`` gates, the four-step and ring
+gates, the length caps, ``mxu_tile_supported``) are the JAX package's, so
+a plan's step list is the same in both packages.
 """
 from __future__ import annotations
 
@@ -139,6 +144,14 @@ def fused2_supported(n1: int, n2: int) -> bool:
             and n1 * n2 <= MAX_FUSED2_ELEMS
             and n2 >= LANE_TILE
             and n1 >= 16 and n2 >= 16)
+
+
+def fused_gap_supported(n1: int, n2: int) -> bool:
+    """Can the (leading, last) axes (n1, n2) run as one gap-fused pass?
+
+    Counterpart: ``pallas_stockham.py:1211``.
+    """
+    return fused2_supported(n1, n2)
 
 
 def _four_step_split(n: int):
@@ -315,7 +328,7 @@ def tile_impl(io: str, n: int) -> str:
     """The JAX tile body for block I/O ``io`` ("f32" or "bf16") and length
     n, by name: "direct_tile" (bf16, n <= 512), "mxu_tile_tw" (bf16 above)
     or "stockham_tile".  Counterpart: ``pallas_stockham.py:643`` with
-    ``REGENT_FFT_MXU_IMPL`` at its default; the port reads no environment
+    ``REGENT_FFT_MXU_IMPL`` at its default; the port does not read that
     knob."""
     if io == "bf16" and mxu_tile_supported(n):
         return "direct_tile" if n <= 512 else "mxu_tile_tw"
@@ -484,6 +497,29 @@ def fft_fused2_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
                    xr.dtype)
 
 
+def fft_axes_gap_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
+    """FFT along axes 1 and 3 of (B, z, Y, x) f32 or bf16 planes, scale
+    applied: ``_stockham_tile`` along z, then along x, on each (z, x) block,
+    on either block type; the intermediate stays f32, as in the TPU
+    kernel's VMEM, and the output is rounded once to the input's dtype.
+
+    Counterpart: ``pallas_stockham.py:1127`` (``_runner_fused2_gap``).
+    """
+    b, z, y, x = xr.shape
+    ar, ai = _stockham_tile_plain(
+        xr.float().permute(1, 0, 2, 3).reshape(z, b * y * x),
+        xi.float().permute(1, 0, 2, 3).reshape(z, b * y * x), z, sign)
+    # (z, b, y, x) -> x in front
+    ar, ai = _stockham_tile_plain(
+        ar.reshape(z, b, y, x).permute(3, 0, 1, 2).reshape(x, z * b * y),
+        ai.reshape(z, b, y, x).permute(3, 0, 1, 2).reshape(x, z * b * y),
+        x, sign)
+    # (x, z, b, y) -> (b, z, y, x)
+    return _scaled(ar.reshape(x, z, b, y).permute(2, 1, 3, 0),
+                   ai.reshape(x, z, b, y).permute(2, 1, 3, 0), scale,
+                   xr.dtype)
+
+
 def fft_last_r2c_plain(x, packed: bool = False, scale: float = 1.0) -> Pair:
     """R2C along the last axis of (B, n) real rows, scale applied:
     (B, n/2+1) planes, or (B, n/2) with the real bin n/2 in bin 0's
@@ -611,10 +647,16 @@ LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
             "fft_cols_tw": 0, "a0fs_a": 0, "a0fs_b": 0,
             "fft_axis_ring": 0, "fft_axes2_ring": 0,
             # the C2C kernels on bf16 planes (complex32)
-            "fft_last_bf16": 0, "fft_cols_bf16": 0, "fft_fused2_bf16": 0}
+            "fft_last_bf16": 0, "fft_cols_bf16": 0, "fft_fused2_bf16": 0,
+            # the gap-fused pass, and the four-step and ring kernels on bf16
+            # planes (ops/fourstep.py)
+            "fft_gap": 0, "fft_gap_bf16": 0, "a0fs_a_bf16": 0,
+            "a0fs_b_bf16": 0, "fft_axis_ring_bf16": 0,
+            "fft_axes2_ring_bf16": 0}
 
-# Plane dtypes of the C2C butterfly kernels, and the suffix of the C entry
-# point (and launch name) that takes each.
+# Plane dtypes of the butterfly kernels that take both (all but the real
+# pair and fft_cols_tw), and the suffix of the C entry point (and launch
+# name) that takes each.
 C2C_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
@@ -656,7 +698,8 @@ def _launch(name: str, fn, device, *args):
 
 
 def _c2c_entry(name: str, xr):
-    """(launch name, bound C function) of a C2C kernel for these planes."""
+    """(launch name, bound C function) of a kernel for these planes' dtype
+    (``C2C_DTYPES``)."""
     from . import _build
     full = name + C2C_DTYPES[xr.dtype]
     return full, getattr(_build.load(), full)
@@ -718,6 +761,28 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n1, n2, sign, scale, tw1.data_ptr(), k1, rad1,
+            tw2.data_ptr(), k2, rad2)
+    return yr, yi
+
+
+def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
+    """FFT along axes 1 and 3 of (B, z, Y, x) f32 or bf16 planes, scale
+    fused, output in the input's dtype.
+
+    CUDA planes launch ``fft_gap_kernel`` (f32, counted as ``fft_gap``) or
+    its bf16 instance (``fft_gap_bf16``; its column pass rounds the
+    intermediate to bf16 in the output planes); CPU planes run
+    :func:`fft_axes_gap_plain`.  Counterpart: ``pallas_stockham.py:1127``.
+    """
+    if not _on_cuda("fft_gap", xr, xi, dtypes=tuple(C2C_DTYPES)):
+        return fft_axes_gap_plain(xr, xi, sign, scale)
+    b, z, y, x = xr.shape
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    tw1, rad1, k1 = device_tables(z, sign, xr.device)
+    tw2, rad2, k2 = device_tables(x, sign, xr.device)
+    _launch(*_c2c_entry("fft_gap", xr), xr.device,
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            b, z, y, x, sign, scale, tw1.data_ptr(), k1, rad1,
             tw2.data_ptr(), k2, rad2)
     return yr, yi
 
@@ -807,6 +872,24 @@ def fft_axes2_stockham(xr, xi, direction: Direction,
         raise ValueError(f"fused2 unsupported for trailing axes {(n1, n2)}")
     yr, yi = fft_fused2(xr.reshape(-1, n1, n2), xi.reshape(-1, n1, n2),
                         int(direction), float(scale))
+    return yr.reshape(shape), yi.reshape(shape)
+
+
+def fft_axes_gap_stockham(xr, xi, direction: Direction,
+                          scale: float = 1.0) -> Pair:
+    """FFT along axes -3 and -1 of N-D split planes in one kernel pass.
+
+    Counterpart: ``pallas_stockham.py:1216``.
+    """
+    shape = tuple(xr.shape)
+    if len(shape) < 3:
+        raise ValueError("gap-fused pass needs rank >= 3")
+    z, y, x = shape[-3:]
+    if not fused_gap_supported(z, x):
+        raise ValueError(f"gap-fused unsupported for axes {(z, x)}")
+    b = int(np.prod(shape[:-3])) if len(shape) > 3 else 1
+    yr, yi = fft_axes_gap(xr.reshape(b, z, y, x), xi.reshape(b, z, y, x),
+                          int(direction), float(scale))
     return yr.reshape(shape), yi.reshape(shape)
 
 

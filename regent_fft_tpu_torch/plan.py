@@ -15,6 +15,11 @@ plan's device:
 * ``stockham2`` one fused kernel pass over the trailing axis pair
   (``fft_axes2_stockham``), or with ``f2_impl="ring"`` the slab ring
   over whole planes (``fused2_ring``, ``fft_axes2_ring``);
+* ``stockham_gap`` one kernel pass over axes -3 and -1
+  (``fft_axes_gap_stockham``), taken as in the JAX package only when
+  ``REGENT_FFT_GAP_FUSED=1`` is set as the plan is made (the plan cache
+  keys on it, and ``inverse()`` keeps its forward plan's route); the mid
+  axis follows as a ``stockham`` step;
 * ``stockham4`` the four-step last axis, n = 4096..2M
   (``fft_last_four_step``: the twiddle column pass, the last-axis pass,
   the sub-axis swap);
@@ -46,16 +51,17 @@ in f32.
 
 Outside the port so far (each raises ``NotImplementedError`` naming its
 ROADMAP item): the Rader and Bluestein branches of the general pipeline,
-``backend="pallas"``, planners other than ``"estimate"``, ``precision``
-other than ``"highest"`` (but complex32's ``"default"``), and the
-leading-axis four-step and ring routes on bf16 planes.  The gap-fused
-pass (``stockham_gap``) is reachable in the JAX package only through an
-environment switch the port does not read.
+``backend="pallas"``, planners other than ``"estimate"``, and
+``precision`` other than ``"highest"`` (but complex32's ``"default"``).
+``REGENT_FFT_GAP_FUSED`` is the one environment switch the port reads
+(in :func:`make_plan`): it is the JAX package's only way to the
+gap-fused pass.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -232,10 +238,14 @@ def _norm_scale(spec: PlanSpec) -> float:
     return 1.0 / math.sqrt(n)
 
 
-def axis_steps(spec: PlanSpec, backend: str, axes_list):
+def axis_steps(spec: PlanSpec, backend: str, axes_list,
+               gap_fused: bool = False):
     """Per-axis steps with the JAX package's routing.
 
-    Counterpart: ``regent_fft_tpu/plan.py:333`` (``axis_steps``): the
+    Counterpart: ``regent_fft_tpu/plan.py:333`` (``axis_steps``): with
+    ``gap_fused`` (``REGENT_FFT_GAP_FUSED=1``), axes -3 and -1 take one ``stockham_gap``
+    step when the last three axes are transformed, ``fused_gap_supported``
+    holds and the mid axis is a power of two within its cap; the
     trailing pair fuses into one ``stockham2`` step when
     ``fused2_supported``; a kernel length within its cap is a
     ``stockham`` step; a power-of-two last axis of 4096..2M is a
@@ -251,6 +261,14 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
     axes_list = list(axes_list)
     kernels = (backend in ("stockham", "hybrid")
                and spec.dtype != "complex128")
+    if (gap_fused and kernels
+            and len(axes_list) >= 3 and ndim >= 3
+            and axes_list[:3] == [ndim - 1, ndim - 2, ndim - 3]):
+        z, y, x = spec.shape[ndim - 3:]
+        if (_sk.fused_gap_supported(z, x) and y <= _sk.MAX_STOCKHAM_N
+                and (y & (y - 1)) == 0):
+            steps.append(("stockham_gap", ndim - 3, (z, x)))
+            axes_list = [ndim - 2] + axes_list[3:]
     if (kernels and spec.f2_impl != "off"
             and len(axes_list) >= 2 and ndim >= 2
             and axes_list[0] == ndim - 1 and axes_list[1] == ndim - 2):
@@ -294,14 +312,12 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list):
 
 
 # The JAX package's REGENT_FFT_DMA_MIN_POST default (plan.py:467); the port
-# reads no environment knob.
+# reads no environment knob but REGENT_FFT_GAP_FUSED (make_plan).
 DMA_MIN_POST = 65536
 
 # Step kinds that end in a kernel write, so the norm scale can ride it.
 KERNEL_STEPS = ("stockham", "stockham2", "stockham4", "fourstep_ring",
-                "dma_ring", "fused2_ring")
-# The routes that take f32 planes only (their bf16 forms are not ported).
-F32_ROUTES = ("fourstep_ring", "dma_ring", "fused2_ring")
+                "dma_ring", "fused2_ring", "stockham_gap")
 
 
 def route_steps(spec: PlanSpec, steps, shape):
@@ -355,6 +371,8 @@ def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
         return f"kernel-dma-ring(n={arg})"
     if kind_ == "fused2_ring":
         return f"kernel-fused2-ring{arg}"
+    if kind_ == "stockham_gap":
+        return f"kernel-gap-fused{arg}"
     if kind_ == "general":
         return ("1d-pipeline["
                 f"{_stockham.schedule_description(spec.shape[a], spec.max_radix)}]")
@@ -391,6 +409,8 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
             xr, xi = _fs.fft_axis_dma(xr, xi, a, direction, scale=ksc)
         elif kind_ == "fused2_ring":
             xr, xi = _fs.fft_axes2_ring(xr, xi, direction, scale=ksc)
+        elif kind_ == "stockham_gap":
+            xr, xi = _sk.fft_axes_gap_stockham(xr, xi, direction, scale=ksc)
         elif kind_ == "general":
             xr, xi = _nd.apply_along_axis(arg, a, xr, xi)
         else:
@@ -529,7 +549,7 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
 
 def _kernel_lengths(kind_: str, arg) -> Tuple[int, ...]:
     """The butterfly lengths whose tables a kernel step's kernels read."""
-    if kind_ in ("stockham2", "fused2_ring"):
+    if kind_ in ("stockham2", "fused2_ring", "stockham_gap"):
         return tuple(arg)
     if kind_ == "stockham4":
         return _sk._four_step_split(arg)
@@ -543,12 +563,14 @@ class Plan:
     complex32 or complex128.
 
     Create with :func:`make_plan`.  Reusable for any input of the planned
-    shape.  Counterpart: ``regent_fft_tpu/plan.py:790``.
+    shape.  ``gap_fused`` is the ``REGENT_FFT_GAP_FUSED`` switch as
+    :func:`make_plan` read it.  Counterpart: ``regent_fft_tpu/plan.py:790``.
     """
 
-    def __init__(self, spec: PlanSpec):
+    def __init__(self, spec: PlanSpec, gap_fused: bool = False):
         _check_scope(spec)
         self.spec = spec
+        self.gap_fused = gap_fused
         self.device = _resolve_device(spec)
         backend = spec.backend
         if backend == "auto":
@@ -557,7 +579,8 @@ class Plan:
             backend = "hybrid" if self.device.type == "cuda" else "xla"
         self.backend = backend
         axes = spec.axes if spec.kind == Kind.C2C else spec.axes[:-1]
-        steps = axis_steps(spec, backend, sorted(axes, reverse=True))
+        steps = axis_steps(spec, backend, sorted(axes, reverse=True),
+                           gap_fused)
         self.real = (None if spec.kind == Kind.C2C
                      else _real_route(spec, backend, steps))
         step_shape = list(spec.shape)      # the planes the steps transform
@@ -566,11 +589,6 @@ class Plan:
             step_shape[r.axis] = r.n // 2 if r.packed else r.n // 2 + 1
         self.steps = route_steps(spec, steps, step_shape)
         self.cdtype = _compute_dtype(spec)
-        if self.cdtype == torch.bfloat16:
-            for k, _, _ in self.steps:
-                if k in F32_ROUTES:
-                    _unported(f"the {k} route on complex32 (bf16 planes)",
-                              "ROADMAP Queue 2 #8, the next slice")
         self.trace_log = {i: _step_name(spec, k, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
@@ -756,7 +774,8 @@ class Plan:
     execute = __call__
 
     def inverse(self) -> "Plan":
-        """Plan for the mathematical inverse of this transform.
+        """Plan for the mathematical inverse of this transform, on the
+        same gap-fused switch as this plan.
 
         Counterpart: ``regent_fft_tpu/plan.py:1080``.
         """
@@ -767,27 +786,41 @@ class Plan:
         else:
             inv_norm = s.norm
         if s.kind == Kind.R2C:
-            return make_plan(dataclasses.replace(
-                s, kind=Kind.C2R, direction=Direction.BACKWARD, norm=inv_norm))
-        if s.kind == Kind.C2R:
-            return make_plan(dataclasses.replace(
-                s, kind=Kind.R2C, direction=Direction.FORWARD, norm=inv_norm))
-        d = (Direction.BACKWARD if s.direction == Direction.FORWARD
-             else Direction.FORWARD)
-        return make_plan(dataclasses.replace(s, direction=d, norm=inv_norm))
+            inv = dataclasses.replace(
+                s, kind=Kind.C2R, direction=Direction.BACKWARD, norm=inv_norm)
+        elif s.kind == Kind.C2R:
+            inv = dataclasses.replace(
+                s, kind=Kind.R2C, direction=Direction.FORWARD, norm=inv_norm)
+        else:
+            d = (Direction.BACKWARD if s.direction == Direction.FORWARD
+                 else Direction.FORWARD)
+            inv = dataclasses.replace(s, direction=d, norm=inv_norm)
+        return _cached_plan(inv, self.gap_fused)
 
 
 # ---------------------------------------------------------------------------
 # Plan cache + lifecycle API
 # ---------------------------------------------------------------------------
-_PLAN_CACHE: dict = {}
+_PLAN_CACHE: dict = {}     # (spec, gap_fused) -> Plan
+
+
+def _cached_plan(spec: PlanSpec, gap_fused: bool) -> Plan:
+    plan = _PLAN_CACHE.get((spec, gap_fused))
+    if plan is None or plan._destroyed:
+        plan = Plan(spec, gap_fused)
+        _PLAN_CACHE[(spec, gap_fused)] = plan
+        from .utils.plog import log_plan
+        log_plan(plan)
+    return plan
 
 
 def make_plan(spec_or_shape, **kwargs) -> Plan:
     """Create (or fetch from the cache) a plan.
 
     ``make_plan(PlanSpec(...))`` or ``make_plan(shape, **fields)``; a shape
-    defaults to a forward C2C transform over all axes on ``"cuda"``.
+    defaults to a forward C2C transform over all axes on ``"cuda"``.  Reads
+    ``REGENT_FFT_GAP_FUSED`` (``"1"`` turns the gap-fused route on), and
+    the cache keys on it.
     Counterpart: ``regent_fft_tpu/plan.py:1125``.
     """
     if isinstance(spec_or_shape, PlanSpec):
@@ -798,13 +831,7 @@ def make_plan(spec_or_shape, **kwargs) -> Plan:
         kwargs.setdefault("kind", Kind.C2C)
         kwargs.setdefault("direction", Direction.FORWARD)
         spec = PlanSpec(shape=shape, **kwargs)
-    plan = _PLAN_CACHE.get(spec)
-    if plan is None or plan._destroyed:
-        plan = Plan(spec)
-        _PLAN_CACHE[spec] = plan
-        from .utils.plog import log_plan
-        log_plan(plan)
-    return plan
+    return _cached_plan(spec, os.environ.get("REGENT_FFT_GAP_FUSED") == "1")
 
 
 def execute_plan(plan: Plan, x):
@@ -817,7 +844,7 @@ def destroy_plan(plan: Plan):
 
     Counterpart: ``regent_fft_tpu/plan.py:1153``.
     """
-    _PLAN_CACHE.pop(plan.spec, None)
+    _PLAN_CACHE.pop((plan.spec, plan.gap_fused), None)
     plan._destroyed = True
 
 

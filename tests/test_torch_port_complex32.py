@@ -281,18 +281,28 @@ def test_complex32_real_plans_match_jax(kind):
     ((4, 64, 256), (0, 1, 2), dict(f2_impl="ring")),
 ])
 def test_complex32_explicit_routes_raise(shape, axes, fields):
-    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
-        rt.make_plan(shape, axes=axes, backend="stockham", dtype="complex32",
+    """The explicit leading-axis routes on complex32: the plans build, print
+    the step lines of the complex64 plans (those the JAX plan prints on the
+    TPU), keep the SplitComplex of bf16 planes and match numpy, both ways.
+    (64, 64, 1024) has r1 = 8: its four-step runs on f32 planes, as in the
+    JAX package, and the plan still returns bf16."""
+    p = rt.make_plan(shape, axes=axes, backend="stockham", dtype="complex32",
                      device="cpu", **fields)
-    # the same routes take f32 planes, and bf16 planes raise at the entry
-    rt.make_plan(shape, axes=axes, backend="stockham", device="cpu", **fields)
-    b = torch.zeros(shape, dtype=torch.bfloat16)
-    entry = {"dma": lambda: tfs.fft_axis_dma(b, b, 0, Direction.FORWARD),
-             "fourstep": lambda: tfs.fft_axis0_fourstep(b, b, 0,
-                                                        Direction.FORWARD),
-             "ring": lambda: tfs.fft_axes2_ring(b, b, Direction.FORWARD)}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        entry[next(iter(fields.values()))]()
+    f = rt.make_plan(shape, axes=axes, backend="stockham", device="cpu",
+                     **fields)
+    assert _step_lines(p.describe())[:-1] == _step_lines(f.describe())[:-1]
+    route = {"dma": "kernel-dma-ring", "fourstep": "kernel-fourstep-ring",
+             "ring": "kernel-fused2-ring"}[next(iter(fields.values()))]
+    assert route in p.describe()
+    x = _crand(shape, 43)
+    tx, _, xd = _bf16(x)
+    y = p(tx)
+    assert isinstance(y, SplitComplex) and y.re.dtype == torch.bfloat16
+    tol = tolerance(p.spec.logical_n, "complex32")
+    assert rel_l2(y, _ref(xd, axes, Direction.FORWARD)) <= tol
+    back = p.inverse()(y)
+    assert isinstance(back, SplitComplex) and back.re.dtype == torch.bfloat16
+    assert rel_l2(back, xd) <= 2 * tol
 
 
 def test_four_step_last_axis_bf16_matches_jax():

@@ -48,7 +48,8 @@ PORT_TESTS = {
     "test_torch_port_kernels.py", "test_torch_port_plan.py",
     "test_torch_port_real.py", "test_torch_port_real_plan.py",
     "test_torch_port_fourstep.py", "test_torch_port_complex32.py",
-    "test_torch_port_complex128.py"}
+    "test_torch_port_complex128.py", "test_torch_port_complex32_routes.py",
+    "test_torch_port_gap.py"}
 
 
 def test_file_lists_cover_the_port():
