@@ -26,9 +26,14 @@ Phases (any failure raises and the script exits non-zero):
    four-step at n = 64..4096 on axes 0 and 1 (f32 planes out where
    r1 < 16; each stage also against its plain version), and the gap-fused
    pass on the fused2 pairs (B = 2, Y = 3) in both types, the same way;
+   the matmul-form kernels at every length they take, both signs: fft_mm1
+   at n = 1..128 (batch 37) against torch.fft in float64 on the host, and
+   fft_mm2 at every n <= 16384 that two_stage_split admits (batch 3)
+   against fft_mm2_plain on the card, every 16th of those lengths and the
+   main path's also against torch.fft in float64 on the host;
    then each kernel at every shape the main path gives it, held against
    its plain PyTorch version on the card (rel_l2 <= tolerance(n), or
-   ``PLAIN_LIMIT`` for the bf16 kernels) and timed
+   ``PLAIN_LIMIT`` = 1e-3 for the bf16 kernels) and timed
    (median of CUDA-event runs with the L2 flushed before each) beside its
    bound, its plain version and one torch.fft call over the same rows or
    axes where one computes the same function (a yardstick the port never
@@ -37,7 +42,11 @@ Phases (any failure raises and the script exits non-zero):
    (fft_cols_tw, a0fs_a, a0fs_b and the bf16 stages) have no such call;
    their entries (fft_last_four_step, fft_axis0_fourstep) are timed whole
    beside torch.fft.fft, the four-step last axis also by part (the two
-   kernels and the sub-axis swap);
+   kernels and the sub-axis swap).  Every bound is the function's, not
+   the algorithm's: its bytes over the memory rate or its 5 n log2 n flops
+   a row over the FP32 rate, whichever is larger; fft_mm1 and fft_mm2 also
+   report the flops of their dense products (8 n^2 a row; 8 n (n1 + n2) +
+   6 n) as ``kernel_flops``;
 4. main path, C2C: the complex64 plans a user makes -- 3-D 512^3, 1-D
    4096 x 1024 and 2-D 16 x 512^2 -- with the default device and backend.
    The kernel launch counts are zeroed just before the three plans run
@@ -80,10 +89,20 @@ Phases (any failure raises and the script exits non-zero):
 8. main path, the gap-fused route (``GAP_PLANS``): complex64 and complex32
    512^3 plans built with ``REGENT_FFT_GAP_FUSED=1`` set for this group
    only (the plan cache cleared before and after), checked, counted, timed
-   and traced as in phase 7.
+   and traced as in phase 7;
+9. main path, ``backend="pallas"`` (``PALLAS_PLANS``): complex64 4096 x
+   1024 and 4096 x 640 (fft_mm2 once each), 4 x 256^3 and 512^3 (fft_mm2
+   on each of three axes) and 16 x 128^3 (fft_mm1 three times), one group
+   each as in phase 7, each with the flops of its kernels' dense products;
+10. main path, the precision tiers (``PRECISION_PLANS``): complex64 and
+   complex32 512^3 with ``precision="high"`` (the steps and launches of
+   "highest") and the columns of a 512 x 262144 array with
+   ``precision="default"`` (the axis-0 step of a rank-2 complex64 array
+   launches fft_axis0 at every tier and norm), one group each as in
+   phase 7.
 
-Prints how long each phase took, one ``{"plans": [...]}`` line (23 plans),
-one ``{"kernels": [...]}`` line (19 kernels; ``launches`` sums every
+Prints how long each phase took, one ``{"plans": [...]}`` line (31 plans),
+one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
 have launched), the nvidia-smi line, and last the device line.  Exits
 non-zero, with no result, when no CUDA device is present.
@@ -101,7 +120,9 @@ PEAKS = [("H100 PCIe", 2.0e12, 51.2e12), ("H100 NVL", 3.9e12, 60.0e12),
          ("H100", 3.35e12, 67.0e12), ("H200", 4.8e12, 67.0e12)]
 
 PS = "regent_fft_tpu/ops/pallas_stockham.py"
+PF = "regent_fft_tpu/ops/pallas_fft.py"
 STOCKHAM_CU = "regent_fft_tpu_torch/csrc/stockham.cu"
+MATMUL_CU = "regent_fft_tpu_torch/csrc/matmul.cu"
 REAL_CU = "regent_fft_tpu_torch/csrc/real.cu"
 FOURSTEP_CU = "regent_fft_tpu_torch/csrc/fourstep.cu"
 RING_CU = "regent_fft_tpu_torch/csrc/ring.cu"
@@ -133,18 +154,20 @@ KERNELS = {   # name: (replaces, source)
     "fft_axis_ring_bf16": (f"{PS}:1324 (_runner_axis0_dma, io=bf16)", RING_CU),
     "fft_axes2_ring_bf16": (f"{PS}:1324 (_runner_axis0_dma, fuse_last, "
                             f"io=bf16)", RING_CU),
+    "fft_axis0": (f"{PS}:739 (_runner_axis0)", STOCKHAM_CU),
+    "fft_mm1": (f"{PF}:129 (_runner_1stage)", MATMUL_CU),
+    "fft_mm2": (f"{PF}:157 (_runner_2stage)", MATMUL_CU),
 }
-# Kernel-vs-plain limits (rel_l2) of the bf16 kernels, set from what a
-# correct kernel reads (H100 runs): one bf16 rounding of an f32 result
-# leaves the one-pass kernels within about 7e-5 of their plain versions;
-# the two-pass ones (the bf16 intermediate between their two axes rounds
-# some values the other way) within about 2.6e-3.  tolerance(n,
-# "complex32") would sit 40-5000 times above these.  Every f32 kernel is
-# held to tolerance(n).
-PLAIN_LIMIT = {"fft_last_bf16": 1e-3, "fft_cols_bf16": 1e-3,
-               "fft_axis_ring_bf16": 1e-3, "a0fs_a_bf16": 1e-3,
-               "a0fs_b_bf16": 1e-3, "fft_fused2_bf16": 1e-2,
-               "fft_axes2_ring_bf16": 1e-2, "fft_gap_bf16": 1e-2}
+# Kernel-vs-plain limit (rel_l2) of the bf16 kernels, set from what a
+# correct kernel reads (H100 runs): the kernels and their plain versions
+# both compute in f32 and round the output to bf16 once (the two-pass
+# kernels keep the plane between their passes in f32, as the plain versions
+# do), so the outputs differ only where the two f32 results straddle a bf16
+# rounding boundary: within about 7e-5.  tolerance(n, "complex32") would
+# sit 100-2000 times above it.  Every f32 kernel is held to tolerance(n).
+PLAIN_LIMIT = {k: 1e-3 for k in (
+    "fft_last_bf16", "fft_cols_bf16", "fft_axis_ring_bf16", "a0fs_a_bf16",
+    "a0fs_b_bf16", "fft_fused2_bf16", "fft_axes2_ring_bf16", "fft_gap_bf16")}
 MAIN_PLANS = [((512, 512, 512), (0, 1, 2)), ((4096, 1024), (1,)),
               ((16, 512, 512), (1, 2))]
 C2C_LAUNCHES = {"fft_fused2": 2, "fft_cols": 1, "fft_last": 1}
@@ -232,6 +255,51 @@ GAP_PLANS = [
 ]
 
 
+def _pipeline(axis, sched):
+    return f"(axis {axis}: 1d-pipeline[{sched}])"
+
+
+M256 = "mixed(256 = 128*2): radix-128 -> radix-2"
+M512 = "mixed(512 = 128*4): radix-128 -> radix-4"
+D128 = "direct-dft-128 (1 matmul)"
+# The backend="pallas" plans (the JAX suite rows 1d_c2c_1024_batch4096,
+# 1d_c2c_640_batch4096, 3d_c2c_256cubed_batch4; the north star; a batch of
+# 128^3 grids), one group each, in the fields of DTYPE_PLANS.  The step
+# lines are the JAX plan's (the dense schedule's name); the counts show the
+# matmul kernels ran.
+PALLAS_PLANS = [
+    ("pallas_1d_1024", (4096, 1024), (1,), "complex64", {"backend": "pallas"},
+     [_pipeline(1, "mixed(1024 = 128*8): radix-128 -> radix-8")],
+     {"fft_mm2": 1}),
+    ("pallas_1d_640", (4096, 640), (1,), "complex64", {"backend": "pallas"},
+     [_pipeline(1, "mixed(640 = 80*8): radix-80 -> radix-8")], {"fft_mm2": 1}),
+    ("pallas_256cubed_batch4", (4, 256, 256, 256), (1, 2, 3), "complex64",
+     {"backend": "pallas"}, [_pipeline(a, M256) for a in (3, 2, 1)],
+     {"fft_mm2": 3}),
+    ("pallas_cube", CUBE, (0, 1, 2), "complex64", {"backend": "pallas"},
+     [_pipeline(a, M512) for a in (2, 1, 0)], {"fft_mm2": 3}),
+    ("pallas_128cubed_batch16", (16, 128, 128, 128), (1, 2, 3), "complex64",
+     {"backend": "pallas"}, [_pipeline(a, D128) for a in (3, 2, 1)],
+     {"fft_mm1": 3}),
+]
+# The precision tiers (the JAX suite row 3d_c2c_512cubed_precision_high):
+# the steps and launches of "highest"; and the "default" tier on the
+# columns of a 2-D array (a 512-point FFT over 262144 columns), whose
+# axis-0 step takes the axis-0 pass by its shape, at any tier.
+PRECISION_PLANS = [
+    ("precision_high_cube", CUBE, (0, 1, 2), "complex64", {"precision": "high"},
+     ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-butterfly(n=512))"],
+     {"fft_fused2": 1, "fft_cols": 1}),
+    ("precision_high_cube_c32", CUBE, (0, 1, 2), "complex32",
+     {"precision": "high"},
+     ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-butterfly(n=512))"],
+     {"fft_fused2_bf16": 1, "fft_cols_bf16": 1}),
+    ("columns_512x262144", (512, 262144), (0,), "complex64",
+     {"precision": "default"}, ["(axis 0: kernel-butterfly(n=512))"],
+     {"fft_axis0": 1}),
+]
+
+
 def _ptxas(log: str):
     """One line per compiled kernel: its mangled name and what ptxas said
     of its registers, stack and spills."""
@@ -266,6 +334,7 @@ def main() -> int:
     import regent_fft_tpu_torch as rt
     from regent_fft_tpu_torch.ops import _build
     from regent_fft_tpu_torch.ops import fourstep as fs
+    from regent_fft_tpu_torch.ops import pallas_fft as pf
     from regent_fft_tpu_torch.ops import stockham_kernels as sk
     from regent_fft_tpu_torch.plan import _half_shape
     from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
@@ -334,6 +403,12 @@ def main() -> int:
         t_bytes, t_ops = nbytes / bw, nflops / fp32
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                           else "operations")
+
+    def dev_rel(a, b):
+        """rel_l2 on the card, in float64."""
+        a, b = a.to(torch.complex128), b.to(torch.complex128)
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
 
     # 3a. every length the gates admit, ragged batches and column counts,
     # both signs, against torch.fft in float64
@@ -570,6 +645,59 @@ def main() -> int:
         print(f"sweep bf16: {kname} {count} cases (odd batches, both signs): "
               f"worst rel_l2 vs torch.fft float64 {e_ref:.3e}, vs plain "
               f"{e_plain:.3e} (limit {PLAIN_LIMIT[kname]})")
+
+    # the matmul-form kernels at every length they take, both signs:
+    # fft_mm1 at n = 1..128 (batch 37) against torch.fft in float64 on the
+    # host; fft_mm2 at every n <= 16384 that two_stage_split admits (batch
+    # 3) against fft_mm2_plain on the card, and every 16th of those lengths
+    # and the main path's against torch.fft in float64 on the host (a cuFFT
+    # plan for each of 4165 lengths, most with odd factors, would cost
+    # minutes)
+    def mm_errs(lengths, batch, kern, plain=None, ref_lengths=None):
+        """Worst rel_l2 against float64 and against `plain`; raises with
+        the lengths beyond tolerance(n)."""
+        worst, worst_plain, bad = 0.0, 0.0, []
+        for n in lengths:
+            xr, xi = planes((batch, n))
+            with_ref = ref_lengths is None or n in ref_lengths
+            x = (torch.complex(xr.double(), xi.double()).cpu() if with_ref
+                 else None)
+            for sign in (-1, 1):
+                y = torch.complex(*kern(n, xr, xi, sign))
+                if plain is not None:
+                    e = dev_rel(y, torch.complex(*plain(n, xr, xi, sign)))
+                    worst_plain = max(worst_plain, e)
+                    if not e <= tolerance(max(n, 2)):
+                        bad.append((n, sign, "plain", e))
+                if not with_ref:
+                    continue
+                ref = (torch.fft.fft(x) if sign < 0
+                       else torch.fft.ifft(x, norm="forward"))
+                y = y.cpu().to(torch.complex128)
+                e = float(torch.linalg.vector_norm(y - ref)
+                          / torch.linalg.vector_norm(ref))
+                worst = max(worst, e)
+                if not e <= tolerance(max(n, 2)):
+                    bad.append((n, sign, "float64", e))
+        if bad:
+            raise AssertionError(f"matmul-form sweep: (n, sign, against, "
+                                 f"rel_l2) {bad[:8]}")
+        return worst, worst_plain
+
+    w1, _ = mm_errs(range(1, 129), 37,
+                    lambda n, xr, xi, s: pf.fft_mm1(xr, xi, n, s))
+    mm2_lengths = [n for n in range(2, 16385) if pf.two_stage_split(n)]
+    mm2_ref = set(mm2_lengths[::16]) | {256, 512, 640, 1024}
+    w2, w2_plain = mm_errs(
+        mm2_lengths, 3,
+        lambda n, xr, xi, s: pf.fft_mm2(xr, xi, *pf.two_stage_split(n), s),
+        lambda n, xr, xi, s: pf.fft_mm2_plain(xr, xi, *pf.two_stage_split(n),
+                                              s), mm2_ref)
+    print(f"sweep: fft_mm1 n = 1..128 (batch 37): worst rel_l2 vs torch.fft "
+          f"float64 {w1:.3e}; fft_mm2 {len(mm2_lengths)} lengths "
+          f"{mm2_lengths[0]}..{mm2_lengths[-1]} (batch 3): worst vs "
+          f"fft_mm2_plain {w2_plain:.3e}, {len(mm2_ref)} of them vs "
+          f"torch.fft float64 {w2:.3e}; both signs")
     phase("3a (sweeps)")
 
     # 3b. kernels at the main path's shapes against their plain versions
@@ -774,12 +902,6 @@ def main() -> int:
         del xr, xi, xc
         return case
 
-    def dev_rel(a, b):
-        """rel_l2 on the card, in float64."""
-        a, b = a.to(torch.complex128), b.to(torch.complex128)
-        return float(torch.linalg.vector_norm(a - b)
-                     / torch.linalg.vector_norm(b))
-
     def as_c32(xr, xi):
         """torch.complex32 (fp16 halves) of the planes, or None with the
         reason where PyTorch does not make one."""
@@ -838,6 +960,50 @@ def main() -> int:
               f"{case['max_rel_err']:.3e}, vs float64 {err:.3e} (plain "
               f"{perr:.3e})")
         del xr, xi, xc, xh
+        return case
+
+    def mm_case(kname, shape):
+        """fft_mm1 or fft_mm2 on (B, n) rows against its plain version;
+        bound: the DFT's (its bytes, or its 5 n log2 n flops a row); the
+        flops of the kernel's dense products (the TPU CostEstimate) as
+        `kernel_flops`; library: one torch.fft.fft over the same rows."""
+        b, n = shape
+        xr, xi = planes(shape)
+        if kname == "fft_mm1":
+            kern = lambda s: pf.fft_mm1(xr, xi, n, s)
+            plain = lambda s: pf.fft_mm1_plain(xr, xi, n, s)
+            kflops = 8 * n * n * b
+        else:
+            n1, n2 = pf.two_stage_split(n)
+            kern = lambda s: pf.fft_mm2(xr, xi, n1, n2, s)
+            plain = lambda s: pf.fft_mm2_plain(xr, xi, n1, n2, s)
+            kflops = (8 * n * (n1 + n2) + 6 * n) * b
+        pairs = [(lambda s=s: torch.complex(*kern(s)),
+                  lambda s=s: torch.complex(*plain(s))) for s in (-1, 1)]
+        xc = torch.complex(xr, xi)
+        case = kernel_case(shape, n, pairs, lambda: kern(-1),
+                           lambda: plain(-1), lambda: torch.fft.fft(xc),
+                           16 * xr.numel(), 5 * xr.numel() * math.log2(n))
+        case["kernel_flops"] = kflops
+        case["kernel_flops_ms"] = 1e3 * kflops / fp32
+        del xr, xi, xc
+        return case
+
+    def axis0_case(shape):
+        """fft_axis0 on (n, V) planes against its plain version."""
+        n = shape[0]
+        xr, xi = planes(shape)
+        scale = 1.0 / math.sqrt(n)
+        pairs = [(lambda s=s: torch.complex(*sk.fft_axis0(xr, xi, s, scale)),
+                  lambda s=s: torch.complex(*sk.fft_axis0_plain(xr, xi, s,
+                                                                scale)))
+                 for s in (-1, 1)]
+        xc = torch.complex(xr, xi)
+        case = kernel_case(shape, n, pairs, lambda: sk.fft_axis0(xr, xi, -1),
+                           lambda: sk.fft_axis0_plain(xr, xi, -1),
+                           lambda: torch.fft.fft(xc, dim=0), 16 * xr.numel(),
+                           5 * xr.numel() * math.log2(n))
+        del xr, xi, xc
         return case
 
     mid4 = (4, 256, 256, 256)
@@ -899,6 +1065,14 @@ def main() -> int:
             ring_fn(False, True))],
         "fft_axes2_ring_bf16": [lambda: bf16_case(
             "fft_axes2_ring", CUBE, (1, 2), ring_fn(True), ring_fn(True, True))],
+        # the 512^3 leading axis, and the columns plan of PRECISION_PLANS
+        "fft_axis0": [lambda: axis0_case((512, 262144))],
+        # the rows every axis of the PALLAS_PLANS gives the kernels
+        "fft_mm1": [lambda: mm_case("fft_mm1", (262144, 128))],
+        "fft_mm2": [lambda: mm_case("fft_mm2", (4096, 1024)),
+                    lambda: mm_case("fft_mm2", (4096, 640)),
+                    lambda: mm_case("fft_mm2", (262144, 256)),
+                    lambda: mm_case("fft_mm2", (262144, 512))],
     }
     rows = {}
     for kname, makers in cases.items():
@@ -921,7 +1095,8 @@ def main() -> int:
         if "entry" in first:
             rows[kname]["entry"] = first["entry"]
         for key in ("library_call", "library_c32_ms", "library_c64_ms",
-                    "err_vs_f64", "plain_err_vs_f64"):
+                    "err_vs_f64", "plain_err_vs_f64", "kernel_flops",
+                    "kernel_flops_ms"):
             if key in first:
                 rows[kname][key] = first[key]
         print(f"kernel {kname}: " + "; ".join(
@@ -970,8 +1145,8 @@ def main() -> int:
         if not bool(torch.isfinite(torch.view_as_real(y)).all()):
             raise AssertionError(f"{s.shape}: non-finite output")
         tol = tolerance(s.logical_n)
-        err = rel_l2(y, torch.fft.fftn(x, dim=s.axes))
-        back = rel_l2(p.inverse()(y), x)
+        err = dev_rel(y, torch.fft.fftn(x, dim=s.axes))
+        back = dev_rel(p.inverse()(y), x)
         if not (err <= tol and back <= tol):
             raise AssertionError(f"{s.shape}: rel_l2 {err}, roundtrip {back}, "
                                  f"tolerance {tol}")
@@ -1050,8 +1225,8 @@ def main() -> int:
                                            dim=s.axes)
             hr, hi = x.real.contiguous(), x.imag.contiguous()
             steps = lambda: p.execute_split(hr, hi)
-        err = rel_l2(y, ref)
-        back = rel_l2(p.inverse()(y), x)
+        err = dev_rel(y, ref)
+        back = dev_rel(p.inverse()(y), x)
         del ref
         if not (err <= tol and back <= tol):
             raise AssertionError(f"{s.kind} {s.shape}: rel_l2 {err}, "
@@ -1126,8 +1301,8 @@ def main() -> int:
         if not bool(torch.isfinite(torch.view_as_real(y)).all()):
             raise AssertionError(f"{label}: non-finite output")
         tol = tolerance(s.logical_n)
-        err = rel_l2(y, torch.fft.fftn(x, dim=s.axes))
-        back = rel_l2(p.inverse()(y), x)
+        err = dev_rel(y, torch.fft.fftn(x, dim=s.axes))
+        back = dev_rel(p.inverse()(y), x)
         if not (err <= tol and back <= tol):
             raise AssertionError(f"{label}: rel_l2 {err}, roundtrip {back}, "
                                  f"tolerance {tol}")
@@ -1236,6 +1411,7 @@ def main() -> int:
             "rel_err_vs_torch_fft_f64": err, "roundtrip_err": back,
             "tolerance": tol, "ms": ms, "steps_ms": steps_ms,
             "gflops": p.flops / (ms * 1e-3) / 1e9,
+            "bytes_ideal": p.bytes_ideal,
             "hbm_bound_ms": b_ms, "bound_fraction": b_ms / ms,
             "library_ms": own_ms if own_ms is not None else lib64_ms,
             "library_own_type_ms": own_ms, "library_own_type_note": own_note,
@@ -1273,6 +1449,40 @@ def main() -> int:
           f"complex32 {gap_ms['gap_complex32']:.4f} (grid "
           f"{c32_ms['complex32_cube']:.4f})")
     phase("8 (gap-fused route)")
+
+    # 9. the backend="pallas" plans, one group each; their bound is the
+    # transform's, as for every plan (its bytes: 5 N log2 N flops over the
+    # FP32 rate is smaller); beside it the flops of the matmul kernels'
+    # dense products (the TPU CostEstimates: 8 n^2 a row for n <= 128,
+    # 8 n (n1 + n2) + 6 n for a split n = n1 n2) and their time at the
+    # FP32 rate
+    for case in PALLAS_PLANS:
+        dtype_plan(*case)
+        row = plan_rows[-1]
+        numel, flops, kflops = int(np.prod(case[1])), 0.0, 0
+        for a in case[2]:
+            n = case[1][a]
+            sp = pf.two_stage_split(n)
+            flops += 5 * numel * math.log2(n)
+            kflops += numel // n * (8 * n * n if sp is None
+                                    else 8 * n * sum(sp) + 6 * n)
+        row["bound_ms"], row["bound_by"] = bound(row["bytes_ideal"], flops)
+        row["kernel_flops"] = kflops
+        row["kernel_flops_ms"] = 1e3 * kflops / fp32
+        print(f"{case[0]}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}), dense-product flops {kflops:.3e} "
+              f"({row['kernel_flops_ms']:.4f} ms at the FP32 rate), "
+              f"torch.fft {row['library_complex64_ms']:.4f}", flush=True)
+    phase("9 (backend=pallas plans)")
+
+    # 10. the precision tiers, one group each
+    prec_ms = {case[0]: dtype_plan(*case) for case in PRECISION_PLANS}
+    print(f"512^3 precision='high' (ms): complex64 "
+          f"{prec_ms['precision_high_cube']:.4f} (highest "
+          f"{plan_rows[0]['ms']:.4f}), complex32 "
+          f"{prec_ms['precision_high_cube_c32']:.4f} (default "
+          f"{c32_ms['complex32_cube']:.4f})")
+    phase("10 (precision tiers)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

@@ -1,16 +1,20 @@
 """regent_fft_tpu_torch — the PyTorch/CUDA port of ``regent_fft_tpu``.
 
-Complex64 C2C plans and float32 R2C/C2R plans at any rank, forward and
-inverse, with all four norms, run on an NVIDIA H100 through ten
-hand-written CUDA kernels (``csrc/stockham.cu``, ``csrc/real.cu``,
-``csrc/fourstep.cu`` and ``csrc/ring.cu``, built with ``nvcc`` at first
-use): the butterfly passes, the four-step last axis (n = 4096..2M), and
-the leading-axis four-step and slab-ring routes.  Plans default
-to ``device="cuda"``; ``device="cpu"`` runs the kernels' plain versions.
-The JAX package ``regent_fft_tpu`` is the reference; this package imports
-nothing of it or of JAX.
+C2C, R2C and C2R plans at any rank, forward and inverse, with all four
+norms and the three precision tiers, in complex64 (f32 planes), complex32
+(bf16 planes, f32 compute) and complex128 (f64 contraction steps), run on
+an NVIDIA H100 through twenty-two hand-written CUDA entry points
+(``csrc/stockham.cu``, ``csrc/real.cu``, ``csrc/fourstep.cu``,
+``csrc/ring.cu`` and ``csrc/matmul.cu``, built with ``nvcc`` at first
+use).  The routes: the butterfly passes (last axis, middle axes, the fused
+trailing pair, the axis-0 pass, the gap-fused pass behind
+``REGENT_FFT_GAP_FUSED``), the real row-pair kernels, the four-step last
+axis (n = 4096..2M), the leading-axis four-step and slab-ring routes
+(``axis0_impl``/``f2_impl``), and under ``backend="pallas"`` the
+matmul-form kernels.  Plans default to ``device="cuda"``; ``device="cpu"``
+runs the kernels' plain versions.  The JAX package ``regent_fft_tpu`` is
+the reference; this package imports nothing of it or of JAX.
 """
-
 from .dtypes import Direction, Kind, Norm, SplitComplex, as_split, from_split
 from .plan import (Plan, PlanSpec, make_plan, execute_plan, destroy_plan,
                    clear_plan_cache, cached_plans, spec_from_jax)

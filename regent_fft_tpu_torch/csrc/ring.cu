@@ -13,8 +13,9 @@
 // stayed on chip, but a 512 x 512 plane (2 MiB) is more than the 227 KB of
 // shared memory a block can use, so, as fft_fused2_kernel does, the block
 // owns its plane and makes two passes over it: column strips from the input
-// into the output, then row strips of the output in place (up to twice the
-// bytes once the 50 MB L2 no longer holds the planes in flight).  Flops
+// into the output (bf16: into f32 scratch, below), then row strips from there
+// into the output (up to twice the bytes once the 50 MB L2 no longer holds
+// the planes in flight).  Flops
 // (~5*log2(n) per element) are far below the FP32 ridge.
 //
 // Design.  The TPU kernel hides device-memory latency behind a K-deep ring of
@@ -42,10 +43,17 @@
 // 16-byte aligned planes), and work() first widens its buffer into one f32
 // tile past the ring (the column tile, or the padded row tile), then runs
 // the f32 butterflies and rounds the scaled result to bf16 on the store.
-// Shared memory: two 32 KiB bf16 buffers and a 64-66 KiB f32 tile, against
-// the f32 ring's 128 KiB.  The fuse_last intermediate is rounded to bf16 in
-// the output planes, as fft_fused2_bf16's is; the TPU kernel keeps it f32 in
-// VMEM.  TMA and mbarrier pipelines are later work.
+// Shared memory in the axis mode: two 32 KiB bf16 buffers and a 64 KiB f32
+// tile, against the f32 ring's 128 KiB.  The fuse_last mode keeps the plane between its
+// column and row passes in f32, as the TPU kernel does in VMEM: each
+// resident block owns one f32 scratch plane pair (the wrapper allocates one
+// per block of the persistent grid, 264 MiB at 512 x 512 planes on 132 SMs,
+// against 1 GiB for a whole-tensor scratch at 512^3), the column pass writes
+// it, and the row pass reads it back as raw f32 strips in 16-byte copies and
+// widens them into the padded tile, so its ring buffers are sized for f32
+// strips (two 64 KiB buffers and the 66 KiB tile: 194 KiB, still one block
+// an SM).  That moves 24 B per element instead of a bf16 intermediate's 16.
+// TMA and mbarrier pipelines are later work.
 
 #include <type_traits>
 
@@ -225,21 +233,23 @@ __device__ void load_cols(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
   }
 }
 
-// bf16 row strip: rows [r0, r0 + nt) of an (nrows, n) plane at `base` into
-// buf unpadded (element (t, j) at t * n + j) in 16-byte copies (n % 8 == 0).
-// Rows at or past `nrows` are zero-filled.
-__device__ void load_rows(const __nv_bfloat16* yr, const __nv_bfloat16* yi,
-                          __nv_bfloat16* buf, size_t base, int r0, int nrows,
-                          int n, const Geo& g) {
-  const int q8 = n >> 3;
-  const int per = g.nt * q8;
+// Raw row strip: rows [r0, r0 + nt) of an (nrows, n) plane at `base` into
+// buf unpadded (element (t, j) at t * n + j) in 16-byte copies (n a multiple
+// of 16 / sizeof(S): 8 bf16 or 4 f32).  Rows at or past `nrows` are
+// zero-filled.
+template <typename S>
+__device__ void load_rows_raw(const S* yr, const S* yi, S* buf, size_t base,
+                              int r0, int nrows, int n, const Geo& g) {
+  constexpr int ch = 16 / sizeof(S);   // elements per copy
+  const int qn = n / ch;
+  const int per = g.nt * qn;
   for (int q = threadIdx.x; q < 2 * per; q += THREADS) {
     const int im = q >= per;
     const int r = q - im * per;
-    const int t = r / q8;
-    const int j = (r - t * q8) << 3;
+    const int t = r / qn;
+    const int j = (r - t * qn) * ch;
     const bool ok = r0 + t < nrows;
-    const __nv_bfloat16* src = im ? yi : yr;
+    const S* src = im ? yi : yr;
     cp_async16(buf + (size_t)im * g.nt * n + t * n + j,
                ok ? src + base + (size_t)(r0 + t) * n + j : src, ok ? 16 : 0);
   }
@@ -252,32 +262,34 @@ __device__ void widen_cols(const __nv_bfloat16* buf, float* tile, int n,
     tile[q] = __bfloat162float(buf[q]);
 }
 
-// Widen a raw bf16 row strip into the padded f32 row tile.
-__device__ void widen_rows(const __nv_bfloat16* buf, float* tile, int n,
-                           const Geo& g) {
+// Widen a raw (bf16 or f32) row strip into the padded f32 row tile.
+template <typename S>
+__device__ void widen_rows(const S* buf, float* tile, int n, const Geo& g) {
   const int per = g.nt * n;
   for (int q = threadIdx.x; q < 2 * per; q += THREADS) {
     const int im = q >= per;
     const int r = q - im * per;
     const int t = r / n;
     tile[(size_t)im * g.nt * g.pitch + at<true>(t, r - t * n, g)] =
-        __bfloat162float(buf[q]);
+        to_f32(buf[q]);
   }
 }
 
 // --------------------------------------------------------------------------
 // fft_axis_ring_kernel — see the note at the top.  `bstride` is the size of
 // one ring buffer in elements of T.  FUSE: p1 is the n1-point (column)
-// transform, p2 the n2-point (row) transform, post == n2.  For bf16 planes
-// (WIDEN) the f32 tile work() transforms lies past the ring.
+// transform, p2 the n2-point (row) transform, post == n2, and mr, mi the f32
+// planes between the passes: the output planes for f32 data, one
+// (n1, n2) scratch plane pair per block for bf16 (block b's at b * n1 * n2).
+// For bf16 planes (WIDEN) the f32 tile work() transforms lies past the ring.
 // --------------------------------------------------------------------------
 template <bool FUSE, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 fft_axis_ring_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                     T* yr, T* yi, long long pre, int post, int bstride,
-                     StagePlan p1, const float2* __restrict__ tw1,
-                     StagePlan p2, const float2* __restrict__ tw2, float s,
-                     float scale) {
+                     T* yr, T* yi, float* mr, float* mi, long long pre,
+                     int post, int bstride, StagePlan p1,
+                     const float2* __restrict__ tw1, StagePlan p2,
+                     const float2* __restrict__ tw2, float s, float scale) {
   constexpr bool WIDEN = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   T* const ring0 = reinterpret_cast<T*>(smem);
@@ -325,34 +337,41 @@ fft_axis_ring_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   } else {
     const Geo g2 = rows_geo(p2.n);
     const int nrs = (n + g2.nt - 1) / g2.nt;
+    // the raw f32 strip in buffer b (bf16 planes), widened into the tile
+    auto fbuf = [&](int b) { return reinterpret_cast<float*>(buf(b)); };
     auto rows_tile = [&](int b) -> float* {
       if constexpr (WIDEN) {
-        widen_rows(buf(b), wide, post, g2);
+        widen_rows(fbuf(b), wide, post, g2);
         __syncthreads();
         return wide;
       } else {
         return buf(b);
       }
     };
+    const size_t mine = (size_t)blockIdx.x * n * post;   // bf16: own scratch
 #pragma unroll 1
     for (long long pl = blockIdx.x; pl < pre; pl += gridDim.x) {
       const size_t base = (size_t)pl * n * post;
-      // columns: input -> output, unscaled
+      const size_t mbase = WIDEN ? mine : base;
+      // columns: input -> the f32 planes m, unscaled
       ring(
           ncb,
           [&](int i, int b) {
             load_cols(xr, xi, buf(b), base, post, i * nt, post, n, nt);
           },
           [&](int i, int b) {
-            work_cols(cols_tile(b), yr, yi, base, post, i * nt, post, p1, tw1,
-                      s, 1.0f);
+            work_cols(cols_tile(b), mr, mi, mbase, post, i * nt, post, p1,
+                      tw1, s, 1.0f);
           });
       // The ring ended on __syncthreads(): this block's writes to the plane
-      // are visible to all of its threads.  Rows of the output, in place.
+      // are visible to all of its threads.  Rows: m -> output.
       ring(
           nrs,
           [&](int i, int b) {
-            load_rows(yr, yi, buf(b), base, i * g2.nt, n, post, g2);
+            if constexpr (WIDEN)
+              load_rows_raw(mr, mi, fbuf(b), mbase, i * g2.nt, n, post, g2);
+            else
+              load_rows(mr, mi, buf(b), mbase, i * g2.nt, n, post, g2);
           },
           [&](int i, int b) {
             work_rows(rows_tile(b), yr, yi, base, i * g2.nt, n, p2, tw2, s,
@@ -363,10 +382,13 @@ fft_axis_ring_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 }
 
 // `tile_bytes`: the f32 tile past the ring (0 for f32 planes).
+// `mr`, `mi`: FUSE's f32 planes between the passes; for bf16 data `nscr`
+// scratch plane pairs, and the grid takes at most that many blocks.
 template <bool FUSE, typename T>
-cudaError_t launch_ring(const T* xr, const T* xi, T* yr, T* yi, long long pre,
-                        int post, int bstride, size_t tile_bytes,
-                        long long items, const StagePlan& p1,
+cudaError_t launch_ring(const T* xr, const T* xi, T* yr, T* yi, float* mr,
+                        float* mi, long long nscr, long long pre, int post,
+                        int bstride, size_t tile_bytes, long long items,
+                        const StagePlan& p1,
                         const float2* tw1, const StagePlan& p2,
                         const float2* tw2, float s, float scale,
                         cudaStream_t stream) {
@@ -385,8 +407,9 @@ cudaError_t launch_ring(const T* xr, const T* xi, T* yr, T* yi, long long pre,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   long long grid = (long long)sms * per_sm;
   if (grid > items) grid = items;
+  if (grid > nscr) grid = nscr;
   fft_axis_ring_kernel<FUSE, T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      xr, xi, yr, yi, pre, post, bstride, p1, tw1, p2, tw2, s, scale);
+      xr, xi, yr, yi, mr, mi, pre, post, bstride, p1, tw1, p2, tw2, s, scale);
   return cudaGetLastError();
 }
 
@@ -410,30 +433,36 @@ int axis_ring(const T* xr, const T* xi, T* yr, T* yi, long long pre, int n,
   if (pre <= 0) return cudaSuccess;
   const long long tile = 2LL * n * nt;
   const long long items = pre * ((post + nt - 1) / nt);
-  return launch_ring<false>(xr, xi, yr, yi, pre, post, round16<T>(tile),
+  return launch_ring<false>(xr, xi, yr, yi, nullptr, nullptr, items, pre,
+                            post, round16<T>(tile),
                             WIDEN ? tile * sizeof(float) : 0, items, p, tw, p,
                             tw, (float)sign, scale, (cudaStream_t)stream);
 }
 
+// `mr`, `mi`: the f32 planes between the passes (the output planes for f32
+// data, `nscr` scratch plane pairs for bf16).
 template <typename T>
-int axes2_ring(const T* xr, const T* xi, T* yr, T* yi, long long pre, int n1,
-               int n2, int sign, float scale, const float2* tw1, int nstages1,
+int axes2_ring(const T* xr, const T* xi, T* yr, T* yi, float* mr, float* mi,
+               long long nscr, long long pre, int n1, int n2, int sign,
+               float scale, const float2* tw1, int nstages1,
                const int* radices1, const float2* tw2, int nstages2,
                const int* radices2, void* stream) {
   constexpr bool WIDEN = !std::is_same<T, float>::value;
   StagePlan p1, p2;
   if (make_plan(n1, nstages1, radices1, &p1)) return cudaErrorInvalidValue;
   if (make_plan(n2, nstages2, radices2, &p2)) return cudaErrorInvalidValue;
-  if (n2 % (16 / sizeof(T)) || cols_geo(n1).nt < 4)
+  if (n2 % (16 / sizeof(T)) || cols_geo(n1).nt < 4 || nscr < 1)
     return cudaErrorInvalidValue;
   if (pre <= 0) return cudaSuccess;
   const Geo g2 = rows_geo(n2);
   const long long a = 2LL * n1 * cols_geo(n1).nt;
   const long long b = 2LL * g2.nt * g2.pitch;   // the padded f32 row tile
   const long long tile = a > b ? a : b;
-  // bf16 buffers hold the raw (unpadded) row strip, f32 ones the tile
-  const long long raw = WIDEN ? 2LL * g2.nt * n2 : b;
-  return launch_ring<true>(xr, xi, yr, yi, pre, n2,
+  // bf16 buffers hold the raw (unpadded) f32 row strip of the scratch plane,
+  // in elements of T; f32 ones the tile
+  const long long raw =
+      WIDEN ? 2LL * g2.nt * n2 * (long long)(sizeof(float) / sizeof(T)) : b;
+  return launch_ring<true>(xr, xi, yr, yi, mr, mi, nscr, pre, n2,
                            round16<T>(a > raw ? a : raw),
                            WIDEN ? tile * sizeof(float) : 0, pre, p1, tw1, p2,
                            tw2, (float)sign, scale, (cudaStream_t)stream);
@@ -470,20 +499,22 @@ int fft_axes2_ring(const float* xr, const float* xi, float* yr, float* yi,
                    const float2* tw1, int nstages1, const int* radices1,
                    const float2* tw2, int nstages2, const int* radices2,
                    void* stream) {
-  return axes2_ring(xr, xi, yr, yi, pre, n1, n2, sign, scale, tw1, nstages1,
-                    radices1, tw2, nstages2, radices2, stream);
+  return axes2_ring(xr, xi, yr, yi, yr, yi, pre, pre, n1, n2, sign, scale,
+                    tw1, nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
-// The same on bf16 planes (f32 compute; the intermediate between the column
-// and row passes is rounded to bf16); n2 % 8 == 0.
+// The same on bf16 planes (f32 compute); n2 % 8 == 0.  The intermediate
+// between the column and row passes stays f32 in `nscr` >= 1 scratch plane
+// pairs of n1 * n2 floats (16-byte aligned); the grid takes at most nscr
+// blocks.
 int fft_axes2_ring_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
-                        __nv_bfloat16* yr, __nv_bfloat16* yi, long long pre,
-                        int n1, int n2, int sign, float scale,
-                        const float2* tw1, int nstages1, const int* radices1,
-                        const float2* tw2, int nstages2, const int* radices2,
-                        void* stream) {
-  return axes2_ring(xr, xi, yr, yi, pre, n1, n2, sign, scale, tw1, nstages1,
-                    radices1, tw2, nstages2, radices2, stream);
+                        __nv_bfloat16* yr, __nv_bfloat16* yi, float* mr,
+                        float* mi, long long nscr, long long pre, int n1,
+                        int n2, int sign, float scale, const float2* tw1,
+                        int nstages1, const int* radices1, const float2* tw2,
+                        int nstages2, const int* radices2, void* stream) {
+  return axes2_ring(xr, xi, yr, yi, mr, mi, nscr, pre, n1, n2, sign, scale,
+                    tw1, nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
 }  // extern "C"

@@ -25,13 +25,21 @@
 // each element is read as 4 B (bf16 re + im) instead of 8 and written the
 // same, converted to f32 on load and rounded to nearest even on the store.
 // Bound on H100 for them: bytes, 8 B per complex element per pass (half the
-// f32 kernels' 16 B).  fft_fused2_bf16 keeps the f32 design (column pass
-// into the output planes, row pass in place), so its intermediate is
-// rounded to bf16 between the two passes; the TPU kernel keeps it f32 in
-// VMEM.  That costs one more bf16 rounding (the error class of the two
-// bf16 roundings inside _mxu_tile_tw) and saves the 8 B per element of an
-// f32 scratch plane.  fft_gap_bf16, the bf16 instance of the gap kernel
-// (whose TPU body is _stockham_tile on either block type), does the same.
+// f32 kernels' 16 B).  fft_fused2_bf16 and fft_gap_bf16 (the bf16 instance of
+// the gap kernel, whose TPU body is _stockham_tile on either block type) keep
+// the plane between their column and row passes in f32, as the TPU kernels
+// do in VMEM: the column pass writes it to f32 scratch planes the wrapper
+// allocates, the row pass reads them and rounds the output to bf16 once.
+// The scratch is whole-tensor, laid out like the output (8 B per element,
+// 1 GiB at 512^3), because the grid is one block per plane and each block
+// then owns its scratch plane with no indexing of its own; it moves 24 B
+// per element through device memory instead of the 16 B of a bf16
+// intermediate.
+//
+//   fft_axis0             replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_axis0
+//
+// is one more launcher of fft_cols_kernel<float>: the FFT along axis 0 of
+// (n, V) f32 planes, the (P, n, V) body with P = 1, scale fused.
 
 #include "stockham_tile.cuh"
 
@@ -121,22 +129,23 @@ fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // Bound on H100: bytes — one read and one write of each element (16 B) if
 // the plane stayed on chip.  A plane can be 262144 complex f32 = 2 MiB, more
 // than the 227 KB of shared memory a block can use, so this simple version
-// runs the column pass (along n1) from the input into the output buffer,
-// synchronises the block (the block owns the plane, so no other block
-// touches it), and runs the row pass (along n2) in place on the output with
-// the scale fused.  That costs up to two plane passes of HBM traffic once
+// runs the column pass (along n1) from the input into the output buffer
+// (for bf16 data: into the f32 scratch planes), synchronises the block (the
+// block owns the plane, so no other block touches it), and runs the row
+// pass (along n2) from there into the output with the scale fused.  That costs up to two plane passes of HBM traffic once
 // the 50 MB L2 no longer holds the working planes (at 512^3, 2 MiB planes in
 // flight on every SM).  A thread-block-cluster / distributed-shared-memory
 // design that keeps the whole plane on chip is later work.
 // --------------------------------------------------------------------------
 
 // The body of fft_fused2_kernel and fft_gap_kernel: the (n1, n2) plane at
-// `base` whose rows are `ld` elements apart, columns (n1) from x into y,
-// then rows (n2) of y in place with the scale.
+// `base` whose rows are `ld` elements apart, columns (n1) from x into the f32
+// planes m (the output planes themselves for f32 data, the scratch planes
+// for bf16), then rows (n2) from m into y with the scale.
 template <typename T>
-__device__ __forceinline__ void plane2(const T* xr, const T* xi, T* yr, T* yi,
-                                       size_t base, long long ld,
-                                       const StagePlan& p1,
+__device__ __forceinline__ void plane2(const T* xr, const T* xi, float* mr,
+                                       float* mi, T* yr, T* yi, size_t base,
+                                       long long ld, const StagePlan& p1,
                                        const float2* __restrict__ tw1,
                                        const StagePlan& p2,
                                        const float2* __restrict__ tw2, float s,
@@ -148,7 +157,7 @@ __device__ __forceinline__ void plane2(const T* xr, const T* xi, T* yr, T* yi,
     float* sr = smem;
     float* si = smem + n1 * g.nt;
     for (int c0 = 0; c0 < n2; c0 += g.nt)
-      cols_pass(xr + base, xi + base, yr + base, yi + base, c0, n2, ld, p1,
+      cols_pass(xr + base, xi + base, mr + base, mi + base, c0, n2, ld, p1,
                 tw1, s, 1.0f, sr, si, ColsOut{ld, 0, 1});
   }
   // cols_pass ended on __syncthreads(): the block's global writes above are
@@ -158,7 +167,7 @@ __device__ __forceinline__ void plane2(const T* xr, const T* xi, T* yr, T* yi,
     float* sr = smem;
     float* si = smem + g.nt * g.pitch;
     for (int r0 = 0; r0 < n1; r0 += g.nt)
-      rows_pass(yr + base, yi + base, yr + base, yi + base, r0, n1, ld, p2,
+      rows_pass(mr + base, mi + base, yr + base, yi + base, r0, n1, ld, p2,
                 tw2, s, scale, sr, si);
   }
 }
@@ -166,12 +175,12 @@ __device__ __forceinline__ void plane2(const T* xr, const T* xi, T* yr, T* yi,
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                  T* yr, T* yi, StagePlan p1, const float2* __restrict__ tw1,
-                  StagePlan p2, const float2* __restrict__ tw2, float s,
-                  float scale) {
+                  float* mr, float* mi, T* yr, T* yi, StagePlan p1,
+                  const float2* __restrict__ tw1, StagePlan p2,
+                  const float2* __restrict__ tw2, float s, float scale) {
   extern __shared__ float smem[];
-  plane2(xr, xi, yr, yi, (size_t)blockIdx.x * p1.n * p2.n, p2.n, p1, tw1, p2,
-         tw2, s, scale, smem);
+  plane2(xr, xi, mr, mi, yr, yi, (size_t)blockIdx.x * p1.n * p2.n, p2.n, p1,
+         tw1, p2, tw2, s, scale, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -187,20 +196,20 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // Each column-pass row read is a run of nt elements (64 B in f32 at z = 512)
 // at a stride of Y*x; the TPU kernel pays the same big-stride gather once
 // for two axes (its VMEM strip rule, REGENT_FFT_GAP_STRIPS, has no
-// counterpart here).  The bf16 instance rounds the intermediate to bf16 in
-// the output planes, as fft_fused2_bf16 does; the TPU kernel keeps it f32.
+// counterpart here).  The bf16 instance keeps the intermediate in f32
+// scratch planes laid out like the output, as fft_fused2_bf16 does.
 // --------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-fft_gap_kernel(const T* __restrict__ xr, const T* __restrict__ xi, T* yr,
-               T* yi, int Y, StagePlan p1, const float2* __restrict__ tw1,
-               StagePlan p2, const float2* __restrict__ tw2, float s,
-               float scale) {
+fft_gap_kernel(const T* __restrict__ xr, const T* __restrict__ xi, float* mr,
+               float* mi, T* yr, T* yi, int Y, StagePlan p1,
+               const float2* __restrict__ tw1, StagePlan p2,
+               const float2* __restrict__ tw2, float s, float scale) {
   extern __shared__ float smem[];
   const long long ld = (long long)Y * p2.n;
   const long long b = blockIdx.x / Y, y = blockIdx.x - b * Y;
-  plane2(xr, xi, yr, yi, (size_t)b * p1.n * ld + (size_t)y * p2.n, ld, p1,
-         tw1, p2, tw2, s, scale, smem);
+  plane2(xr, xi, mr, mi, yr, yi, (size_t)b * p1.n * ld + (size_t)y * p2.n, ld,
+         p1, tw1, p2, tw2, s, scale, smem);
 }
 
 // Host launchers, one per kernel template, shared by the f32 and bf16 C
@@ -239,8 +248,11 @@ cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
   return cudaGetLastError();
 }
 
+// `mr`, `mi`: the f32 planes between the two passes (the output planes for
+// f32 data).
 template <typename T>
-cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
+cudaError_t launch_fused2(const T* xr, const T* xi, float* mr, float* mi,
+                          T* yr, T* yi, long long P,
                           int n1, int n2, int sign, float scale,
                           const float2* tw1, int nstages1, const int* radices1,
                           const float2* tw2, int nstages2, const int* radices2,
@@ -254,12 +266,13 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
   cudaError_t e = set_smem((const void*)fft_fused2_kernel<T>, smem);
   if (e != cudaSuccess) return e;
   fft_fused2_kernel<T><<<(unsigned)P, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, p1, tw1, p2, tw2, (float)sign, scale);
+      xr, xi, mr, mi, yr, yi, p1, tw1, p2, tw2, (float)sign, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_gap(const T* xr, const T* xi, T* yr, T* yi, long long B,
+cudaError_t launch_gap(const T* xr, const T* xi, float* mr, float* mi, T* yr,
+                       T* yi, long long B,
                        int z, int Y, int x, int sign, float scale,
                        const float2* tw1, int nstages1, const int* radices1,
                        const float2* tw2, int nstages2, const int* radices2,
@@ -274,8 +287,9 @@ cudaError_t launch_gap(const T* xr, const T* xi, T* yr, T* yi, long long B,
   cudaError_t e = set_smem((const void*)fft_gap_kernel<T>, smem);
   if (e != cudaSuccess) return e;
   fft_gap_kernel<T><<<(unsigned)(B * Y), THREADS, smem,
-                      (cudaStream_t)stream>>>(xr, xi, yr, yi, Y, p1, tw1, p2,
-                                              tw2, (float)sign, scale);
+                      (cudaStream_t)stream>>>(xr, xi, mr, mi, yr, yi, Y, p1,
+                                              tw1, p2, tw2, (float)sign,
+                                              scale);
   return cudaGetLastError();
 }
 
@@ -317,6 +331,15 @@ int fft_cols_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                      radices, stream);
 }
 
+// FFT along axis 0 of (n, V) f32 planes.
+int fft_axis0(const float* xr, const float* xi, float* yr, float* yi, int n,
+              long long V, int sign, float scale, const float2* tw,
+              int nstages, const int* radices, void* stream) {
+  if (V > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return launch_cols(xr, xi, yr, yi, 1LL, n, (int)V, sign, scale, tw, nstages,
+                     radices, stream);
+}
+
 // Four-step first pass over (P, n1, n2) f32 planes: n1-point FFT along the
 // middle axis times W_{n1*n2}^{k1*j2}; n1 * n2 a power of two <= 2^24.
 int fft_cols_tw(const float* xr, const float* xi, float* yr, float* yi,
@@ -346,19 +369,21 @@ int fft_fused2(const float* xr, const float* xi, float* yr, float* yi,
                const float2* tw1, int nstages1, const int* radices1,
                const float2* tw2, int nstages2, const int* radices2,
                void* stream) {
-  return launch_fused2(xr, xi, yr, yi, P, n1, n2, sign, scale, tw1, nstages1,
-                       radices1, tw2, nstages2, radices2, stream);
+  return launch_fused2(xr, xi, yr, yi, yr, yi, P, n1, n2, sign, scale, tw1,
+                       nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
-// FFT along both trailing axes of (P, n1, n2) bf16 planes (f32 compute; the
-// intermediate between the two passes is rounded to bf16).
+// FFT along both trailing axes of (P, n1, n2) bf16 planes (f32 compute); the
+// intermediate between the two passes goes to the f32 (P, n1, n2) scratch
+// planes mr, mi.
 int fft_fused2_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
-                    __nv_bfloat16* yr, __nv_bfloat16* yi, long long P, int n1,
-                    int n2, int sign, float scale, const float2* tw1,
-                    int nstages1, const int* radices1, const float2* tw2,
-                    int nstages2, const int* radices2, void* stream) {
-  return launch_fused2(xr, xi, yr, yi, P, n1, n2, sign, scale, tw1, nstages1,
-                       radices1, tw2, nstages2, radices2, stream);
+                    __nv_bfloat16* yr, __nv_bfloat16* yi, float* mr, float* mi,
+                    long long P, int n1, int n2, int sign, float scale,
+                    const float2* tw1, int nstages1, const int* radices1,
+                    const float2* tw2, int nstages2, const int* radices2,
+                    void* stream) {
+  return launch_fused2(xr, xi, mr, mi, yr, yi, P, n1, n2, sign, scale, tw1,
+                       nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
 // FFT along axes -3 and -1 of (B, z, Y, x) f32 planes (one pass).
@@ -367,19 +392,20 @@ int fft_gap(const float* xr, const float* xi, float* yr, float* yi,
             const float2* tw1, int nstages1, const int* radices1,
             const float2* tw2, int nstages2, const int* radices2,
             void* stream) {
-  return launch_gap(xr, xi, yr, yi, B, z, Y, x, sign, scale, tw1, nstages1,
-                    radices1, tw2, nstages2, radices2, stream);
+  return launch_gap(xr, xi, yr, yi, yr, yi, B, z, Y, x, sign, scale, tw1,
+                    nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
-// The same on bf16 planes (f32 compute; the intermediate between the two
-// passes is rounded to bf16).
+// The same on bf16 planes (f32 compute); the intermediate between the two
+// passes goes to the f32 (B, z, Y, x) scratch planes mr, mi.
 int fft_gap_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
-                 __nv_bfloat16* yr, __nv_bfloat16* yi, long long B, int z,
-                 int Y, int x, int sign, float scale, const float2* tw1,
-                 int nstages1, const int* radices1, const float2* tw2,
-                 int nstages2, const int* radices2, void* stream) {
-  return launch_gap(xr, xi, yr, yi, B, z, Y, x, sign, scale, tw1, nstages1,
-                    radices1, tw2, nstages2, radices2, stream);
+                 __nv_bfloat16* yr, __nv_bfloat16* yi, float* mr, float* mi,
+                 long long B, int z, int Y, int x, int sign, float scale,
+                 const float2* tw1, int nstages1, const int* radices1,
+                 const float2* tw2, int nstages2, const int* radices2,
+                 void* stream) {
+  return launch_gap(xr, xi, mr, mi, yr, yi, B, z, Y, x, sign, scale, tw1,
+                    nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Size factorization: the static planner core (numpy-free, stdlib only).
 
 The port's own copy of ``regent_fft_tpu/ops/factor.py``.  Only the
-"estimate" schedule is carried; the calibrated native cost model
-(``planner="model"``) is ROADMAP Queue 1 #11.
+"estimate" schedule and the matmul-form kernels' ``pallas_schedule`` are
+carried; the calibrated native cost model (``planner="model"``) is
+ROADMAP Queue 1 #11.
 """
 from __future__ import annotations
 
@@ -131,6 +132,47 @@ def fft_flops_convention(n: int, real: bool = False) -> float:
         return 0.0
     base = 5.0 * n * math.log2(n)
     return base / 2 if real else base
+
+
+# Smallest radix of a matmul-form kernel schedule (``pallas_schedule``).
+MIN_PALLAS_RADIX = 16
+
+
+@functools.lru_cache(maxsize=4096)
+def pallas_schedule(n: int, max_radix: int = DEFAULT_MAX_RADIX,
+                    min_radix: int = MIN_PALLAS_RADIX):
+    """Factorization with every factor in [min_radix, max_radix], or None.
+
+    A single direct DFT (n <= max_radix) is always allowed.  Otherwise the
+    fewest stages win, then the smallest sum of radices (fewest flops).
+    The matmul-form kernels (``ops/pallas_fft.py``) take one or two stages.
+    Counterpart: ``regent_fft_tpu/ops/factor.py:172``.
+    """
+    if n < 2:
+        return None
+    if n <= max_radix:
+        return (n,)
+
+    best = None
+
+    def rec(m, partial):
+        nonlocal best
+        if best is not None and len(partial) >= len(best):
+            return
+        for f in range(min(max_radix, m), min_radix - 1, -1):
+            if m % f:
+                continue
+            rest = m // f
+            if rest == 1:
+                cand = tuple(sorted(partial + [f], reverse=True))
+                if (best is None or len(cand) < len(best)
+                        or (len(cand) == len(best) and sum(cand) < sum(best))):
+                    best = cand
+            elif rest >= min_radix:
+                rec(rest, partial + [f])
+
+    rec(n, [])
+    return best
 
 
 # Schedule overrides: (n, max_radix) -> factors.  The port has no

@@ -43,9 +43,13 @@ f32: the four-step twiddle and the stage matrices are float64-generated and
 rounded once to f32, as in the JAX package (:func:`_a0fs_tw_mats`,
 :func:`_dft_mat` are exact copies).  On bf16 planes they compute in f32 and
 round where the TPU kernels round: each stage's output (the ring's bf16
-bodies are those of ``fft_cols``/``fft_fused2``).  The CUDA kernels run the
-shared butterfly tile instead of the dense stage products and form the
-twiddles on the write (see ``csrc/fourstep.cu``).
+bodies are those of ``fft_cols``/``fft_fused2``).  The bf16 ring's
+``fuse_last`` mode keeps the plane between its two passes in f32, as the
+TPU kernel does in VMEM: one f32 scratch plane pair per resident block of
+its persistent grid (at most one block an SM), which the wrapper
+allocates.  The CUDA kernels run the shared butterfly tile instead of the
+dense stage products and form the twiddles on the write (see
+``csrc/fourstep.cu``).
 """
 from __future__ import annotations
 
@@ -241,8 +245,10 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
 
     CUDA planes launch ``fft_axis_ring_kernel`` (counted as
     ``fft_axis_ring``, or ``fft_axes2_ring`` with ``fuse_last``, with
-    ``_bf16`` for its bf16 instances); CPU planes run
-    :func:`fft_axis_ring_plain`.  Counterpart: ``pallas_stockham.py:1324``.
+    ``_bf16`` for its bf16 instances; the bf16 ``fuse_last`` instance takes
+    min(pre, SM count) f32 scratch plane pairs, one per block of its grid);
+    CPU planes run :func:`fft_axis_ring_plain`.
+    Counterpart: ``pallas_stockham.py:1324``.
     """
     name = "fft_axes2_ring" if fuse_last else "fft_axis_ring"
     if not _sk._on_cuda(name, xr, xi, dtypes=tuple(_sk.C2C_DTYPES)):
@@ -257,9 +263,16 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
     tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device)
     if fuse_last:
         tw2, rad2, k2 = _sk.device_tables(post, sign, xr.device)
-        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
-                    sign, float(scale), tw1.data_ptr(), k1, rad1,
-                    tw2.data_ptr(), k2, rad2)
+        scratch = ()
+        if xr.dtype == torch.bfloat16:
+            nscr = min(pre, torch.cuda.get_device_properties(
+                xr.device).multi_processor_count)
+            mid = [torch.empty((nscr, n, post), dtype=torch.float32,
+                               device=xr.device) for _ in range(2)]
+            scratch = (mid[0].data_ptr(), mid[1].data_ptr(), nscr)
+        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, *scratch,
+                    pre, n, post, sign, float(scale), tw1.data_ptr(), k1,
+                    rad1, tw2.data_ptr(), k2, rad2)
     else:
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
                     sign, float(scale), tw1.data_ptr(), k1, rad1)

@@ -1,10 +1,11 @@
 """Stockham butterfly kernels: schedule gates, wrappers and plain versions.
 
-Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Nineteen
+Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Twenty-two
 hand-written CUDA entry points carry the plan paths.  This module holds
-the ten of the butterfly passes: the three C2C kernels and the gap-fused
-pass on f32 planes (complex64) and on bf16 planes (complex32) in
-``csrc/stockham.cu``, and the real-transform pair in ``csrc/real.cu``:
+the eleven of the butterfly passes: the three C2C kernels and the
+gap-fused pass on f32 planes (complex64) and on bf16 planes (complex32),
+and the axis-0 pass, in ``csrc/stockham.cu``, and the real-transform pair
+in ``csrc/real.cu``:
 
 =========================  ===================================  =======================
 wrapper (launch name)      replaces (pallas_stockham.py)        plain version
@@ -18,21 +19,36 @@ wrapper (launch name)      replaces (pallas_stockham.py)        plain version
 (``fft_fused2``, ``fft_fused2_bf16``)
 ``fft_axes_gap``           ``_runner_fused2_gap`` (:1127)       ``fft_axes_gap_plain``
 (``fft_gap``, ``fft_gap_bf16``)
+``fft_axis0``              ``_runner_axis0`` (:739)             ``fft_axis0_plain``
 ``fft_last_r2c``           ``_runner_last_r2c`` (:2395)         ``fft_last_r2c_plain``
 ``ifft_last_c2r``          ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
 =========================  ===================================  =======================
 
-``ops/fourstep.py`` holds the other nine (the four-step twiddle pass
+``ops/fourstep.py`` holds nine more (the four-step twiddle pass
 ``fft_cols_tw``, and on f32 and bf16 planes the leading-axis four-step
 stages ``a0fs_a``/``a0fs_b`` and the slab ring
-``fft_axis_ring``/``fft_axes2_ring``) on this module's launch helpers,
-tables and gates.
+``fft_axis_ring``/``fft_axes2_ring``) and ``ops/pallas_fft.py`` the two
+matmul-form kernels (``fft_mm1``, ``fft_mm2``), on this module's launch
+helpers and gates.
 
 A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device, and a plane dtype the kernel does not take,
 raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
-``LAUNCHES`` (all nineteen).
+``LAUNCHES`` (all twenty-two).  The two-pass bf16 kernels
+(``fft_fused2_bf16``, ``fft_gap_bf16``, ``fft_axes2_ring_bf16``) keep the
+plane between their passes in f32 scratch planes their wrappers allocate,
+as the TPU kernels keep it in VMEM and the plain versions keep it.
+
+``fft_axis0`` is the FFT along axis 0 of (n, V) f32 planes: the math of
+``fft_cols`` with pre = 1, the scale fused as there (``_runner_axis0`` is
+unscaled).  The JAX package has no plan route to ``_runner_axis0``; the
+port sends every axis-0 step of a rank-2 f32 array to it
+(:func:`fft_axis_stockham`), where the JAX plan runs ``_runner_cols`` with
+pre = 1.  Both compute the same transform and print the same step line;
+bf16 planes keep ``fft_cols_bf16``.  It computes exact f32 and reads
+no ``REGENT_FFT_TAIL_PREC``/``REGENT_FFT_A0FS_PREC`` switch: that meets the
+bound of every scheme the JAX kernel offers.
 
 The plain versions follow the JAX tile bodies that ``_tile_impl`` (:643)
 picks by block I/O.  f32 blocks take ``_stockham_tile`` (:709): radix-4
@@ -497,6 +513,14 @@ def fft_fused2_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
                    xr.dtype)
 
 
+def fft_axis0_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
+    """FFT along axis 0 of (n, V) f32 planes, scale applied:
+    ``_stockham_tile`` on the whole block.  Counterpart:
+    ``pallas_stockham.py:739`` (``_runner_axis0``, unscaled)."""
+    n = xr.shape[0]
+    return _scaled(*_stockham_tile_plain(xr, xi, n, sign), scale, xr.dtype)
+
+
 def fft_axes_gap_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along axes 1 and 3 of (B, z, Y, x) f32 or bf16 planes, scale
     applied: ``_stockham_tile`` along z, then along x, on each (z, x) block,
@@ -652,7 +676,10 @@ LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
             # planes (ops/fourstep.py)
             "fft_gap": 0, "fft_gap_bf16": 0, "a0fs_a_bf16": 0,
             "a0fs_b_bf16": 0, "fft_axis_ring_bf16": 0,
-            "fft_axes2_ring_bf16": 0}
+            "fft_axes2_ring_bf16": 0,
+            # the axis-0 pass, and the matmul-form kernels of
+            # ops/pallas_fft.py
+            "fft_axis0": 0, "fft_mm1": 0, "fft_mm2": 0}
 
 # Plane dtypes of the butterfly kernels that take both (all but the real
 # pair and fft_cols_tw), and the suffix of the C entry point (and launch
@@ -705,6 +732,16 @@ def _c2c_entry(name: str, xr):
     return full, getattr(_build.load(), full)
 
 
+def _mid_planes(xr):
+    """The f32 planes between the two passes of a two-pass kernel: none
+    for f32 planes (the kernel uses its output planes), f32 planes shaped
+    like ``xr`` for bf16 ones, passed after the output planes."""
+    if xr.dtype == torch.float32:
+        return ()
+    return tuple(torch.empty(xr.shape, dtype=torch.float32, device=xr.device)
+                 for _ in range(2))
+
+
 def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along the last axis of (B, n) f32 or bf16 planes, scale fused,
     output in the input's dtype.
@@ -748,20 +785,21 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     scale fused, output in the input's dtype.
 
     CUDA planes launch ``fft_fused2_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_fused2_bf16``; its column pass rounds the
-    intermediate to bf16 in the output planes); CPU planes run
+    (counted as ``fft_fused2_bf16``; its intermediate goes to f32 scratch
+    planes of the input's shape, 8 B per element); CPU planes run
     :func:`fft_fused2_plain`.  Counterpart: ``pallas_stockham.py:875``.
     """
     if not _on_cuda("fft_fused2", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_fused2_plain(xr, xi, sign, scale)
     p, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mid = _mid_planes(xr)
     tw1, rad1, k1 = device_tables(n1, sign, xr.device)
     tw2, rad2, k2 = device_tables(n2, sign, xr.device)
     _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            p, n1, n2, sign, scale, tw1.data_ptr(), k1, rad1,
-            tw2.data_ptr(), k2, rad2)
+            *(m.data_ptr() for m in mid), p, n1, n2, sign, scale,
+            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2)
     return yr, yi
 
 
@@ -770,20 +808,42 @@ def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     fused, output in the input's dtype.
 
     CUDA planes launch ``fft_gap_kernel`` (f32, counted as ``fft_gap``) or
-    its bf16 instance (``fft_gap_bf16``; its column pass rounds the
-    intermediate to bf16 in the output planes); CPU planes run
+    its bf16 instance (``fft_gap_bf16``; its intermediate goes to f32
+    scratch planes of the input's shape); CPU planes run
     :func:`fft_axes_gap_plain`.  Counterpart: ``pallas_stockham.py:1127``.
     """
     if not _on_cuda("fft_gap", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_axes_gap_plain(xr, xi, sign, scale)
     b, z, y, x = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    mid = _mid_planes(xr)
     tw1, rad1, k1 = device_tables(z, sign, xr.device)
     tw2, rad2, k2 = device_tables(x, sign, xr.device)
     _launch(*_c2c_entry("fft_gap", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            b, z, y, x, sign, scale, tw1.data_ptr(), k1, rad1,
-            tw2.data_ptr(), k2, rad2)
+            *(m.data_ptr() for m in mid), b, z, y, x, sign, scale,
+            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2)
+    return yr, yi
+
+
+def fft_axis0(xr, xi, sign: int, scale: float = 1.0) -> Pair:
+    """FFT along axis 0 of (n, V) f32 planes, scale fused.
+
+    CUDA planes launch ``fft_cols_kernel<float>`` through its own C entry
+    ``fft_axis0`` (counted as ``fft_axis0``); CPU planes run
+    :func:`fft_axis0_plain`.  Counterpart: ``pallas_stockham.py:739``.
+    """
+    if not _on_cuda("fft_axis0", xr, xi):
+        return fft_axis0_plain(xr, xi, sign, scale)
+    from . import _build
+    n, v = xr.shape
+    if not kernel_len_ok(n, False) or n > MAX_STOCKHAM_N:
+        raise ValueError(f"fft_axis0: no kernel schedule for n={n}")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    tw, rad, k = device_tables(n, sign, xr.device)
+    _launch("fft_axis0", _build.load().fft_axis0, xr.device,
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            n, v, sign, scale, tw.data_ptr(), k, rad)
     return yr, yi
 
 
@@ -835,8 +895,10 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
     """FFT along ``axis`` of N-D split planes in one kernel pass.
 
     The last axis of a rank >= 2 array goes to :func:`fft_last` as (B, n);
-    any other axis (and a rank-1 array) to :func:`fft_cols` as
-    (pre, n, post).  Counterpart: ``pallas_stockham.py:2735``.
+    axis 0 of a rank-2 f32 array to :func:`fft_axis0`; any other axis (and
+    a rank-1 array) to :func:`fft_cols` as (pre, n, post).
+    Counterpart: ``pallas_stockham.py:2735`` (whose axis 0 of a rank-2
+    array takes ``_runner_cols``).
     """
     ndim = xr.ndim
     axis = axis % ndim
@@ -852,6 +914,8 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
     if is_last:
         yr, yi = fft_last(xr.reshape(-1, n), xi.reshape(-1, n), sign,
                           float(scale))
+    elif ndim == 2 and xr.dtype == torch.float32:
+        yr, yi = fft_axis0(xr, xi, sign, float(scale))
     else:
         pre = int(np.prod(shape[:axis])) if axis else 1
         post = int(np.prod(shape[axis + 1:]))

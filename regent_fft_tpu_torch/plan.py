@@ -25,7 +25,12 @@ plan's device:
   the sub-axis swap);
 * ``direct`` / ``mixed2`` dense DFT contractions (``ops/stockham.py``);
 * ``general`` the 1-D pipeline of ``stockham.build_c2c_1d`` (direct or
-  mixed radix).
+  mixed radix), or under ``backend="pallas"`` the matmul-form kernels of
+  ``ops/pallas_fft.build_c2c_1d_pallas`` (``fft_mm1`` for n <= 128,
+  ``fft_mm2`` for a two-factor n with both factors in 16..128), as in the
+  JAX package (plan.py:318-326, 400-402): every transformed axis is a
+  ``general`` step there, and a length with no such schedule, and every
+  complex128 axis (the kernels compute in f32), takes the dense pipeline.
 
 A real plan (R2C/C2R) transforms its last listed axis as the real axis
 and the others with the steps above.  The real axis takes one of three
@@ -49,13 +54,18 @@ plan computes in f32 and rounds its output to bf16; a complex128 plan runs
 f64 planes through the contraction steps only, since the kernels compute
 in f32.
 
+The precision tiers ``"high"`` and ``"default"`` plan the same steps as
+``"highest"`` in every dtype, and ``describe()`` prints the tier.  The JAX
+package runs them faster and less exactly on the TPU (``"high"`` scopes
+its b32 bf16x3 scheme to the four-step stages, plan.py:276-297;
+``"default"`` runs one-pass bf16 products); the port computes exact f32
+(f64 for complex128) at every tier, which is at least as accurate.
+
 Outside the port so far (each raises ``NotImplementedError`` naming its
-ROADMAP item): the Rader and Bluestein branches of the general pipeline,
-``backend="pallas"``, planners other than ``"estimate"``, and
-``precision`` other than ``"highest"`` (but complex32's ``"default"``).
-``REGENT_FFT_GAP_FUSED`` is the one environment switch the port reads
-(in :func:`make_plan`): it is the JAX package's only way to the
-gap-fused pass.
+ROADMAP item): the Rader and Bluestein branches of the general pipeline
+and planners other than ``"estimate"``.  ``REGENT_FFT_GAP_FUSED`` is the
+one environment switch the port reads (in :func:`make_plan`): it is the
+JAX package's only way to the gap-fused pass.
 """
 from __future__ import annotations
 
@@ -72,6 +82,7 @@ from .dtypes import (Direction, Kind, Norm, SplitComplex, as_real, as_split,
 from .ops import factor as _factor
 from .ops import fourstep as _fs
 from .ops import nd as _nd
+from .ops import pallas_fft as _pf
 from .ops import real as _real
 from .ops import stockham as _stockham
 from .ops import stockham_kernels as _sk
@@ -180,17 +191,10 @@ def _unported(what: str, item: str):
 
 
 def _check_scope(spec: PlanSpec):
-    """Raise for the parts of the JAX plan outside this slice."""
+    """Raise for the parts of the JAX plan outside the port so far."""
     check_dtype(spec.dtype)
-    if spec.backend == "pallas":
-        _unported('backend="pallas" (matmul-form kernels)',
-                  "ROADMAP Queue 2 (pallas_fft.py kernels)")
     if spec.planner != "estimate":
         _unported(f'planner="{spec.planner}"', "ROADMAP Queue 1 #11")
-    if spec.precision != "highest" and not (spec.dtype == "complex32"
-                                            and spec.precision == "default"):
-        _unported(f'precision="{spec.precision}" with {spec.dtype}',
-                  "ROADMAP Queue 2 #13 (the contraction precision schemes)")
 
 
 def _compute_dtype(spec: PlanSpec) -> torch.dtype:
@@ -252,9 +256,10 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
     ``stockham4`` (four-step) step under ``stockham``, and under
     ``hybrid`` when it has no two-factor split; otherwise a ``direct``
     (n <= xla_direct_max) or ``mixed2`` contraction step, and the
-    ``general`` 1-D pipeline for lengths with no two-factor split.  A
-    complex128 plan takes no kernel step (plan.py:331): the kernels
-    compute in f32.
+    ``general`` 1-D pipeline for lengths with no two-factor split.  Under
+    ``backend="pallas"`` every axis without a kernel step is a ``general``
+    step on :func:`_pallas_general` (plan.py:400-402).  A complex128 plan
+    takes no kernel step (plan.py:331): the kernels compute in f32.
     """
     steps = []
     ndim = len(spec.shape)
@@ -291,6 +296,9 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
                 if backend == "stockham" or split is None:
                     steps.append(("stockham4", a, n))
                     continue
+        if backend == "pallas":
+            steps.append(("general", a, _pallas_general(spec, n)))
+            continue
         ov = _factor._SCHEDULE_OVERRIDES.get((n, spec.max_radix))
         if ov is not None:
             if len(ov) == 1:
@@ -353,6 +361,18 @@ def route_steps(spec: PlanSpec, steps, shape):
 def _general(spec: PlanSpec, n: int) -> Callable:
     return _stockham.build_c2c_1d(n, spec.direction, spec.max_radix,
                                   spec.use_3m)
+
+
+def _pallas_general(spec: PlanSpec, n: int) -> Callable:
+    """The ``general`` step of a ``backend="pallas"`` axis: the matmul-form
+    kernels, or the dense pipeline where they have no schedule and for
+    complex128 (f64 planes; the kernels compute in f32, and the JAX plan
+    runs the dense pipeline off the TPU).  Counterpart: ``build_1d``,
+    ``regent_fft_tpu/plan.py:318``."""
+    fn = None
+    if spec.dtype != "complex128":
+        fn = _pf.build_c2c_1d_pallas(n, spec.direction)
+    return fn if fn is not None else _general(spec, n)
 
 
 def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:

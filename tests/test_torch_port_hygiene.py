@@ -19,7 +19,7 @@ import regent_fft_tpu_torch.api, regent_fft_tpu_torch.plan
 import regent_fft_tpu_torch.ops._build, regent_fft_tpu_torch.ops.stockham_kernels
 import regent_fft_tpu_torch.ops.nd, regent_fft_tpu_torch.utils.verify
 import regent_fft_tpu_torch.ops.real, regent_fft_tpu_torch.ops.stockham
-import regent_fft_tpu_torch.ops.fourstep
+import regent_fft_tpu_torch.ops.fourstep, regent_fft_tpu_torch.ops.pallas_fft
 import regent_fft_tpu_torch.utils.plog
 import chip_smoke
 bad = [m for m in sys.modules
@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax():
 PORT_MODULES = {
     "__init__.py", "api.py", "dtypes.py", "plan.py", "ops/__init__.py",
     "ops/_build.py", "ops/factor.py", "ops/fourstep.py", "ops/nd.py",
-    "ops/real.py", "ops/stockham.py", "ops/stockham_kernels.py",
+    "ops/pallas_fft.py", "ops/real.py", "ops/stockham.py",
+    "ops/stockham_kernels.py",
     "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
@@ -49,7 +50,8 @@ PORT_TESTS = {
     "test_torch_port_real.py", "test_torch_port_real_plan.py",
     "test_torch_port_fourstep.py", "test_torch_port_complex32.py",
     "test_torch_port_complex128.py", "test_torch_port_complex32_routes.py",
-    "test_torch_port_gap.py"}
+    "test_torch_port_gap.py", "test_torch_port_pallas_fft.py",
+    "test_torch_port_precision.py"}
 
 
 def test_file_lists_cover_the_port():

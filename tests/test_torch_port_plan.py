@@ -169,10 +169,8 @@ def test_spec_from_jax_maps_fields():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(planner="patient"), dict(dtype="complex32", precision="high"),
-    dict(dtype="complex128", planner="model"),
-    dict(backend="pallas"), dict(planner="measure"),
-    dict(precision="default"), dict(precision="high"),
+    dict(planner="patient"), dict(dtype="complex128", planner="model"),
+    dict(planner="measure"),
 ])
 def test_out_of_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
