@@ -8,7 +8,9 @@ Phases (any failure raises and the script exits non-zero):
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off for every float32 product;
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
-   one process per source, started together;
+   one process per source, started together; the ptxas lines (the cluster
+   kernel of fft_fused2 must spill nothing), and fft_fused2's cluster size
+   and cudaOccupancyMaxActiveClusters at the main path's shapes;
 3. kernels: every length the C2C kernel gates admit (ragged batches and
    column counts, both signs) against torch.fft in float64, and every
    length the real-kernel gate admits (2..1024, an odd and an even batch,
@@ -16,10 +18,12 @@ Phases (any failure raises and the script exits non-zero):
    in float64; every four-step last-axis length (4096..2^21, batch 3,
    through ``backend="stockham"`` plans), the leading-axis four-step at
    every gated length (64..4096, axes 0 and 1) and the slab ring at every
-   kernel length (ragged trailing extent) and fused2 pair,
-   against torch.fft in float64; the three C2C kernels on bf16 planes
-   (complex32) at every length of the C2C sweep and its fused2 pairs (odd
-   batches, both signs), each against its plain version (within
+   kernel length (ragged trailing extent) and eight fused2 pairs,
+   against torch.fft in float64; fft_fused2 at all 113 pairs
+   ``fused2_supported`` admits, also against its plain version; the three
+   C2C kernels on bf16 planes (complex32) at every length of the C2C sweep
+   and every fused2 pair (odd batches, both signs), each against its plain
+   version (within
    ``PLAIN_LIMIT``) and against torch.fft in float64 of the bf16-rounded
    input (within tolerance(n, "complex32")); the bf16 slab ring at the
    ring sweep's lengths and pairs (odd batches), the bf16 leading-axis
@@ -53,7 +57,7 @@ Phases (any failure raises and the script exits non-zero):
    once and read just after: each kernel step must have launched its
    kernel exactly once.  Results are held against torch.fft (and a small
    input against numpy in float64), the inverse plan must round-trip,
-   then each plan is timed;
+   then each plan's peak device memory is read and each plan is timed;
 5. main path, real: the R2C and C2R plans of 4096 x 1024 (axis 1) and
    4 x 256^3 (axes 1-3), with the default device and backend.  Their step
    lines must be the expected ones; the counts are zeroed just before the
@@ -81,11 +85,11 @@ Phases (any failure raises and the script exits non-zero):
    complex32 plans launch only the bf16 kernels, the complex128 plans
    none.  Each is held against torch.fft in float64 (of the bf16-rounded
    input for complex32) within tolerance(logical_n, dtype) and must
-   round-trip through ``plan.inverse()``; then timed beside its bytes
-   bound, torch.fft on complex64 of the same data and torch.fft on the
-   plan's own type where that runs (complex128; torch.complex32 for the
-   complex32 plans), and traced; the complex32 512^3 times by route side
-   by side;
+   round-trip through ``plan.inverse()``; then its peak device memory
+   is read, and it is timed beside its bytes bound, torch.fft on
+   complex64 of the same data and torch.fft on the plan's own type where
+   that runs (complex128; torch.complex32 for the complex32 plans), and
+   traced; the complex32 512^3 times by route side by side;
 8. main path, the gap-fused route (``GAP_PLANS``): complex64 and complex32
    512^3 plans built with ``REGENT_FFT_GAP_FUSED=1`` set for this group
    only (the plan cache cleared before and after), checked, counted, timed
@@ -110,6 +114,7 @@ non-zero, with no result, when no CUDA device is present.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -361,7 +366,29 @@ def main() -> int:
           f"{_build.build_seconds} s) -> {_build.library_path().name}")
     for ln in _ptxas(_build.build_log):
         print("ptxas " + ln)
+    f2_ptxas = [ln for ln in _ptxas(_build.build_log) if "fft_fused2" in ln]
+    for ln in f2_ptxas:
+        print("ptxas fft_fused2 (cluster kernel): " + ln)
+    if len(f2_ptxas) < 2 or not all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in f2_ptxas):
+        raise AssertionError(f"fft_fused2 ptxas: {f2_ptxas}")
 
+    # the cluster size of fft_fused2 at the main path's shapes and how many
+    # such clusters the card holds at once
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for p_, n1, n2 in ((512, 512, 512), (1024, 256, 256), (16, 512, 512),
+                       (4, 256, 256)):
+        c = sk.fused2_cluster(n1, n2, p_, sms)
+        act = [sk.fused2_active_clusters(n1, n2, c, dt)
+               for dt in (torch.float32, torch.bfloat16)]
+        print(f"fft_fused2 {(p_, n1, n2)}: cluster {c} CTAs of "
+              f"{sk.FUSED2_THREADS} threads, "
+              f"{sk.fused2_smem_bytes(n1, n2, c)} B shared memory each; "
+              f"cudaOccupancyMaxActiveClusters f32 {act[0]}, bf16 {act[1]} "
+              f"({sms} SMs)")
+        if min(act) < 1:
+            raise AssertionError(f"fft_fused2 {(n1, n2)}: no cluster fits")
     phase("2 (build)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -410,6 +437,19 @@ def main() -> int:
         return float(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b))
 
+    def peak_bytes(fn):
+        """Peak device memory of one call of fn, and its rise over what was
+        allocated before it (max_memory_allocated after
+        reset_peak_memory_stats)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del out
+        return peak, peak - before
+
     # 3a. every length the gates admit, ragged batches and column counts,
     # both signs, against torch.fft in float64
     def check(kname, fn, shape, dims, sign, scale=0.5):
@@ -436,16 +476,31 @@ def main() -> int:
                                          (1,), sign))
             worst = max(worst, check("fft_cols", sk.fft_cols, (3, n, 45),
                                      (1,), sign))
+    # the pairs of the ring and gap sweeps; fft_fused2 takes every pair
+    # fused2_supported admits (n1 * n2 <= 262144 caps both axes)
     pairs = [(16, 128), (128, 256), (16, 2048), (2048, 128), (384, 640),
              (256, 1024), (512, 512), (640, 384)]
-    for n1, n2 in pairs:
-        if not sk.fused2_supported(n1, n2):
-            raise AssertionError(f"sweep pair {(n1, n2)} not supported")
+    f2_pairs = [(a, b) for a in range(16, 2049) if sk._fusable_len(a, False)
+                for b in range(128, 16385, 128) if sk._fusable_len(b, True)
+                and sk.fused2_supported(a, b)]
+    if len(f2_pairs) != 113 or not set(pairs) <= set(f2_pairs):
+        raise AssertionError(f"fused2 pairs: {len(f2_pairs)}")
+    f2_plain = 0.0
+    for n1, n2 in f2_pairs:
         for sign in (-1, 1):
-            worst = max(worst, check("fft_fused2", sk.fft_fused2,
-                                     (3, n1, n2), (1, 2), sign))
-    print(f"sweep: {len(lengths)} lengths (last/cols), {len(pairs)} fused2 "
-          f"pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}")
+            shape = (3, n1, n2)
+            worst = max(worst, check("fft_fused2", sk.fft_fused2, shape,
+                                     (1, 2), sign))
+            xr, xi = planes(shape)
+            e = dev_rel(torch.complex(*sk.fft_fused2(xr, xi, sign, 0.5)),
+                        torch.complex(*sk.fft_fused2_plain(xr, xi, sign, 0.5)))
+            if not e <= tolerance(n1 * n2):
+                raise AssertionError(f"fft_fused2{shape} sign {sign}: rel_l2 "
+                                     f"vs plain {e} > {tolerance(n1 * n2)}")
+            f2_plain = max(f2_plain, e)
+    print(f"sweep: {len(lengths)} lengths (last/cols), all {len(f2_pairs)} "
+          f"fused2 pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}; "
+          f"fft_fused2 vs fft_fused2_plain {f2_plain:.3e}")
 
     # the C2C kernels on bf16 planes: the same lengths and pairs, against
     # their plain versions (within PLAIN_LIMIT) and torch.fft in float64 of
@@ -485,7 +540,7 @@ def main() -> int:
             [("fft_last", (37, n), (1,)) for n in lengths
              if sk.kernel_len_ok(n, True)]
             + [("fft_cols", (3, n, 45), (1,)) for n in lengths]
-            + [("fft_fused2", (3, n1, n2), (1, 2)) for n1, n2 in pairs]):
+            + [("fft_fused2", (3, n1, n2), (1, 2)) for n1, n2 in f2_pairs]):
         for sign in (-1, 1):
             check_bf16(kname, shape, dims, sign)
 
@@ -1151,6 +1206,9 @@ def main() -> int:
             raise AssertionError(f"{s.shape}: rel_l2 {err}, roundtrip {back}, "
                                  f"tolerance {tol}")
         xr, xi = x.real.contiguous(), x.imag.contiguous()
+        peak, rise = peak_bytes(lambda: p(x))
+        print(f"peak memory c2c {s.shape}: {peak} B ({rise} B over the "
+              f"{peak - rise} B resident before the call)")
         ms = timed(lambda: p(x))
         steps_ms = timed(lambda: p.execute_split(xr, xi))
         split_ms = timed(lambda: (x.real.contiguous(), x.imag.contiguous()))
@@ -1165,7 +1223,7 @@ def main() -> int:
             "split_ms": split_ms, "combine_ms": combine_ms,
             "gflops": p.flops / (ms * 1e-3) / 1e9,
             "hbm_bound_ms": b_ms, "bound_fraction": b_ms / ms,
-            "library_ms": lib_ms})
+            "library_ms": lib_ms, "peak_bytes": peak, "peak_rise_bytes": rise})
         del xr, xi
     del inputs, outs
 
@@ -1385,6 +1443,9 @@ def main() -> int:
         if not (err <= tol and back <= tol):
             raise AssertionError(f"{label}: rel_l2 {err}, roundtrip {back}, "
                                  f"tolerance {tol}")
+        peak, rise = peak_bytes(lambda: p(x))
+        print(f"peak memory {label} {s.shape} {dtype}: {peak} B ({rise} B "
+              f"over the {peak - rise} B resident before the call)")
         ms = timed(lambda: p(x))
         steps_ms = timed(lambda: p.execute_split(xr, xi))
         xc = torch.complex(xr.float(), xi.float())
@@ -1415,7 +1476,8 @@ def main() -> int:
             "hbm_bound_ms": b_ms, "bound_fraction": b_ms / ms,
             "library_ms": own_ms if own_ms is not None else lib64_ms,
             "library_own_type_ms": own_ms, "library_own_type_note": own_note,
-            "library_complex64_ms": lib64_ms,
+            "library_complex64_ms": lib64_ms, "peak_bytes": peak,
+            "peak_rise_bytes": rise,
             "device_ms_by_kernel": {k[:80]: v for k, v in by}})
         print(f"{label} {s.shape} {dtype}: {ms:.4f} ms (steps {steps_ms:.4f}, "
               f"bound {b_ms:.4f}, torch.fft {dtype} {own_ms} "

@@ -1,7 +1,8 @@
 // Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
 // planes: f32 (complex64) or bf16 (complex32).  The shared tile (fft_tile,
 // rows_pass, cols_pass) is in stockham_tile.cuh; the kernels here differ
-// only in how they address global memory:
+// only in how they address global memory, but for fft_fused2_kernel, whose
+// cluster design (below) runs butterflies of its own:
 //
 //   fft_last_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
 //   fft_cols_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
@@ -25,23 +26,31 @@
 // each element is read as 4 B (bf16 re + im) instead of 8 and written the
 // same, converted to f32 on load and rounded to nearest even on the store.
 // Bound on H100 for them: bytes, 8 B per complex element per pass (half the
-// f32 kernels' 16 B).  fft_fused2_bf16 and fft_gap_bf16 (the bf16 instance of
-// the gap kernel, whose TPU body is _stockham_tile on either block type) keep
-// the plane between their column and row passes in f32, as the TPU kernels
-// do in VMEM: the column pass writes it to f32 scratch planes the wrapper
-// allocates, the row pass reads them and rounds the output to bf16 once.
-// The scratch is whole-tensor, laid out like the output (8 B per element,
-// 1 GiB at 512^3), because the grid is one block per plane and each block
-// then owns its scratch plane with no indexing of its own; it moves 24 B
-// per element through device memory instead of the 16 B of a bf16
-// intermediate.
+// f32 kernels' 16 B).  The two-axis kernels keep the plane between their
+// column and row passes in f32, as the TPU kernels do in VMEM.
+// fft_fused2_kernel holds it on chip: one plane per thread-block cluster,
+// each CTA a stripe of it in shared memory, the row pass gathering its rows
+// through distributed shared memory, so each element crosses device memory
+// once each way (16 B in f32, 8 B in bf16: the function's own bound) and
+// the wrapper allocates nothing but the output.  fft_gap_bf16 (the bf16
+// instance of the gap kernel, whose TPU body is _stockham_tile on either
+// block type) keeps the older two-pass body: its column pass writes the
+// plane to f32 scratch planes the wrapper allocates (whole-tensor, laid out
+// like the output, 8 B per element), its row pass reads them and rounds the
+// output to bf16 once, 24 B per element through device memory.
 //
 //   fft_axis0             replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_axis0
 //
 // is one more launcher of fft_cols_kernel<float>: the FFT along axis 0 of
 // (n, V) f32 planes, the (P, n, V) body with P = 1, scale fused.
 
+#include <cooperative_groups.h>
+
+#include <mutex>
+
 #include "stockham_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -123,25 +132,11 @@ fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             1.0f, sr, si, ColsOut{V, lN, 1});
 }
 
-// --------------------------------------------------------------------------
-// fft_fused2_kernel — replaces pallas_stockham.py:_runner_fused2 (FFT along
-// both trailing axes of (P, n1, n2) planes, scale fused).
-// Bound on H100: bytes — one read and one write of each element (16 B) if
-// the plane stayed on chip.  A plane can be 262144 complex f32 = 2 MiB, more
-// than the 227 KB of shared memory a block can use, so this simple version
-// runs the column pass (along n1) from the input into the output buffer
-// (for bf16 data: into the f32 scratch planes), synchronises the block (the
-// block owns the plane, so no other block touches it), and runs the row
-// pass (along n2) from there into the output with the scale fused.  That costs up to two plane passes of HBM traffic once
-// the 50 MB L2 no longer holds the working planes (at 512^3, 2 MiB planes in
-// flight on every SM).  A thread-block-cluster / distributed-shared-memory
-// design that keeps the whole plane on chip is later work.
-// --------------------------------------------------------------------------
-
-// The body of fft_fused2_kernel and fft_gap_kernel: the (n1, n2) plane at
-// `base` whose rows are `ld` elements apart, columns (n1) from x into the f32
-// planes m (the output planes themselves for f32 data, the scratch planes
-// for bf16), then rows (n2) from m into y with the scale.
+// The body of fft_gap_kernel: the (n1, n2) plane at `base` whose rows are
+// `ld` elements apart, columns (n1) from x into the f32 planes m (the
+// output planes themselves for f32 data, the scratch planes for bf16), then
+// rows (n2) from m into y with the scale.  One block owns the plane, so the
+// block barrier that ends cols_pass makes its writes visible to the rows.
 template <typename T>
 __device__ __forceinline__ void plane2(const T* xr, const T* xi, float* mr,
                                        float* mi, T* yr, T* yi, size_t base,
@@ -160,8 +155,6 @@ __device__ __forceinline__ void plane2(const T* xr, const T* xi, float* mr,
       cols_pass(xr + base, xi + base, mr + base, mi + base, c0, n2, ld, p1,
                 tw1, s, 1.0f, sr, si, ColsOut{ld, 0, 1});
   }
-  // cols_pass ended on __syncthreads(): the block's global writes above are
-  // visible to all of its threads.
   {
     const Geo g = rows_geo(n2);
     float* sr = smem;
@@ -172,15 +165,366 @@ __device__ __forceinline__ void plane2(const T* xr, const T* xi, float* mr,
   }
 }
 
+// --------------------------------------------------------------------------
+// fft_fused2_kernel — replaces pallas_stockham.py:_runner_fused2 (FFT along
+// both trailing axes of (P, n1, n2) planes, scale fused; f32 or bf16 planes,
+// the intermediate in f32, the output rounded once to the input's type).
+// Bound on H100: bytes.  Each element is read once and written once (16 B
+// in f32, 8 B in bf16: 0.641 / 0.3205 ms at 512^3), ~5*log2(n1*n2) flops
+// per element, far below the FP32 ridge.  A plane is up to 262144 complex
+// elements, 2 MiB in f32: more than the 227 KB a block can use, so the
+// TPU's VMEM-resident plane becomes a cluster-resident one.
+// Design: one plane per thread-block cluster of C CTAs (C = 1..16, a power
+// of two chosen by the host, ops/stockham_kernels.py:fused2_cluster, so that
+// a CTA holds at most F2_CTA_ELEMS elements; 16 is a non-portable size).
+//   1. Column pass.  CTA c copies the stripe of columns [c*w, (c+1)*w),
+//      w = n2/C, from device memory into its shared memory (4 elements a
+//      load: 16 B in f32, 8 B in bf16), transforms it along n1 in place,
+//      and keeps it there in f32 (n1 x w, row-major).
+//   2. cluster.sync(): release/acquire at cluster scope, the barrier
+//      between the CTAs; every stripe is then readable through distributed
+//      shared memory.
+//   3. Row pass.  CTA c takes rows [c*h, (c+1)*h), h = n1/C, 16 B a load
+//      through distributed shared memory (element j of a row is in CTA j/w
+//      at column j%w, and w is a multiple of 8).  The rows sit half a
+//      stripe above the stripe, one pad word every 32: their upper half is
+//      written at once, their lower half, which covers the stripe's upper
+//      half, is held in registers until a second cluster.sync() says every
+//      CTA has read all it needs.  It transforms them along n2 in place;
+//      the last stage writes to device memory with the scale, in natural
+//      order (neighbouring threads on neighbouring elements of a row).  No
+//      CTA touches another's memory after that barrier, so none waits for
+//      the others to exit.
+//   4. Butterflies in registers: a stage of radix R gives each thread whole
+//      R-point butterflies (fused2_stages: radix 8 where it can, so 512
+//      points take 3 exchanges of shared memory, not 5), each read,
+//      twiddled and transformed before the block barrier and written after
+//      it: a thread holds about F2_ELEMS = 32 values of a stage, 512
+//      threads in at most 128 registers each, one CTA an SM.
+// Twiddles: the float64-generated table of the stage list, as every kernel.
+// The host checks the geometry and asks cudaOccupancyMaxActiveClusters once
+// per (C, shared memory) and refuses to launch when no cluster fits.
+// --------------------------------------------------------------------------
+constexpr int F2_THREADS = 512;
+constexpr int F2_CTA_ELEMS = 16384;   // elements of a plane a CTA holds
+constexpr int F2_GROUPS = F2_CTA_ELEMS / 4 / F2_THREADS;   // 4-element loads
+constexpr int F2_ELEMS = F2_CTA_ELEMS / F2_THREADS;  // values a stage holds
+constexpr int F2_MAX_CLUSTER = 16;
+constexpr int F2_MAX_SMEM = 232448;
+
+// v *= exp(s * 2*pi*i * E/8).
+template <int E>
+__device__ __forceinline__ void rot8(float& re, float& im, float s) {
+  constexpr int e = E & 7;
+  if constexpr (e == 0) {
+    return;
+  } else if constexpr (e == 4) {
+    re = -re;
+    im = -im;
+  } else if constexpr (e == 2 || e == 6) {
+    const float q = e == 2 ? s : -s;   // times q*i
+    const float t = re;
+    re = -q * im;
+    im = q * t;
+  } else {
+    constexpr float h = 0.7071067811865476f;   // cos(pi/4), from float64
+    constexpr float c = (e == 1 || e == 7) ? h : -h;
+    constexpr float sn = (e == 1 || e == 3) ? h : -h;
+    const float ss = s * sn, t = re;
+    re = fmaf(t, c, -im * ss);
+    im = fmaf(t, ss, im * c);
+  }
+}
+
+// In-register 8-point DFT, y[k] = sum_r v[r] exp(s*2*pi*i*r*k/8), as two
+// 4-point DFTs of the even and odd inputs joined by W_8^k.
+template <>
+struct Dft<8> {
+  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
+    float er[4], ei[4], orr[4], oi[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      er[b] = vr[2 * b];
+      ei[b] = vi[2 * b];
+      orr[b] = vr[2 * b + 1];
+      oi[b] = vi[2 * b + 1];
+    }
+    Dft<4>::run(er, ei, s);
+    Dft<4>::run(orr, oi, s);
+    rot8<1>(orr[1], oi[1], s);
+    rot8<2>(orr[2], oi[2], s);
+    rot8<3>(orr[3], oi[3], s);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      vr[k] = er[k] + orr[k];
+      vi[k] = ei[k] + oi[k];
+      vr[k + 4] = er[k] - orr[k];
+      vi[k + 4] = ei[k] - oi[k];
+    }
+  }
+};
+
+__device__ __forceinline__ int div_by(int u, int d) {
+  return (d & (d - 1)) ? u / d : u >> (__ffs(d) - 1);
+}
+
+// The CTA's shared memory holds, in each of its re and im parts, the stripe,
+// element (row j, column t) at j*w + t, and the rows from word RB = h*n2/2
+// on: element (row t, i) at RB + X + X/32 with X = t*n2 + i (n2 % 32 == 0,
+// so that is a row pitch of n2 + n2/32, one pad word every 32: the strided
+// butterfly writes stay free of bank conflicts).  The rows' upper half lies
+// past the stripe, so the gather writes it at once; the lower half covers
+// the stripe's upper half and waits for the cluster.  A stage names an
+// element by its unpadded index X; f2_pad<true> pads it.
+template <bool PAD>
+__device__ __forceinline__ int f2_pad(int x) {
+  return PAD ? x + (x >> 5) : x;
+}
+
+// One in-place stage of radix R over `ntr` transforms of m*R points in the
+// CTA's shared memory (sr, si: the stripe, or the rows at RB).  Butterfly
+// u is (transform t, butterfly j): t = u % ntr, j = u / ntr in the stripe
+// (COLS: neighbouring threads on neighbouring columns; element i of
+// transform t at X = i*w + t), t = u / m, j = u % m in the rows
+// (X = t*n2 + i).  A CTA holds at most F2_CTA_ELEMS elements, so thread
+// tid takes butterflies tid + b*F2_THREADS, b < MAXB, about F2_ELEMS values.
+// Every butterfly is read, twiddled and transformed; then, after a block
+// barrier when `sync` (st writes shared memory), st(X, re, im) writes its
+// outputs, output r at xo + r*ns*(COLS ? w : 1): xo is all that stays live
+// of a butterfly's indices.  The code is straight-line for every b: a
+// thread past the last butterfly repeats it and only its stores are
+// dropped (branches around the butterflies made the compiler spill them).
+template <int R, bool COLS, class St>
+__device__ __forceinline__ void f2_stage(const float* sr, const float* si,
+                                         int ld, int ntr, int m, int lns,
+                                         const float2* __restrict__ tw,
+                                         float s, const St& st, bool sync) {
+  constexpr int MAXB = (F2_ELEMS + R - 1) / R;
+  const int total = ntr * m, ns = 1 << lns;
+  const int step = COLS ? m * ld : m, ostep = COLS ? ns * ld : ns;
+  float vr[MAXB][R], vi[MAXB][R];
+  int xo[MAXB];
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b) {
+    const int u = min(threadIdx.x + b * F2_THREADS, total - 1);
+    const int q = div_by(u, COLS ? ntr : m);
+    const int t = COLS ? u - q * ntr : q, j = COLS ? q : u - q * m;
+    const int x = COLS ? j * ld + t : t * ld + j;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int a = f2_pad<!COLS>(x + r * step);
+      vr[b][r] = sr[a];
+      vi[b][r] = si[a];
+    }
+    const int k = j & (ns - 1);
+#pragma unroll
+    for (int r = 1; r < R; ++r) {   // the first stage's entries are 1
+      const float2 w = __ldg(&tw[(r - 1) * ns + k]);
+      const float xr = vr[b][r], xi = vi[b][r];
+      vr[b][r] = fmaf(xr, w.x, -xi * w.y);
+      vi[b][r] = fmaf(xr, w.y, xi * w.x);
+    }
+    Dft<R>::run(vr[b], vi[b], s);
+    const int base = (j - k) * R + k;
+    xo[b] = COLS ? base * ld + t : t * ld + base;
+  }
+  if (sync) __syncthreads();
+#pragma unroll
+  for (int b = 0; b < MAXB; ++b)
+    if (threadIdx.x + b * F2_THREADS < total) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) st(xo[b] + r * ostep, vr[b][r], vi[b][r]);
+    }
+}
+
+// The stage list of one axis, copied to shared memory at the start of the
+// kernel so that the stage loop indexes it there, not the kernel
+// parameters (which a run-time index would copy to local memory).
+struct F2Stages {
+  int n, nstages;
+  int radix[MAX_STAGES], lns[MAX_STAGES], twoff[MAX_STAGES];
+};
+
+__device__ __forceinline__ void f2_copy(F2Stages& d, const StagePlan& q) {
+  d.n = q.n;
+  d.nstages = q.nstages;
+#pragma unroll
+  for (int i = 0; i < MAX_STAGES; ++i) {
+    d.radix[i] = q.radix[i];
+    d.lns[i] = q.lns[i];
+    d.twoff[i] = q.twoff[i];
+  }
+}
+
+// Stage `st` of an axis, dispatched on its radix.
+template <bool COLS, class St>
+__device__ __forceinline__ void f2_stage_of(const F2Stages& p, int st,
+                                            const float* sr, const float* si,
+                                            int ld, int ntr,
+                                            const float2* __restrict__ tw,
+                                            float s, const St& sto, bool sync) {
+  const int r = p.radix[st], m = p.n / r, lns = p.lns[st];
+  const float2* tws = tw + p.twoff[st];
+#define F2_STAGE(R) \
+  f2_stage<R, COLS>(sr, si, ld, ntr, m, lns, tws, s, sto, sync)
+  switch (r) {
+    case 2: F2_STAGE(2); break;
+    case 3: F2_STAGE(3); break;
+    case 4: F2_STAGE(4); break;
+    case 5: F2_STAGE(5); break;
+    case 7: F2_STAGE(7); break;
+    default: F2_STAGE(8); break;
+  }
+#undef F2_STAGE
+}
+
+// Four consecutive elements from device memory as f32 (16-byte load for
+// f32, 8-byte for bf16; the caller keeps them aligned).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// The address, in the cluster's shared window (32 bits), of the word of
+// CTA `rank`'s shared memory at the offset of `p` in this CTA's; and a
+// 16-byte load from such an address (distributed shared memory).
+__device__ __forceinline__ unsigned f2_remote(const float* p, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out) : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 f2_ld_remote(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(F2_THREADS, 1)
 fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                  float* mr, float* mi, T* yr, T* yi, StagePlan p1,
+                  T* __restrict__ yr, T* __restrict__ yi, StagePlan p1,
                   const float2* __restrict__ tw1, StagePlan p2,
-                  const float2* __restrict__ tw2, float s, float scale) {
-  extern __shared__ float smem[];
-  plane2(xr, xi, mr, mi, yr, yi, (size_t)blockIdx.x * p1.n * p2.n, p2.n, p1,
-         tw1, p2, tw2, s, scale, smem);
+                  const float2* __restrict__ tw2, int C, float s,
+                  float scale) {
+  extern __shared__ float smem[];   // dynamic: 16-byte aligned
+  __shared__ F2Stages plan[2];      // published by the barrier after step 1
+  if (threadIdx.x == 0) f2_copy(plan[0], p1);
+  if (threadIdx.x == 1) f2_copy(plan[1], p2);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const int n1 = p1.n, n2 = p2.n, w = n2 / C, h = n1 / C;
+  const int rb = h * n2 / 2;                  // the rows' first word
+  const int part = rb + h * (n2 + n2 / 32);   // words of the re (im) part
+  float* sr = smem;
+  float* si = smem + part;
+  const size_t plane = (size_t)(blockIdx.x / C) * n1 * n2;
+
+  // 1. the stripe, 4 elements a load, in two batches of loads then stores
+  {
+    const T* gxr = xr + plane + (size_t)c * w;
+    const T* gxi = xi + plane + (size_t)c * w;
+    const int wq = w >> 2, ng = n1 * wq;
+    constexpr int HG = F2_GROUPS / 2;
+#pragma unroll
+    for (int k0 = 0; k0 < F2_GROUPS; k0 += HG) {
+      float4 a[HG], b[HG];
+#pragma unroll
+      for (int k = 0; k < HG; ++k) {   // past ng: repeat group ng - 1
+        const int g = min(threadIdx.x + (k0 + k) * F2_THREADS, ng - 1);
+        const int j = div_by(g, wq);
+        const size_t o = (size_t)j * n2 + 4 * (g - j * wq);
+        a[k] = load4(gxr + o);
+        b[k] = load4(gxi + o);
+      }
+#pragma unroll
+      for (int k = 0; k < HG; ++k) {
+        const int g = threadIdx.x + (k0 + k) * F2_THREADS;
+        if (g < ng) {   // row j, column 4*q of the stripe: j*w + 4*q = 4*g
+          *reinterpret_cast<float4*>(sr + 4 * g) = a[k];
+          *reinterpret_cast<float4*>(si + 4 * g) = b[k];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // 2. the column pass over the stripe: w transforms of n1 points
+  auto stripe_st = [=](int x, float re, float im) {
+    sr[x] = re;
+    si[x] = im;
+  };
+  const int ns1 = plan[0].nstages, ns2 = plan[1].nstages;
+  for (int st = 0; st < ns1; ++st) {
+    f2_stage_of<true>(plan[0], st, sr, si, w, w, tw1, s, stripe_st, true);
+    if (st + 1 < ns1) __syncthreads();
+  }
+  cluster.sync();   // every stripe complete and visible to the cluster
+  // 3. gather rows [c*h, (c+1)*h), 16 B a load from the owning stripes:
+  // element i of row t is in CTA i/w at (c*h + t)*w + i%w (w % 8 == 0).
+  // Group g is X = 4g .. 4g+3 (one pad word for all four); the upper half
+  // of the groups goes to the rows at once, the lower half after the
+  // cluster barrier.
+  {
+    const int nq = n2 >> 2, ng = h * nq, hg = ng >> 1;
+    const unsigned im_off = 4u * part;   // si - sr in bytes
+    constexpr int HG = F2_GROUPS / 2;
+    float4 a[HG], b[HG];
+    auto fetch = [=](int g, float4& ra, float4& ia) {
+      const int t = div_by(g, nq), i = 4 * (g - t * nq);
+      const int seg = div_by(i, w);
+      const unsigned at = f2_remote(sr + (c * h + t) * w + i - seg * w, seg);
+      ra = f2_ld_remote(at);
+      ia = f2_ld_remote(at + im_off);
+    };
+    auto put = [=](int g, const float4& ra, const float4& ia) {
+      const int o = rb + f2_pad<true>(4 * g);
+      sr[o] = ra.x; sr[o + 1] = ra.y; sr[o + 2] = ra.z; sr[o + 3] = ra.w;
+      si[o] = ia.x; si[o + 1] = ia.y; si[o + 2] = ia.z; si[o + 3] = ia.w;
+    };
+#pragma unroll
+    for (int k = 0; k < HG; ++k)   // past the end: repeat the last group
+      fetch(min(hg + threadIdx.x + k * F2_THREADS, ng - 1), a[k], b[k]);
+#pragma unroll
+    for (int k = 0; k < HG; ++k) {
+      const int g = hg + threadIdx.x + k * F2_THREADS;
+      if (g < ng) put(g, a[k], b[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < HG; ++k)
+      fetch(min(threadIdx.x + k * F2_THREADS, hg - 1), a[k], b[k]);
+    cluster.sync();   // every CTA has read all it needs of the others
+#pragma unroll
+    for (int k = 0; k < HG; ++k) {
+      const int g = threadIdx.x + k * F2_THREADS;
+      if (g < hg) put(g, a[k], b[k]);
+    }
+  }
+  __syncthreads();
+  // 4. the row pass: h transforms of n2 points, the last stage to memory
+  float* rr = sr + rb;
+  float* ri = si + rb;
+  auto rows_st = [=](int x, float re, float im) {
+    rr[f2_pad<true>(x)] = re;
+    ri[f2_pad<true>(x)] = im;
+  };
+  T* gyr = yr + plane + (size_t)c * h * n2;    // the CTA's first row
+  T* gyi = yi + plane + (size_t)c * h * n2;
+  auto out_st = [=](int x, float re, float im) {
+    gyr[x] = from_f32<T>(re * scale);
+    gyi[x] = from_f32<T>(im * scale);
+  };
+  for (int st = 0; st + 1 < ns2; ++st) {
+    f2_stage_of<false>(plan[1], st, rr, ri, n2, h, tw2, s, rows_st, true);
+    __syncthreads();
+  }
+  f2_stage_of<false>(plan[1], ns2 - 1, rr, ri, n2, h, tw2, s, out_st, false);
 }
 
 // --------------------------------------------------------------------------
@@ -189,15 +533,15 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // plane, the (z, x) block at b*z*Y*x + y*x with rows Y*x elements apart
 // (1 MiB in f32 at 512^3).
 // Bound on H100: bytes, as fft_fused2_kernel (16 B per complex element for
-// f32, 8 B for bf16, if the plane stayed on chip).  Design:
-// fft_fused2_kernel's two passes on the strided plane (plane2 with the row
-// stride Y*x): the z-point column pass from the input into the output, then
-// the x-point row pass in place.  Nothing is copied in or out around it.
+// f32, 8 B for bf16, if the plane stayed on chip).  Design: two passes of
+// one block over the strided plane (plane2 with the row stride Y*x): the
+// z-point column pass from the input into the output, then the x-point row
+// pass in place.  Nothing is copied in or out around it.
 // Each column-pass row read is a run of nt elements (64 B in f32 at z = 512)
 // at a stride of Y*x; the TPU kernel pays the same big-stride gather once
 // for two axes (its VMEM strip rule, REGENT_FFT_GAP_STRIPS, has no
 // counterpart here).  The bf16 instance keeps the intermediate in f32
-// scratch planes laid out like the output, as fft_fused2_bf16 does.
+// scratch planes laid out like the output.
 // --------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -248,25 +592,93 @@ cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
   return cudaGetLastError();
 }
 
-// `mr`, `mi`: the f32 planes between the two passes (the output planes for
-// f32 data).
+// The cluster kernel's shared memory for (n1, n2) planes in clusters of C,
+// or 0 when the geometry is not one the kernel takes: C a power of two
+// <= F2_MAX_CLUSTER that divides n1, n2 a multiple of 8*C (the stripe width
+// w a multiple of 8, for the 16-byte loads), at most F2_CTA_ELEMS elements
+// a CTA, and its h = n1/C padded rows, half a stripe below them, within
+// F2_MAX_SMEM.
+size_t fused2_smem(int n1, int n2, int C) {
+  if (C < 1 || C > F2_MAX_CLUSTER || (C & (C - 1)) || n1 < 1 || n2 < 1
+      || n1 % C || n2 % (8 * C) || (long long)n1 * n2 / C > F2_CTA_ELEMS)
+    return 0;
+  const size_t hn = (size_t)(n1 / C) * n2;   // elements of the CTA's rows
+  const size_t bytes = 2 * sizeof(float) * (hn / 2 + hn + hn / 32);
+  return bytes + 2 * sizeof(F2Stages) <= F2_MAX_SMEM ? bytes : 0;
+}
+
+// Set the kernel's shared-memory and cluster attributes; then how many
+// clusters of C CTAs with `smem` bytes each the card holds at once
+// (cudaOccupancyMaxActiveClusters), asked once per (kernel, C, smem) and
+// kept.
+
+cudaError_t fused2_clusters(const void* fn, int C, size_t smem, int* count) {
+  static std::mutex mu;
+  static struct { const void* fn; int C; size_t smem; int count; } seen[64];
+  static int nseen = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && C > 8)
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  for (int i = 0; i < nseen; ++i)
+    if (seen[i].fn == fn && seen[i].C == C && seen[i].smem == smem) {
+      *count = seen[i].count;
+      return cudaSuccess;
+    }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(F2_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaOccupancyMaxActiveClusters(count, fn, &cfg);
+  if (e == cudaSuccess && nseen < 64) seen[nseen++] = {fn, C, smem, *count};
+  return e;
+}
+
 template <typename T>
-cudaError_t launch_fused2(const T* xr, const T* xi, float* mr, float* mi,
-                          T* yr, T* yi, long long P,
-                          int n1, int n2, int sign, float scale,
+cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
+                          int n1, int n2, int C, int sign, float scale,
                           const float2* tw1, int nstages1, const int* radices1,
                           const float2* tw2, int nstages2, const int* radices2,
                           void* stream) {
   StagePlan p1, p2;
-  if (make_plan(n1, nstages1, radices1, &p1)) return cudaErrorInvalidValue;
-  if (make_plan(n2, nstages2, radices2, &p2)) return cudaErrorInvalidValue;
+  if (make_plan(n1, nstages1, radices1, &p1, true)
+      || make_plan(n2, nstages2, radices2, &p2, true))
+    return cudaErrorInvalidValue;
+  const size_t smem = fused2_smem(n1, n2, C);
+  if (!smem || P * C > 0x7fffffffLL) return cudaErrorInvalidValue;
+  float fsign = (float)sign;
   if (P <= 0) return cudaSuccess;
-  const size_t a = cols_smem_bytes(n1), b = rows_smem_bytes(n2);
-  const size_t smem = a > b ? a : b;
-  cudaError_t e = set_smem((const void*)fft_fused2_kernel<T>, smem);
+  const void* fn = (const void*)fft_fused2_kernel<T>;
+  int active = 0;
+  cudaError_t e = fused2_clusters(fn, C, smem, &active);
   if (e != cudaSuccess) return e;
-  fft_fused2_kernel<T><<<(unsigned)P, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, mr, mi, yr, yi, p1, tw1, p2, tw2, (float)sign, scale);
+  if (active < 1) return cudaErrorLaunchOutOfResources;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(P * C));
+  cfg.blockDim = dim3(F2_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&xr, &xi, &yr, &yi, &p1, &tw1, &p2, &tw2, &C, &fsign,
+                  &scale};
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -363,27 +775,39 @@ int fft_cols_tw(const float* xr, const float* xi, float* yr, float* yi,
   return cudaGetLastError();
 }
 
-// FFT along both trailing axes of (P, n1, n2) f32 planes.
+// FFT along both trailing axes of (P, n1, n2) f32 planes, one plane per
+// cluster of C CTAs; radices from fused2_stages (8 allowed).
 int fft_fused2(const float* xr, const float* xi, float* yr, float* yi,
-               long long P, int n1, int n2, int sign, float scale,
+               long long P, int n1, int n2, int C, int sign, float scale,
                const float2* tw1, int nstages1, const int* radices1,
                const float2* tw2, int nstages2, const int* radices2,
                void* stream) {
-  return launch_fused2(xr, xi, yr, yi, yr, yi, P, n1, n2, sign, scale, tw1,
+  return launch_fused2(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
                        nstages1, radices1, tw2, nstages2, radices2, stream);
 }
 
-// FFT along both trailing axes of (P, n1, n2) bf16 planes (f32 compute); the
-// intermediate between the two passes goes to the f32 (P, n1, n2) scratch
-// planes mr, mi.
+// The same on bf16 planes (f32 compute, f32 intermediate).
 int fft_fused2_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
-                    __nv_bfloat16* yr, __nv_bfloat16* yi, float* mr, float* mi,
-                    long long P, int n1, int n2, int sign, float scale,
-                    const float2* tw1, int nstages1, const int* radices1,
-                    const float2* tw2, int nstages2, const int* radices2,
-                    void* stream) {
-  return launch_fused2(xr, xi, mr, mi, yr, yi, P, n1, n2, sign, scale, tw1,
+                    __nv_bfloat16* yr, __nv_bfloat16* yi, long long P, int n1,
+                    int n2, int C, int sign, float scale, const float2* tw1,
+                    int nstages1, const int* radices1, const float2* tw2,
+                    int nstages2, const int* radices2, void* stream) {
+  return launch_fused2(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
                        nstages1, radices1, tw2, nstages2, radices2, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the fft_fused2 kernel (bf16 != 0: its
+// bf16 instance) for (n1, n2) planes in clusters of C; minus the CUDA
+// error code if the geometry is refused or the query fails.
+int fft_fused2_clusters(int n1, int n2, int C, int bf16) {
+  const size_t smem = fused2_smem(n1, n2, C);
+  if (!smem) return -(int)cudaErrorInvalidValue;
+  int count = 0;
+  const cudaError_t e =
+      fused2_clusters(bf16 ? (const void*)fft_fused2_kernel<__nv_bfloat16>
+                           : (const void*)fft_fused2_kernel<float>,
+                      C, smem, &count);
+  return e == cudaSuccess ? count : -(int)e;
 }
 
 // FFT along axes -3 and -1 of (B, z, Y, x) f32 planes (one pass).

@@ -391,15 +391,19 @@ __device__ __forceinline__ void cols_pass(const TI* xr, const TI* xi,
 }
 
 // Validate a stage list from the host and fill the plan.  Radices must be
-// 2, 3, 4, 5 or 7, multiply to n, and every Ns must be a power of two.
-int make_plan(int n, int nstages, const int* radices, StagePlan* p) {
+// 2, 3, 4, 5 or 7 (also 8 when `wide`, for the cluster kernel of
+// stockham.cu), multiply to n, and every Ns must be a power of two.
+int make_plan(int n, int nstages, const int* radices, StagePlan* p,
+              bool wide = false) {
   if (n < 2 || nstages < 1 || nstages > MAX_STAGES) return 1;
   p->n = n;
   p->nstages = nstages;
   int ns = 1, off = 0;
   for (int i = 0; i < nstages; ++i) {
     const int r = radices[i];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7) return 1;
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7
+        && !(wide && r == 8))
+      return 1;
     if (ns & (ns - 1)) return 1;
     p->radix[i] = r;
     p->lns[i] = ilog2(ns);

@@ -35,10 +35,12 @@ A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device, and a plane dtype the kernel does not take,
 raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
-``LAUNCHES`` (all twenty-two).  The two-pass bf16 kernels
-(``fft_fused2_bf16``, ``fft_gap_bf16``, ``fft_axes2_ring_bf16``) keep the
-plane between their passes in f32 scratch planes their wrappers allocate,
-as the TPU kernels keep it in VMEM and the plain versions keep it.
+``LAUNCHES`` (all twenty-two).  Every two-axis kernel keeps the plane
+between its passes in f32, as the TPU kernels keep it in VMEM and the
+plain versions keep it: ``fft_fused2`` (both types) in the distributed
+shared memory of a thread-block cluster that holds the whole plane
+(:func:`fused2_cluster`), the bf16 gap pass and ring in f32 scratch planes
+their wrappers allocate.
 
 ``fft_axis0`` is the FFT along axis 0 of (n, V) f32 planes: the math of
 ``fft_cols`` with pre = 1, the scale fused as there (``_runner_axis0`` is
@@ -160,6 +162,46 @@ def fused2_supported(n1: int, n2: int) -> bool:
             and n1 * n2 <= MAX_FUSED2_ELEMS
             and n2 >= LANE_TILE
             and n1 >= 16 and n2 >= 16)
+
+
+# The cluster kernel of ``fft_fused2``: one plane per thread-block cluster
+# of C CTAs (C a power of two <= 16; 16 is a non-portable size), 512
+# threads a CTA, at most 32 values of an axis a thread, so a CTA holds at
+# most 16384 complex elements of its plane, in f32, in shared memory
+# (csrc/stockham.cu, fft_fused2_kernel).
+FUSED2_THREADS = 512
+FUSED2_CTA_ELEMS = 16384
+FUSED2_MAX_CLUSTER = 16
+SMEM_PER_CTA = 232448        # the 227 KB a block of an H100 can use
+
+
+def fused2_cluster(n1: int, n2: int, planes: int, sms: int = 132) -> int:
+    """CTAs per plane (the cluster size C) of ``fft_fused2`` on ``planes``
+    (n1, n2) planes over a card of ``sms`` SMs: the least power of two
+    that leaves each CTA at most ``FUSED2_CTA_ELEMS`` elements, doubled
+    (up to the portable 8) while the grid would fill fewer CTAs than the
+    card has SMs.  C divides n1, n2 is a multiple of 8*C (n1 is a
+    multiple of 16 and n2 of 128 for every admitted pair: the stripe
+    width n2/C takes 16-byte loads) and the CTA's shared memory
+    (:func:`fused2_smem_bytes`) fits ``SMEM_PER_CTA``; csrc/stockham.cu
+    checks the same and refuses anything else."""
+    c = 1
+    while (n1 * n2 // c > FUSED2_CTA_ELEMS
+           or (c < 8 and planes * c < sms)):
+        c *= 2
+    if (c > FUSED2_MAX_CLUSTER or n1 % c or n2 % (8 * c)
+            or fused2_smem_bytes(n1, n2, c) > SMEM_PER_CTA):
+        raise ValueError(f"fft_fused2: no cluster for ({n1}, {n2})")
+    return c
+
+
+def fused2_smem_bytes(n1: int, n2: int, c: int) -> int:
+    """Shared memory of one CTA of ``fft_fused2`` with cluster size c, in
+    f32 (re, im): its n1/c rows of the plane, one pad word every 32, placed
+    half their size above the column stripe (n1 x n2/c), which they
+    overlap."""
+    hn = (n1 // c) * n2
+    return 2 * 4 * (hn // 2 + hn + hn // 32)
 
 
 def fused_gap_supported(n1: int, n2: int) -> bool:
@@ -625,9 +667,37 @@ def _kernel_stages(n: int) -> Tuple[int, ...]:
     return tuple(radices)
 
 
+def fused2_stages(n: int) -> Tuple[int, ...]:
+    """Butterfly radices of the cluster kernel ``fft_fused2`` for length
+    n = odd * 2**k: the fewest stages of radix 8 or 4 (ceil(k/3) of them,
+    radix 8 first; one radix-2 stage for k = 1), then the odd factor (3, 5
+    or 7), so that every stage's Ns is a power of two.  A thread keeps
+    whole radix-8 butterflies in registers, so a 512-point axis takes
+    three shared-memory exchanges (8, 8, 8) instead of the five of
+    :func:`_kernel_stages`."""
+    odd, k = n, 0
+    while odd % 2 == 0:
+        odd //= 2
+        k += 1
+    if odd not in (1, 3, 5, 7) or n < 2:
+        raise ValueError(f"no butterfly schedule for n={n}")
+    s = -(-k // 3)
+    radices = [1 << (k // s + (i < k % s)) for i in range(s)]
+    if odd > 1:
+        radices.append(odd)
+    return tuple(radices)
+
+
 @functools.lru_cache(maxsize=256)
 def _kernel_tables(n: int, sign: int) -> np.ndarray:
-    """Twiddles of every kernel stage as a (T, 2) f32 (re, im) array.
+    """Twiddles of every kernel stage (:func:`_kernel_stages`) as a (T, 2)
+    f32 (re, im) array; see :func:`_stage_tables`."""
+    return _stage_tables(_kernel_stages(n), sign)
+
+
+@functools.lru_cache(maxsize=256)
+def _stage_tables(radices: Tuple[int, ...], sign: int) -> np.ndarray:
+    """Twiddles of the stages ``radices`` as a (T, 2) f32 (re, im) array.
 
     Stage (R, Ns) holds exp(sign*2*pi*i*r*k/(Ns*R)) at offset
     (r-1)*Ns + k, r = 1..R-1, k = 0..Ns-1; stages follow each other.  The
@@ -636,7 +706,7 @@ def _kernel_tables(n: int, sign: int) -> np.ndarray:
     """
     parts = []
     ns = 1
-    for r in _kernel_stages(n):
+    for r in radices:
         e = np.outer(np.arange(1, r, dtype=np.int64),
                      np.arange(ns, dtype=np.int64)).ravel() % (ns * r)
         theta = (2.0 * np.pi / (ns * r)) * e.astype(np.float64) * float(sign)
@@ -648,15 +718,16 @@ def _kernel_tables(n: int, sign: int) -> np.ndarray:
 _DEVICE_TABLES: dict = {}
 
 
-def device_tables(n: int, sign: int, device: torch.device):
+def device_tables(n: int, sign: int, device: torch.device, stages=None):
     """(twiddle tensor on ``device``, ctypes radix array, stage count) for
-    the kernels, uploaded once per (n, sign, device); plans fetch theirs
-    when they are made."""
-    key = (n, sign, device)
+    the kernels, uploaded once per (n, sign, device, stage list); plans
+    fetch theirs when they are made.  ``stages`` (default
+    :func:`_kernel_stages`) makes the radix list from n."""
+    rad = (stages or _kernel_stages)(n)
+    key = (n, sign, device, rad)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
-        rad = _kernel_stages(n)
-        tw = torch.from_numpy(_kernel_tables(n, sign)).to(device)
+        tw = torch.from_numpy(_stage_tables(rad, sign)).to(device)
         hit = (tw, (ctypes.c_int * len(rad))(*rad), len(rad))
         _DEVICE_TABLES[key] = hit
     return hit
@@ -732,6 +803,24 @@ def _c2c_entry(name: str, xr):
     return full, getattr(_build.load(), full)
 
 
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused2_active_clusters(n1: int, n2: int, c: int, dtype=torch.float32):
+    """``cudaOccupancyMaxActiveClusters`` of the ``fft_fused2`` kernel for
+    (n1, n2) planes of ``dtype`` in clusters of c CTAs: how many such
+    clusters the card holds at once (0: none fits, and the kernel refuses
+    to launch)."""
+    from . import _build
+    got = _build.load().fft_fused2_clusters(n1, n2, c,
+                                            int(dtype == torch.bfloat16))
+    if got < 0:
+        raise RuntimeError(f"fft_fused2_clusters: CUDA error {-got}")
+    return got
+
+
 def _mid_planes(xr):
     """The f32 planes between the two passes of a two-pass kernel: none
     for f32 planes (the kernel uses its output planes), f32 planes shaped
@@ -785,20 +874,24 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     scale fused, output in the input's dtype.
 
     CUDA planes launch ``fft_fused2_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_fused2_bf16``; its intermediate goes to f32 scratch
-    planes of the input's shape, 8 B per element); CPU planes run
-    :func:`fft_fused2_plain`.  Counterpart: ``pallas_stockham.py:875``.
+    (counted as ``fft_fused2_bf16``): one plane per cluster of
+    :func:`fused2_cluster` CTAs, the f32 intermediate in the cluster's
+    shared memory, so each element crosses device memory once each way and
+    nothing is allocated beside the output.  The C entry refuses a cluster
+    size the card cannot hold (:func:`fused2_active_clusters` 0) and this
+    raises.  CPU planes run :func:`fft_fused2_plain`.  Counterpart:
+    ``pallas_stockham.py:875``.
     """
     if not _on_cuda("fft_fused2", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_fused2_plain(xr, xi, sign, scale)
     p, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    mid = _mid_planes(xr)
-    tw1, rad1, k1 = device_tables(n1, sign, xr.device)
-    tw2, rad2, k2 = device_tables(n2, sign, xr.device)
+    c = fused2_cluster(n1, n2, p, _sm_count(xr.device))
+    tw1, rad1, k1 = device_tables(n1, sign, xr.device, fused2_stages)
+    tw2, rad2, k2 = device_tables(n2, sign, xr.device, fused2_stages)
     _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            *(m.data_ptr() for m in mid), p, n1, n2, sign, scale,
+            p, n1, n2, c, sign, scale,
             tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2)
     return yr, yi
 

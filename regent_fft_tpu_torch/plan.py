@@ -568,7 +568,8 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
 
 
 def _kernel_lengths(kind_: str, arg) -> Tuple[int, ...]:
-    """The butterfly lengths whose tables a kernel step's kernels read."""
+    """The butterfly lengths whose tables a kernel step's kernels read (a
+    ``stockham2`` step's with the stages of ``fused2_stages``)."""
     if kind_ in ("stockham2", "fused2_ring", "stockham_gap"):
         return tuple(arg)
     if kind_ == "stockham4":
@@ -613,13 +614,15 @@ class Plan:
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
         sign = int(spec.direction)
-        lengths = [n for k, _, arg in self.steps if k in KERNEL_STEPS
+        lengths = [(n, _sk.fused2_stages if k == "stockham2" else None)
+                   for k, _, arg in self.steps if k in KERNEL_STEPS
                    for n in _kernel_lengths(k, arg)]
         if self.real is not None and self.real.route != "einsum":
-            lengths.append(self.real.n // (2 if self.real.route == "half"
-                                           else 1))
+            lengths.append((self.real.n // (2 if self.real.route == "half"
+                                            else 1), None))
         self.tables = [] if self.device.type != "cuda" else [
-            _sk.device_tables(n, sign, self.device) for n in lengths]
+            _sk.device_tables(n, sign, self.device, stages)
+            for n, stages in lengths]
         self.scale = _norm_scale(spec)
         self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
         self._destroyed = False
