@@ -9,8 +9,11 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions; TF32 off for every float32 product;
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
-   kernel of fft_fused2 must spill nothing), and fft_fused2's cluster size
-   and cudaOccupancyMaxActiveClusters at the main path's shapes;
+   kernel of fft_fused2 and the matmul kernel must spill nothing), the
+   count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
+   of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
+   and fft_fused2's cluster size and cudaOccupancyMaxActiveClusters at the
+   main path's shapes;
 3. kernels: every length the C2C kernel gates admit (ragged batches and
    column counts, both signs) against torch.fft in float64, and every
    length the real-kernel gate admits (2..1024, an odd and an even batch,
@@ -50,7 +53,10 @@ Phases (any failure raises and the script exits non-zero):
    the algorithm's: its bytes over the memory rate or its 5 n log2 n flops
    a row over the FP32 rate, whichever is larger; fft_mm1 and fft_mm2 also
    report the flops of their dense products (8 n^2 a row; 8 n (n1 + n2) +
-   6 n) as ``kernel_flops``;
+   6 n) as ``kernel_flops``, their time at the FP32 rate
+   (``kernel_flops_ms``) and three times over at the TF32 tensor-core rate
+   (``kernel_tc_ms``: the 3xTF32 split), and their plain versions run
+   with TF32 asserted off;
 4. main path, C2C: the complex64 plans a user makes -- 3-D 512^3, 1-D
    4096 x 1024 and 2-D 16 x 512^2 -- with the default device and backend.
    The kernel launch counts are zeroed just before the three plans run
@@ -119,10 +125,12 @@ import subprocess
 import sys
 import time
 
-# Datasheet peaks (dense, no sparsity): device-memory bytes/s and FP32
-# (non-tensor-core) flop/s, matched on the nvidia-smi card name.
-PEAKS = [("H100 PCIe", 2.0e12, 51.2e12), ("H100 NVL", 3.9e12, 60.0e12),
-         ("H100", 3.35e12, 67.0e12), ("H200", 4.8e12, 67.0e12)]
+# Datasheet peaks (dense, no sparsity): device-memory bytes/s, FP32
+# (non-tensor-core) flop/s and TF32 tensor-core flop/s, matched on the
+# nvidia-smi card name.
+PEAKS = [("H100 PCIe", 2.0e12, 51.2e12, 378e12),
+         ("H100 NVL", 3.9e12, 60.0e12, 417.5e12),
+         ("H100", 3.35e12, 67.0e12, 495e12), ("H200", 4.8e12, 67.0e12, 495e12)]
 
 PS = "regent_fft_tpu/ops/pallas_stockham.py"
 PF = "regent_fft_tpu/ops/pallas_fft.py"
@@ -318,6 +326,25 @@ def _ptxas(log: str):
     return [f"{fn}: {'; '.join(lines)}" for fn, lines in props.items()]
 
 
+def _tensor_ops(lib: str):
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in the SASS of
+    the built library, from the CUDA toolkit's cuobjdump."""
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        tool = "cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b|\bH(G)?MMA\.", ln):
+            counts[fn] += 1
+    return counts
+
+
 def _smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -356,7 +383,7 @@ def main() -> int:
     peak = next((p for p in PEAKS if p[0] in smi or p[0] in name), None)
     if peak is None:
         raise RuntimeError(f"no datasheet peaks for card {smi!r}")
-    _, bw, fp32 = peak
+    _, bw, fp32, tf32 = peak
     dev = torch.device("cuda", 0)
 
     # 2. build
@@ -373,6 +400,23 @@ def main() -> int:
             re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
             for ln in f2_ptxas):
         raise AssertionError(f"fft_fused2 ptxas: {f2_ptxas}")
+    # the matmul kernels: products on tensor cores (3xTF32 mma.sync), no
+    # spills; fft_mm_kernel<false> is fft_mm1, <true> fft_mm2
+    mm_ptxas = [ln for ln in _ptxas(_build.build_log) if "fft_mm_kernel" in ln]
+    if len(mm_ptxas) != 2 or not all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in mm_ptxas):
+        raise AssertionError(f"fft_mm ptxas: {mm_ptxas}")
+    tensor_ops = _tensor_ops(str(_build.library_path()))
+    hmma = {}
+    for kname, tag in (("fft_mm1", "fft_mm_kernelILb0E"),
+                       ("fft_mm2", "fft_mm_kernelILb1E")):
+        hmma[kname] = sum(c for f, c in tensor_ops.items() if tag in f)
+    print(f"tensor-core instructions (HMMA/HGMMA) in the SASS: {hmma}; all "
+          f"other kernels {sum(tensor_ops.values()) - sum(hmma.values())}")
+    if min(hmma.values()) < 1:
+        raise AssertionError(f"fft_mm kernels without tensor-core "
+                             f"instructions: {hmma}")
 
     # the cluster size of fft_fused2 at the main path's shapes and how many
     # such clusters the card holds at once
@@ -1021,18 +1065,26 @@ def main() -> int:
         """fft_mm1 or fft_mm2 on (B, n) rows against its plain version;
         bound: the DFT's (its bytes, or its 5 n log2 n flops a row); the
         flops of the kernel's dense products (the TPU CostEstimate) as
-        `kernel_flops`; library: one torch.fft.fft over the same rows."""
+        `kernel_flops`, their time at the FP32 rate and, three times over
+        (the 3xTF32 split), at the TF32 tensor-core rate; library: one
+        torch.fft.fft over the same rows."""
         b, n = shape
         xr, xi = planes(shape)
         if kname == "fft_mm1":
             kern = lambda s: pf.fft_mm1(xr, xi, n, s)
-            plain = lambda s: pf.fft_mm1_plain(xr, xi, n, s)
+            plain_fn = lambda s: pf.fft_mm1_plain(xr, xi, n, s)
             kflops = 8 * n * n * b
         else:
             n1, n2 = pf.two_stage_split(n)
             kern = lambda s: pf.fft_mm2(xr, xi, n1, n2, s)
-            plain = lambda s: pf.fft_mm2_plain(xr, xi, n1, n2, s)
+            plain_fn = lambda s: pf.fft_mm2_plain(xr, xi, n1, n2, s)
             kflops = (8 * n * (n1 + n2) + 6 * n) * b
+
+        def plain(s):   # the reference runs its products in full f32
+            if (torch.backends.cuda.matmul.allow_tf32
+                    or torch.get_float32_matmul_precision() != "highest"):
+                raise AssertionError("TF32 allowed while a plain version ran")
+            return plain_fn(s)
         pairs = [(lambda s=s: torch.complex(*kern(s)),
                   lambda s=s: torch.complex(*plain(s))) for s in (-1, 1)]
         xc = torch.complex(xr, xi)
@@ -1041,6 +1093,19 @@ def main() -> int:
                            16 * xr.numel(), 5 * xr.numel() * math.log2(n))
         case["kernel_flops"] = kflops
         case["kernel_flops_ms"] = 1e3 * kflops / fp32
+        case["kernel_tc_ms"] = 1e3 * 3 * kflops / tf32
+        case["hmma"] = hmma[kname]
+        geo = (pf.mm_geometry(1, n, b, sms) if kname == "fft_mm1"
+               else pf.mm_geometry(n1, n2, b, sms))
+        case["geometry"] = geo._asdict()
+        print(f"{kname} {shape}: {case['ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.4f} ({case['bound_by']}), dense products "
+              f"{kflops:.3e} flops: kernel_flops_ms "
+              f"{case['kernel_flops_ms']:.4f} (FP32), kernel_tc_ms "
+              f"{case['kernel_tc_ms']:.4f} (3xTF32); torch.fft "
+              f"{case['library_ms']:.4f}, plain {case['plain_ms']:.4f}; "
+              f"rel_l2 vs plain {case['max_rel_err']:.3e}; launch "
+              f"{case['geometry']}", flush=True)
         del xr, xi, xc
         return case
 
@@ -1151,7 +1216,7 @@ def main() -> int:
             rows[kname]["entry"] = first["entry"]
         for key in ("library_call", "library_c32_ms", "library_c64_ms",
                     "err_vs_f64", "plain_err_vs_f64", "kernel_flops",
-                    "kernel_flops_ms"):
+                    "kernel_flops_ms", "kernel_tc_ms", "hmma"):
             if key in first:
                 rows[kname][key] = first[key]
         print(f"kernel {kname}: " + "; ".join(

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "fft_axes2_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _F,
                        _P, _I, _IP, _P, _I, _IP, _P],
     "fft_axis0": [_P, _P, _P, _P, _I, _L, _I, _F, _P, _I, _IP, _P],
-    "fft_mm1": [_P, _P, _P, _P, _L, _I, _P, _P],
-    "fft_mm2": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
+    "fft_mm1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P],
+    "fft_mm2": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 # the bf16-plane (complex32) instances take the f32 entries' arguments ...
 _SIGNATURES.update({k + "_bf16": _SIGNATURES[k]

@@ -1,7 +1,8 @@
 """The matmul-form kernels (``backend="pallas"``) in the port against the
 JAX package on the CPU: the schedules, the plain versions against the JAX
 runners in interpret mode, ``build_c2c_1d_pallas``, the plans in every
-dtype and kind, and a numpy emulation of the CUDA kernels' index scheme.
+dtype and kind, and a numpy emulation of the CUDA kernel's 3xTF32 scheme
+(held against numpy float64 within ``tolerance(n, "complex64")``).
 
 Tolerance: ``tolerance(n, dtype)`` = 8 * eps * sqrt(log2 n) (eps 2^-23 for
 f32 planes, 2^-8 for bf16, 2^-52 for f64).  The plain versions and the JAX
@@ -166,154 +167,175 @@ def test_wrappers_take_f32_planes_and_launch_nothing_on_cpu():
             tpf.fft_mm2(x.to(dt), x.to(dt), 8, 8, -1)
 
 
-# --- the CUDA kernels' index scheme, emulated in numpy -------------------------
-# csrc/matmul.cu: 512 threads; thread t of a contraction over `ncols`
-# columns takes column t % ncols and outputs k = t // ncols + G * i
-# (G = 512 // ncols, i < ot), carrying the root exponents mod L by
-# additions; rows per block R as the C entries choose them.
-THREADS = 512
+# --- the CUDA kernel's 3xTF32 scheme, emulated in numpy -----------------------
+# csrc/matmul.cu (fft_mm_kernel): tiles of R rows as mm_geometry picks them;
+# each stage the L-point DFT of every column, after one radix-2 step where
+# mm_halves(L); D = W_L^{(k*j) mod L} from the f32 root table, K padded to
+# 8 with zeros; every f32 operand split into tf32 hi and lo
+# (cvt.rna.tf32.f32), each real product lo*hi' + hi*lo' + hi*hi'; the
+# products of one K step (8 deep, both real products of a complex part)
+# summed into a zeroed fragment, rounded to f32 and added to the f32
+# accumulator; the twiddle by fmaf as the kernel writes it.
+def tf32_rna(a):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10
+    mantissa bits; the low 13 bits cleared."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    sign = u & np.uint32(0x80000000)
+    mag = (u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)
+    return ((mag & np.uint32(0x7FFFE000)) | sign).view(np.float32)
 
 
-def _opt(ncols, length):
-    g = THREADS // ncols
-    return -(-length // g)
+def _split(a):
+    hi = tf32_rna(a)
+    return hi, tf32_rna((a - hi).astype(np.float32))
 
 
-def _mm1_rows(n):
-    r = min(THREADS, 4096 // n)
-    while r > 1 and _opt(r, n) > 8:
-        r -= 1
-    return r
+def _prod3(a, b):
+    """(cols, K) data by (K, M) matrix as the split's three terms, each
+    product exact in float64."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    f = np.float64
+    return (al.astype(f) @ bh.astype(f) + ah.astype(f) @ bl.astype(f)
+            + ah.astype(f) @ bh.astype(f))
 
 
-def _mm2_rows(n1, n2):
-    n = n1 * n2
-    r = 4096 // n if n < 4096 else 1
-
-    def most(r):
-        return max(_opt(r * n2, n1), _opt(r * n1, n2))
-    while r > 1 and (r * n1 > THREADS or r * n2 > THREADS or most(r) > 8):
-        r -= 1
-    return r, most(r)
-
-
-def _dft_column(s, ncols, length, w, base, js, ok):
-    """All threads' dft_column: (column, k, value) of every output of the
-    threads whose column is `ok`."""
-    t = np.arange(THREADS)
-    g = THREADS // ncols
-    c, k0 = t % ncols, t // ncols
-    ot = np.where((k0 < g) & (k0 < length), (length - 1 - k0) // g + 1, 0)
-    k0 = np.where(ot > 0, k0, 0)
-    maxo = int(ot.max())
-    acc = np.zeros((THREADS, maxo), np.complex128)
-    e0 = np.zeros(THREADS, np.int64)
-    d = 0
-    for j in range(length):
-        x = s[base[c] + j * js]
-        e = e0.copy()
-        for i in range(maxo):
-            acc[:, i] += x * w[e]
-            e = e + d
-            e = np.where(e >= length, e - length, e)
-        e0 = e0 + k0
-        e0 = np.where(e0 >= length, e0 - length, e0)
-        d += g % length
-        d = d - length if d >= length else d
-    outs = []
-    for th in np.nonzero((ot > 0) & ok[c])[0]:
-        for i in range(ot[th]):
-            outs.append((c[th], k0[th] + g * i, acc[th, i]))
-    return outs
+def _emulate_stage(xr, xi, length, w):
+    """The kernel's contraction of (cols, L) f32 planes with the L roots
+    `w` (complex64): (cols, L) f32 planes, output k at column k."""
+    f32 = np.float32
+    if tpf.mm_halves(length):
+        h = length // 2
+        parts = [((xr[:, :h] + xr[:, h:]).astype(f32),
+                  (xi[:, :h] + xi[:, h:]).astype(f32), 0),
+                 ((xr[:, :h] - xr[:, h:]).astype(f32),
+                  (xi[:, :h] - xi[:, h:]).astype(f32), 1)]
+        step = 2
+    else:
+        h, parts, step = length, [(xr, xi, 0)], 1
+    yr = np.zeros(xr.shape, f32)
+    yi = np.zeros(xi.shape, f32)
+    kp = -(-h // 8) * 8
+    for ur, ui, par in parts:
+        k = step * np.arange(h) + par
+        d = np.zeros((kp, h), np.complex64)            # K padded with zeros
+        d[:h] = w[np.outer(np.arange(h), k) % length]
+        dr, di = d.real.astype(f32), d.imag.astype(f32)
+        pad = ((0, 0), (0, kp - h))
+        ur, ui = np.pad(ur, pad), np.pad(ui, pad)
+        ar = np.zeros((xr.shape[0], h), f32)
+        ai = np.zeros((xr.shape[0], h), f32)
+        for j in range(0, kp, 8):
+            s = slice(j, j + 8)
+            pr = (_prod3(ur[:, s], dr[s]) + _prod3(-ui[:, s], di[s])
+                  ).astype(f32)
+            pi = (_prod3(ui[:, s], dr[s]) + _prod3(ur[:, s], di[s])
+                  ).astype(f32)
+            ar = (ar + pr).astype(f32)
+            ai = (ai + pi).astype(f32)
+        yr[:, k], yi[:, k] = ar, ai
+    return yr, yi
 
 
-def _roots(m, sign):
-    return np.exp(2j * np.pi * sign * np.arange(m) / m)
-
-
-def _emulate_mm1(x, n, sign):
-    b = x.shape[0]
-    r_blk = _mm1_rows(n)
-    pitch = n | 1
-    y = np.zeros_like(x, np.complex128)
-    for row0 in range(0, b, r_blk):
-        rows = min(r_blk, b - row0)
-        s = np.zeros(r_blk * pitch, np.complex128)
-        for r in range(rows):
-            s[r * pitch:r * pitch + n] = x[row0 + r]
-        outs = _dft_column(s, r_blk, n, _roots(n, sign),
-                           np.arange(r_blk) * pitch, 1,
-                           np.arange(r_blk) < rows)
-        seen = set()
-        for c, k, v in outs:
-            assert (c, k) not in seen
-            seen.add((c, k))
-            s[c * pitch + k] = v
-        assert len(seen) == rows * n          # every output exactly once
-        for r in range(rows):
-            y[row0 + r] = s[r * pitch:r * pitch + n]
-    return y
-
-
-def _emulate_mm2(x, n1, n2, sign):
+def _emulate_mm(x, n1, n2, sign):
+    """fft_mm1 (n1 = 1) or fft_mm2 on (b, n1*n2) complex64 rows, tile by
+    tile as mm_geometry cuts the batch."""
     b, n = x.shape
-    r_blk, ot = _mm2_rows(n1, n2)
-    assert ot <= 32
-    p2 = n2 | 1
-    rs = n1 * p2
-    tw = _roots(n, sign)
-    y = np.zeros_like(x, np.complex128)
-    for row0 in range(0, b, r_blk):
-        rows = min(r_blk, b - row0)
-        s = np.zeros(r_blk * rs, np.complex128)
-        for r in range(rows):
-            s[r * rs:(r + 1) * rs].reshape(n1, p2)[:, :n2] = \
-                x[row0 + r].reshape(n1, n2)
-        cols = np.arange(r_blk * n2)
-        base1 = (cols // n2) * rs + cols % n2
-        outs = _dft_column(s, r_blk * n2, n1, _roots(n1, sign), base1, p2,
-                           cols // n2 < rows)
-        assert len(outs) == rows * n
-        for c, k1, v in outs:
-            s[base1[c] + k1 * p2] = v * tw[(c % n2) * k1]
-        cols = np.arange(r_blk * n1)
-        base2 = (cols // n1) * rs + (cols % n1) * p2
-        outs = _dft_column(s, r_blk * n1, n2, _roots(n2, sign), base2, 1,
-                           cols // n1 < rows)
-        assert len(outs) == rows * n
-        for c, k2, v in outs:
-            s[(c // n1) * rs + c % n1 + n1 * k2] = v
-        for r in range(rows):
-            y[row0 + r] = s[r * rs:r * rs + n]
+    geo = tpf.mm_geometry(n1, n2, b)
+    f32 = np.float32
+    if n1 > 1:
+        tab = tpf._device_roots((n1, n2, n), sign, torch.device("cpu")).numpy()
+        w1 = tab[:n1, 0] + 1j * tab[:n1, 1]
+        w2 = tab[n1:n1 + n2, 0] + 1j * tab[n1:n1 + n2, 1]
+        twr, twi = tab[n1 + n2:, 0], tab[n1 + n2:, 1]
+    else:
+        tab = tpf._device_roots((n,), sign, torch.device("cpu")).numpy()
+        w2 = tab[:, 0] + 1j * tab[:, 1]
+    y = np.zeros((b, n), np.complex128)
+    for row0 in range(0, b, geo.rows):
+        t = x[row0:row0 + geo.rows]
+        r = t.shape[0]
+        xr = t.real.astype(f32).reshape(r, n1, n2)
+        xi = t.imag.astype(f32).reshape(r, n1, n2)
+        if n1 > 1:    # columns (r, nu2) over nu1, then the twiddle
+            cr = xr.transpose(0, 2, 1).reshape(r * n2, n1)
+            ci = xi.transpose(0, 2, 1).reshape(r * n2, n1)
+            ar, ai = _emulate_stage(cr, ci, n1, w1)       # (r*n2, k1)
+            e = np.outer(np.arange(n2), np.arange(n1))    # nu2 * k1
+            tr = np.tile(twr[e], (r, 1)).astype(np.float64)
+            ti = np.tile(twi[e], (r, 1)).astype(np.float64)
+            vr = (ar * tr + (-(ai * ti).astype(f32))).astype(f32)
+            vi = (ar * ti + (ai * tr).astype(f32)).astype(f32)
+            xr = vr.reshape(r, n2, n1).transpose(0, 2, 1)   # A[k1][nu2]
+            xi = vi.reshape(r, n2, n1).transpose(0, 2, 1)
+        cr, ci = _emulate_stage(xr.reshape(r * n1, n2),
+                                xi.reshape(r * n1, n2), n2, w2)  # (r*n1, k2)
+        out = (cr + 1j * ci.astype(np.float64)).reshape(r, n1, n2)
+        y[row0:row0 + r] = out.transpose(0, 2, 1).reshape(r, n)  # k1 + n1 k2
     return y
+
+
+def test_tf32_rounding_bit_patterns():
+    f = np.float32
+    bits = np.array([0x3F801000,    # 1 + 2^-11: a tie, away from zero
+                     0xBF801000,    # its negative
+                     0x3F800FFF,    # just below the tie: down
+                     0x3FFFF000,    # a tie that carries into the exponent
+                     0x3F801001,    # just above the tie: up
+                     0x00000000], np.uint32).view(f)
+    want = np.array([0x3F802000, 0xBF802000, 0x3F800000, 0x40000000,
+                     0x3F802000, 0x00000000], np.uint32)
+    assert np.array_equal(tf32_rna(bits).view(np.uint32), want)
+    hi, lo = _split(np.array([1 / 3], f))
+    assert hi.view(np.uint32)[0] & 0x1FFF == 0
+    assert lo.view(np.uint32)[0] & 0x1FFF == 0
+    assert abs(float(hi[0]) + float(lo[0]) - float(f(1 / 3))) <= 2.0 ** -23
+
+
+def _hold_emulation(n1, n2, b, seed):
+    n = n1 * n2
+    x = _crand((b, n), seed)
+    for sign in (-1, 1):
+        y = _emulate_mm(x, n1, n2, sign)
+        assert rel_l2(y, _ref(x, (1,), Direction(sign))) <= \
+            tolerance(max(n, 2)), (n1, n2, sign)
 
 
 @pytest.mark.parametrize("n,b", [(1, 3), (3, 5), (100, 41), (128, 37)])
-def test_mm1_kernel_scheme_emulation(n, b):
-    x = _crand((b, n), n)
-    for sign in (-1, 1):
-        y = _emulate_mm1(x.astype(np.complex128), n, sign)
-        assert rel_l2(y, _ref(x, (1,), Direction(sign))) <= 1e-12
+def test_mm1_kernel_emulation(n, b):
+    _hold_emulation(1, n, b, n)
 
 
 @pytest.mark.parametrize("n1,n2,b", [(16, 16, 17), (32, 20, 7), (32, 32, 5),
                                      (80, 50, 2), (128, 2, 3), (128, 128, 1)])
-def test_mm2_kernel_scheme_emulation(n1, n2, b):
-    x = _crand((b, n1 * n2), n1)
-    for sign in (-1, 1):
-        y = _emulate_mm2(x.astype(np.complex128), n1, n2, sign)
-        assert rel_l2(y, _ref(x, (1,), Direction(sign))) <= 1e-12
+def test_mm2_kernel_emulation(n1, n2, b):
+    _hold_emulation(n1, n2, b, n1)
 
 
-def test_kernel_rows_per_block():
-    """Rows per block and outputs per thread at the main path's lengths."""
-    assert _mm1_rows(128) == 32 and _opt(32, 128) == 8
-    assert _mm2_rows(32, 32) == (4, 8)          # n = 1024: 4 rows a block
-    assert _mm2_rows(128, 128) == (1, 32)       # n = 16384: one row
-    assert _mm2_rows(32, 16)[0] == 8 and _mm2_rows(16, 16)[0] == 16
-    worst = max(_mm2_rows(*tpf.two_stage_split(n))[1]
-                for n in range(256, 16385) if tpf.two_stage_split(n))
-    assert worst == 32
+@pytest.mark.parametrize("n", range(1, 129))
+def test_mm1_kernel_emulation_sweep(n):
+    _hold_emulation(1, n, 3, 1000 + n)
+
+
+def test_kernel_geometry_fits_every_length():
+    """Every length the kernels take gets a tile within the 232,448 bytes a
+    block may use, at least one row, and two buffers at the main path's
+    shapes; the last stage stores from registers only where its units
+    outnumber the warps, and a column group never does."""
+    for n1, n2 in ([(1, n) for n in range(1, 129)]
+                   + [tpf.two_stage_split(n) for n in range(2, 16385)
+                      if tpf.two_stage_split(n)]):
+        for batch in (1, 262144):
+            g = tpf.mm_geometry(n1, n2, batch)
+            assert 1 <= g.rows and g.buffers in (1, 2), (n1, n2)
+            assert g.smem == tpf.mm_smem(n1, n2, g.rows, g.buffers)
+            assert g.smem <= tpf.SMEM_PER_CTA == 232448, (n1, n2)
+            assert 1 <= g.ctas <= 132
+            assert g.ctas <= -(-batch // g.rows)
+            assert g.direct == (tpf.mm_units(n2, g.rows * n1) > tpf.MM_WARPS)
+            assert max(tpf.mm_group(n1), tpf.mm_group(n2)) <= tpf.MM_WARPS
+    for n1, n2 in [(1, 128), (32, 32), (32, 20), (16, 16), (32, 16)]:
+        g = tpf.mm_geometry(n1, n2, 262144)
+        assert g.buffers == 2 and not g.direct, (n1, n2, g)
 
 
 # --- backend="pallas" plans against the JAX package's --------------------------
