@@ -9,13 +9,18 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions; TF32 off for every float32 product;
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
-   kernel of fft_fused2 and the matmul kernel must spill nothing), the
+   kernel of fft_fused2, the matmul kernel and the 32 instances of
+   fft_last's row kernel must spill nothing), the
    count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
    of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
    and fft_fused2's cluster size and cudaOccupancyMaxActiveClusters at the
-   main path's shapes;
+   main path's shapes, and the residency of fft_last's instance at every
+   admitted length (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows
+   and threads a block, registers, shared bytes), f32 and bf16;
 3. kernels: every length the C2C kernel gates admit (ragged batches and
-   column counts, both signs) against torch.fft in float64, and every
+   column counts, both signs; fft_last at B = 1, 37 and one row past a
+   whole block, also against fft_last_plain) against torch.fft in
+   float64, and every
    length the real-kernel gate admits (2..1024, an odd and an even batch,
    narrow and Nyquist-packed layouts) against torch.fft.rfft / irfft * n
    in float64; every four-step last-axis length (4096..2^21, batch 3,
@@ -407,6 +412,18 @@ def main() -> int:
             re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
             for ln in mm_ptxas):
         raise AssertionError(f"fft_mm ptxas: {mm_ptxas}")
+    # the row kernel of fft_last: one instance per admitted length and
+    # plane type, none may spill
+    last_ptxas = [ln for ln in _ptxas(_build.build_log)
+                  if "fft_last_kernel" in ln]
+    n_last = sum(1 for n in range(2, sk.MAX_LAST_N + 1)
+                 if sk.kernel_len_ok(n, True))
+    if len(last_ptxas) != 2 * n_last or not all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in last_ptxas):
+        raise AssertionError(f"fft_last ptxas: {last_ptxas}")
+    print(f"ptxas fft_last_kernel: {len(last_ptxas)} instances, 0 spill "
+          f"bytes in each")
     tensor_ops = _tensor_ops(str(_build.library_path()))
     hmma = {}
     for kname, tag in (("fft_mm1", "fft_mm_kernelILb0E"),
@@ -433,6 +450,21 @@ def main() -> int:
               f"({sms} SMs)")
         if min(act) < 1:
             raise AssertionError(f"fft_fused2 {(n1, n2)}: no cluster fits")
+    # where fft_last's instances sit: resident blocks an SM
+    # (cudaOccupancyMaxActiveBlocksPerMultiprocessor), rows and threads a
+    # block, registers a thread, shared bytes a block
+    for n in range(2, sk.MAX_LAST_N + 1):
+        if not sk.kernel_len_ok(n, True):
+            continue
+        res = {str(dt)[6:]: sk.last_residency(n, dt)
+               for dt in (torch.float32, torch.bfloat16)}
+        print(f"fft_last residency n={n} stages {sk.last_stages(n)}: "
+              + "; ".join(f"{k} {r['blocks_per_sm']} blocks/SM x "
+                          f"{r['rows_per_block']} rows ({r['threads_per_block']}"
+                          f" threads), {r['registers']} registers, "
+                          f"{r['smem_bytes']} B shared" for k, r in res.items()))
+        if min(r["blocks_per_sm"] for r in res.values()) < 1:
+            raise AssertionError(f"fft_last n={n}: no block fits an SM")
     phase("2 (build)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -496,7 +528,9 @@ def main() -> int:
 
     # 3a. every length the gates admit, ragged batches and column counts,
     # both signs, against torch.fft in float64
-    def check(kname, fn, shape, dims, sign, scale=0.5):
+    last_plain = [0.0]   # worst rel_l2 of fft_last against its plain version
+
+    def check(kname, fn, shape, dims, sign, scale=0.5, plain=None):
         xr, xi = planes(shape)
         yr, yi = fn(xr, xi, sign, scale)
         x = torch.complex(xr.double(), xi.double())
@@ -504,20 +538,33 @@ def main() -> int:
                else torch.fft.ifftn(x, dim=dims, norm="forward")) * scale
         n = int(np.prod([shape[d] for d in dims]))
         err = rel_l2(torch.complex(yr, yi), ref)
-        if not err <= tolerance(n):
-            raise AssertionError(f"{kname}{shape} sign {sign}: rel_l2 {err} "
-                                 f"> {tolerance(n)}")
+        e_plain = 0.0
+        if plain is not None:
+            e_plain = dev_rel(torch.complex(yr, yi),
+                              torch.complex(*plain(xr, xi, sign, scale)))
+            last_plain[0] = max(last_plain[0], e_plain)
+        if not (err <= tolerance(n) and e_plain <= tolerance(n)):
+            raise AssertionError(f"{kname}{shape} sign {sign}: rel_l2 {err}, "
+                                 f"vs plain {e_plain} > {tolerance(n)}")
         return err
 
     lengths = [2 ** k for k in range(1, 12)] + [
         n for n in range(16, 2049, 8) if n & (n - 1) and n >= 128
         and sk.kernel_len_ok(n, False)]
+
+    def last_batches(n):
+        """fft_last's batches at length n: one row, 37, and one past a whole
+        block (ragged, where a block holds more than one row)."""
+        return sorted({1, 37, sk.last_geometry(n)[1] + 1})
+
     worst = 0.0
     for n in lengths:
         for sign in (-1, 1):
             if sk.kernel_len_ok(n, True):
-                worst = max(worst, check("fft_last", sk.fft_last, (37, n),
-                                         (1,), sign))
+                for b in last_batches(n):
+                    worst = max(worst, check("fft_last", sk.fft_last, (b, n),
+                                             (1,), sign,
+                                             plain=sk.fft_last_plain))
             worst = max(worst, check("fft_cols", sk.fft_cols, (3, n, 45),
                                      (1,), sign))
     # the pairs of the ring and gap sweeps; fft_fused2 takes every pair
@@ -544,7 +591,8 @@ def main() -> int:
             f2_plain = max(f2_plain, e)
     print(f"sweep: {len(lengths)} lengths (last/cols), all {len(f2_pairs)} "
           f"fused2 pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}; "
-          f"fft_fused2 vs fft_fused2_plain {f2_plain:.3e}")
+          f"fft_fused2 vs fft_fused2_plain {f2_plain:.3e}; fft_last (B = 1, "
+          f"37 and a ragged block) vs fft_last_plain {last_plain[0]:.3e}")
 
     # the C2C kernels on bf16 planes: the same lengths and pairs, against
     # their plain versions (within PLAIN_LIMIT) and torch.fft in float64 of
@@ -581,8 +629,8 @@ def main() -> int:
         note_bf16(kname + "_bf16", e_ref, e_plain)
 
     for kname, shape, dims in (
-            [("fft_last", (37, n), (1,)) for n in lengths
-             if sk.kernel_len_ok(n, True)]
+            [("fft_last", (b, n), (1,)) for n in lengths
+             if sk.kernel_len_ok(n, True) for b in last_batches(n)]
             + [("fft_cols", (3, n, 45), (1,)) for n in lengths]
             + [("fft_fused2", (3, n1, n2), (1, 2)) for n1, n2 in f2_pairs]):
         for sign in (-1, 1):

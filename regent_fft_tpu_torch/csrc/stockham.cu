@@ -1,10 +1,11 @@
 // Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
 // planes: f32 (complex64) or bf16 (complex32).  The shared tile (fft_tile,
 // rows_pass, cols_pass) is in stockham_tile.cuh; the kernels here differ
-// only in how they address global memory, but for fft_fused2_kernel, whose
-// cluster design (below) runs butterflies of its own:
+// only in how they address global memory, but for fft_fused2_kernel (a
+// thread-block cluster a plane) and fft_last_kernel (rows held in
+// registers), whose designs (below) run butterflies of their own:
 //
-//   fft_last_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
+//   fft_last_kernel<T,n,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
 //   fft_cols_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
 //   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
 //   fft_fused2_kernel<T>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
@@ -22,9 +23,10 @@
 // MXU because its vector unit is weak; on this card a dense DFT_n costs
 // 6*n flops per element in 3M form (3072 at n = 512) against ~5*log2(n) for
 // the butterflies, and the f32 kernels are bytes-bound well below the FP32
-// ridge, so the bf16 instances run the same f32 FFMA tile on bf16 blocks:
-// each element is read as 4 B (bf16 re + im) instead of 8 and written the
-// same, converted to f32 on load and rounded to nearest even on the store.
+// ridge, so the bf16 instances run the same f32 FFMA butterflies as the
+// f32 ones on bf16 blocks: each element is read as 4 B (bf16 re + im)
+// instead of 8 and written the same, converted to f32 on load and rounded
+// to nearest even on the store.
 // Bound on H100 for them: bytes, 8 B per complex element per pass (half the
 // f32 kernels' 16 B).  The two-axis kernels keep the plane between their
 // column and row passes in f32, as the TPU kernels do in VMEM.
@@ -53,30 +55,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// --------------------------------------------------------------------------
-// fft_last_kernel — replaces pallas_stockham.py:_runner_last (FFT along the
-// last axis of (B, n) planes, norm scale fused into the write).
-// Bound on H100: bytes.  Each complex element is read once and written once
-// (16 B), ~5*log2(n) flops against 16 B is far below the FP32 ridge
-// (67 TFLOP/s / 3.35 TB/s = 20 flop/B).  Design: each block takes nt whole
-// rows, loaded coalesced into shared memory (one read, one write of HBM per
-// element); every butterfly stage stays in shared memory.  The ragged last
-// block is masked, not padded.
-// --------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                T* __restrict__ yr, T* __restrict__ yi, long long B,
-                StagePlan p, const float2* __restrict__ tw, float s,
-                float scale) {
-  extern __shared__ float smem[];
-  const Geo g = rows_geo(p.n);
-  float* sr = smem;
-  float* si = smem + g.nt * g.pitch;
-  rows_pass(xr, xi, yr, yi, (long long)blockIdx.x * g.nt, B, p.n, p, tw, s,
-            scale, sr, si);
-}
 
 // --------------------------------------------------------------------------
 // fft_cols_kernel — replaces pallas_stockham.py:_runner_cols (FFT along the
@@ -528,6 +506,372 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 }
 
 // --------------------------------------------------------------------------
+// fft_last_kernel — replaces pallas_stockham.py:_runner_last (FFT along the
+// last axis of (B, n) planes, norm scale fused into the write; f32 or bf16
+// planes, f32 arithmetic, the output rounded once to the input's type).
+// Bound on H100: bytes.  Each complex element is read once and written once
+// (16 B in f32, 8 B in bf16), ~5*log2(n) flops against 16 B is far below
+// the FP32 ridge (67 TFLOP/s / 3.35 TB/s = 20 flop/B).  A kernel that walks
+// a block's rows through shared memory stage by stage keeps memory idle
+// while it computes and moves ~7 B of shared traffic for each byte of
+// device memory; the design below keeps the rows in registers instead.
+//   1. Rows in registers, high radix.  A row of n points is taken by
+//      TPR = n / R0 threads (R0 the first radix: 16 from n = 16 on, so each
+//      thread holds V = 16 values; for n <= 8 one thread the row).  The
+//      stage list is last_stages (ops/stockham_kernels.py): radix 16 while
+//      it fits, then the rest of the power of two (2, 4 or 8), then the odd
+//      factor (3, 5 or 7), so every Ns is a power of two.  Every power of
+//      two up to 2048 takes at most two exchanges of shared memory and the
+//      mixed lengths at most three (1536 = 16*16*2*3).  The list is a
+//      template pack: every radix, Ns, butterfly count and twiddle offset is
+//      a compile-time constant, one instance per admitted length
+//      (LAST_CASE below), and the butterflies are straight-line code.
+//   2. Device memory straight into registers.  Stage 0 has Ns = 1, and
+//      thread j of a row reads elements j + r*TPR (r < 16): neighbouring
+//      threads on neighbouring addresses for every r, no staging through
+//      shared memory.  The last stage has Ns = n/R and writes j + r*Ns,
+//      coalesced the same way, with the scale.  All of a thread's loads are
+//      issued before the first is used (16 KiB in flight a 128-thread block
+//      in f32).  bf16 elements are read and written as 2-byte scalars in
+//      the same pattern, so the planes need no alignment beyond their own.
+//   3. Small blocks, many resident: LAST_BLOCK threads at most (rows of the
+//      same length a block), __launch_bounds__ capping the registers at
+//      65536 / (LAST_BLOCK * LAST_MIN_BLOCKS) = 128 so that ptxas spills
+//      nothing; 4096 rows of 1024 points are 1024 blocks, and each SM
+//      overlaps one block's loads with another's butterflies.
+//   4. Exchanges: stage s writes its outputs to shared buffer s % 2, one
+//      block barrier, stage s+1 reads them, so one barrier an exchange.  A
+//      stage of radix R gives each thread ceil((n/R) / TPR) butterflies; a
+//      thread past the last repeats it and only its stores are dropped (as
+//      in f2_stage).  Rows of n >= 512 are stored XOR-swizzled (word x at
+//      x ^ ((x >> 4) & 31), within its 32-word group), shorter rows padded
+//      one word every 16 (pitch n + n/16): both keep the stride-16 writes of
+//      the radix-16 stages and the unit-stride reads free of bank conflicts
+//      at every power of two (the mixed lengths' ragged odd stage leaves at
+//      most three words a bank; tests/test_torch_port_last_rows.py counts).
+//   5. The ragged last block reads its last valid row again and stores
+//      nothing past B.
+// Twiddles: the float64-generated table of the stage list (_stage_tables),
+// as every kernel reads it; no sincospif.  The radix-16 butterfly is two
+// levels of Dft<4> joined by the W16 rotations (cos/sin(pi/8) from float64).
+// --------------------------------------------------------------------------
+constexpr int LAST_BLOCK = 128;      // threads a block, at most
+constexpr int LAST_MIN_BLOCKS = 4;   // resident blocks an SM, at least
+
+// v *= exp(s * 2*pi*i * E/16).
+template <int E>
+__device__ __forceinline__ void rot16(float& re, float& im, float s) {
+  constexpr int e = E & 15;
+  if constexpr (e % 2 == 0) {
+    rot8<e / 2>(re, im, s);
+  } else {
+    constexpr float c1 = 0.9238795325112867f;   // cos(pi/8), from float64
+    constexpr float s1 = 0.3826834323650898f;   // sin(pi/8)
+    constexpr float c = (e == 1 || e == 15) ? c1
+                        : (e == 3 || e == 13) ? s1
+                        : (e == 5 || e == 11) ? -s1 : -c1;
+    constexpr float sn = (e == 1 || e == 7) ? s1
+                         : (e == 3 || e == 5) ? c1
+                         : (e == 9 || e == 15) ? -s1 : -c1;
+    const float ss = s * sn, t = re;
+    re = fmaf(t, c, -im * ss);
+    im = fmaf(t, ss, im * c);
+  }
+}
+
+// In-register 16-point DFT, y[k] = sum_r v[r] exp(s*2*pi*i*r*k/16): with
+// r = 4a + b and k = k1 + 4*k2, a 4-point DFT over a for each b, the
+// rotation W16^(b*k1), then a 4-point DFT over b for each k1.
+template <>
+struct Dft<16> {
+  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
+    float ur[4][4], ui[4][4];   // [k1][b]
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      float tr[4], ti[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        tr[a] = vr[4 * a + b];
+        ti[a] = vi[4 * a + b];
+      }
+      Dft<4>::run(tr, ti, s);
+#pragma unroll
+      for (int k1 = 0; k1 < 4; ++k1) {
+        ur[k1][b] = tr[k1];
+        ui[k1][b] = ti[k1];
+      }
+    }
+    rot16<1>(ur[1][1], ui[1][1], s);
+    rot16<2>(ur[1][2], ui[1][2], s);
+    rot16<3>(ur[1][3], ui[1][3], s);
+    rot16<2>(ur[2][1], ui[2][1], s);
+    rot16<4>(ur[2][2], ui[2][2], s);
+    rot16<6>(ur[2][3], ui[2][3], s);
+    rot16<3>(ur[3][1], ui[3][1], s);
+    rot16<6>(ur[3][2], ui[3][2], s);
+    rot16<9>(ur[3][3], ui[3][3], s);
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      Dft<4>::run(ur[k1], ui[k1], s);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) {
+        vr[k1 + 4 * k2] = ur[k1][k2];
+        vi[k1 + 4 * k2] = ui[k1][k2];
+      }
+    }
+  }
+};
+
+// Compile-time geometry of the instance for length N whose first radix is
+// R0: TPR threads a row, RPB rows a block, the shared row pitch and
+// where word x of a row lies in it.
+template <int N, int R0>
+struct LastGeo {
+  static constexpr int TPR = N / R0;
+  static constexpr int RPB = TPR >= LAST_BLOCK ? 1 : LAST_BLOCK / TPR;
+  static constexpr int THREADS = TPR * RPB;
+  static constexpr bool SWIZZLE = N >= 512;
+  static constexpr int PITCH = SWIZZLE ? N : N + N / 16;
+  __device__ __forceinline__ static int at(int x) {
+    return SWIZZLE ? x ^ ((x >> 4) & 31) : x + (x >> 4);
+  }
+};
+
+// Shared memory of an instance with S stages: one f32 (re, im) buffer of
+// RPB rows per exchange, two at most.
+template <int N, int R0, int S>
+constexpr size_t last_smem() {
+  using G = LastGeo<N, R0>;
+  return S < 2 ? 0 : (S < 3 ? 1 : 2) * 2 * sizeof(float) * G::RPB * G::PITCH;
+}
+
+// What a thread of the kernel works on: its row (`off`, the first element of
+// the row it reads; stores only when `valid`), its lane in the row, and its
+// row's part of each shared buffer.
+template <typename T>
+struct LastIO {
+  const T* xr;
+  const T* xi;
+  T* yr;
+  T* yi;
+  size_t off;
+  bool valid;
+  int lane;
+  float* sr[2];
+  float* si[2];
+  const float2* tw;
+  float s;
+  float scale;
+};
+
+// Stage ST of the list (radix R, Ns = NS, its twiddles at TWOFF), then the
+// stages REST.  Butterfly j < M = N/R reads j + r*M (device memory at stage
+// 0, shared buffer (ST-1) % 2 after), twiddles by table entry
+// TWOFF + (r-1)*NS + j%NS, runs an R-point DFT and writes
+// (j - j%NS)*R + j%NS + r*NS (shared buffer ST % 2, or device memory with
+// the scale at the last stage, where that is j + r*NS).
+template <typename T, class G, int N, int ST, int NS, int TWOFF, int R,
+          int... REST>
+__device__ __forceinline__ void last_stage(const LastIO<T>& io) {
+  constexpr int M = N / R;
+  constexpr int NB = (M + G::TPR - 1) / G::TPR;   // butterflies a thread
+  constexpr bool EXACT = NB * G::TPR == M;
+  float vr[NB][R], vi[NB][R];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int j = EXACT ? io.lane + b * G::TPR
+                        : min(io.lane + b * G::TPR, M - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (ST == 0) {
+        vr[b][r] = to_f32(__ldg(io.xr + io.off + j + r * M));
+        vi[b][r] = to_f32(__ldg(io.xi + io.off + j + r * M));
+      } else {
+        const int a = G::at(j + r * M);
+        vr[b][r] = io.sr[(ST - 1) & 1][a];
+        vi[b][r] = io.si[(ST - 1) & 1][a];
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if constexpr (NS > 1) {
+      const int j = EXACT ? io.lane + b * G::TPR
+                          : min(io.lane + b * G::TPR, M - 1);
+      const int k = j & (NS - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        const float2 w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
+        const float xr = vr[b][r], xi = vi[b][r];
+        vr[b][r] = fmaf(xr, w.x, -xi * w.y);
+        vi[b][r] = fmaf(xr, w.y, xi * w.x);
+      }
+    }
+    Dft<R>::run(vr[b], vi[b], io.s);
+  }
+  if constexpr (sizeof...(REST) == 0) {
+    static_assert(NS * R == N, "the stage list must multiply to N");
+    if (io.valid) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const int j = io.lane + b * G::TPR;
+        if (EXACT || j < M) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            io.yr[io.off + j + r * NS] = from_f32<T>(vr[b][r] * io.scale);
+            io.yi[io.off + j + r * NS] = from_f32<T>(vi[b][r] * io.scale);
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int j = io.lane + b * G::TPR;
+      if (EXACT || j < M) {
+        const int k = j & (NS - 1);
+        const int base = (j - k) * R + k;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int a = G::at(base + r * NS);
+          io.sr[ST & 1][a] = vr[b][r];
+          io.si[ST & 1][a] = vi[b][r];
+        }
+      }
+    }
+    __syncthreads();
+    last_stage<T, G, N, ST + 1, NS * R, TWOFF + (R - 1) * NS, REST...>(io);
+  }
+}
+
+template <int R0, int... RS>
+__host__ __device__ constexpr int first_radix() {
+  return R0;
+}
+
+template <typename T, int N, int... R>
+__global__ void __launch_bounds__(LAST_BLOCK, LAST_MIN_BLOCKS)
+fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                T* __restrict__ yr, T* __restrict__ yi, long long B,
+                const float2* __restrict__ tw, float s, float scale) {
+  using G = LastGeo<N, first_radix<R...>()>;
+  extern __shared__ float smem[];
+  const int rl = threadIdx.x / G::TPR;
+  const long long row = (long long)blockIdx.x * G::RPB + rl;
+  constexpr int PART = G::RPB * G::PITCH;   // words of one buffer's re part
+  LastIO<T> io;
+  io.xr = xr;
+  io.xi = xi;
+  io.yr = yr;
+  io.yi = yi;
+  io.valid = row < B;
+  io.off = (size_t)(io.valid ? row : B - 1) * N;
+  io.lane = threadIdx.x - rl * G::TPR;
+  io.sr[0] = smem + rl * G::PITCH;
+  io.si[0] = io.sr[0] + PART;
+  io.sr[1] = io.sr[0] + 2 * PART;
+  io.si[1] = io.sr[1] + PART;
+  io.tw = tw;
+  io.s = s;
+  io.scale = scale;
+  last_stage<T, G, N, 0, 1, 0, R...>(io);
+}
+
+// One instance of the kernel: length N, stage list R...
+template <int N, int... R>
+struct LastList {};
+
+// Calls f(LastList<n, radices...>{}) for the instance of length n, the
+// lengths kernel_len_ok(n, last=True) admits with their last_stages lists;
+// cudaErrorInvalidValue for any other n.
+template <class F>
+cudaError_t with_last_list(int n, F&& f) {
+#define LAST_CASE(n_, ...) \
+  case n_: return f(LastList<n_, __VA_ARGS__>{});
+  switch (n) {
+    LAST_CASE(2, 2)
+    LAST_CASE(4, 4)
+    LAST_CASE(8, 8)
+    LAST_CASE(16, 16)
+    LAST_CASE(32, 16, 2)
+    LAST_CASE(64, 16, 4)
+    LAST_CASE(128, 16, 8)
+    LAST_CASE(256, 16, 16)
+    LAST_CASE(384, 16, 8, 3)
+    LAST_CASE(512, 16, 16, 2)
+    LAST_CASE(640, 16, 8, 5)
+    LAST_CASE(768, 16, 16, 3)
+    LAST_CASE(896, 16, 8, 7)
+    LAST_CASE(1024, 16, 16, 4)
+    LAST_CASE(1536, 16, 16, 2, 3)
+    LAST_CASE(2048, 16, 16, 8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef LAST_CASE
+}
+
+// Launch the instance on (B, N) planes; the host's stage list must be the
+// instance's (the C-side check of last_stages).
+template <typename T, int N, int... R>
+cudaError_t launch_last_list(LastList<N, R...>, const T* xr, const T* xi,
+                             T* yr, T* yi, long long B, int sign, float scale,
+                             const float2* tw, int nstages, const int* radices,
+                             void* stream) {
+  constexpr int S = sizeof...(R);
+  constexpr int rad[S] = {R...};
+  if (nstages != S) return cudaErrorInvalidValue;
+  for (int i = 0; i < S; ++i)
+    if (radices[i] != rad[i]) return cudaErrorInvalidValue;
+  if (B <= 0) return cudaSuccess;
+  using G = LastGeo<N, rad[0]>;
+  const long long grid = (B + G::RPB - 1) / G::RPB;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr size_t smem = last_smem<N, rad[0], S>();
+  cudaError_t e = set_smem((const void*)fft_last_kernel<T, N, R...>, smem);
+  if (e != cudaSuccess) return e;
+  fft_last_kernel<T, N, R...><<<(unsigned)grid, G::THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+      xr, xi, yr, yi, B, tw, (float)sign, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_last(const T* xr, const T* xi, T* yr, T* yi, long long B,
+                        int n, int sign, float scale, const float2* tw,
+                        int nstages, const int* radices, void* stream) {
+  return with_last_list(n, [&](auto list) {
+    return launch_last_list(list, xr, xi, yr, yi, B, sign, scale, tw, nstages,
+                            radices, stream);
+  });
+}
+
+// The residency of the instance: out = {resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), rows a block, threads a
+// block, registers a thread, shared bytes a block}.
+template <typename T, int N, int... R>
+cudaError_t last_residency_list(LastList<N, R...>, int* out) {
+  constexpr int S = sizeof...(R);
+  constexpr int rad[S] = {R...};
+  using G = LastGeo<N, rad[0]>;
+  constexpr size_t smem = last_smem<N, rad[0], S>();
+  const void* fn = (const void*)fft_last_kernel<T, N, R...>;
+  cudaError_t e = set_smem(fn, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, G::THREADS,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  out[0] = blocks;
+  out[1] = G::RPB;
+  out[2] = G::THREADS;
+  out[3] = attr.numRegs;
+  out[4] = (int)smem;
+  return cudaSuccess;
+}
+
+// --------------------------------------------------------------------------
 // fft_gap_kernel — replaces pallas_stockham.py:_runner_fused2_gap (FFT along
 // axes -3 and -1 of (B, z, Y, x) planes, scale fused): one block per (b, y)
 // plane, the (z, x) block at b*z*Y*x + y*x with rows Y*x elements apart
@@ -557,23 +901,7 @@ fft_gap_kernel(const T* __restrict__ xr, const T* __restrict__ xi, float* mr,
 }
 
 // Host launchers, one per kernel template, shared by the f32 and bf16 C
-// entries below.
-template <typename T>
-cudaError_t launch_last(const T* xr, const T* xi, T* yr, T* yi, long long B,
-                        int n, int sign, float scale, const float2* tw,
-                        int nstages, const int* radices, void* stream) {
-  StagePlan p;
-  if (make_plan(n, nstages, radices, &p)) return cudaErrorInvalidValue;
-  if (B <= 0) return cudaSuccess;
-  const size_t smem = rows_smem_bytes(n);
-  cudaError_t e = set_smem((const void*)fft_last_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  const long long grid = (B + rows_geo(n).nt - 1) / rows_geo(n).nt;
-  fft_last_kernel<T><<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, B, p, tw, (float)sign, scale);
-  return cudaGetLastError();
-}
-
+// entries below (launch_last is above, beside its kernel).
 template <typename T>
 cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
                         int n, int V, int sign, float scale, const float2* tw,
@@ -709,7 +1037,7 @@ cudaError_t launch_gap(const T* xr, const T* xi, float* mr, float* mi, T* yr,
 
 extern "C" {
 
-// FFT along the last axis of (B, n) f32 planes.
+// FFT along the last axis of (B, n) f32 planes; radices from last_stages.
 int fft_last(const float* xr, const float* xi, float* yr, float* yi, long long B,
              int n, int sign, float scale, const float2* tw, int nstages,
              const int* radices, void* stream) {
@@ -724,6 +1052,17 @@ int fft_last_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                   const int* radices, void* stream) {
   return launch_last(xr, xi, yr, yi, B, n, sign, scale, tw, nstages, radices,
                      stream);
+}
+
+// The residency of the fft_last instance for length n (bf16 != 0: its bf16
+// instance): out[5] = {resident blocks an SM, rows a block, threads a block,
+// registers a thread, shared bytes a block}.  Returns the CUDA error code
+// (cudaErrorInvalidValue for a length with no instance).
+int fft_last_residency(int n, int bf16, int* out) {
+  return with_last_list(n, [&](auto list) {
+    return bf16 ? last_residency_list<__nv_bfloat16>(list, out)
+                : last_residency_list<float>(list, out);
+  });
 }
 
 // FFT along the middle axis of (P, n, V) f32 planes.

@@ -63,8 +63,11 @@ round the scaled output to bf16 once.  The gap-fused pass runs
 ``_stockham_tile`` on both block types.  Every product is ``torch.matmul``
 at full f32.  The kernels compute the same DFT with FFMA butterflies all
 the way down, for both block types (see the source notes in
-``csrc/stockham.cu``), from their own float64-generated table
-(:func:`_kernel_tables`).
+``csrc/stockham.cu``), from their own float64-generated tables
+(:func:`_stage_tables`) of their stage lists: :func:`_kernel_stages` for
+the shared tile, :func:`fused2_stages` for the cluster kernel of
+``fft_fused2``, :func:`last_stages` for the register-resident rows of
+``fft_last``.
 
 The gates (``kernel_len_ok``, ``fused2_supported``,
 ``fused_gap_supported``, the ``r2c_*`` gates, the four-step and ring
@@ -650,17 +653,24 @@ def ifft_last_c2r_plain(xr, xi, n: int, packed: bool = False,
 # ---------------------------------------------------------------------------
 # Kernel schedule and tables
 # ---------------------------------------------------------------------------
+def _odd_pow2(n: int) -> Tuple[int, int]:
+    """(odd, k) with n = odd * 2**k, for the lengths the butterfly kernels
+    schedule (odd 1, 3, 5 or 7); raises for any other."""
+    odd, k = n, 0
+    while odd % 2 == 0 and odd:
+        odd //= 2
+        k += 1
+    if odd not in (1, 3, 5, 7) or n < 2:
+        raise ValueError(f"no butterfly schedule for n={n}")
+    return odd, k
+
+
 def _kernel_stages(n: int) -> Tuple[int, ...]:
     """Butterfly radices of the CUDA tile for length n = odd * 2**k:
     one radix-2 stage when k is odd, radix-4 stages for the rest of the
     power of two, and the odd factor (3, 5 or 7) last, so that every
     stage's Ns (product of the radices before it) is a power of two."""
-    odd, k = n, 0
-    while odd % 2 == 0:
-        odd //= 2
-        k += 1
-    if odd not in (1, 3, 5, 7) or n < 2:
-        raise ValueError(f"no butterfly schedule for n={n}")
+    odd, k = _odd_pow2(n)
     radices = [2] * (k % 2) + [4] * (k // 2)
     if odd > 1:
         radices.append(odd)
@@ -675,17 +685,42 @@ def fused2_stages(n: int) -> Tuple[int, ...]:
     whole radix-8 butterflies in registers, so a 512-point axis takes
     three shared-memory exchanges (8, 8, 8) instead of the five of
     :func:`_kernel_stages`."""
-    odd, k = n, 0
-    while odd % 2 == 0:
-        odd //= 2
-        k += 1
-    if odd not in (1, 3, 5, 7) or n < 2:
-        raise ValueError(f"no butterfly schedule for n={n}")
+    odd, k = _odd_pow2(n)
     s = -(-k // 3)
     radices = [1 << (k // s + (i < k % s)) for i in range(s)]
     if odd > 1:
         radices.append(odd)
     return tuple(radices)
+
+
+def last_stages(n: int) -> Tuple[int, ...]:
+    """Butterfly radices of the row kernel ``fft_last`` for length
+    n = odd * 2**k: radix 16 while four factors of two remain, then the
+    rest of the power of two (2, 4 or 8), then the odd factor (3, 5 or 7),
+    so that every stage's Ns is a power of two.  A row is held by
+    ``n / radices[0]`` threads of 16 values each (one thread for n <= 8), so
+    every power of two up to 2048 takes at most two exchanges of shared
+    memory (16, 16, 8) and the mixed lengths at most three (1536: 16, 16,
+    2, 3).  csrc/stockham.cu compiles one kernel instance per admitted
+    length with this list (``LAST_CASE``) and refuses any other."""
+    odd, k = _odd_pow2(n)
+    radices = [16] * (k // 4) + ([1 << (k % 4)] if k % 4 else [])
+    if odd > 1:
+        radices.append(odd)
+    return tuple(radices)
+
+
+# The row kernel's blocks: at most LAST_BLOCK threads, whole rows of one
+# length (csrc/stockham.cu, LastGeo).
+LAST_BLOCK = 128
+
+
+def last_geometry(n: int) -> Tuple[int, int]:
+    """(threads a row, rows a block) of ``fft_last`` at length n: a row is
+    n / R0 threads (R0 the first radix of :func:`last_stages`), a block
+    LAST_BLOCK // (threads a row) rows, at least one."""
+    tpr = n // last_stages(n)[0]
+    return tpr, max(1, LAST_BLOCK // tpr)
 
 
 @functools.lru_cache(maxsize=256)
@@ -821,6 +856,21 @@ def fused2_active_clusters(n1: int, n2: int, c: int, dtype=torch.float32):
     return got
 
 
+def last_residency(n: int, dtype=torch.float32) -> dict:
+    """How the ``fft_last`` instance for length n (planes of ``dtype``) sits
+    on the card: resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), rows and threads a
+    block, registers a thread, shared bytes a block."""
+    from . import _build
+    out = (ctypes.c_int * 5)()
+    err = _build.load().fft_last_residency(n, int(dtype == torch.bfloat16),
+                                          out)
+    if err:
+        raise RuntimeError(f"fft_last_residency(n={n}): CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "rows_per_block", "threads_per_block",
+                     "registers", "smem_bytes"), out))
+
+
 def _mid_planes(xr):
     """The f32 planes between the two passes of a two-pass kernel: none
     for f32 planes (the kernel uses its output planes), f32 planes shaped
@@ -836,14 +886,17 @@ def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     output in the input's dtype.
 
     CUDA planes launch ``fft_last_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_last_bf16``); CPU planes run :func:`fft_last_plain`.
-    Counterpart: ``pallas_stockham.py:1267``.
+    (counted as ``fft_last_bf16``): rows held in registers, the stages of
+    :func:`last_stages`, one kernel instance per length ``kernel_len_ok(n,
+    True)`` admits (the C entry refuses any other).  Its accesses are
+    element-wise, so any contiguous planes will do.  CPU planes run
+    :func:`fft_last_plain`.  Counterpart: ``pallas_stockham.py:1267``.
     """
     if not _on_cuda("fft_last", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_last_plain(xr, xi, sign, scale)
     b, n = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device)
+    tw, rad, k = device_tables(n, sign, xr.device, last_stages)
     _launch(*_c2c_entry("fft_last", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             b, n, sign, scale, tw.data_ptr(), k, rad)

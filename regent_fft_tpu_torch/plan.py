@@ -567,16 +567,39 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
     return RealRoute(axis, n, other, route, packed, fn, note)
 
 
-def _kernel_lengths(kind_: str, arg) -> Tuple[int, ...]:
-    """The butterfly lengths whose tables a kernel step's kernels read (a
-    ``stockham2`` step's with the stages of ``fused2_stages``)."""
-    if kind_ in ("stockham2", "fused2_ring", "stockham_gap"):
-        return tuple(arg)
-    if kind_ == "stockham4":
-        return _sk._four_step_split(arg)
-    if kind_ == "fourstep_ring":
-        return _sk._a0fs_split(arg)
-    return (arg,)
+def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
+    """The (length, stage-list function) pair of every twiddle table the
+    kernels of a plan read, in step order, the real axis's last: a
+    ``stockham2`` step's two axes take ``fused2_stages``; ``fft_last`` (a
+    ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
+    ``stockham4`` step, the half-length core of the real ``half`` route)
+    takes ``last_stages``; every other kernel (``fft_cols``, ``fft_axis0``,
+    ``fft_cols_tw``, the gap, ring and four-step passes, the real row-pair
+    kernels) ``_kernel_stages``.  ``ndim`` is the rank of the planes the
+    steps transform."""
+    ks, ls, fs2 = _sk._kernel_stages, _sk.last_stages, _sk.fused2_stages
+    out = []
+    for kind_, a, arg in steps:
+        if kind_ not in KERNEL_STEPS:
+            continue
+        if kind_ == "stockham2":
+            out += [(arg[0], fs2), (arg[1], fs2)]
+        elif kind_ in ("fused2_ring", "stockham_gap"):
+            out += [(arg[0], ks), (arg[1], ks)]
+        elif kind_ == "stockham4":
+            n1, n2 = _sk._four_step_split(arg)
+            out += [(n1, ks), (n2, ls)]
+        elif kind_ == "fourstep_ring":
+            out += [(r, ks) for r in _sk._a0fs_split(arg)]
+        elif kind_ == "stockham" and a == ndim - 1 and ndim > 1:
+            out.append((arg, ls))
+        else:
+            out.append((arg, ks))
+    if real is not None and real.route == "half":
+        out.append((real.n // 2, ls))
+    elif real is not None and real.route == "kernel":
+        out.append((real.n, ks))
+    return out
 
 
 class Plan:
@@ -614,15 +637,10 @@ class Plan:
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
         sign = int(spec.direction)
-        lengths = [(n, _sk.fused2_stages if k == "stockham2" else None)
-                   for k, _, arg in self.steps if k in KERNEL_STEPS
-                   for n in _kernel_lengths(k, arg)]
-        if self.real is not None and self.real.route != "einsum":
-            lengths.append((self.real.n // (2 if self.real.route == "half"
-                                            else 1), None))
         self.tables = [] if self.device.type != "cuda" else [
             _sk.device_tables(n, sign, self.device, stages)
-            for n, stages in lengths]
+            for n, stages in _kernel_lengths(self.steps, self.real,
+                                             len(step_shape))]
         self.scale = _norm_scale(spec)
         self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
         self._destroyed = False
