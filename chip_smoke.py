@@ -9,12 +9,14 @@ Phases (any failure raises and the script exits non-zero):
    CUDA versions; TF32 off for every float32 product;
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
-   kernel of fft_fused2, the matmul kernel and the 32 instances of
-   fft_last's row kernel must spill nothing), the
+   kernel's four instances, fft_fused2's and the gap pass's in f32 and
+   bf16, the matmul kernel and the 32 instances of fft_last's row kernel
+   must spill nothing), the
    count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
    of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
-   and fft_fused2's cluster size and cudaOccupancyMaxActiveClusters at the
-   main path's shapes, and the residency of fft_last's instance at every
+   fft_fused2's and fft_gap's cluster size and
+   cudaOccupancyMaxActiveClusters at the main path's shapes, and the
+   residency of fft_last's instance at every
    admitted length (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows
    and threads a block, registers, shared bytes), f32 and bf16;
 3. kernels: every length the C2C kernel gates admit (ragged batches and
@@ -37,7 +39,8 @@ Phases (any failure raises and the script exits non-zero):
    ring sweep's lengths and pairs (odd batches), the bf16 leading-axis
    four-step at n = 64..4096 on axes 0 and 1 (f32 planes out where
    r1 < 16; each stage also against its plain version), and the gap-fused
-   pass on the fused2 pairs (B = 2, Y = 3) in both types, the same way;
+   pass at all 113 fused2 pairs (B = 2, Y = 3) in both types, the same
+   way (the f32 pass also against its plain version);
    the matmul-form kernels at every length they take, both signs: fft_mm1
    at n = 1..128 (batch 37) against torch.fft in float64 on the host, and
    fft_mm2 at every n <= 16384 that two_stage_split admits (batch 3)
@@ -398,13 +401,17 @@ def main() -> int:
           f"{_build.build_seconds} s) -> {_build.library_path().name}")
     for ln in _ptxas(_build.build_log):
         print("ptxas " + ln)
-    f2_ptxas = [ln for ln in _ptxas(_build.build_log) if "fft_fused2" in ln]
-    for ln in f2_ptxas:
-        print("ptxas fft_fused2 (cluster kernel): " + ln)
-    if len(f2_ptxas) < 2 or not all(
-            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
-            for ln in f2_ptxas):
-        raise AssertionError(f"fft_fused2 ptxas: {f2_ptxas}")
+    # the cluster kernel: fft_fused2_kernel<T, false> is fft_fused2, <T,
+    # true> the gap pass; no instance may spill
+    for kname, tag in (("fft_fused2", "Lb0E"), ("fft_gap", "Lb1E")):
+        lines = [ln for ln in _ptxas(_build.build_log)
+                 if "fft_fused2_kernel" in ln and tag in ln.split(":")[0]]
+        for ln in lines:
+            print(f"ptxas {kname} (cluster kernel): " + ln)
+        if len(lines) != 2 or not all(
+                re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+                for ln in lines):
+            raise AssertionError(f"{kname} ptxas: {lines}")
     # the matmul kernels: products on tensor cores (3xTF32 mma.sync), no
     # spills; fft_mm_kernel<false> is fft_mm1, <true> fft_mm2
     mm_ptxas = [ln for ln in _ptxas(_build.build_log) if "fft_mm_kernel" in ln]
@@ -450,6 +457,19 @@ def main() -> int:
               f"({sms} SMs)")
         if min(act) < 1:
             raise AssertionError(f"fft_fused2 {(n1, n2)}: no cluster fits")
+    # the same for the gap pass's strided instance: 512^3 and 4 x 256^3 as
+    # (B, z, Y, x), b * y planes
+    for b_, z_, y_, x_ in ((1, 512, 512, 512), (4, 256, 256, 256)):
+        c = sk.fused2_cluster(z_, x_, b_ * y_, sms)
+        act = [sk.fused2_active_clusters(z_, x_, c, dt, gap=True)
+               for dt in (torch.float32, torch.bfloat16)]
+        print(f"fft_gap {(b_, z_, y_, x_)}: cluster {c} CTAs of "
+              f"{sk.FUSED2_THREADS} threads, "
+              f"{sk.fused2_smem_bytes(z_, x_, c)} B shared memory each; "
+              f"cudaOccupancyMaxActiveClusters f32 {act[0]}, bf16 {act[1]} "
+              f"({sms} SMs)")
+        if min(act) < 1:
+            raise AssertionError(f"fft_gap {(z_, x_)}: no cluster fits")
     # where fft_last's instances sit: resident blocks an SM
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor), rows and threads a
     # block, registers a thread, shared bytes a block
@@ -576,19 +596,26 @@ def main() -> int:
                 and sk.fused2_supported(a, b)]
     if len(f2_pairs) != 113 or not set(pairs) <= set(f2_pairs):
         raise AssertionError(f"fused2 pairs: {len(f2_pairs)}")
+
+    def vs_plain(kname, kern, plain, shape, n, sign):
+        """rel_l2 of a kernel against its plain version on new planes."""
+        xr, xi = planes(shape)
+        e = dev_rel(torch.complex(*kern(xr, xi, sign, 0.5)),
+                    torch.complex(*plain(xr, xi, sign, 0.5)))
+        if not e <= tolerance(n):
+            raise AssertionError(f"{kname}{shape} sign {sign}: rel_l2 vs "
+                                 f"plain {e} > {tolerance(n)}")
+        return e
+
     f2_plain = 0.0
     for n1, n2 in f2_pairs:
         for sign in (-1, 1):
             shape = (3, n1, n2)
             worst = max(worst, check("fft_fused2", sk.fft_fused2, shape,
                                      (1, 2), sign))
-            xr, xi = planes(shape)
-            e = dev_rel(torch.complex(*sk.fft_fused2(xr, xi, sign, 0.5)),
-                        torch.complex(*sk.fft_fused2_plain(xr, xi, sign, 0.5)))
-            if not e <= tolerance(n1 * n2):
-                raise AssertionError(f"fft_fused2{shape} sign {sign}: rel_l2 "
-                                     f"vs plain {e} > {tolerance(n1 * n2)}")
-            f2_plain = max(f2_plain, e)
+            f2_plain = max(f2_plain, vs_plain(
+                "fft_fused2", sk.fft_fused2, sk.fft_fused2_plain, shape,
+                n1 * n2, sign))
     print(f"sweep: {len(lengths)} lengths (last/cols), all {len(f2_pairs)} "
           f"fused2 pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}; "
           f"fft_fused2 vs fft_fused2_plain {f2_plain:.3e}; fft_last (B = 1, "
@@ -740,18 +767,24 @@ def main() -> int:
             for sign in (-1, 1):
                 check_bf16(rname, shape, (1, 2) if fuse else (1,), sign,
                            kern=ring_fn(fuse), plain=ring_fn(fuse, True))
-    # the gap-fused pass on the fused2 pairs, B = 2 and Y = 3, both types
-    gap_worst = 0.0
-    for n1, n2 in pairs:
+    # the gap-fused pass on every fused2 pair, B = 2 and Y = 3, both types;
+    # the f32 pass also against its plain version
+    gap_worst = gap_plain = 0.0
+    for n1, n2 in f2_pairs:
         if not sk.fused_gap_supported(n1, n2):
             raise AssertionError(f"gap pair {(n1, n2)} not supported")
+        shape = (2, n1, 3, n2)
         for sign in (-1, 1):
             gap_worst = max(gap_worst, check("fft_gap", sk.fft_axes_gap,
-                                             (2, n1, 3, n2), (1, 3), sign))
-            check_bf16("fft_gap", (2, n1, 3, n2), (1, 3), sign,
+                                             shape, (1, 3), sign))
+            gap_plain = max(gap_plain, vs_plain(
+                "fft_gap", sk.fft_axes_gap, sk.fft_axes_gap_plain, shape,
+                n1 * n2, sign))
+            check_bf16("fft_gap", shape, (1, 3), sign,
                        kern=sk.fft_axes_gap, plain=sk.fft_axes_gap_plain)
-    print(f"sweep: fft_gap {len(pairs)} pairs (B = 2, Y = 3), both signs: "
-          f"worst rel_l2 vs torch.fft {gap_worst:.3e}")
+    print(f"sweep: fft_gap all {len(f2_pairs)} fused2 pairs (B = 2, Y = 3), "
+          f"both signs: worst rel_l2 vs torch.fft {gap_worst:.3e}; "
+          f"fft_gap vs fft_axes_gap_plain {gap_plain:.3e}")
     # the bf16 leading-axis four-step at every gated length: bf16 out from
     # r1 = 16 (n = 256), f32 planes out below, as in the JAX package; each
     # stage also against its plain version (stage b on the plain stage a)

@@ -55,7 +55,7 @@ a0fs_a_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const long long pre = blockIdx.x / ntiles;
   const int c0 = (blockIdx.x % ntiles) * g.nt;
   const size_t base = (size_t)pre * p.n * V;
-  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, V, p, tw, s,
+  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s,
             1.0f, sr, si, ColsOut{V, lN, post});
 }
 
@@ -76,8 +76,8 @@ a0fs_b_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const size_t ibase = (size_t)q * p.n * post;
   const long long grp = q / r1, k1 = q - grp * r1;
   const size_t obase = ((size_t)grp * r1 * p.n + k1) * post;
-  cols_pass(xr + ibase, xi + ibase, yr + obase, yi + obase, c0, post, post, p,
-            tw, s, scale, sr, si, ColsOut{(long long)r1 * post, 0, 1});
+  cols_pass(xr + ibase, xi + ibase, yr + obase, yi + obase, c0, post, p, tw,
+            s, scale, sr, si, ColsOut{(long long)r1 * post, 0, 1});
 }
 
 template <typename T>

@@ -1,22 +1,24 @@
 // Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
 // planes: f32 (complex64) or bf16 (complex32).  The shared tile (fft_tile,
-// rows_pass, cols_pass) is in stockham_tile.cuh; the kernels here differ
+// cols_pass) is in stockham_tile.cuh; the kernels here differ
 // only in how they address global memory, but for fft_fused2_kernel (a
-// thread-block cluster a plane) and fft_last_kernel (rows held in
-// registers), whose designs (below) run butterflies of their own:
+// thread-block cluster a plane, also the gap pass's strided plane) and
+// fft_last_kernel (rows held in registers), whose designs (below) run
+// butterflies of their own:
 //
 //   fft_last_kernel<T,n,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
 //   fft_cols_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
 //   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
-//   fft_fused2_kernel<T>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
-//   fft_gap_kernel<T>     replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2_gap
+//   fft_fused2_kernel<T,false> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
+//   fft_fused2_kernel<T,true>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2_gap
 //
 // Each computes one DFT along an axis (two for fused2 and gap) with the norm
 // scale (or, for fft_cols_tw, the four-step twiddle) fused into the final
 // write.
 //
 // The bf16 instances (C entries fft_last_bf16, fft_cols_bf16,
-// fft_fused2_bf16) replace the same three runners with io="bf16", whose
+// fft_fused2_bf16, fft_gap_bf16) replace the same runners with io="bf16",
+// whose
 // bodies on the TPU are _direct_tile (a dense DFT_n MXU dot, n <= 512),
 // _mxu_tile_tw (the twiddle-folded four-step, n = 1024 and 2048) and
 // _stockham_tile with bf16 blocks (every other length).  The TPU used the
@@ -34,12 +36,11 @@
 // each CTA a stripe of it in shared memory, the row pass gathering its rows
 // through distributed shared memory, so each element crosses device memory
 // once each way (16 B in f32, 8 B in bf16: the function's own bound) and
-// the wrapper allocates nothing but the output.  fft_gap_bf16 (the bf16
-// instance of the gap kernel, whose TPU body is _stockham_tile on either
-// block type) keeps the older two-pass body: its column pass writes the
-// plane to f32 scratch planes the wrapper allocates (whole-tensor, laid out
-// like the output, 8 B per element), its row pass reads them and rounds the
-// output to bf16 once, 24 B per element through device memory.
+// the wrapper allocates nothing but the output.  The gap pass (C entries
+// fft_gap, fft_gap_bf16; its TPU body is _stockham_tile on either block
+// type) is the same kernel on the strided (z, x) planes of (B, z, Y, x)
+// data: its GAP instance only places a plane and spaces its rows Y*x
+// elements apart, so it too moves 16 B (8 B in bf16) per element.
 //
 //   fft_axis0             replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_axis0
 //
@@ -106,47 +107,18 @@ fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long pre = blockIdx.x / ntiles;
   const int c0 = (blockIdx.x % ntiles) * g.nt;
   const size_t base = (size_t)pre * p.n * V;
-  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, V, p, tw, s,
+  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s,
             1.0f, sr, si, ColsOut{V, lN, 1});
-}
-
-// The body of fft_gap_kernel: the (n1, n2) plane at `base` whose rows are
-// `ld` elements apart, columns (n1) from x into the f32 planes m (the
-// output planes themselves for f32 data, the scratch planes for bf16), then
-// rows (n2) from m into y with the scale.  One block owns the plane, so the
-// block barrier that ends cols_pass makes its writes visible to the rows.
-template <typename T>
-__device__ __forceinline__ void plane2(const T* xr, const T* xi, float* mr,
-                                       float* mi, T* yr, T* yi, size_t base,
-                                       long long ld, const StagePlan& p1,
-                                       const float2* __restrict__ tw1,
-                                       const StagePlan& p2,
-                                       const float2* __restrict__ tw2, float s,
-                                       float scale, float* smem) {
-  const int n1 = p1.n, n2 = p2.n;
-  // column pass: axis n1, tiles of nt columns
-  {
-    const Geo g = cols_geo(n1);
-    float* sr = smem;
-    float* si = smem + n1 * g.nt;
-    for (int c0 = 0; c0 < n2; c0 += g.nt)
-      cols_pass(xr + base, xi + base, mr + base, mi + base, c0, n2, ld, p1,
-                tw1, s, 1.0f, sr, si, ColsOut{ld, 0, 1});
-  }
-  {
-    const Geo g = rows_geo(n2);
-    float* sr = smem;
-    float* si = smem + g.nt * g.pitch;
-    for (int r0 = 0; r0 < n1; r0 += g.nt)
-      rows_pass(mr + base, mi + base, yr + base, yi + base, r0, n1, ld, p2,
-                tw2, s, scale, sr, si);
-  }
 }
 
 // --------------------------------------------------------------------------
 // fft_fused2_kernel — replaces pallas_stockham.py:_runner_fused2 (FFT along
 // both trailing axes of (P, n1, n2) planes, scale fused; f32 or bf16 planes,
-// the intermediate in f32, the output rounded once to the input's type).
+// the intermediate in f32, the output rounded once to the input's type) and,
+// as its GAP instance, pallas_stockham.py:_runner_fused2_gap (FFT along axes
+// 1 and 3 of (B, n1, Y, n2) data: the same transform of the (b, y) plane at
+// b*n1*Y*n2 + y*n2, whose rows are ld = Y*n2 elements apart, 1 MiB in f32 at
+// 512^3).
 // Bound on H100: bytes.  Each element is read once and written once (16 B
 // in f32, 8 B in bf16: 0.641 / 0.3205 ms at 512^3), ~5*log2(n1*n2) flops
 // per element, far below the FP32 ridge.  A plane is up to 262144 complex
@@ -181,7 +153,17 @@ __device__ __forceinline__ void plane2(const T* xr, const T* xi, float* mr,
 //      threads in at most 128 registers each, one CTA an SM.
 // Twiddles: the float64-generated table of the stage list, as every kernel.
 // The host checks the geometry and asks cudaOccupancyMaxActiveClusters once
-// per (C, shared memory) and refuses to launch when no cluster fits.
+// per (kernel, C, shared memory) and refuses to launch when no cluster fits.
+// The GAP instance differs only where a plane meets device memory: cluster
+// q = blockIdx.x / C takes plane (b, y) = (q / Y, q % Y), the stripe loads
+// and the CTA's first output row step by ld instead of n2, and the last row
+// stage's store turns the row-major index X = t*n2 + i it is given into
+// t*ld + i.  Neighbouring clusters take neighbouring y, so their stripe
+// rows (w elements, 128 B in f32 at 512^3) sit n2 elements apart.  Nothing
+// else changes, and the fused2 instance (GAP false, ld = n2) compiles the
+// code it had before the gap pass joined it.  The whole strided plane sits
+// in the cluster, so the TPU kernel's VMEM strip rule (REGENT_FFT_GAP_STRIPS)
+// has no counterpart here.
 // --------------------------------------------------------------------------
 constexpr int F2_THREADS = 512;
 constexpr int F2_CTA_ELEMS = 16384;   // elements of a plane a CTA holds
@@ -385,12 +367,12 @@ __device__ __forceinline__ float4 f2_ld_remote(unsigned addr) {
   return v;
 }
 
-template <typename T>
+template <typename T, bool GAP>
 __global__ void __launch_bounds__(F2_THREADS, 1)
 fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                   T* __restrict__ yr, T* __restrict__ yi, StagePlan p1,
                   const float2* __restrict__ tw1, StagePlan p2,
-                  const float2* __restrict__ tw2, int C, float s,
+                  const float2* __restrict__ tw2, int C, int Y, float s,
                   float scale) {
   extern __shared__ float smem[];   // dynamic: 16-byte aligned
   __shared__ F2Stages plan[2];      // published by the barrier after step 1
@@ -403,7 +385,17 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const int part = rb + h * (n2 + n2 / 32);   // words of the re (im) part
   float* sr = smem;
   float* si = smem + part;
-  const size_t plane = (size_t)(blockIdx.x / C) * n1 * n2;
+  // the plane's first element, and the distance between its rows (the
+  // host keeps Y*n2 below 2^31; offsets are 64-bit)
+  size_t plane;
+  int ld = n2;
+  if constexpr (GAP) {
+    const int q = blockIdx.x / C, b = q / Y;
+    ld = Y * n2;
+    plane = (size_t)b * n1 * ld + (size_t)(q - b * Y) * n2;
+  } else {
+    plane = (size_t)(blockIdx.x / C) * n1 * n2;
+  }
 
   // 1. the stripe, 4 elements a load, in two batches of loads then stores
   {
@@ -418,7 +410,7 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
       for (int k = 0; k < HG; ++k) {   // past ng: repeat group ng - 1
         const int g = min(threadIdx.x + (k0 + k) * F2_THREADS, ng - 1);
         const int j = div_by(g, wq);
-        const size_t o = (size_t)j * n2 + 4 * (g - j * wq);
+        const size_t o = (size_t)j * ld + 4 * (g - j * wq);
         a[k] = load4(gxr + o);
         b[k] = load4(gxi + o);
       }
@@ -492,11 +484,17 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
     rr[f2_pad<true>(x)] = re;
     ri[f2_pad<true>(x)] = im;
   };
-  T* gyr = yr + plane + (size_t)c * h * n2;    // the CTA's first row
-  T* gyi = yi + plane + (size_t)c * h * n2;
+  T* gyr = yr + plane + (size_t)c * h * ld;    // the CTA's first row
+  T* gyi = yi + plane + (size_t)c * h * ld;
+  // x = t*n2 + i names element i of the CTA's row t; GAP rows are ld
+  // apart, so t = x / n2 by a multiply-high, exact for x < 2^14 (x < h*n2
+  // <= F2_CTA_ELEMS) with mag = ceil(2^32 / n2)
+  const unsigned mag = 0xffffffffu / n2 + 1, skip = ld - n2;
   auto out_st = [=](int x, float re, float im) {
-    gyr[x] = from_f32<T>(re * scale);
-    gyi[x] = from_f32<T>(im * scale);
+    size_t o = x;
+    if constexpr (GAP) o += (size_t)__umulhi((unsigned)x, mag) * skip;
+    gyr[o] = from_f32<T>(re * scale);
+    gyi[o] = from_f32<T>(im * scale);
   };
   for (int st = 0; st + 1 < ns2; ++st) {
     f2_stage_of<false>(plan[1], st, rr, ri, n2, h, tw2, s, rows_st, true);
@@ -871,35 +869,6 @@ cudaError_t last_residency_list(LastList<N, R...>, int* out) {
   return cudaSuccess;
 }
 
-// --------------------------------------------------------------------------
-// fft_gap_kernel — replaces pallas_stockham.py:_runner_fused2_gap (FFT along
-// axes -3 and -1 of (B, z, Y, x) planes, scale fused): one block per (b, y)
-// plane, the (z, x) block at b*z*Y*x + y*x with rows Y*x elements apart
-// (1 MiB in f32 at 512^3).
-// Bound on H100: bytes, as fft_fused2_kernel (16 B per complex element for
-// f32, 8 B for bf16, if the plane stayed on chip).  Design: two passes of
-// one block over the strided plane (plane2 with the row stride Y*x): the
-// z-point column pass from the input into the output, then the x-point row
-// pass in place.  Nothing is copied in or out around it.
-// Each column-pass row read is a run of nt elements (64 B in f32 at z = 512)
-// at a stride of Y*x; the TPU kernel pays the same big-stride gather once
-// for two axes (its VMEM strip rule, REGENT_FFT_GAP_STRIPS, has no
-// counterpart here).  The bf16 instance keeps the intermediate in f32
-// scratch planes laid out like the output.
-// --------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-fft_gap_kernel(const T* __restrict__ xr, const T* __restrict__ xi, float* mr,
-               float* mi, T* yr, T* yi, int Y, StagePlan p1,
-               const float2* __restrict__ tw1, StagePlan p2,
-               const float2* __restrict__ tw2, float s, float scale) {
-  extern __shared__ float smem[];
-  const long long ld = (long long)Y * p2.n;
-  const long long b = blockIdx.x / Y, y = blockIdx.x - b * Y;
-  plane2(xr, xi, mr, mi, yr, yi, (size_t)b * p1.n * ld + (size_t)y * p2.n, ld,
-         p1, tw1, p2, tw2, s, scale, smem);
-}
-
 // Host launchers, one per kernel template, shared by the f32 and bf16 C
 // entries below (launch_last is above, beside its kernel).
 template <typename T>
@@ -972,9 +941,11 @@ cudaError_t fused2_clusters(const void* fn, int C, size_t smem, int* count) {
   return e;
 }
 
-template <typename T>
+// The cluster kernel over P planes (n1, n2), or over the B * Y strided
+// planes (b, y) of (B, n1, Y, n2) data (GAP; fft_fused2 is Y = 1).
+template <typename T, bool GAP>
 cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
-                          int n1, int n2, int C, int sign, float scale,
+                          int Y, int n1, int n2, int C, int sign, float scale,
                           const float2* tw1, int nstages1, const int* radices1,
                           const float2* tw2, int nstages2, const int* radices2,
                           void* stream) {
@@ -983,10 +954,12 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
       || make_plan(n2, nstages2, radices2, &p2, true))
     return cudaErrorInvalidValue;
   const size_t smem = fused2_smem(n1, n2, C);
-  if (!smem || P * C > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (!smem || Y < 1 || (long long)Y * n2 > 0x7fffffffLL
+      || P * Y * C > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
   float fsign = (float)sign;
   if (P <= 0) return cudaSuccess;
-  const void* fn = (const void*)fft_fused2_kernel<T>;
+  const void* fn = (const void*)fft_fused2_kernel<T, GAP>;
   int active = 0;
   cudaError_t e = fused2_clusters(fn, C, smem, &active);
   if (e != cudaSuccess) return e;
@@ -997,39 +970,16 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
   attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3((unsigned)(P * C));
+  cfg.gridDim = dim3((unsigned)(P * Y * C));
   cfg.blockDim = dim3(F2_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {&xr, &xi, &yr, &yi, &p1, &tw1, &p2, &tw2, &C, &fsign,
+  void* args[] = {&xr, &xi, &yr, &yi, &p1, &tw1, &p2, &tw2, &C, &Y, &fsign,
                   &scale};
   e = cudaLaunchKernelExC(&cfg, fn, args);
   if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_gap(const T* xr, const T* xi, float* mr, float* mi, T* yr,
-                       T* yi, long long B,
-                       int z, int Y, int x, int sign, float scale,
-                       const float2* tw1, int nstages1, const int* radices1,
-                       const float2* tw2, int nstages2, const int* radices2,
-                       void* stream) {
-  StagePlan p1, p2;
-  if (make_plan(z, nstages1, radices1, &p1)) return cudaErrorInvalidValue;
-  if (make_plan(x, nstages2, radices2, &p2)) return cudaErrorInvalidValue;
-  if (Y < 1 || B * Y > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (B <= 0) return cudaSuccess;
-  const size_t a = cols_smem_bytes(z), b = rows_smem_bytes(x);
-  const size_t smem = a > b ? a : b;
-  cudaError_t e = set_smem((const void*)fft_gap_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  fft_gap_kernel<T><<<(unsigned)(B * Y), THREADS, smem,
-                      (cudaStream_t)stream>>>(xr, xi, mr, mi, yr, yi, Y, p1,
-                                              tw1, p2, tw2, (float)sign,
-                                              scale);
   return cudaGetLastError();
 }
 
@@ -1121,8 +1071,9 @@ int fft_fused2(const float* xr, const float* xi, float* yr, float* yi,
                const float2* tw1, int nstages1, const int* radices1,
                const float2* tw2, int nstages2, const int* radices2,
                void* stream) {
-  return launch_fused2(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
-                       nstages1, radices1, tw2, nstages2, radices2, stream);
+  return launch_fused2<float, false>(xr, xi, yr, yi, P, 1, n1, n2, C, sign,
+                                     scale, tw1, nstages1, radices1, tw2,
+                                     nstages2, radices2, stream);
 }
 
 // The same on bf16 planes (f32 compute, f32 intermediate).
@@ -1131,44 +1082,51 @@ int fft_fused2_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                     int n2, int C, int sign, float scale, const float2* tw1,
                     int nstages1, const int* radices1, const float2* tw2,
                     int nstages2, const int* radices2, void* stream) {
-  return launch_fused2(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
-                       nstages1, radices1, tw2, nstages2, radices2, stream);
+  return launch_fused2<__nv_bfloat16, false>(
+      xr, xi, yr, yi, P, 1, n1, n2, C, sign, scale, tw1, nstages1, radices1,
+      tw2, nstages2, radices2, stream);
 }
 
-// cudaOccupancyMaxActiveClusters of the fft_fused2 kernel (bf16 != 0: its
-// bf16 instance) for (n1, n2) planes in clusters of C; minus the CUDA
-// error code if the geometry is refused or the query fails.
-int fft_fused2_clusters(int n1, int n2, int C, int bf16) {
+// cudaOccupancyMaxActiveClusters of the cluster kernel (bf16 != 0: its
+// bf16 instance; gap != 0: the gap pass's strided instance) for (n1, n2)
+// planes in clusters of C; minus the CUDA error code if the geometry is
+// refused or the query fails.
+int fft_fused2_clusters(int n1, int n2, int C, int bf16, int gap) {
   const size_t smem = fused2_smem(n1, n2, C);
   if (!smem) return -(int)cudaErrorInvalidValue;
+  const void* fns[2][2] = {
+      {(const void*)fft_fused2_kernel<float, false>,
+       (const void*)fft_fused2_kernel<float, true>},
+      {(const void*)fft_fused2_kernel<__nv_bfloat16, false>,
+       (const void*)fft_fused2_kernel<__nv_bfloat16, true>}};
   int count = 0;
   const cudaError_t e =
-      fused2_clusters(bf16 ? (const void*)fft_fused2_kernel<__nv_bfloat16>
-                           : (const void*)fft_fused2_kernel<float>,
-                      C, smem, &count);
+      fused2_clusters(fns[bf16 != 0][gap != 0], C, smem, &count);
   return e == cudaSuccess ? count : -(int)e;
 }
 
-// FFT along axes -3 and -1 of (B, z, Y, x) f32 planes (one pass).
+// FFT along axes 1 and 3 of (B, z, Y, x) f32 data, one (b, y) plane per
+// cluster of C CTAs; radices from fused2_stages.
 int fft_gap(const float* xr, const float* xi, float* yr, float* yi,
-            long long B, int z, int Y, int x, int sign, float scale,
+            long long B, int z, int Y, int x, int C, int sign, float scale,
             const float2* tw1, int nstages1, const int* radices1,
             const float2* tw2, int nstages2, const int* radices2,
             void* stream) {
-  return launch_gap(xr, xi, yr, yi, yr, yi, B, z, Y, x, sign, scale, tw1,
-                    nstages1, radices1, tw2, nstages2, radices2, stream);
+  return launch_fused2<float, true>(xr, xi, yr, yi, B, Y, z, x, C, sign,
+                                    scale, tw1, nstages1, radices1, tw2,
+                                    nstages2, radices2, stream);
 }
 
-// The same on bf16 planes (f32 compute); the intermediate between the two
-// passes goes to the f32 (B, z, Y, x) scratch planes mr, mi.
+// The same on bf16 data (f32 compute, the f32 intermediate on chip).
 int fft_gap_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
-                 __nv_bfloat16* yr, __nv_bfloat16* yi, float* mr, float* mi,
-                 long long B, int z, int Y, int x, int sign, float scale,
+                 __nv_bfloat16* yr, __nv_bfloat16* yi, long long B, int z,
+                 int Y, int x, int C, int sign, float scale,
                  const float2* tw1, int nstages1, const int* radices1,
                  const float2* tw2, int nstages2, const int* radices2,
                  void* stream) {
-  return launch_gap(xr, xi, mr, mi, yr, yi, B, z, Y, x, sign, scale, tw1,
-                    nstages1, radices1, tw2, nstages2, radices2, stream);
+  return launch_fused2<__nv_bfloat16, true>(
+      xr, xi, yr, yi, B, Y, z, x, C, sign, scale, tw1, nstages1, radices1,
+      tw2, nstages2, radices2, stream);
 }
 
 }  // extern "C"

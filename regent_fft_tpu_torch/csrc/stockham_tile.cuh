@@ -1,10 +1,10 @@
 // The shared-memory Stockham tile of the Hopper (sm_90a) FFT kernels:
 // split re/im planes, one routine (fft_tile) that transforms `nt`
 // independent n-point sequences held in dynamic shared memory as f32, and
-// the row / column passes that load a tile from global memory, transform it
-// and write it back (the column pass optionally to another layout, with the
-// four-step twiddle on the write).  The passes are templates on the element
-// types they load and store: f32 planes (complex64) or bf16 planes
+// the column pass that loads a tile from global memory, transforms it and
+// writes it back (optionally to another layout, with the four-step twiddle
+// on the write).  The pass is a template on the element types it loads and
+// stores: f32 planes (complex64) or bf16 planes
 // (complex32, converted to f32 on load and rounded to nearest even on the
 // store, the scale applied in f32 first); the tile itself is f32 either way.  Included by stockham.cu (the C2C
 // kernels), real.cu (R2C/C2R), fourstep.cu (the leading-axis four-step) and
@@ -287,37 +287,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
-// Rows [r0, r0 + nt) of a (rows, n) plane pair whose rows are `ld`
-// elements apart -> transformed and scaled, written to the same place.
-// Rows at or past `nrows` are masked (zero-filled, not written).
-template <typename TI, typename TO>
-__device__ void rows_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
-                          long long r0, long long nrows, long long ld,
-                          const StagePlan& p, const float2* __restrict__ tw,
-                          float s, float scale, float* sr, float* si) {
-  const Geo g = rows_geo(p.n);
-  const int n = p.n;
-  const int t = threadIdx.x >> ilog2(g.tj);
-  const int jl = threadIdx.x & (g.tj - 1);
-  const bool valid = r0 + t < nrows;
-  const size_t off = (size_t)(r0 + t) * ld;
-  for (int j = jl; j < n; j += g.tj) {
-    const int a = at<true>(t, j, g);
-    sr[a] = valid ? to_f32(xr[off + j]) : 0.0f;
-    si[a] = valid ? to_f32(xi[off + j]) : 0.0f;
-  }
-  __syncthreads();
-  fft_tile<true>(sr, si, p, tw, s, t, jl, g);
-  if (valid) {
-    for (int j = jl; j < n; j += g.tj) {
-      const int a = at<true>(t, j, g);
-      yr[off + j] = from_f32<TO>(sr[a] * scale);
-      yi[off + j] = from_f32<TO>(si[a] * scale);
-    }
-  }
-  __syncthreads();
-}
-
 // exp(s * 2*pi*i * e / 2^lN) for 0 <= e < 2^lN <= 2^24.  The phase index e
 // is an exact integer and 2e/N is exact in f32 (N a power of two), so the
 // only rounding is sincospif's own.
@@ -336,12 +305,11 @@ struct ColsOut {
   int tdiv;
 };
 
-// Columns [c0, c0 + nt) of an (n, V) plane pair whose rows are `ld`
-// elements apart -> transformed along n, written as `out` says.  Columns at
-// or past V are masked.
+// Columns [c0, c0 + nt) of an (n, V) plane pair -> transformed along n,
+// written as `out` says.  Columns at or past V are masked.
 template <typename TI, typename TO>
 __device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
-                          int c0, int V, long long ld, const StagePlan& p,
+                          int c0, int V, const StagePlan& p,
                           const float2* __restrict__ tw, float s, float scale,
                           float* sr, float* si, const ColsOut& out) {
   const Geo g = cols_geo(p.n);
@@ -352,7 +320,7 @@ __device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
   const bool valid = c < V;
   for (int j = jl; j < n; j += g.tj) {
     const int a = at<false>(t, j, g);
-    const size_t o = (size_t)j * ld + c;
+    const size_t o = (size_t)j * V + c;
     sr[a] = valid ? to_f32(xr[o]) : 0.0f;
     si[a] = valid ? to_f32(xi[o]) : 0.0f;
   }
@@ -386,7 +354,7 @@ __device__ __forceinline__ void cols_pass(const TI* xr, const TI* xi,
                                           const float2* __restrict__ tw,
                                           float s, float scale, float* sr,
                                           float* si) {
-  cols_pass(xr, xi, yr, yi, c0, V, V, p, tw, s, scale, sr, si,
+  cols_pass(xr, xi, yr, yi, c0, V, p, tw, s, scale, sr, si,
             ColsOut{V, 0, 1});
 }
 

@@ -37,9 +37,9 @@ _SIGNATURES = {
     "fft_cols": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _P, _I, _IP, _P],
     "fft_fused2": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
                    _P, _I, _IP, _P, _I, _IP, _P],
-    "fft_fused2_clusters": [_I, _I, _I, _I],
+    "fft_fused2_clusters": [_I, _I, _I, _I, _I],
     "fft_last_residency": [_I, _I, _IP],
-    "fft_gap": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
+    "fft_gap": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
                 _P, _I, _IP, _P, _I, _IP, _P],
     "fft_last_r2c": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],
     "ifft_last_c2r": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],
@@ -55,16 +55,13 @@ _SIGNATURES = {
 }
 # the bf16-plane (complex32) instances take the f32 entries' arguments ...
 _SIGNATURES.update({k + "_bf16": _SIGNATURES[k]
-                    for k in ("fft_last", "fft_cols", "fft_fused2", "a0fs_a",
-                              "a0fs_b", "fft_axis_ring")})
-# ... but the gap pass and the ring also take their f32 scratch planes
-# after the output planes (and the ring the count of its scratch plane
-# pairs)
-_SIGNATURES.update({
-    "fft_gap_bf16": _SIGNATURES["fft_gap"][:4] + [_P, _P]
-    + _SIGNATURES["fft_gap"][4:],
-    "fft_axes2_ring_bf16": _SIGNATURES["fft_axes2_ring"][:4] + [_P, _P, _L]
-    + _SIGNATURES["fft_axes2_ring"][4:]})
+                    for k in ("fft_last", "fft_cols", "fft_fused2", "fft_gap",
+                              "a0fs_a", "a0fs_b", "fft_axis_ring")})
+# ... but the two-axis ring also takes its f32 scratch planes after the
+# output planes, and the count of its scratch plane pairs
+_SIGNATURES["fft_axes2_ring_bf16"] = (
+    _SIGNATURES["fft_axes2_ring"][:4] + [_P, _P, _L]
+    + _SIGNATURES["fft_axes2_ring"][4:])
 
 _LIB = None
 build_seconds = None   # wall time of this process's nvcc runs, if it ran them

@@ -37,10 +37,10 @@ raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
 ``LAUNCHES`` (all twenty-two).  Every two-axis kernel keeps the plane
 between its passes in f32, as the TPU kernels keep it in VMEM and the
-plain versions keep it: ``fft_fused2`` (both types) in the distributed
-shared memory of a thread-block cluster that holds the whole plane
-(:func:`fused2_cluster`), the bf16 gap pass and ring in f32 scratch planes
-their wrappers allocate.
+plain versions keep it: ``fft_fused2`` and the gap pass (both types, one
+kernel) in the distributed shared memory of a thread-block cluster that
+holds the whole plane (:func:`fused2_cluster`), the bf16 ring in f32
+scratch planes its wrapper allocates.
 
 ``fft_axis0`` is the FFT along axis 0 of (n, V) f32 planes: the math of
 ``fft_cols`` with pre = 1, the scale fused as there (``_runner_axis0`` is
@@ -179,8 +179,9 @@ SMEM_PER_CTA = 232448        # the 227 KB a block of an H100 can use
 
 
 def fused2_cluster(n1: int, n2: int, planes: int, sms: int = 132) -> int:
-    """CTAs per plane (the cluster size C) of ``fft_fused2`` on ``planes``
-    (n1, n2) planes over a card of ``sms`` SMs: the least power of two
+    """CTAs per plane (the cluster size C) of ``fft_fused2`` (and of the
+    gap pass, whose planes are strided) on ``planes`` (n1, n2) planes over
+    a card of ``sms`` SMs: the least power of two
     that leaves each CTA at most ``FUSED2_CTA_ELEMS`` elements, doubled
     (up to the portable 8) while the grid would fill fewer CTAs than the
     card has SMs.  C divides n1, n2 is a multiple of 8*C (n1 is a
@@ -843,14 +844,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def fused2_active_clusters(n1: int, n2: int, c: int, dtype=torch.float32):
-    """``cudaOccupancyMaxActiveClusters`` of the ``fft_fused2`` kernel for
-    (n1, n2) planes of ``dtype`` in clusters of c CTAs: how many such
-    clusters the card holds at once (0: none fits, and the kernel refuses
-    to launch)."""
+def fused2_active_clusters(n1: int, n2: int, c: int, dtype=torch.float32,
+                           gap: bool = False):
+    """``cudaOccupancyMaxActiveClusters`` of the ``fft_fused2`` kernel (with
+    ``gap``, its strided instance that ``fft_gap`` launches) for (n1, n2)
+    planes of ``dtype`` in clusters of c CTAs: how many such clusters the
+    card holds at once (0: none fits, and the kernel refuses to launch)."""
     from . import _build
     got = _build.load().fft_fused2_clusters(n1, n2, c,
-                                            int(dtype == torch.bfloat16))
+                                            int(dtype == torch.bfloat16),
+                                            int(gap))
     if got < 0:
         raise RuntimeError(f"fft_fused2_clusters: CUDA error {-got}")
     return got
@@ -869,16 +872,6 @@ def last_residency(n: int, dtype=torch.float32) -> dict:
         raise RuntimeError(f"fft_last_residency(n={n}): CUDA error {err}")
     return dict(zip(("blocks_per_sm", "rows_per_block", "threads_per_block",
                      "registers", "smem_bytes"), out))
-
-
-def _mid_planes(xr):
-    """The f32 planes between the two passes of a two-pass kernel: none
-    for f32 planes (the kernel uses its output planes), f32 planes shaped
-    like ``xr`` for bf16 ones, passed after the output planes."""
-    if xr.dtype == torch.float32:
-        return ()
-    return tuple(torch.empty(xr.shape, dtype=torch.float32, device=xr.device)
-                 for _ in range(2))
 
 
 def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
@@ -953,21 +946,25 @@ def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along axes 1 and 3 of (B, z, Y, x) f32 or bf16 planes, scale
     fused, output in the input's dtype.
 
-    CUDA planes launch ``fft_gap_kernel`` (f32, counted as ``fft_gap``) or
-    its bf16 instance (``fft_gap_bf16``; its intermediate goes to f32
-    scratch planes of the input's shape); CPU planes run
-    :func:`fft_axes_gap_plain`.  Counterpart: ``pallas_stockham.py:1127``.
+    CUDA planes launch the strided instance of ``fft_fused2_kernel`` (f32,
+    counted as ``fft_gap``, or bf16, ``fft_gap_bf16``): each (b, y) plane,
+    whose rows are y*x elements apart, on one cluster of
+    :func:`fused2_cluster` CTAs over the b*y planes, the f32 intermediate
+    in the cluster's shared memory, so nothing is allocated beside the
+    output.  The C entry refuses a cluster size the card cannot hold and
+    this raises.  CPU planes run :func:`fft_axes_gap_plain`.  Counterpart:
+    ``pallas_stockham.py:1127``.
     """
     if not _on_cuda("fft_gap", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_axes_gap_plain(xr, xi, sign, scale)
     b, z, y, x = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    mid = _mid_planes(xr)
-    tw1, rad1, k1 = device_tables(z, sign, xr.device)
-    tw2, rad2, k2 = device_tables(x, sign, xr.device)
+    c = fused2_cluster(z, x, b * y, _sm_count(xr.device))
+    tw1, rad1, k1 = device_tables(z, sign, xr.device, fused2_stages)
+    tw2, rad2, k2 = device_tables(x, sign, xr.device, fused2_stages)
     _launch(*_c2c_entry("fft_gap", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            *(m.data_ptr() for m in mid), b, z, y, x, sign, scale,
+            b, z, y, x, c, sign, scale,
             tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2)
     return yr, yi
 

@@ -570,11 +570,12 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
 def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     """The (length, stage-list function) pair of every twiddle table the
     kernels of a plan read, in step order, the real axis's last: a
-    ``stockham2`` step's two axes take ``fused2_stages``; ``fft_last`` (a
+    ``stockham2`` or ``stockham_gap`` step's two axes take ``fused2_stages``
+    (both run the cluster kernel); ``fft_last`` (a
     ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
     ``stockham4`` step, the half-length core of the real ``half`` route)
     takes ``last_stages``; every other kernel (``fft_cols``, ``fft_axis0``,
-    ``fft_cols_tw``, the gap, ring and four-step passes, the real row-pair
+    ``fft_cols_tw``, the ring and four-step passes, the real row-pair
     kernels) ``_kernel_stages``.  ``ndim`` is the rank of the planes the
     steps transform."""
     ks, ls, fs2 = _sk._kernel_stages, _sk.last_stages, _sk.fused2_stages
@@ -582,9 +583,9 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     for kind_, a, arg in steps:
         if kind_ not in KERNEL_STEPS:
             continue
-        if kind_ == "stockham2":
+        if kind_ in ("stockham2", "stockham_gap"):
             out += [(arg[0], fs2), (arg[1], fs2)]
-        elif kind_ in ("fused2_ring", "stockham_gap"):
+        elif kind_ == "fused2_ring":
             out += [(arg[0], ks), (arg[1], ks)]
         elif kind_ == "stockham4":
             n1, n2 = _sk._four_step_split(arg)
