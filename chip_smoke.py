@@ -10,19 +10,23 @@ Phases (any failure raises and the script exits non-zero):
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
    kernel's four instances, fft_fused2's and the gap pass's in f32 and
-   bf16, the matmul kernel and the 32 instances of fft_last's row kernel
-   must spill nothing), the
+   bf16, the matmul kernel, the 32 instances of fft_last's row kernel and
+   the 48 of fft_cols's column kernel must spill nothing), the
    count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
    of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
    fft_fused2's and fft_gap's cluster size and
    cudaOccupancyMaxActiveClusters at the main path's shapes, and the
-   residency of fft_last's instance at every
+   residency of fft_last's and fft_cols's instances at every
    admitted length (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows
-   and threads a block, registers, shared bytes), f32 and bf16;
+   or columns and threads a block, registers, shared bytes), f32 and
+   bf16;
 3. kernels: every length the C2C kernel gates admit (ragged batches and
    column counts, both signs; fft_last at B = 1, 37 and one row past a
    whole block, also against fft_last_plain) against torch.fft in
-   float64, and every
+   float64; fft_cols (f32 and bf16) and fft_axis0 at every length the
+   mid-axis gate admits, V = 1, 37, one tile and one tile + 1, both
+   signs, against torch.fft in float64 and their plain versions; and
+   every
    length the real-kernel gate admits (2..1024, an odd and an even batch,
    narrow and Nyquist-packed layouts) against torch.fft.rfft / irfft * n
    in float64; every four-step last-axis length (4096..2^21, batch 3,
@@ -143,13 +147,14 @@ PEAKS = [("H100 PCIe", 2.0e12, 51.2e12, 378e12),
 PS = "regent_fft_tpu/ops/pallas_stockham.py"
 PF = "regent_fft_tpu/ops/pallas_fft.py"
 STOCKHAM_CU = "regent_fft_tpu_torch/csrc/stockham.cu"
+COLS_CU = "regent_fft_tpu_torch/csrc/cols.cu"
 MATMUL_CU = "regent_fft_tpu_torch/csrc/matmul.cu"
 REAL_CU = "regent_fft_tpu_torch/csrc/real.cu"
 FOURSTEP_CU = "regent_fft_tpu_torch/csrc/fourstep.cu"
 RING_CU = "regent_fft_tpu_torch/csrc/ring.cu"
 KERNELS = {   # name: (replaces, source)
     "fft_last": (f"{PS}:1267 (_runner_last)", STOCKHAM_CU),
-    "fft_cols": (f"{PS}:787 (_runner_cols)", STOCKHAM_CU),
+    "fft_cols": (f"{PS}:787 (_runner_cols)", COLS_CU),
     "fft_fused2": (f"{PS}:875 (_runner_fused2)", STOCKHAM_CU),
     "fft_last_r2c": (f"{PS}:2395 (_runner_last_r2c)", REAL_CU),
     "ifft_last_c2r": (f"{PS}:2521 (_runner_last_c2r)", REAL_CU),
@@ -162,7 +167,7 @@ KERNELS = {   # name: (replaces, source)
                       f"n<=512, _mxu_tile_tw :566 n=1024/2048, "
                       f"_stockham_tile :709)", STOCKHAM_CU),
     "fft_cols_bf16": (f"{PS}:787 (_runner_cols, io=bf16: the same bodies)",
-                      STOCKHAM_CU),
+                      COLS_CU),
     "fft_fused2_bf16": (f"{PS}:875 (_runner_fused2, io=bf16: the same bodies "
                         f"on both axes)", STOCKHAM_CU),
     "fft_gap": (f"{PS}:1127 (_runner_fused2_gap)", STOCKHAM_CU),
@@ -175,7 +180,7 @@ KERNELS = {   # name: (replaces, source)
     "fft_axis_ring_bf16": (f"{PS}:1324 (_runner_axis0_dma, io=bf16)", RING_CU),
     "fft_axes2_ring_bf16": (f"{PS}:1324 (_runner_axis0_dma, fuse_last, "
                             f"io=bf16)", RING_CU),
-    "fft_axis0": (f"{PS}:739 (_runner_axis0)", STOCKHAM_CU),
+    "fft_axis0": (f"{PS}:739 (_runner_axis0)", COLS_CU),
     "fft_mm1": (f"{PF}:129 (_runner_1stage)", MATMUL_CU),
     "fft_mm2": (f"{PF}:157 (_runner_2stage)", MATMUL_CU),
 }
@@ -431,6 +436,18 @@ def main() -> int:
         raise AssertionError(f"fft_last ptxas: {last_ptxas}")
     print(f"ptxas fft_last_kernel: {len(last_ptxas)} instances, 0 spill "
           f"bytes in each")
+    # the column kernel of fft_cols/fft_axis0: one instance per length the
+    # mid-axis gate admits and plane type, none may spill
+    cols_ptxas = [ln for ln in _ptxas(_build.build_log)
+                  if "fft_cols_kernel" in ln]
+    cols_lengths = [n for n in range(2, sk.MAX_STOCKHAM_N + 1)
+                    if sk.kernel_len_ok(n, False)]
+    if len(cols_ptxas) != 2 * len(cols_lengths) or not all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in cols_ptxas):
+        raise AssertionError(f"fft_cols ptxas: {cols_ptxas}")
+    print(f"ptxas fft_cols_kernel: {len(cols_ptxas)} instances, 0 spill "
+          f"bytes in each")
     tensor_ops = _tensor_ops(str(_build.library_path()))
     hmma = {}
     for kname, tag in (("fft_mm1", "fft_mm_kernelILb0E"),
@@ -485,6 +502,19 @@ def main() -> int:
                           f"{r['smem_bytes']} B shared" for k, r in res.items()))
         if min(r["blocks_per_sm"] for r in res.values()) < 1:
             raise AssertionError(f"fft_last n={n}: no block fits an SM")
+    # and fft_cols's: resident blocks an SM, columns and threads a block,
+    # registers a thread, shared bytes a block, at every length
+    for n in cols_lengths:
+        res = {str(dt)[6:]: sk.cols_residency(n, dt)
+               for dt in (torch.float32, torch.bfloat16)}
+        print(f"fft_cols residency n={n} stages {sk.cols_stages(n)}: "
+              + "; ".join(f"{k} {r['blocks_per_sm']} blocks/SM x "
+                          f"{r['columns_per_block']} columns "
+                          f"({r['threads_per_block']} threads), "
+                          f"{r['registers']} registers, {r['smem_bytes']} B "
+                          f"shared" for k, r in res.items()))
+        if min(r["blocks_per_sm"] for r in res.values()) < 1:
+            raise AssertionError(f"fft_cols n={n}: no block fits an SM")
     phase("2 (build)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -548,7 +578,7 @@ def main() -> int:
 
     # 3a. every length the gates admit, ragged batches and column counts,
     # both signs, against torch.fft in float64
-    last_plain = [0.0]   # worst rel_l2 of fft_last against its plain version
+    plain_worst = {}   # kernel: worst rel_l2 against its plain version
 
     def check(kname, fn, shape, dims, sign, scale=0.5, plain=None):
         xr, xi = planes(shape)
@@ -562,7 +592,7 @@ def main() -> int:
         if plain is not None:
             e_plain = dev_rel(torch.complex(yr, yi),
                               torch.complex(*plain(xr, xi, sign, scale)))
-            last_plain[0] = max(last_plain[0], e_plain)
+            plain_worst[kname] = max(plain_worst.get(kname, 0.0), e_plain)
         if not (err <= tolerance(n) and e_plain <= tolerance(n)):
             raise AssertionError(f"{kname}{shape} sign {sign}: rel_l2 {err}, "
                                  f"vs plain {e_plain} > {tolerance(n)}")
@@ -619,7 +649,8 @@ def main() -> int:
     print(f"sweep: {len(lengths)} lengths (last/cols), all {len(f2_pairs)} "
           f"fused2 pairs, both signs: worst rel_l2 vs torch.fft {worst:.3e}; "
           f"fft_fused2 vs fft_fused2_plain {f2_plain:.3e}; fft_last (B = 1, "
-          f"37 and a ragged block) vs fft_last_plain {last_plain[0]:.3e}")
+          f"37 and a ragged block) vs fft_last_plain "
+          f"{plain_worst['fft_last']:.3e}")
 
     # the C2C kernels on bf16 planes: the same lengths and pairs, against
     # their plain versions (within PLAIN_LIMIT) and torch.fft in float64 of
@@ -662,6 +693,38 @@ def main() -> int:
             + [("fft_fused2", (3, n1, n2), (1, 2)) for n1, n2 in f2_pairs]):
         for sign in (-1, 1):
             check_bf16(kname, shape, dims, sign)
+
+    # fft_cols on f32 and bf16 planes and fft_axis0 at every length the
+    # mid-axis gate admits: P = 3 planes of V = 1, 37, one tile and one tile
+    # + 1 columns (fft_axis0: V = 1, 37 and one tile + 1), both signs,
+    # against torch.fft in float64 (tolerance(n), tolerance(n, "complex32")
+    # in bf16) and the plain versions (tolerance(n), PLAIN_LIMIT in bf16)
+    cols_worst = {}
+    for n in cols_lengths:
+        tiles = {dt: sk.cols_residency(n, dt)["columns_per_block"]
+                 for dt in (torch.float32, torch.bfloat16)}
+        for sign in (-1, 1):
+            for v in sorted({1, 37, tiles[torch.float32],
+                             tiles[torch.float32] + 1}):
+                e = check("fft_cols", sk.fft_cols, (3, n, v), (1,), sign,
+                          plain=sk.fft_cols_plain)
+                cols_worst["fft_cols"] = max(cols_worst.get("fft_cols", 0.0),
+                                             e)
+            for v in sorted({1, 37, tiles[torch.bfloat16],
+                             tiles[torch.bfloat16] + 1}):
+                check_bf16("fft_cols", (3, n, v), (1,), sign)
+            for v in (1, 37, tiles[torch.float32] + 1):
+                e = check("fft_axis0", sk.fft_axis0, (n, v), (0,), sign,
+                          plain=sk.fft_axis0_plain)
+                cols_worst["fft_axis0"] = max(
+                    cols_worst.get("fft_axis0", 0.0), e)
+    print(f"cols sweep: {len(cols_lengths)} lengths, V = 1, 37, a tile and a "
+          f"tile + 1, P = 3, both signs: fft_cols vs torch.fft "
+          f"{cols_worst['fft_cols']:.3e}, vs fft_cols_plain "
+          f"{plain_worst['fft_cols']:.3e}; fft_axis0 vs torch.fft "
+          f"{cols_worst['fft_axis0']:.3e}, vs fft_axis0_plain "
+          f"{plain_worst['fft_axis0']:.3e}; fft_cols_bf16 vs float64 and vs "
+          f"plain: {bf_worst['fft_cols_bf16'][:2]}")
 
     def packed_half(h, n):
         """(B, n/2+1) complex -> the packed (B, n/2) planes."""

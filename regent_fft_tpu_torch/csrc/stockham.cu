@@ -7,16 +7,17 @@
 // butterflies of their own:
 //
 //   fft_last_kernel<T,n,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
-//   fft_cols_kernel<T>    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
 //   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
 //   fft_fused2_kernel<T,false> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
 //   fft_fused2_kernel<T,true>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2_gap
 //
 // Each computes one DFT along an axis (two for fused2 and gap) with the norm
 // scale (or, for fft_cols_tw, the four-step twiddle) fused into the final
-// write.
+// write.  The mid-axis pass (fft_cols, fft_cols_bf16, fft_axis0) is
+// cols.cu's fft_cols_kernel, a source of its own so that its instances
+// compile beside these.
 //
-// The bf16 instances (C entries fft_last_bf16, fft_cols_bf16,
+// The bf16 instances (C entries fft_last_bf16,
 // fft_fused2_bf16, fft_gap_bf16) replace the same runners with io="bf16",
 // whose
 // bodies on the TPU are _direct_tile (a dense DFT_n MXU dot, n <= 512),
@@ -41,48 +42,17 @@
 // type) is the same kernel on the strided (z, x) planes of (B, z, Y, x)
 // data: its GAP instance only places a plane and spaces its rows Y*x
 // elements apart, so it too moves 16 B (8 B in bf16) per element.
-//
-//   fft_axis0             replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_axis0
-//
-// is one more launcher of fft_cols_kernel<float>: the FFT along axis 0 of
-// (n, V) f32 planes, the (P, n, V) body with P = 1, scale fused.
 
 #include <cooperative_groups.h>
 
 #include <mutex>
 
 #include "stockham_tile.cuh"
+#include "radix.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-// --------------------------------------------------------------------------
-// fft_cols_kernel — replaces pallas_stockham.py:_runner_cols (FFT along the
-// middle axis of (P, n, V) planes, scale fused).
-// Bound on H100: bytes, as above (16 B per complex element, one pass).
-// Design: a block takes one (pre-slice p, column tile) pair; neighbouring
-// threads take neighbouring v, so every global access is a contiguous run
-// of nt floats, and each column is transformed along n in shared memory.
-// V % nt is masked.  nt is 16 at n = 512 (64 B runs, 64 KiB of shared
-// memory per block).
-// --------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-                T* __restrict__ yr, T* __restrict__ yi, int V,
-                int ntiles, StagePlan p, const float2* __restrict__ tw, float s,
-                float scale) {
-  extern __shared__ float smem[];
-  const Geo g = cols_geo(p.n);
-  float* sr = smem;
-  float* si = smem + p.n * g.nt;
-  const long long pre = blockIdx.x / ntiles;
-  const int c0 = (blockIdx.x % ntiles) * g.nt;
-  const size_t base = (size_t)pre * p.n * V;
-  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s, scale,
-            sr, si);
-}
 
 // --------------------------------------------------------------------------
 // fft_cols_tw_kernel — replaces pallas_stockham.py:_runner_cols_tw, the first
@@ -91,7 +61,7 @@ fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // middle axis, then the twiddle W_N^{k1 * j2} on the write.
 // Bound on H100: bytes (16 B per complex element, one pass; ~5*log2(n1) + 6
 // flops and one sincospif per element, far below the FP32 ridge).  Design:
-// fft_cols_kernel's column tiles; the twiddle is formed in the write from the
+// the shared tile's column pass (cols_pass); the twiddle is formed in the write from the
 // exact integer phase index k1 * j2 < N <= 2^21 (no table, no f32 product
 // k1 * j2 / N as on the TPU), so it costs no device-memory traffic.
 // --------------------------------------------------------------------------
@@ -171,58 +141,6 @@ constexpr int F2_GROUPS = F2_CTA_ELEMS / 4 / F2_THREADS;   // 4-element loads
 constexpr int F2_ELEMS = F2_CTA_ELEMS / F2_THREADS;  // values a stage holds
 constexpr int F2_MAX_CLUSTER = 16;
 constexpr int F2_MAX_SMEM = 232448;
-
-// v *= exp(s * 2*pi*i * E/8).
-template <int E>
-__device__ __forceinline__ void rot8(float& re, float& im, float s) {
-  constexpr int e = E & 7;
-  if constexpr (e == 0) {
-    return;
-  } else if constexpr (e == 4) {
-    re = -re;
-    im = -im;
-  } else if constexpr (e == 2 || e == 6) {
-    const float q = e == 2 ? s : -s;   // times q*i
-    const float t = re;
-    re = -q * im;
-    im = q * t;
-  } else {
-    constexpr float h = 0.7071067811865476f;   // cos(pi/4), from float64
-    constexpr float c = (e == 1 || e == 7) ? h : -h;
-    constexpr float sn = (e == 1 || e == 3) ? h : -h;
-    const float ss = s * sn, t = re;
-    re = fmaf(t, c, -im * ss);
-    im = fmaf(t, ss, im * c);
-  }
-}
-
-// In-register 8-point DFT, y[k] = sum_r v[r] exp(s*2*pi*i*r*k/8), as two
-// 4-point DFTs of the even and odd inputs joined by W_8^k.
-template <>
-struct Dft<8> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    float er[4], ei[4], orr[4], oi[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      er[b] = vr[2 * b];
-      ei[b] = vi[2 * b];
-      orr[b] = vr[2 * b + 1];
-      oi[b] = vi[2 * b + 1];
-    }
-    Dft<4>::run(er, ei, s);
-    Dft<4>::run(orr, oi, s);
-    rot8<1>(orr[1], oi[1], s);
-    rot8<2>(orr[2], oi[2], s);
-    rot8<3>(orr[3], oi[3], s);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      vr[k] = er[k] + orr[k];
-      vi[k] = ei[k] + oi[k];
-      vr[k + 4] = er[k] - orr[k];
-      vi[k + 4] = ei[k] - oi[k];
-    }
-  }
-};
 
 __device__ __forceinline__ int div_by(int u, int d) {
   return (d & (d - 1)) ? u / d : u >> (__ffs(d) - 1);
@@ -556,70 +474,6 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 constexpr int LAST_BLOCK = 128;      // threads a block, at most
 constexpr int LAST_MIN_BLOCKS = 4;   // resident blocks an SM, at least
 
-// v *= exp(s * 2*pi*i * E/16).
-template <int E>
-__device__ __forceinline__ void rot16(float& re, float& im, float s) {
-  constexpr int e = E & 15;
-  if constexpr (e % 2 == 0) {
-    rot8<e / 2>(re, im, s);
-  } else {
-    constexpr float c1 = 0.9238795325112867f;   // cos(pi/8), from float64
-    constexpr float s1 = 0.3826834323650898f;   // sin(pi/8)
-    constexpr float c = (e == 1 || e == 15) ? c1
-                        : (e == 3 || e == 13) ? s1
-                        : (e == 5 || e == 11) ? -s1 : -c1;
-    constexpr float sn = (e == 1 || e == 7) ? s1
-                         : (e == 3 || e == 5) ? c1
-                         : (e == 9 || e == 15) ? -s1 : -c1;
-    const float ss = s * sn, t = re;
-    re = fmaf(t, c, -im * ss);
-    im = fmaf(t, ss, im * c);
-  }
-}
-
-// In-register 16-point DFT, y[k] = sum_r v[r] exp(s*2*pi*i*r*k/16): with
-// r = 4a + b and k = k1 + 4*k2, a 4-point DFT over a for each b, the
-// rotation W16^(b*k1), then a 4-point DFT over b for each k1.
-template <>
-struct Dft<16> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    float ur[4][4], ui[4][4];   // [k1][b]
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      float tr[4], ti[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        tr[a] = vr[4 * a + b];
-        ti[a] = vi[4 * a + b];
-      }
-      Dft<4>::run(tr, ti, s);
-#pragma unroll
-      for (int k1 = 0; k1 < 4; ++k1) {
-        ur[k1][b] = tr[k1];
-        ui[k1][b] = ti[k1];
-      }
-    }
-    rot16<1>(ur[1][1], ui[1][1], s);
-    rot16<2>(ur[1][2], ui[1][2], s);
-    rot16<3>(ur[1][3], ui[1][3], s);
-    rot16<2>(ur[2][1], ui[2][1], s);
-    rot16<4>(ur[2][2], ui[2][2], s);
-    rot16<6>(ur[2][3], ui[2][3], s);
-    rot16<3>(ur[3][1], ui[3][1], s);
-    rot16<6>(ur[3][2], ui[3][2], s);
-    rot16<9>(ur[3][3], ui[3][3], s);
-#pragma unroll
-    for (int k1 = 0; k1 < 4; ++k1) {
-      Dft<4>::run(ur[k1], ui[k1], s);
-#pragma unroll
-      for (int k2 = 0; k2 < 4; ++k2) {
-        vr[k1 + 4 * k2] = ur[k1][k2];
-        vi[k1 + 4 * k2] = ui[k1][k2];
-      }
-    }
-  }
-};
-
 // Compile-time geometry of the instance for length N whose first radix is
 // R0: TPR threads a row, RPB rows a block, the shared row pitch and
 // where word x of a row lies in it.
@@ -869,26 +723,6 @@ cudaError_t last_residency_list(LastList<N, R...>, int* out) {
   return cudaSuccess;
 }
 
-// Host launchers, one per kernel template, shared by the f32 and bf16 C
-// entries below (launch_last is above, beside its kernel).
-template <typename T>
-cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
-                        int n, int V, int sign, float scale, const float2* tw,
-                        int nstages, const int* radices, void* stream) {
-  StagePlan p;
-  if (make_plan(n, nstages, radices, &p)) return cudaErrorInvalidValue;
-  if (P <= 0 || V <= 0) return cudaSuccess;
-  const size_t smem = cols_smem_bytes(n);
-  cudaError_t e = set_smem((const void*)fft_cols_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  const int nt = cols_geo(n).nt;
-  const int ntiles = (V + nt - 1) / nt;
-  const long long grid = P * ntiles;
-  fft_cols_kernel<T><<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, V, ntiles, p, tw, (float)sign, scale);
-  return cudaGetLastError();
-}
-
 // The cluster kernel's shared memory for (n1, n2) planes in clusters of C,
 // or 0 when the geometry is not one the kernel takes: C a power of two
 // <= F2_MAX_CLUSTER that divides n1, n2 a multiple of 8*C (the stripe width
@@ -1013,32 +847,6 @@ int fft_last_residency(int n, int bf16, int* out) {
     return bf16 ? last_residency_list<__nv_bfloat16>(list, out)
                 : last_residency_list<float>(list, out);
   });
-}
-
-// FFT along the middle axis of (P, n, V) f32 planes.
-int fft_cols(const float* xr, const float* xi, float* yr, float* yi, long long P,
-             int n, int V, int sign, float scale, const float2* tw, int nstages,
-             const int* radices, void* stream) {
-  return launch_cols(xr, xi, yr, yi, P, n, V, sign, scale, tw, nstages,
-                     radices, stream);
-}
-
-// FFT along the middle axis of (P, n, V) bf16 planes (f32 compute).
-int fft_cols_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
-                  __nv_bfloat16* yr, __nv_bfloat16* yi, long long P, int n,
-                  int V, int sign, float scale, const float2* tw, int nstages,
-                  const int* radices, void* stream) {
-  return launch_cols(xr, xi, yr, yi, P, n, V, sign, scale, tw, nstages,
-                     radices, stream);
-}
-
-// FFT along axis 0 of (n, V) f32 planes.
-int fft_axis0(const float* xr, const float* xi, float* yr, float* yi, int n,
-              long long V, int sign, float scale, const float2* tw,
-              int nstages, const int* radices, void* stream) {
-  if (V > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return launch_cols(xr, xi, yr, yi, 1LL, n, (int)V, sign, scale, tw, nstages,
-                     radices, stream);
 }
 
 // Four-step first pass over (P, n1, n2) f32 planes: n1-point FFT along the

@@ -4,7 +4,8 @@ Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Twenty-two
 hand-written CUDA entry points carry the plan paths.  This module holds
 the eleven of the butterfly passes: the three C2C kernels and the
 gap-fused pass on f32 planes (complex64) and on bf16 planes (complex32),
-and the axis-0 pass, in ``csrc/stockham.cu``, and the real-transform pair
+and the axis-0 pass, in ``csrc/stockham.cu`` and ``csrc/cols.cu`` (the
+mid-axis pass ``fft_cols`` and ``fft_axis0``), and the real-transform pair
 in ``csrc/real.cu``:
 
 =========================  ===================================  =======================
@@ -67,7 +68,8 @@ the way down, for both block types (see the source notes in
 (:func:`_stage_tables`) of their stage lists: :func:`_kernel_stages` for
 the shared tile, :func:`fused2_stages` for the cluster kernel of
 ``fft_fused2``, :func:`last_stages` for the register-resident rows of
-``fft_last``.
+``fft_last``, :func:`cols_stages` for the register-resident columns of
+``fft_cols`` and ``fft_axis0``.
 
 The gates (``kernel_len_ok``, ``fused2_supported``,
 ``fused_gap_supported``, the ``r2c_*`` gates, the four-step and ring
@@ -711,6 +713,20 @@ def last_stages(n: int) -> Tuple[int, ...]:
     return tuple(radices)
 
 
+def cols_stages(n: int) -> Tuple[int, ...]:
+    """Butterfly radices of the column kernel ``fft_cols`` (and
+    ``fft_axis0``) for length n: the list of :func:`last_stages`, radix 16
+    while four factors of two remain, then the rest of the power of two,
+    then the odd factor, so every Ns is a power of two.  A column is held
+    by n / R0 threads, R0 its first radix (n / 32 from n = 160 on: two
+    radix-16 butterflies a thread in the first stages), at most two exchanges of shared memory at
+    a power of two up to 2048 and three at 1536.  csrc/cols.cu compiles
+    one kernel instance per length ``kernel_len_ok(n, False)`` admits up to
+    ``MAX_STOCKHAM_N`` with this list (``COLS_CASE``) and refuses any
+    other."""
+    return last_stages(n)
+
+
 # The row kernel's blocks: at most LAST_BLOCK threads, whole rows of one
 # length (csrc/stockham.cu, LastGeo).
 LAST_BLOCK = 128
@@ -874,6 +890,21 @@ def last_residency(n: int, dtype=torch.float32) -> dict:
                      "registers", "smem_bytes"), out))
 
 
+def cols_residency(n: int, dtype=torch.float32) -> dict:
+    """How the ``fft_cols`` instance for length n (planes of ``dtype``) sits
+    on the card: resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), columns and
+    threads a block, registers a thread, shared bytes a block."""
+    from . import _build
+    out = (ctypes.c_int * 5)()
+    err = _build.load().fft_cols_residency(n, int(dtype == torch.bfloat16),
+                                          out)
+    if err:
+        raise RuntimeError(f"fft_cols_residency(n={n}): CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "columns_per_block",
+                     "threads_per_block", "registers", "smem_bytes"), out))
+
+
 def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along the last axis of (B, n) f32 or bf16 planes, scale fused,
     output in the input's dtype.
@@ -901,14 +932,18 @@ def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     fused, output in the input's dtype.
 
     CUDA planes launch ``fft_cols_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_cols_bf16``); CPU planes run :func:`fft_cols_plain`.
+    (counted as ``fft_cols_bf16``): columns held in registers, the stages
+    of :func:`cols_stages`, one kernel instance per length
+    ``kernel_len_ok(n, False)`` admits up to ``MAX_STOCKHAM_N`` (the C
+    entry refuses any other).  Its accesses are element-wise, so any
+    contiguous planes will do.  CPU planes run :func:`fft_cols_plain`.
     Counterpart: ``pallas_stockham.py:787``.
     """
     if not _on_cuda("fft_cols", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_cols_plain(xr, xi, sign, scale)
     p, n, v = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device)
+    tw, rad, k = device_tables(n, sign, xr.device, cols_stages)
     _launch(*_c2c_entry("fft_cols", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n, v, sign, scale, tw.data_ptr(), k, rad)
@@ -983,7 +1018,7 @@ def fft_axis0(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     if not kernel_len_ok(n, False) or n > MAX_STOCKHAM_N:
         raise ValueError(f"fft_axis0: no kernel schedule for n={n}")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device)
+    tw, rad, k = device_tables(n, sign, xr.device, cols_stages)
     _launch("fft_axis0", _build.load().fft_axis0, xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             n, v, sign, scale, tw.data_ptr(), k, rad)

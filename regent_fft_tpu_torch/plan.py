@@ -574,8 +574,9 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     (both run the cluster kernel); ``fft_last`` (a
     ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
     ``stockham4`` step, the half-length core of the real ``half`` route)
-    takes ``last_stages``; every other kernel (``fft_cols``, ``fft_axis0``,
-    ``fft_cols_tw``, the ring and four-step passes, the real row-pair
+    takes ``last_stages``; ``fft_cols`` and ``fft_axis0`` (every other
+    ``stockham`` step) ``cols_stages``; every other kernel
+    (``fft_cols_tw``, the ring and four-step passes, the real row-pair
     kernels) ``_kernel_stages``.  ``ndim`` is the rank of the planes the
     steps transform."""
     ks, ls, fs2 = _sk._kernel_stages, _sk.last_stages, _sk.fused2_stages
@@ -594,6 +595,8 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
             out += [(r, ks) for r in _sk._a0fs_split(arg)]
         elif kind_ == "stockham" and a == ndim - 1 and ndim > 1:
             out.append((arg, ls))
+        elif kind_ == "stockham":
+            out.append((arg, _sk.cols_stages))
         else:
             out.append((arg, ks))
     if real is not None and real.route == "half":

@@ -331,7 +331,7 @@ def test_wrapper_cpu_planes_run_the_plain_version():
 
 def test_gap_plans_prefetch_the_cluster_tables(monkeypatch):
     """A gap-fused plan fetches fused2_stages tables for its two axes (the
-    cluster kernel's), the mid axis the shared tile's."""
+    cluster kernel's), the mid axis fft_cols's (cols_stages)."""
     monkeypatch.setenv("REGENT_FFT_GAP_FUSED", "1")
     rt.clear_plan_cache()
     try:
@@ -341,6 +341,6 @@ def test_gap_plans_prefetch_the_cluster_tables(monkeypatch):
         got = [(n, f.__name__)
                for n, f in tplan._kernel_lengths(p.steps, p.real, 4)]
         assert got == [(16, "fused2_stages"), (256, "fused2_stages"),
-                       (8, "_kernel_stages")]
+                       (8, "cols_stages")]
     finally:
         rt.clear_plan_cache()

@@ -30,7 +30,9 @@ The stage lists and block size that csrc/stockham.cu compiles (its
 ``LAST_CASE`` table and ``LAST_BLOCK``) are read from the source and held
 against ``last_stages`` and ``LAST_BLOCK``; and the plans' table prefetch
 (``plan._kernel_lengths``) names ``last_stages`` for every step that runs
-``fft_last`` and ``_kernel_stages`` for the mid-axis kernels.
+``fft_last``, ``cols_stages`` for the mid-axis ``stockham`` steps
+(``fft_cols``, ``fft_axis0``) and ``_kernel_stages`` for the ring,
+four-step and ``fft_cols_tw`` passes.
 """
 import re
 from pathlib import Path
@@ -322,24 +324,40 @@ def _tables(shape, axes, kind="c2c", **kw):
     # 3-D: the fused pair, then the leading axis on fft_cols
     ((512, 512, 512), (0, 1, 2), "c2c", [(512, "fused2_stages"),
                                          (512, "fused2_stages"),
-                                         (512, "_kernel_stages")]),
+                                         (512, "cols_stages")]),
     # a 3-D grid whose last axis is too short to fuse: fft_last, then the
     # mid and leading axes on fft_cols
     ((8, 16, 64), (0, 1, 2), "c2c", [(64, "last_stages"),
-                                     (16, "_kernel_stages"),
-                                     (8, "_kernel_stages")]),
+                                     (16, "cols_stages"),
+                                     (8, "cols_stages")]),
     # a rank-1 array: its one axis runs fft_cols (pre = post = 1)
-    ((1024,), (0,), "c2c", [(1024, "_kernel_stages")]),
+    ((1024,), (0,), "c2c", [(1024, "cols_stages")]),
     # the half-length real route: fft_last at n/2
     ((4096, 1024), (1,), "c2r", [(512, "last_stages")]),
-    # the row-pair real kernel and a mid axis: the shared tile's tables
+    # the row-pair real kernel: the shared tile's tables; its mid axis runs
+    # fft_cols
     ((4096, 1024), (1,), "r2c", [(1024, "_kernel_stages")]),
-    ((8, 256, 256), (1, 2), "r2c", [(256, "_kernel_stages"),
+    ((8, 256, 256), (1, 2), "r2c", [(256, "cols_stages"),
                                     (256, "_kernel_stages")]),
+    # axis 0 of a rank-2 f32 array: fft_axis0
+    ((512, 4096), (0,), "c2c", [(512, "cols_stages")]),
+    # the ring and four-step routes (kind with the plan's route fields) keep
+    # the shared tile's tables; the leading axis after the two-axis ring
+    # runs fft_cols
+    ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "dma"}),
+     [(512, "fused2_stages"), (512, "fused2_stages"),
+      (512, "_kernel_stages")]),
+    ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "fourstep"}),
+     [(512, "fused2_stages"), (512, "fused2_stages"), (16, "_kernel_stages"),
+      (32, "_kernel_stages")]),
+    ((512, 512, 512), (0, 1, 2), ("c2c", {"f2_impl": "ring"}),
+     [(512, "_kernel_stages"), (512, "_kernel_stages"),
+      (512, "cols_stages")]),
 ])
 def test_plans_prefetch_the_tables_their_kernels_read(shape, axes, kind,
                                                       want):
-    assert _tables(shape, axes, kind) == want
+    kind, kw = kind if isinstance(kind, tuple) else (kind, {})
+    assert _tables(shape, axes, kind, **kw) == want
 
 
 def test_complex32_four_step_prefetch():
