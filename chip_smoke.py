@@ -10,8 +10,10 @@ Phases (any failure raises and the script exits non-zero):
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
    kernel's four instances, fft_fused2's and the gap pass's in f32 and
-   bf16, the matmul kernel, the 32 instances of fft_last's row kernel and
-   the 48 of fft_cols's column kernel must spill nothing), the
+   bf16, the matmul kernel, the 32 instances of fft_last's row kernel, the
+   48 of fft_cols's column kernel and the 10 each of the real pair kernels
+   fft_last_r2c and ifft_last_c2r, on the same row body, must spill
+   nothing), the
    count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
    of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
    fft_fused2's and fft_gap's cluster size and
@@ -19,7 +21,7 @@ Phases (any failure raises and the script exits non-zero):
    residency of fft_last's and fft_cols's instances at every
    admitted length (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows
    or columns and threads a block, registers, shared bytes), f32 and
-   bf16;
+   bf16, and of the real pair kernels' (row pairs a block);
 3. kernels: every length the C2C kernel gates admit (ragged batches and
    column counts, both signs; fft_last at B = 1, 37 and one row past a
    whole block, also against fft_last_plain) against torch.fft in
@@ -27,10 +29,12 @@ Phases (any failure raises and the script exits non-zero):
    mid-axis gate admits, V = 1, 37, one tile and one tile + 1, both
    signs, against torch.fft in float64 and their plain versions; and
    every
-   length the real-kernel gate admits (2..1024, an odd and an even batch,
-   narrow and Nyquist-packed layouts) against torch.fft.rfft / irfft * n
-   in float64; every four-step last-axis length (4096..2^21, batch 3,
-   through ``backend="stockham"`` plans), the leading-axis four-step at
+   length the real-kernel gate admits (2..1024; batches 37, 38 and a half
+   and a whole pair past a block of pairs; narrow and Nyquist-packed
+   layouts) against torch.fft.rfft / irfft * n in float64 and against
+   their plain versions on the card; every four-step last-axis length
+   (4096..2^21, batch 3, through ``backend="stockham"`` plans), the
+   leading-axis four-step at
    every gated length (64..4096, axes 0 and 1) and the slab ring at every
    kernel length (ragged trailing extent) and eight fused2 pairs,
    against torch.fft in float64; fft_fused2 at all 113 pairs
@@ -448,6 +452,19 @@ def main() -> int:
         raise AssertionError(f"fft_cols ptxas: {cols_ptxas}")
     print(f"ptxas fft_cols_kernel: {len(cols_ptxas)} instances, 0 spill "
           f"bytes in each")
+    # the real pair kernels, on fft_last's row body: one instance per
+    # length the real-kernel gate admits, none may spill
+    real_lengths = [n for n in range(2, sk.MAX_REAL_N + 1)
+                    if sk.r2c_last_supported(n)]
+    for kname in ("fft_last_r2c_kernel", "ifft_last_c2r_kernel"):
+        lines = [ln for ln in _ptxas(_build.build_log)
+                 if kname in ln.split(":")[0]]
+        if len(lines) != len(real_lengths) or not all(
+                re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+                for ln in lines):
+            raise AssertionError(f"{kname} ptxas: {lines}")
+        print(f"ptxas {kname}: {len(lines)} instances, 0 spill bytes in "
+              f"each")
     tensor_ops = _tensor_ops(str(_build.library_path()))
     hmma = {}
     for kname, tag in (("fft_mm1", "fft_mm_kernelILb0E"),
@@ -515,6 +532,18 @@ def main() -> int:
                           f"shared" for k, r in res.items()))
         if min(r["blocks_per_sm"] for r in res.values()) < 1:
             raise AssertionError(f"fft_cols n={n}: no block fits an SM")
+    # and the real pair kernels': resident blocks an SM, row pairs and
+    # threads a block, registers a thread, shared bytes a block
+    for n in real_lengths:
+        res = {k: sk.real_residency(n, k == "c2r") for k in ("r2c", "c2r")}
+        print(f"real residency n={n} stages {sk.last_stages(n)}: "
+              + "; ".join(f"{k} {r['blocks_per_sm']} blocks/SM x "
+                          f"{r['pairs_per_block']} pairs "
+                          f"({r['threads_per_block']} threads), "
+                          f"{r['registers']} registers, {r['smem_bytes']} B "
+                          f"shared" for k, r in res.items()))
+        if min(r["blocks_per_sm"] for r in res.values()) < 1:
+            raise AssertionError(f"real n={n}: no block fits an SM")
     phase("2 (build)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -733,12 +762,16 @@ def main() -> int:
         pi[:, 0] = h.real[:, m]
         return pr, pi.contiguous()
 
-    real_lengths = [n for n in range(2, sk.MAX_REAL_N + 1)
-                    if sk.r2c_last_supported(n)]
+    def real_batches(n):
+        """The real kernels' batches at length n: odd and even, and a half
+        and a whole pair past a whole block of pairs."""
+        rpb = sk.last_geometry(n)[1]
+        return sorted({37, 38, 2 * rpb + 1, 2 * rpb + 2})
+
     worst = 0.0
     for n in real_lengths:
         m = n // 2
-        for b in (37, 38):
+        for b in real_batches(n):
             x = randn((b, n))
             ref = torch.fft.rfft(x.double()) * 0.5
             h = torch.complex(randn((b, m + 1)), randn((b, m + 1)))
@@ -752,17 +785,28 @@ def main() -> int:
                 if packed:
                     want = torch.complex(*packed_half(ref, n))
                 err = rel_l2(torch.complex(yr, yi), want)
+                e_r2c = dev_rel(torch.complex(yr, yi), torch.complex(
+                    *sk.fft_last_r2c_plain(x, packed, 0.5)))
                 hr, hi = (packed_half(h, n) if packed
                           else (h.real.contiguous(), h.imag.contiguous()))
                 y = sk.ifft_last_c2r(hr, hi, n, packed=packed, scale=2.0)
                 err_c = rel_l2(y, ref_c)
-                if not max(err, err_c) <= tolerance(n):
+                e_c2r = dev_rel(y, sk.ifft_last_c2r_plain(hr, hi, n, packed,
+                                                          2.0))
+                for kname, e in (("fft_last_r2c", e_r2c),
+                                 ("ifft_last_c2r", e_c2r)):
+                    plain_worst[kname] = max(plain_worst.get(kname, 0.0), e)
+                if not max(err, err_c, e_r2c, e_c2r) <= tolerance(n):
                     raise AssertionError(
                         f"real n={n} b={b} packed={packed}: r2c rel_l2 "
-                        f"{err}, c2r {err_c} > {tolerance(n)}")
+                        f"{err} (vs plain {e_r2c}), c2r {err_c} (vs plain "
+                        f"{e_c2r}) > {tolerance(n)}")
                 worst = max(worst, err, err_c)
-    print(f"sweep: {len(real_lengths)} real lengths, batches 37/38, narrow "
-          f"and packed: worst rel_l2 vs torch.fft.rfft/irfft {worst:.3e}")
+    print(f"sweep: {len(real_lengths)} real lengths, batches 37, 38 and a "
+          f"half and a whole pair past a block, narrow and packed: worst "
+          f"rel_l2 vs torch.fft.rfft/irfft {worst:.3e}; vs the plain "
+          f"versions fft_last_r2c {plain_worst['fft_last_r2c']:.3e}, "
+          f"ifft_last_c2r {plain_worst['ifft_last_c2r']:.3e}")
 
     # every four-step last-axis length, through the plans a user makes
     fs_lengths = [1 << k for k in range(12, 22)]

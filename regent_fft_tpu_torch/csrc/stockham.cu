@@ -2,9 +2,9 @@
 // planes: f32 (complex64) or bf16 (complex32).  The shared tile (fft_tile,
 // cols_pass) is in stockham_tile.cuh; the kernels here differ
 // only in how they address global memory, but for fft_fused2_kernel (a
-// thread-block cluster a plane, also the gap pass's strided plane) and
-// fft_last_kernel (rows held in registers), whose designs (below) run
-// butterflies of their own:
+// thread-block cluster a plane, also the gap pass's strided plane, below)
+// and fft_last_kernel (rows held in registers, the row body of last.cuh,
+// which real.cu's pair kernels share), which run butterflies of their own:
 //
 //   fft_last_kernel<T,n,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
 //   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
@@ -49,6 +49,7 @@
 
 #include "stockham_tile.cuh"
 #include "radix.cuh"
+#include "last.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -425,182 +426,11 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // fft_last_kernel — replaces pallas_stockham.py:_runner_last (FFT along the
 // last axis of (B, n) planes, norm scale fused into the write; f32 or bf16
 // planes, f32 arithmetic, the output rounded once to the input's type).
-// Bound on H100: bytes.  Each complex element is read once and written once
-// (16 B in f32, 8 B in bf16), ~5*log2(n) flops against 16 B is far below
-// the FP32 ridge (67 TFLOP/s / 3.35 TB/s = 20 flop/B).  A kernel that walks
-// a block's rows through shared memory stage by stage keeps memory idle
-// while it computes and moves ~7 B of shared traffic for each byte of
-// device memory; the design below keeps the rows in registers instead.
-//   1. Rows in registers, high radix.  A row of n points is taken by
-//      TPR = n / R0 threads (R0 the first radix: 16 from n = 16 on, so each
-//      thread holds V = 16 values; for n <= 8 one thread the row).  The
-//      stage list is last_stages (ops/stockham_kernels.py): radix 16 while
-//      it fits, then the rest of the power of two (2, 4 or 8), then the odd
-//      factor (3, 5 or 7), so every Ns is a power of two.  Every power of
-//      two up to 2048 takes at most two exchanges of shared memory and the
-//      mixed lengths at most three (1536 = 16*16*2*3).  The list is a
-//      template pack: every radix, Ns, butterfly count and twiddle offset is
-//      a compile-time constant, one instance per admitted length
-//      (LAST_CASE below), and the butterflies are straight-line code.
-//   2. Device memory straight into registers.  Stage 0 has Ns = 1, and
-//      thread j of a row reads elements j + r*TPR (r < 16): neighbouring
-//      threads on neighbouring addresses for every r, no staging through
-//      shared memory.  The last stage has Ns = n/R and writes j + r*Ns,
-//      coalesced the same way, with the scale.  All of a thread's loads are
-//      issued before the first is used (16 KiB in flight a 128-thread block
-//      in f32).  bf16 elements are read and written as 2-byte scalars in
-//      the same pattern, so the planes need no alignment beyond their own.
-//   3. Small blocks, many resident: LAST_BLOCK threads at most (rows of the
-//      same length a block), __launch_bounds__ capping the registers at
-//      65536 / (LAST_BLOCK * LAST_MIN_BLOCKS) = 128 so that ptxas spills
-//      nothing; 4096 rows of 1024 points are 1024 blocks, and each SM
-//      overlaps one block's loads with another's butterflies.
-//   4. Exchanges: stage s writes its outputs to shared buffer s % 2, one
-//      block barrier, stage s+1 reads them, so one barrier an exchange.  A
-//      stage of radix R gives each thread ceil((n/R) / TPR) butterflies; a
-//      thread past the last repeats it and only its stores are dropped (as
-//      in f2_stage).  Rows of n >= 512 are stored XOR-swizzled (word x at
-//      x ^ ((x >> 4) & 31), within its 32-word group), shorter rows padded
-//      one word every 16 (pitch n + n/16): both keep the stride-16 writes of
-//      the radix-16 stages and the unit-stride reads free of bank conflicts
-//      at every power of two (the mixed lengths' ragged odd stage leaves at
-//      most three words a bank; tests/test_torch_port_last_rows.py counts).
-//   5. The ragged last block reads its last valid row again and stores
-//      nothing past B.
-// Twiddles: the float64-generated table of the stage list (_stage_tables),
-// as every kernel reads it; no sincospif.  The radix-16 butterfly is two
-// levels of Dft<4> joined by the W16 rotations (cos/sin(pi/8) from float64).
+// Bound on H100: bytes, 16 B per complex element in f32 and 8 B in bf16.
+// Design: the register-resident row body of last.cuh in its C2C mode, one
+// instance per admitted length (LAST_CASE there), blocks of at most
+// LAST_BLOCK threads.
 // --------------------------------------------------------------------------
-constexpr int LAST_BLOCK = 128;      // threads a block, at most
-constexpr int LAST_MIN_BLOCKS = 4;   // resident blocks an SM, at least
-
-// Compile-time geometry of the instance for length N whose first radix is
-// R0: TPR threads a row, RPB rows a block, the shared row pitch and
-// where word x of a row lies in it.
-template <int N, int R0>
-struct LastGeo {
-  static constexpr int TPR = N / R0;
-  static constexpr int RPB = TPR >= LAST_BLOCK ? 1 : LAST_BLOCK / TPR;
-  static constexpr int THREADS = TPR * RPB;
-  static constexpr bool SWIZZLE = N >= 512;
-  static constexpr int PITCH = SWIZZLE ? N : N + N / 16;
-  __device__ __forceinline__ static int at(int x) {
-    return SWIZZLE ? x ^ ((x >> 4) & 31) : x + (x >> 4);
-  }
-};
-
-// Shared memory of an instance with S stages: one f32 (re, im) buffer of
-// RPB rows per exchange, two at most.
-template <int N, int R0, int S>
-constexpr size_t last_smem() {
-  using G = LastGeo<N, R0>;
-  return S < 2 ? 0 : (S < 3 ? 1 : 2) * 2 * sizeof(float) * G::RPB * G::PITCH;
-}
-
-// What a thread of the kernel works on: its row (`off`, the first element of
-// the row it reads; stores only when `valid`), its lane in the row, and its
-// row's part of each shared buffer.
-template <typename T>
-struct LastIO {
-  const T* xr;
-  const T* xi;
-  T* yr;
-  T* yi;
-  size_t off;
-  bool valid;
-  int lane;
-  float* sr[2];
-  float* si[2];
-  const float2* tw;
-  float s;
-  float scale;
-};
-
-// Stage ST of the list (radix R, Ns = NS, its twiddles at TWOFF), then the
-// stages REST.  Butterfly j < M = N/R reads j + r*M (device memory at stage
-// 0, shared buffer (ST-1) % 2 after), twiddles by table entry
-// TWOFF + (r-1)*NS + j%NS, runs an R-point DFT and writes
-// (j - j%NS)*R + j%NS + r*NS (shared buffer ST % 2, or device memory with
-// the scale at the last stage, where that is j + r*NS).
-template <typename T, class G, int N, int ST, int NS, int TWOFF, int R,
-          int... REST>
-__device__ __forceinline__ void last_stage(const LastIO<T>& io) {
-  constexpr int M = N / R;
-  constexpr int NB = (M + G::TPR - 1) / G::TPR;   // butterflies a thread
-  constexpr bool EXACT = NB * G::TPR == M;
-  float vr[NB][R], vi[NB][R];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const int j = EXACT ? io.lane + b * G::TPR
-                        : min(io.lane + b * G::TPR, M - 1);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (ST == 0) {
-        vr[b][r] = to_f32(__ldg(io.xr + io.off + j + r * M));
-        vi[b][r] = to_f32(__ldg(io.xi + io.off + j + r * M));
-      } else {
-        const int a = G::at(j + r * M);
-        vr[b][r] = io.sr[(ST - 1) & 1][a];
-        vi[b][r] = io.si[(ST - 1) & 1][a];
-      }
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    if constexpr (NS > 1) {
-      const int j = EXACT ? io.lane + b * G::TPR
-                          : min(io.lane + b * G::TPR, M - 1);
-      const int k = j & (NS - 1);
-#pragma unroll
-      for (int r = 1; r < R; ++r) {
-        const float2 w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
-        const float xr = vr[b][r], xi = vi[b][r];
-        vr[b][r] = fmaf(xr, w.x, -xi * w.y);
-        vi[b][r] = fmaf(xr, w.y, xi * w.x);
-      }
-    }
-    Dft<R>::run(vr[b], vi[b], io.s);
-  }
-  if constexpr (sizeof...(REST) == 0) {
-    static_assert(NS * R == N, "the stage list must multiply to N");
-    if (io.valid) {
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const int j = io.lane + b * G::TPR;
-        if (EXACT || j < M) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            io.yr[io.off + j + r * NS] = from_f32<T>(vr[b][r] * io.scale);
-            io.yi[io.off + j + r * NS] = from_f32<T>(vi[b][r] * io.scale);
-          }
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int j = io.lane + b * G::TPR;
-      if (EXACT || j < M) {
-        const int k = j & (NS - 1);
-        const int base = (j - k) * R + k;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int a = G::at(base + r * NS);
-          io.sr[ST & 1][a] = vr[b][r];
-          io.si[ST & 1][a] = vi[b][r];
-        }
-      }
-    }
-    __syncthreads();
-    last_stage<T, G, N, ST + 1, NS * R, TWOFF + (R - 1) * NS, REST...>(io);
-  }
-}
-
-template <int R0, int... RS>
-__host__ __device__ constexpr int first_radix() {
-  return R0;
-}
-
 template <typename T, int N, int... R>
 __global__ void __launch_bounds__(LAST_BLOCK, LAST_MIN_BLOCKS)
 fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
@@ -610,7 +440,6 @@ fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   extern __shared__ float smem[];
   const int rl = threadIdx.x / G::TPR;
   const long long row = (long long)blockIdx.x * G::RPB + rl;
-  constexpr int PART = G::RPB * G::PITCH;   // words of one buffer's re part
   LastIO<T> io;
   io.xr = xr;
   io.xi = xi;
@@ -619,66 +448,27 @@ fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   io.valid = row < B;
   io.off = (size_t)(io.valid ? row : B - 1) * N;
   io.lane = threadIdx.x - rl * G::TPR;
-  io.sr[0] = smem + rl * G::PITCH;
-  io.si[0] = io.sr[0] + PART;
-  io.sr[1] = io.sr[0] + 2 * PART;
-  io.si[1] = io.sr[1] + PART;
+  last_smem_rows<G>(io, smem, rl);
   io.tw = tw;
   io.s = s;
   io.scale = scale;
-  last_stage<T, G, N, 0, 1, 0, R...>(io);
-}
-
-// One instance of the kernel: length N, stage list R...
-template <int N, int... R>
-struct LastList {};
-
-// Calls f(LastList<n, radices...>{}) for the instance of length n, the
-// lengths kernel_len_ok(n, last=True) admits with their last_stages lists;
-// cudaErrorInvalidValue for any other n.
-template <class F>
-cudaError_t with_last_list(int n, F&& f) {
-#define LAST_CASE(n_, ...) \
-  case n_: return f(LastList<n_, __VA_ARGS__>{});
-  switch (n) {
-    LAST_CASE(2, 2)
-    LAST_CASE(4, 4)
-    LAST_CASE(8, 8)
-    LAST_CASE(16, 16)
-    LAST_CASE(32, 16, 2)
-    LAST_CASE(64, 16, 4)
-    LAST_CASE(128, 16, 8)
-    LAST_CASE(256, 16, 16)
-    LAST_CASE(384, 16, 8, 3)
-    LAST_CASE(512, 16, 16, 2)
-    LAST_CASE(640, 16, 8, 5)
-    LAST_CASE(768, 16, 16, 3)
-    LAST_CASE(896, 16, 8, 7)
-    LAST_CASE(1024, 16, 16, 4)
-    LAST_CASE(1536, 16, 16, 2, 3)
-    LAST_CASE(2048, 16, 16, 8)
-    default: return cudaErrorInvalidValue;
-  }
-#undef LAST_CASE
+  last_stage<LastIO<T>, G, N, 0, 1, 0, R...>(io);
 }
 
 // Launch the instance on (B, N) planes; the host's stage list must be the
 // instance's (the C-side check of last_stages).
 template <typename T, int N, int... R>
-cudaError_t launch_last_list(LastList<N, R...>, const T* xr, const T* xi,
-                             T* yr, T* yi, long long B, int sign, float scale,
-                             const float2* tw, int nstages, const int* radices,
-                             void* stream) {
-  constexpr int S = sizeof...(R);
-  constexpr int rad[S] = {R...};
-  if (nstages != S) return cudaErrorInvalidValue;
-  for (int i = 0; i < S; ++i)
-    if (radices[i] != rad[i]) return cudaErrorInvalidValue;
+cudaError_t launch_last_list(LastList<N, R...> list, const T* xr,
+                             const T* xi, T* yr, T* yi, long long B, int sign,
+                             float scale, const float2* tw, int nstages,
+                             const int* radices, void* stream) {
+  if (!last_list_ok(list, nstages, radices)) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
-  using G = LastGeo<N, rad[0]>;
+  constexpr int R0 = first_radix<R...>();
+  using G = LastGeo<N, R0>;
   const long long grid = (B + G::RPB - 1) / G::RPB;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  constexpr size_t smem = last_smem<N, rad[0], S>();
+  constexpr size_t smem = last_smem<N, R0, sizeof...(R)>();
   cudaError_t e = set_smem((const void*)fft_last_kernel<T, N, R...>, smem);
   if (e != cudaSuccess) return e;
   fft_last_kernel<T, N, R...><<<(unsigned)grid, G::THREADS, smem,
@@ -697,30 +487,14 @@ cudaError_t launch_last(const T* xr, const T* xi, T* yr, T* yi, long long B,
   });
 }
 
-// The residency of the instance: out = {resident blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), rows a block, threads a
-// block, registers a thread, shared bytes a block}.
+// The residency of the instance (last_residency_of).
 template <typename T, int N, int... R>
 cudaError_t last_residency_list(LastList<N, R...>, int* out) {
-  constexpr int S = sizeof...(R);
-  constexpr int rad[S] = {R...};
-  using G = LastGeo<N, rad[0]>;
-  constexpr size_t smem = last_smem<N, rad[0], S>();
-  const void* fn = (const void*)fft_last_kernel<T, N, R...>;
-  cudaError_t e = set_smem(fn, smem);
-  cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, G::THREADS,
-                                                      smem);
-  if (e != cudaSuccess) return e;
-  out[0] = blocks;
-  out[1] = G::RPB;
-  out[2] = G::THREADS;
-  out[3] = attr.numRegs;
-  out[4] = (int)smem;
-  return cudaSuccess;
+  constexpr int R0 = first_radix<R...>();
+  using G = LastGeo<N, R0>;
+  return last_residency_of((const void*)fft_last_kernel<T, N, R...>,
+                           G::THREADS, G::RPB,
+                           last_smem<N, R0, sizeof...(R)>(), out);
 }
 
 // The cluster kernel's shared memory for (n1, n2) planes in clusters of C,

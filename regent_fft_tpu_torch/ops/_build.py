@@ -39,6 +39,7 @@ _SIGNATURES = {
                    _P, _I, _IP, _P, _I, _IP, _P],
     "fft_fused2_clusters": [_I, _I, _I, _I, _I],
     "fft_last_residency": [_I, _I, _IP],
+    "fft_last_real_residency": [_I, _I, _IP],
     "fft_cols_residency": [_I, _I, _IP],
     "fft_gap": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
                 _P, _I, _IP, _P, _I, _IP, _P],

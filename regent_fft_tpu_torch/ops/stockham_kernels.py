@@ -68,8 +68,9 @@ the way down, for both block types (see the source notes in
 (:func:`_stage_tables`) of their stage lists: :func:`_kernel_stages` for
 the shared tile, :func:`fused2_stages` for the cluster kernel of
 ``fft_fused2``, :func:`last_stages` for the register-resident rows of
-``fft_last``, :func:`cols_stages` for the register-resident columns of
-``fft_cols`` and ``fft_axis0``.
+``fft_last`` and of the real pair kernels ``fft_last_r2c`` and
+``ifft_last_c2r`` (one row body, ``csrc/last.cuh``), :func:`cols_stages`
+for the register-resident columns of ``fft_cols`` and ``fft_axis0``.
 
 The gates (``kernel_len_ok``, ``fused2_supported``,
 ``fused_gap_supported``, the ``r2c_*`` gates, the four-step and ring
@@ -704,8 +705,9 @@ def last_stages(n: int) -> Tuple[int, ...]:
     ``n / radices[0]`` threads of 16 values each (one thread for n <= 8), so
     every power of two up to 2048 takes at most two exchanges of shared
     memory (16, 16, 8) and the mixed lengths at most three (1536: 16, 16,
-    2, 3).  csrc/stockham.cu compiles one kernel instance per admitted
-    length with this list (``LAST_CASE``) and refuses any other."""
+    2, 3).  csrc/last.cuh compiles one kernel instance per admitted
+    length with this list (``LAST_CASE``), and csrc/real.cu one per real
+    length (``REAL_CASE``); each refuses any other."""
     odd, k = _odd_pow2(n)
     radices = [16] * (k // 4) + ([1 << (k % 4)] if k % 4 else [])
     if odd > 1:
@@ -728,7 +730,8 @@ def cols_stages(n: int) -> Tuple[int, ...]:
 
 
 # The row kernel's blocks: at most LAST_BLOCK threads, whole rows of one
-# length (csrc/stockham.cu, LastGeo).
+# length (csrc/last.cuh, LastGeo); the real pair kernels take a pair of
+# rows where fft_last takes one.
 LAST_BLOCK = 128
 
 
@@ -890,6 +893,21 @@ def last_residency(n: int, dtype=torch.float32) -> dict:
                      "registers", "smem_bytes"), out))
 
 
+def real_residency(n: int, c2r: bool = False) -> dict:
+    """How the real pair kernel for length n (``ifft_last_c2r``'s with
+    ``c2r``, else ``fft_last_r2c``'s) sits on the card: resident blocks an
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), row pairs and
+    threads a block, registers a thread, shared bytes a block."""
+    from . import _build
+    out = (ctypes.c_int * 5)()
+    err = _build.load().fft_last_real_residency(n, int(c2r), out)
+    if err:
+        raise RuntimeError(f"fft_last_real_residency(n={n}): CUDA error "
+                           f"{err}")
+    return dict(zip(("blocks_per_sm", "pairs_per_block", "threads_per_block",
+                     "registers", "smem_bytes"), out))
+
+
 def cols_residency(n: int, dtype=torch.float32) -> dict:
     """How the ``fft_cols`` instance for length n (planes of ``dtype``) sits
     on the card: resident blocks an SM
@@ -1029,7 +1047,9 @@ def fft_last_r2c(x, packed: bool = False, scale: float = 1.0) -> Pair:
     """R2C along the last axis of (B, n) real f32 rows, scale fused:
     (B, n/2+1) planes, or (B, n/2) Nyquist-packed when ``packed``.
 
-    CUDA rows launch ``fft_last_r2c_kernel``; CPU rows run
+    CUDA rows launch ``fft_last_r2c_kernel``: row pairs held in registers,
+    the stages of :func:`last_stages`, one kernel instance per length
+    :func:`r2c_last_supported` admits.  CPU rows run
     :func:`fft_last_r2c_plain`.  Counterpart: ``pallas_stockham.py:2395``.
     """
     if not _on_cuda("fft_last_r2c", x):
@@ -1038,7 +1058,7 @@ def fft_last_r2c(x, packed: bool = False, scale: float = 1.0) -> Pair:
     b, n = x.shape
     w = n // 2 if packed else n // 2 + 1
     yr, yi = x.new_empty((b, w)), x.new_empty((b, w))
-    tw, rad, k = device_tables(n, -1, x.device)
+    tw, rad, k = device_tables(n, -1, x.device, last_stages)
     _launch("fft_last_r2c", _build.load().fft_last_r2c, x.device,
             x.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n, int(packed),
             scale, tw.data_ptr(), k, rad)
@@ -1050,15 +1070,16 @@ def ifft_last_c2r(xr, xi, n: int, packed: bool = False,
     """n times the inverse R2C of (B, n/2+1) (or packed (B, n/2)) f32
     half-spectrum planes -> (B, n) real rows, scale fused.
 
-    CUDA planes launch ``ifft_last_c2r_kernel``; CPU planes run
-    :func:`ifft_last_c2r_plain`.  Counterpart: ``pallas_stockham.py:2521``.
+    CUDA planes launch ``ifft_last_c2r_kernel`` (the row-pair body of
+    :func:`fft_last_r2c`); CPU planes run :func:`ifft_last_c2r_plain`.
+    Counterpart: ``pallas_stockham.py:2521``.
     """
     if not _on_cuda("ifft_last_c2r", xr, xi):
         return ifft_last_c2r_plain(xr, xi, n, packed, scale)
     from . import _build
     b = xr.shape[0]
     y = xr.new_empty((b, n))
-    tw, rad, k = device_tables(n, 1, xr.device)
+    tw, rad, k = device_tables(n, 1, xr.device, last_stages)
     _launch("ifft_last_c2r", _build.load().ifft_last_c2r, xr.device,
             xr.data_ptr(), xi.data_ptr(), y.data_ptr(), b, n, int(packed),
             scale, tw.data_ptr(), k, rad)

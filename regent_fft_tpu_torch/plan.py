@@ -574,11 +574,11 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     (both run the cluster kernel); ``fft_last`` (a
     ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
     ``stockham4`` step, the half-length core of the real ``half`` route)
-    takes ``last_stages``; ``fft_cols`` and ``fft_axis0`` (every other
+    and the real row-pair kernels of the ``kernel`` route take
+    ``last_stages``; ``fft_cols`` and ``fft_axis0`` (every other
     ``stockham`` step) ``cols_stages``; every other kernel
-    (``fft_cols_tw``, the ring and four-step passes, the real row-pair
-    kernels) ``_kernel_stages``.  ``ndim`` is the rank of the planes the
-    steps transform."""
+    (``fft_cols_tw``, the ring and four-step passes) ``_kernel_stages``.
+    ``ndim`` is the rank of the planes the steps transform."""
     ks, ls, fs2 = _sk._kernel_stages, _sk.last_stages, _sk.fused2_stages
     out = []
     for kind_, a, arg in steps:
@@ -602,7 +602,7 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     if real is not None and real.route == "half":
         out.append((real.n // 2, ls))
     elif real is not None and real.route == "kernel":
-        out.append((real.n, ks))
+        out.append((real.n, ls))
     return out
 
 

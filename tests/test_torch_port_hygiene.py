@@ -53,7 +53,7 @@ PORT_TESTS = {
     "test_torch_port_gap.py", "test_torch_port_pallas_fft.py",
     "test_torch_port_precision.py", "test_torch_port_fused2_cluster.py",
     "test_torch_port_last_rows.py", "test_torch_port_gap_cluster.py",
-    "test_torch_port_cols_regs.py"}
+    "test_torch_port_cols_regs.py", "test_torch_port_real_rows.py"}
 
 
 def test_file_lists_cover_the_port():

@@ -1,5 +1,5 @@
-"""The row kernel of ``fft_last`` (csrc/stockham.cu, ``fft_last_kernel``)
-emulated on the CPU.
+"""The row kernel of ``fft_last`` (csrc/stockham.cu, ``fft_last_kernel``, on
+the row body of csrc/last.cuh) emulated on the CPU.
 
 A row of n points is held by T = n / R0 threads (R0 the first radix of
 ``last_stages``), each with its values in registers; a block is
@@ -26,13 +26,13 @@ two f32 results straddle a bf16 rounding boundary; the chip check holds the
 kernel to the same limit), and within ``tolerance(n, "complex32")`` of
 float64.
 
-The stage lists and block size that csrc/stockham.cu compiles (its
+The stage lists and block size that csrc/last.cuh compiles (its
 ``LAST_CASE`` table and ``LAST_BLOCK``) are read from the source and held
 against ``last_stages`` and ``LAST_BLOCK``; and the plans' table prefetch
 (``plan._kernel_lengths``) names ``last_stages`` for every step that runs
-``fft_last``, ``cols_stages`` for the mid-axis ``stockham`` steps
-(``fft_cols``, ``fft_axis0``) and ``_kernel_stages`` for the ring,
-four-step and ``fft_cols_tw`` passes.
+``fft_last`` or the real row-pair kernels, ``cols_stages`` for the mid-axis
+``stockham`` steps (``fft_cols``, ``fft_axis0``) and ``_kernel_stages`` for
+the ring, four-step and ``fft_cols_tw`` passes.
 """
 import re
 from pathlib import Path
@@ -51,8 +51,8 @@ from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
 
 LENGTHS = [n for n in range(2, sk.MAX_LAST_N + 1) if sk.kernel_len_ok(n, True)]
 PLAIN_LIMIT = 1e-3
-STOCKHAM_CU = (Path(__file__).resolve().parent.parent
-               / "regent_fft_tpu_torch" / "csrc" / "stockham.cu")
+LAST_CUH = (Path(__file__).resolve().parent.parent
+            / "regent_fft_tpu_torch" / "csrc" / "last.cuh")
 
 
 def test_admitted_lengths():
@@ -93,9 +93,10 @@ def test_last_stage_list(n):
 
 
 def test_c_instances_match_last_stages():
-    """csrc/stockham.cu compiles one instance per admitted length, with the
-    stage list of last_stages, and blocks of LAST_BLOCK threads."""
-    src = STOCKHAM_CU.read_text()
+    """csrc/last.cuh (the row body stockham.cu's fft_last_kernel runs)
+    compiles one instance per admitted length, with the stage list of
+    last_stages, and blocks of LAST_BLOCK threads."""
+    src = LAST_CUH.read_text()
     cases = {int(m.group(1)): tuple(int(v) for v in m.group(2).split(","))
              for m in re.finditer(r"LAST_CASE\((\d+), ([0-9, ]+)\)", src)}
     assert cases == {n: sk.last_stages(n) for n in LENGTHS}
@@ -334,11 +335,16 @@ def _tables(shape, axes, kind="c2c", **kw):
     ((1024,), (0,), "c2c", [(1024, "cols_stages")]),
     # the half-length real route: fft_last at n/2
     ((4096, 1024), (1,), "c2r", [(512, "last_stages")]),
-    # the row-pair real kernel: the shared tile's tables; its mid axis runs
+    # the row-pair real kernels: the row body's tables; the mid axis runs
     # fft_cols
-    ((4096, 1024), (1,), "r2c", [(1024, "_kernel_stages")]),
+    ((4096, 1024), (1,), "r2c", [(1024, "last_stages")]),
     ((8, 256, 256), (1, 2), "r2c", [(256, "cols_stages"),
-                                    (256, "_kernel_stages")]),
+                                    (256, "last_stages")]),
+    ((8, 256, 256), (1, 2), "c2r", [(256, "cols_stages"),
+                                    (256, "last_stages")]),
+    ((4, 256, 256, 256), (1, 2, 3), "c2r", [(256, "cols_stages"),
+                                            (256, "cols_stages"),
+                                            (256, "last_stages")]),
     # axis 0 of a rank-2 f32 array: fft_axis0
     ((512, 4096), (0,), "c2c", [(512, "cols_stages")]),
     # the ring and four-step routes (kind with the plan's route fields) keep
