@@ -11,17 +11,19 @@ Phases (any failure raises and the script exits non-zero):
    one process per source, started together; the ptxas lines (the cluster
    kernel's four instances, fft_fused2's and the gap pass's in f32 and
    bf16, the matmul kernel, the 32 instances of fft_last's row kernel, the
-   48 of fft_cols's column kernel and the 10 each of the real pair kernels
-   fft_last_r2c and ifft_last_c2r, on the same row body, must spill
-   nothing), the
+   48 of fft_cols's column kernel, the 10 each of the real pair kernels
+   fft_last_r2c and ifft_last_c2r, on the same row body, and the slab
+   ring's 48 axis-mode and 6 fuse_last instances must spill nothing), the
    count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
    of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
-   fft_fused2's and fft_gap's cluster size and
-   cudaOccupancyMaxActiveClusters at the main path's shapes, and the
-   residency of fft_last's and fft_cols's instances at every
-   admitted length (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows
-   or columns and threads a block, registers, shared bytes), f32 and
-   bf16, and of the real pair kernels' (row pairs a block);
+   fft_fused2's, fft_gap's and the fuse_last ring's cluster size and
+   cudaOccupancyMaxActiveClusters at the main path's shapes (the ring's
+   also its sub-slabs and TMA boxes), and the residency of fft_last's,
+   fft_cols's and the axis ring's instances at every admitted length
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows or columns and
+   threads a block, registers, shared bytes; the ring's depth, held
+   against ring_geometry), f32 and bf16, and of the real pair kernels'
+   (row pairs a block);
 3. kernels: every length the C2C kernel gates admit (ragged batches and
    column counts, both signs; fft_last at B = 1, 37 and one row past a
    whole block, also against fft_last_plain) against torch.fft in
@@ -35,9 +37,10 @@ Phases (any failure raises and the script exits non-zero):
    their plain versions on the card; every four-step last-axis length
    (4096..2^21, batch 3, through ``backend="stockham"`` plans), the
    leading-axis four-step at
-   every gated length (64..4096, axes 0 and 1) and the slab ring at every
-   kernel length (ragged trailing extent) and eight fused2 pairs,
-   against torch.fft in float64; fft_fused2 at all 113 pairs
+   every gated length (64..4096, axes 0 and 1) and the slab ring at all 24
+   lengths of its instance table (ragged trailing extent) and all 93 pairs
+   fused2_ring_supported admits, both signs, against torch.fft in float64
+   and fft_axis_ring_plain; fft_fused2 at all 113 pairs
    ``fused2_supported`` admits, also against its plain version; the three
    C2C kernels on bf16 planes (complex32) at every length of the C2C sweep
    and every fused2 pair (odd batches, both signs), each against its plain
@@ -111,7 +114,9 @@ Phases (any failure raises and the script exits non-zero):
    is read, and it is timed beside its bytes bound, torch.fft on
    complex64 of the same data and torch.fft on the plan's own type where
    that runs (complex128; torch.complex32 for the complex32 plans), and
-   traced; the complex32 512^3 times by route side by side;
+   traced; the complex32 512^3 times by route side by side, and the
+   f2_impl="ring" plan's peak memory rise, which must not pass the grid
+   plan's;
 8. main path, the gap-fused route (``GAP_PLANS``): complex64 and complex32
    512^3 plans built with ``REGENT_FFT_GAP_FUSED=1`` set for this group
    only (the plan cache cleared before and after), checked, counted, timed
@@ -465,6 +470,19 @@ def main() -> int:
             raise AssertionError(f"{kname} ptxas: {lines}")
         print(f"ptxas {kname}: {len(lines)} instances, 0 spill bytes in "
               f"each")
+    # the slab ring: the axis mode's instance per length of fft_cols' table
+    # and plane type, the fuse_last mode's per sub-slab count (1, 2 or 4)
+    # and plane type; none may spill
+    for kname, count in (("fft_axis_ring_kernel", 2 * len(cols_lengths)),
+                         ("fft_axes2_ring_kernel", 6)):
+        lines = [ln for ln in _ptxas(_build.build_log)
+                 if kname in ln.split(":")[0]]
+        if len(lines) != count or not all(
+                re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+                for ln in lines):
+            raise AssertionError(f"{kname} ptxas: {lines}")
+        print(f"ptxas {kname}: {len(lines)} instances, 0 spill bytes in "
+              f"each")
     tensor_ops = _tensor_ops(str(_build.library_path()))
     hmma = {}
     for kname, tag in (("fft_mm1", "fft_mm_kernelILb0E"),
@@ -504,6 +522,39 @@ def main() -> int:
               f"({sms} SMs)")
         if min(act) < 1:
             raise AssertionError(f"fft_gap {(z_, x_)}: no cluster fits")
+    # the fuse_last ring: fft_fused2's cluster, its sub-slabs and TMA boxes,
+    # and how many clusters the card holds at once (the persistent grid)
+    for p_, n1, n2 in ((512, 512, 512), (1024, 256, 256)):
+        for dt in (torch.float32, torch.bfloat16):
+            g = sk.axes2_ring_geometry(n1, n2, p_, dt, sms)
+            act = sk.axes2_ring_active_clusters(n1, n2, g["C"], dt)
+            print(f"fft_axes2_ring {(p_, n1, n2)} {str(dt)[6:]}: cluster "
+                  f"{g['C']} CTAs of {sk.FUSED2_THREADS} threads, "
+                  f"{g['subslabs']} sub-slabs of {g['ws']} columns, TMA "
+                  f"boxes ({g['ws']}, {g['box_rows']}), {g['tx_bytes']} B a "
+                  f"sub-slab's mbarrier, {g['smem_bytes']} B dynamic shared "
+                  f"memory; cudaOccupancyMaxActiveClusters {act}: "
+                  f"{min(act, p_)} persistent clusters ({sms} SMs)")
+            if act < 1:
+                raise AssertionError(f"fft_axes2_ring {(n1, n2)}: no cluster "
+                                     f"fits")
+    # the axis ring at every length: ring depth K, tile width, blocks an SM,
+    # registers, shared bytes; the C geometry must be the Python mirror's
+    for n in cols_lengths:
+        res = {dt: sk.axis_ring_residency(n, dt)
+               for dt in (torch.float32, torch.bfloat16)}
+        for dt, r in res.items():
+            g = sk.ring_geometry(n, dt)
+            if ((r["depth"], r["columns_per_block"], r["threads_per_block"],
+                 r["smem_bytes"]) != (g["depth"], g["C"], g["threads"],
+                                      g["smem_bytes"])
+                    or r["blocks_per_sm"] < 1):
+                raise AssertionError(f"fft_axis_ring n={n} {dt}: {r} vs {g}")
+        print(f"fft_axis_ring residency n={n}: " + "; ".join(
+            f"{str(dt)[6:]} K={r['depth']} slabs of {r['columns_per_block']} "
+            f"columns ({r['threads_per_block']} threads), "
+            f"{r['blocks_per_sm']} blocks/SM, {r['registers']} registers, "
+            f"{r['smem_bytes']} B shared" for dt, r in res.items()))
     # where fft_last's instances sit: resident blocks an SM
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor), rows and threads a
     # block, registers a thread, shared bytes a block
@@ -646,15 +697,16 @@ def main() -> int:
                                              plain=sk.fft_last_plain))
             worst = max(worst, check("fft_cols", sk.fft_cols, (3, n, 45),
                                      (1,), sign))
-    # the pairs of the ring and gap sweeps; fft_fused2 takes every pair
-    # fused2_supported admits (n1 * n2 <= 262144 caps both axes)
-    pairs = [(16, 128), (128, 256), (16, 2048), (2048, 128), (384, 640),
-             (256, 1024), (512, 512), (640, 384)]
+    # the pairs of the gap and ring sweeps; fft_fused2 takes every pair
+    # fused2_supported admits (n1 * n2 <= 262144 caps both axes), the ring
+    # the 93 of them fused2_ring_supported admits (n2 <= 2048)
     f2_pairs = [(a, b) for a in range(16, 2049) if sk._fusable_len(a, False)
                 for b in range(128, 16385, 128) if sk._fusable_len(b, True)
                 and sk.fused2_supported(a, b)]
-    if len(f2_pairs) != 113 or not set(pairs) <= set(f2_pairs):
-        raise AssertionError(f"fused2 pairs: {len(f2_pairs)}")
+    ring_pairs = [ab for ab in f2_pairs if sk.fused2_ring_supported(*ab)]
+    if len(f2_pairs) != 113 or len(ring_pairs) != 93:
+        raise AssertionError(f"fused2 pairs: {len(f2_pairs)}, ring pairs: "
+                             f"{len(ring_pairs)}")
 
     def vs_plain(kname, kern, plain, shape, n, sign):
         """rel_l2 of a kernel against its plain version on new planes."""
@@ -832,7 +884,9 @@ def main() -> int:
           f"both signs: worst rel_l2 vs torch.fft {worst:.3e}")
 
     # the leading-axis four-step at every gated length; the ring at every
-    # kernel length (ragged trailing extent) and fused2 pair
+    # length of its instance table (fft_cols': trailing extent ragged
+    # against the tile) and all 93 ring pairs, both signs, against
+    # torch.fft in float64 and the plain version
     def on_axis(fn, axis):
         return lambda xr, xi, s, sc: fn(xr, xi, axis, rt.Direction(s), sc)
 
@@ -846,29 +900,32 @@ def main() -> int:
             worst = max(worst, check("fft_axis0_fourstep",
                                      on_axis(fs.fft_axis0_fourstep, 1),
                                      (2, n, 8, 128), (1,), sign))
-    ring_worst = 0.0
-    for n in lengths:
-        for sign in (-1, 1):
-            ring_worst = max(ring_worst, check(
-                "fft_axis_ring", fs.fft_axis_ring, (3, n, 36), (1,), sign))
-    for n1, n2 in pairs:
-        for sign in (-1, 1):
-            ring_worst = max(ring_worst, check(
-                "fft_axes2_ring",
-                lambda xr, xi, s, sc: fs.fft_axis_ring(xr, xi, s, sc, True),
-                (3, n1, n2), (1, 2), sign))
-    print(f"sweep: leading-axis four-step n = 64..4096 (axes 0 and 1), both "
-          f"signs: worst rel_l2 {worst:.3e}; ring: {len(lengths)} lengths "
-          f"and {len(pairs)} fused pairs: worst {ring_worst:.3e}")
-
-    # the bf16 ring at the same lengths (post % 8 == 0, ragged against the
-    # slab width) and pairs, against its plain version and float64
     def ring_fn(fuse, plain=False):
         f = fs.fft_axis_ring_plain if plain else fs.fft_axis_ring
         return lambda xr, xi, s, sc: f(xr, xi, s, sc, fuse)
 
-    for fuse, shapes in ((False, [(3, n, 40) for n in lengths]),
-                         (True, [(3, n1, n2) for n1, n2 in pairs])):
+    ring_worst = 0.0
+    for n in cols_lengths:
+        for sign in (-1, 1):
+            ring_worst = max(ring_worst, check(
+                "fft_axis_ring", ring_fn(False), (3, n, 36), (1,), sign,
+                plain=ring_fn(False, True)))
+    for n1, n2 in ring_pairs:
+        for sign in (-1, 1):
+            ring_worst = max(ring_worst, check(
+                "fft_axes2_ring", ring_fn(True), (3, n1, n2), (1, 2), sign,
+                plain=ring_fn(True, True)))
+    print(f"sweep: leading-axis four-step n = 64..4096 (axes 0 and 1), both "
+          f"signs: worst rel_l2 {worst:.3e}; ring: {len(cols_lengths)} "
+          f"lengths and all {len(ring_pairs)} fused pairs, both signs: worst vs "
+          f"torch.fft {ring_worst:.3e}, vs fft_axis_ring_plain "
+          f"{plain_worst['fft_axis_ring']:.3e} (axis), "
+          f"{plain_worst['fft_axes2_ring']:.3e} (fuse_last)")
+
+    # the bf16 ring at the same lengths (post % 8 == 0, ragged against the
+    # tile width) and pairs, against its plain version and float64
+    for fuse, shapes in ((False, [(3, n, 40) for n in cols_lengths]),
+                         (True, [(3, n1, n2) for n1, n2 in ring_pairs])):
         rname = "fft_axes2_ring" if fuse else "fft_axis_ring"
         for shape in shapes:
             for sign in (-1, 1):
@@ -1743,6 +1800,14 @@ def main() -> int:
         return ms
 
     c32_ms = {case[0]: dtype_plan(*case) for case in DTYPE_PLANS}
+    # the fuse_last ring allocates nothing but the output: the complex32
+    # 512^3 ring plan's peak rise is no more than the grid plan's
+    rise = {r["route"]: r["peak_rise_bytes"] for r in plan_rows
+            if r.get("route") in ("complex32_cube", "complex32_fused2_ring")}
+    print(f"peak memory rise, complex32 512^3: f2_impl='ring' "
+          f"{rise['complex32_fused2_ring']} B, grid {rise['complex32_cube']} B")
+    if rise["complex32_fused2_ring"] > rise["complex32_cube"]:
+        raise AssertionError(f"ring plan's peak rise over the grid's: {rise}")
     print(f"512^3 complex32 C2C by route (ms): grid "
           f"{c32_ms['complex32_cube']:.4f}, fourstep "
           f"{c32_ms['complex32_fourstep_ring']:.4f}, dma "

@@ -6,10 +6,12 @@
 // on the write).  The pass is a template on the element types it loads and
 // stores: f32 planes (complex64) or bf16 planes
 // (complex32, converted to f32 on load and rounded to nearest even on the
-// store, the scale applied in f32 first); the tile itself is f32 either way.  Included by stockham.cu (the C2C
-// kernels), real.cu (R2C/C2R), fourstep.cu (the leading-axis four-step) and
-// ring.cu (the slab ring); everything here has internal linkage, so each
-// translation unit carries its own copy and the library needs no -rdc.
+// store, the scale applied in f32 first); the tile itself is f32 either
+// way.  The column pass runs fft_cols_tw (stockham.cu) and the leading-axis
+// four-step stages (fourstep.cu); every butterfly kernel includes this
+// header for the stage plan, the radix DFTs and the element conversions.
+// Everything here has internal linkage, so each translation unit carries
+// its own copy and the library needs no -rdc.
 //
 // What is ported is what the TPU tile computes (pallas_stockham.py:
 // _stockham_tile), not its block structure.  The TPU tile runs radix-4
@@ -62,13 +64,11 @@ struct StagePlan {
 };
 
 // Tile geometry: `tj` threads per transform, `nt` transforms per tile
-// (tj * nt == THREADS), `pitch` the shared-memory stride of one row (rows
-// layout only).
+// (tj * nt == THREADS).
 struct Geo {
   int tj;
   int nt;
   int lnt;
-  int pitch;
 };
 
 __host__ __device__ inline int pow2ceil(int x) {
@@ -90,20 +90,6 @@ __host__ __device__ inline Geo cols_geo(int n) {
   g.tj = pow2ceil((n + ELEMS - 1) / ELEMS);
   g.nt = THREADS / g.tj;
   g.lnt = ilog2(g.nt);
-  g.pitch = 0;
-  return g;
-}
-
-// Row tiles: element (t, j) at t*pitch + j + j/32.  The one-word pad every
-// 32 words keeps the strided butterfly writes of the early stages free of
-// bank conflicts.
-__host__ __device__ inline Geo rows_geo(int n) {
-  Geo g;
-  int tj = pow2ceil((n + ELEMS - 1) / ELEMS);
-  g.tj = tj < 32 ? 32 : tj;
-  g.nt = THREADS / g.tj;
-  g.lnt = ilog2(g.nt);
-  g.pitch = n + (n >> 5);
   return g;
 }
 
@@ -111,14 +97,8 @@ inline size_t cols_smem_bytes(int n) {
   return 2 * sizeof(float) * (size_t)n * cols_geo(n).nt;
 }
 
-inline size_t rows_smem_bytes(int n) {
-  Geo g = rows_geo(n);
-  return 2 * sizeof(float) * (size_t)g.nt * g.pitch;
-}
-
-template <bool ROWS>
 __device__ __forceinline__ int at(int t, int j, const Geo& g) {
-  return ROWS ? t * g.pitch + j + (j >> 5) : j * g.nt + t;
+  return j * g.nt + t;
 }
 
 // cos/sin(2*pi*m/R) for the odd radices, rounded from float64.
@@ -202,7 +182,7 @@ struct Dft<4> {
 
 // One in-place Stockham stage over the tile.  (t, jl) is this thread's
 // transform and its lane within the transform.
-template <int R, bool ROWS>
+template <int R>
 __device__ __forceinline__ void stage(float* sr, float* si, int m, int lns,
                                       const float2* __restrict__ tw, float s,
                                       int t, int jl, const Geo& g) {
@@ -214,7 +194,7 @@ __device__ __forceinline__ void stage(float* sr, float* si, int m, int lns,
     if (j < m) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int a = at<ROWS>(t, j + r * m, g);
+        const int a = at(t, j + r * m, g);
         vr[b][r] = sr[a];
         vi[b][r] = si[a];
       }
@@ -240,7 +220,7 @@ __device__ __forceinline__ void stage(float* sr, float* si, int m, int lns,
       const int base = (j - k) * R + k;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int a = at<ROWS>(t, base + r * ns, g);
+        const int a = at(t, base + r * ns, g);
         sr[a] = vr[b][r];
         si[a] = vi[b][r];
       }
@@ -252,7 +232,6 @@ __device__ __forceinline__ void stage(float* sr, float* si, int m, int lns,
 // The shared tile routine: all stages of an n-point transform on every
 // transform of the tile.  Must be entered after a __syncthreads() that
 // follows the tile load; returns after one that follows the last stage.
-template <bool ROWS>
 __device__ void fft_tile(float* sr, float* si, const StagePlan& p,
                          const float2* __restrict__ tw, float s, int t, int jl,
                          const Geo& g) {
@@ -262,11 +241,11 @@ __device__ void fft_tile(float* sr, float* si, const StagePlan& p,
     const float2* tws = tw + p.twoff[st];
     const int lns = p.lns[st];
     switch (r) {
-      case 2: stage<2, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      case 3: stage<3, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      case 4: stage<4, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      case 5: stage<5, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
-      default: stage<7, ROWS>(sr, si, m, lns, tws, s, t, jl, g); break;
+      case 2: stage<2>(sr, si, m, lns, tws, s, t, jl, g); break;
+      case 3: stage<3>(sr, si, m, lns, tws, s, t, jl, g); break;
+      case 4: stage<4>(sr, si, m, lns, tws, s, t, jl, g); break;
+      case 5: stage<5>(sr, si, m, lns, tws, s, t, jl, g); break;
+      default: stage<7>(sr, si, m, lns, tws, s, t, jl, g); break;
     }
   }
 }
@@ -319,17 +298,17 @@ __device__ void cols_pass(const TI* xr, const TI* xi, TO* yr, TO* yi,
   const int c = c0 + t;
   const bool valid = c < V;
   for (int j = jl; j < n; j += g.tj) {
-    const int a = at<false>(t, j, g);
+    const int a = at(t, j, g);
     const size_t o = (size_t)j * V + c;
     sr[a] = valid ? to_f32(xr[o]) : 0.0f;
     si[a] = valid ? to_f32(xi[o]) : 0.0f;
   }
   __syncthreads();
-  fft_tile<false>(sr, si, p, tw, s, t, jl, g);
+  fft_tile(sr, si, p, tw, s, t, jl, g);
   if (valid) {
     const int b = out.lN ? c / out.tdiv : 0;
     for (int j = jl; j < n; j += g.tj) {
-      const int a = at<false>(t, j, g);
+      const int a = at(t, j, g);
       float vr = sr[a] * scale, vi = si[a] * scale;
       if (out.lN) {
         const float2 w = twiddle_pow2(j * b, out.lN, s);

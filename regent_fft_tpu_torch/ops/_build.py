@@ -49,21 +49,19 @@ _SIGNATURES = {
     "a0fs_a": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P, _I, _IP, _P],
     "a0fs_b": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _F, _P, _I, _IP, _P],
     "fft_axis_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _F, _P, _I, _IP, _P],
-    "fft_axes2_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _F,
+    "fft_axes2_ring": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
                        _P, _I, _IP, _P, _I, _IP, _P],
+    "fft_axes2_ring_clusters": [_I, _I, _I, _I],
+    "fft_axis_ring_residency": [_I, _I, _IP],
     "fft_axis0": [_P, _P, _P, _P, _I, _L, _I, _F, _P, _I, _IP, _P],
     "fft_mm1": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P],
     "fft_mm2": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P],
 }
-# the bf16-plane (complex32) instances take the f32 entries' arguments ...
+# the bf16-plane (complex32) instances take the f32 entries' arguments
 _SIGNATURES.update({k + "_bf16": _SIGNATURES[k]
                     for k in ("fft_last", "fft_cols", "fft_fused2", "fft_gap",
-                              "a0fs_a", "a0fs_b", "fft_axis_ring")})
-# ... but the two-axis ring also takes its f32 scratch planes after the
-# output planes, and the count of its scratch plane pairs
-_SIGNATURES["fft_axes2_ring_bf16"] = (
-    _SIGNATURES["fft_axes2_ring"][:4] + [_P, _P, _L]
-    + _SIGNATURES["fft_axes2_ring"][4:])
+                              "a0fs_a", "a0fs_b", "fft_axis_ring",
+                              "fft_axes2_ring")})
 
 _LIB = None
 build_seconds = None   # wall time of this process's nvcc runs, if it ran them

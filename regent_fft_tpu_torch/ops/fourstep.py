@@ -18,8 +18,9 @@ wrapper (launch name)       replaces (pallas_stockham.py)       plain version
 
 The kernels are in ``csrc/stockham.cu`` (``fft_cols_tw_kernel``),
 ``csrc/fourstep.cu`` (``a0fs_a_kernel``, ``a0fs_b_kernel``) and
-``csrc/ring.cu`` (``fft_axis_ring_kernel``); their source notes say how
-each is bound and built.  The entries the plan steps call:
+``csrc/ring.cu`` (``fft_axis_ring_kernel``, ``fft_axes2_ring_kernel``);
+their source notes say how each is bound and built.  The entries the plan
+steps call:
 
 * :func:`fft_last_four_step` (step ``stockham4``): ``fft_cols_tw``, then
   ``fft_last`` with the norm scale, then the (b, n1, n2) -> (b, n2, n1)
@@ -43,13 +44,13 @@ f32: the four-step twiddle and the stage matrices are float64-generated and
 rounded once to f32, as in the JAX package (:func:`_a0fs_tw_mats`,
 :func:`_dft_mat` are exact copies).  On bf16 planes they compute in f32 and
 round where the TPU kernels round: each stage's output (the ring's bf16
-bodies are those of ``fft_cols``/``fft_fused2``).  The bf16 ring's
-``fuse_last`` mode keeps the plane between its two passes in f32, as the
-TPU kernel does in VMEM: one f32 scratch plane pair per resident block of
-its persistent grid (at most one block an SM), which the wrapper
-allocates.  The CUDA kernels run the shared butterfly tile instead of the
-dense stage products and form the twiddles on the write (see
-``csrc/fourstep.cu``).
+bodies are those of ``fft_cols``/``fft_fused2``).  The four-step CUDA
+kernels run the shared butterfly tile instead of the dense stage products
+and form the twiddles on the write (see ``csrc/fourstep.cu``).  The ring
+runs ``fft_cols``' register columns (axis mode) and ``fft_fused2``'s
+cluster-resident plane (``fuse_last``, the f32 intermediate on chip as
+the TPU kernel keeps it in VMEM), both fed by TMA bulk copies with
+mbarriers (see ``csrc/ring.cu``): it allocates nothing but the output.
 """
 from __future__ import annotations
 
@@ -241,39 +242,39 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
                   fuse_last: bool = False) -> Pair:
     """FFT along the middle axis of (pre, n, post) f32 or bf16 planes, or
     with ``fuse_last`` along both trailing axes of (pre, n1, n2) planes,
-    through a two-deep slab ring, scale fused.
+    through a ring of TMA bulk copies, scale fused.
 
     CUDA planes launch ``fft_axis_ring_kernel`` (counted as
-    ``fft_axis_ring``, or ``fft_axes2_ring`` with ``fuse_last``, with
-    ``_bf16`` for its bf16 instances; the bf16 ``fuse_last`` instance takes
-    min(pre, SM count) f32 scratch plane pairs, one per block of its grid);
-    CPU planes run :func:`fft_axis_ring_plain`.
-    Counterpart: ``pallas_stockham.py:1324``.
+    ``fft_axis_ring``: ``fft_cols``' register columns, the stages of
+    ``cols_stages``, tiles and ring depth of ``ring_geometry``) or with
+    ``fuse_last`` ``fft_axes2_ring_kernel`` (``fft_axes2_ring``: a
+    persistent cluster of ``fused2_cluster`` CTAs a plane, the stages of
+    ``fused2_stages``), with ``_bf16`` for their bf16 instances; nothing is
+    allocated but the output, and a launch the card refuses (no cluster
+    fits, a tensor map it will not encode) raises.  CPU planes run
+    :func:`fft_axis_ring_plain`.  Counterpart: ``pallas_stockham.py:1324``.
     """
     name = "fft_axes2_ring" if fuse_last else "fft_axis_ring"
     if not _sk._on_cuda(name, xr, xi, dtypes=tuple(_sk.C2C_DTYPES)):
         return fft_axis_ring_plain(xr, xi, sign, scale, fuse_last)
     pre, n, post = xr.shape
-    per = 16 // xr.element_size()      # elements per 16-byte copy
+    per = 16 // xr.element_size()      # elements per 16-byte row
     if post % per or xr.data_ptr() % 16 or xi.data_ptr() % 16:
-        raise ValueError(f"{name}: 16-byte copies need the last extent a "
+        raise ValueError(f"{name}: TMA copies need the last extent a "
                          f"multiple of {per} and 16-byte aligned planes")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr())
-    tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device)
     if fuse_last:
-        tw2, rad2, k2 = _sk.device_tables(post, sign, xr.device)
-        scratch = ()
-        if xr.dtype == torch.bfloat16:
-            nscr = min(pre, torch.cuda.get_device_properties(
-                xr.device).multi_processor_count)
-            mid = [torch.empty((nscr, n, post), dtype=torch.float32,
-                               device=xr.device) for _ in range(2)]
-            scratch = (mid[0].data_ptr(), mid[1].data_ptr(), nscr)
-        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, *scratch,
-                    pre, n, post, sign, float(scale), tw1.data_ptr(), k1,
-                    rad1, tw2.data_ptr(), k2, rad2)
+        c = _sk.fused2_cluster(n, post, pre, _sk._sm_count(xr.device))
+        tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device,
+                                          _sk.fused2_stages)
+        tw2, rad2, k2 = _sk.device_tables(post, sign, xr.device,
+                                          _sk.fused2_stages)
+        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n,
+                    post, c, sign, float(scale), tw1.data_ptr(), k1, rad1,
+                    tw2.data_ptr(), k2, rad2)
     else:
+        tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device, _sk.cols_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
                     sign, float(scale), tw1.data_ptr(), k1, rad1)
     return yr, yi
@@ -325,7 +326,8 @@ def fft_axis0_fourstep(xr, xi, axis: int, direction: Direction,
     the JAX package (its ``_plane_io(xr, r1)``).
 
     Counterpart: ``pallas_stockham.py:2020`` (its ring depth ``k`` is a
-    VMEM choice with no counterpart here; nor has the DMA ring's below).
+    VMEM choice with no counterpart here; the DMA ring below takes the
+    depth of :func:`~.stockham_kernels.ring_geometry`, not the caller's).
     """
     shape = tuple(xr.shape)
     axis = axis % len(shape)

@@ -38,10 +38,10 @@ raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
 ``LAUNCHES`` (all twenty-two).  Every two-axis kernel keeps the plane
 between its passes in f32, as the TPU kernels keep it in VMEM and the
-plain versions keep it: ``fft_fused2`` and the gap pass (both types, one
-kernel) in the distributed shared memory of a thread-block cluster that
-holds the whole plane (:func:`fused2_cluster`), the bf16 ring in f32
-scratch planes its wrapper allocates.
+plain versions keep it: ``fft_fused2``, the gap pass and the fuse_last
+ring (both types) in the distributed shared memory of a thread-block
+cluster that holds the whole plane (:func:`fused2_cluster`), so none
+allocates scratch.
 
 ``fft_axis0`` is the FFT along axis 0 of (n, V) f32 planes: the math of
 ``fft_cols`` with pre = 1, the scale fused as there (``_runner_axis0`` is
@@ -729,6 +729,113 @@ def cols_stages(n: int) -> Tuple[int, ...]:
     return last_stages(n)
 
 
+# The slab ring (csrc/ring.cu): 2-D TMA boxes of at most 256 rows, each
+# box's place in shared memory 128-byte aligned (the dynamic shared memory
+# is asked for 128 bytes more and aligned in the kernel), rows of at least
+# 16 bytes; the axis mode's ring at most RING_MAX_K slabs deep.
+TMA_BOX_MAX = 256
+TMA_MIN_ROW = 16
+SMEM_ALIGN = 128
+RING_MAX_K = 4
+RING_SMEM = SMEM_PER_CTA - 128 - SMEM_ALIGN   # beside barriers and slack
+F2_STAGES_BYTES = 4 * (2 + 3 * 12)           # one F2Stages (fused2.cuh)
+
+
+def _box_rows(n: int) -> int:
+    """Rows of a TMA box over an axis of n rows: the largest divisor of n
+    up to TMA_BOX_MAX (csrc/ring.cu, box_rows)."""
+    b = min(n, TMA_BOX_MAX)
+    while n % b:
+        b -= 1
+    return b
+
+
+def _round(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def _ring_depth(n: int, c: int, stages: int, es: int) -> int:
+    raw = _round(2 * es * n * c, 128)
+    xch = 8 * n * c if stages >= 2 else 0
+    return min(RING_MAX_K, max(0, RING_SMEM - xch) // raw)
+
+
+def ring_geometry(n: int, dtype=torch.float32) -> dict:
+    """The axis ring's instance for length n on planes of ``dtype``
+    (csrc/ring.cu, RingGeo): the column body of ``fft_cols`` (E values a
+    thread, the first radix, or twice it where the narrowest tile would
+    need more than 512 threads; n/E threads a column; the stages of
+    :func:`cols_stages`) on
+    tiles of C columns, the widest power of two up to 256 columns and 512
+    threads whose ring is at least 2 deep (else the narrowest with 16-byte
+    rows), K = ``depth`` slabs of ``raw_bytes`` (the (n, C) re and im tiles
+    as the TMA lands them, ``boxes`` boxes of ``box_rows`` rows each) beside
+    one f32 exchange buffer of ``exchange_bytes`` (none for one stage), K at
+    most RING_MAX_K; ``tx_bytes`` completes a slab's mbarrier."""
+    rad = cols_stages(n)
+    es = 2 if dtype == torch.bfloat16 else 4
+    e = rad[0] if n // rad[0] * (TMA_MIN_ROW // es) <= 512 else 2 * rad[0]
+    tpc = n // e
+    c = 256
+    while c > 1 and tpc * c > 512:
+        c //= 2
+    cmin = TMA_MIN_ROW // es
+    while c > cmin and _ring_depth(n, c, len(rad), es) < 2:
+        c //= 2
+    c = max(c, cmin)
+    raw = _round(2 * es * n * c, 128)
+    xch = 8 * n * c if len(rad) >= 2 else 0
+    k = _ring_depth(n, c, len(rad), es)
+    br = _box_rows(n)
+    return dict(E=e, C=c, threads=tpc * c, depth=k, box_rows=br,
+                boxes=n // br, raw_bytes=raw, exchange_bytes=xch,
+                smem_bytes=k * raw + xch + SMEM_ALIGN,
+                tx_bytes=2 * es * n * c)
+
+
+def axes2_ring_geometry(n1: int, n2: int, planes: int,
+                        dtype=torch.float32, sms: int = 132) -> dict:
+    """The fuse_last ring's geometry on ``planes`` (n1, n2) planes of
+    ``dtype`` (csrc/ring.cu, fft_axes2_ring_kernel): ``fft_fused2``'s cluster
+    of C = :func:`fused2_cluster` CTAs, the stripe of w = n2/C columns cut
+    into ``subslabs`` sub-slabs of ws columns (2; else 1, else 4: the first
+    whose ws makes a TMA box row, at most 256 elements, a multiple of 4
+    elements and of 16 bytes), each the TMA boxes (ws, ``box_rows``) of its own
+    mbarrier (``tx_bytes``), landing at ``copies``: (sub-slab, part, byte
+    offset in the aligned shared memory, bytes a box row, rows) per box;
+    bf16 lands in the upper half of its f32 place.  ``smem_bytes``:
+    dynamic, with the alignment slack; ``static_bytes``: the stage lists
+    and the mbarriers.  ``early``: the sub-slabs that lie below the rows,
+    whose next-plane copies go out after the gather."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    c = fused2_cluster(n1, n2, planes, sms)
+    w, h = n2 // c, n1 // c
+
+    def row_ok(ws):
+        return ws <= TMA_BOX_MAX and ws % 4 == 0 and ws * es % TMA_MIN_ROW == 0
+    sub = next((s_ for s_ in (2, 1, 4) if w % s_ == 0 and row_ok(w // s_)),
+               None)
+    if sub is None:
+        raise ValueError(f"fft_axes2_ring: no sub-slabs for w={w}")
+    ws = w // sub
+    nw = n1 * ws                       # words of a sub-slab's part
+    rb = h * n2 // 2
+    part = _round(rb + h * (n2 + n2 // 32), 32)
+    br = _box_rows(n1)
+    copies = []
+    for s_ in range(sub):
+        for p_ in range(2):
+            base = 4 * (p_ * part + s_ * nw) + (2 * nw if es == 2 else 0)
+            for k in range(n1 // br):
+                copies.append((s_, p_, base + k * br * ws * es, ws * es, br))
+    return dict(C=c, w=w, h=h, subslabs=sub, ws=ws, box_rows=br,
+                part_words=part, rows_word=rb,
+                smem_bytes=8 * part + SMEM_ALIGN,
+                static_bytes=2 * F2_STAGES_BYTES + 8 * sub,
+                tx_bytes=2 * nw * es, copies=copies,
+                early=[s_ for s_ in range(sub) if (s_ + 1) * nw <= rb])
+
+
 # The row kernel's blocks: at most LAST_BLOCK threads, whole rows of one
 # length (csrc/last.cuh, LastGeo); the real pair kernels take a pair of
 # rows where fft_last takes one.
@@ -876,6 +983,38 @@ def fused2_active_clusters(n1: int, n2: int, c: int, dtype=torch.float32,
     if got < 0:
         raise RuntimeError(f"fft_fused2_clusters: CUDA error {-got}")
     return got
+
+
+def axes2_ring_active_clusters(n1: int, n2: int, c: int,
+                               dtype=torch.float32) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the fuse_last ring's instance
+    for (n1, n2) planes of ``dtype`` in clusters of c CTAs: at most that
+    many clusters walk the planes (0: none fits, and the kernel refuses to
+    launch)."""
+    from . import _build
+    got = _build.load().fft_axes2_ring_clusters(n1, n2, c,
+                                                int(dtype == torch.bfloat16))
+    if got < 0:
+        raise RuntimeError(f"fft_axes2_ring_clusters: CUDA error {-got}")
+    return got
+
+
+def axis_ring_residency(n: int, dtype=torch.float32) -> dict:
+    """How the axis ring's instance for length n (planes of ``dtype``) sits
+    on the card: resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), columns a tile,
+    threads a block, registers a thread, shared bytes a block, ring depth
+    (compare :func:`ring_geometry`)."""
+    from . import _build
+    out = (ctypes.c_int * 6)()
+    err = _build.load().fft_axis_ring_residency(
+        n, int(dtype == torch.bfloat16), out)
+    if err:
+        raise RuntimeError(f"fft_axis_ring_residency(n={n}): CUDA error "
+                           f"{err}")
+    return dict(zip(("blocks_per_sm", "columns_per_block",
+                     "threads_per_block", "registers", "smem_bytes",
+                     "depth"), out))
 
 
 def last_residency(n: int, dtype=torch.float32) -> dict:

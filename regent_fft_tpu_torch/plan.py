@@ -570,24 +570,22 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
 def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     """The (length, stage-list function) pair of every twiddle table the
     kernels of a plan read, in step order, the real axis's last: a
-    ``stockham2`` or ``stockham_gap`` step's two axes take ``fused2_stages``
-    (both run the cluster kernel); ``fft_last`` (a
+    ``stockham2``, ``stockham_gap`` or ``fused2_ring`` step's two axes take
+    ``fused2_stages`` (all run the cluster body); ``fft_last`` (a
     ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
     ``stockham4`` step, the half-length core of the real ``half`` route)
     and the real row-pair kernels of the ``kernel`` route take
-    ``last_stages``; ``fft_cols`` and ``fft_axis0`` (every other
-    ``stockham`` step) ``cols_stages``; every other kernel
-    (``fft_cols_tw``, the ring and four-step passes) ``_kernel_stages``.
+    ``last_stages``; ``fft_cols``, ``fft_axis0`` (every other ``stockham``
+    step) and the axis ring (``dma_ring``) ``cols_stages``; every other
+    kernel (``fft_cols_tw``, the four-step passes) ``_kernel_stages``.
     ``ndim`` is the rank of the planes the steps transform."""
     ks, ls, fs2 = _sk._kernel_stages, _sk.last_stages, _sk.fused2_stages
     out = []
     for kind_, a, arg in steps:
         if kind_ not in KERNEL_STEPS:
             continue
-        if kind_ in ("stockham2", "stockham_gap"):
+        if kind_ in ("stockham2", "stockham_gap", "fused2_ring"):
             out += [(arg[0], fs2), (arg[1], fs2)]
-        elif kind_ == "fused2_ring":
-            out += [(arg[0], ks), (arg[1], ks)]
         elif kind_ == "stockham4":
             n1, n2 = _sk._four_step_split(arg)
             out += [(n1, ks), (n2, ls)]
@@ -595,7 +593,7 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
             out += [(r, ks) for r in _sk._a0fs_split(arg)]
         elif kind_ == "stockham" and a == ndim - 1 and ndim > 1:
             out.append((arg, ls))
-        elif kind_ == "stockham":
+        elif kind_ in ("stockham", "dma_ring"):
             out.append((arg, _sk.cols_stages))
         else:
             out.append((arg, ks))

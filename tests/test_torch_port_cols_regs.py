@@ -27,9 +27,9 @@ within ``PLAIN_LIMIT`` = 1e-3 of the plain version and of JAX (all compute
 in f32 and round the output to bf16 once), and within
 ``tolerance(n, "complex32")`` of float64.
 
-The instance table that csrc/cols.cu compiles (``COLS_CASE``: length, E,
-columns a block in f32 and in bf16, stage list) is read from the source and
-held against ``cols_stages``.
+The instance table that csrc/cols.cu compiles (``COLS_CASE`` in
+csrc/cols.cuh: length, E, columns a block in f32 and in bf16, stage list)
+is read from the source and held against ``cols_stages``.
 """
 import re
 from pathlib import Path
@@ -49,7 +49,7 @@ LENGTHS = [n for n in range(2, sk.MAX_STOCKHAM_N + 1)
 PLAIN_LIMIT = 1e-3
 SMEM_MAX = 232448
 COLS_CU = (Path(__file__).resolve().parent.parent
-           / "regent_fft_tpu_torch" / "csrc" / "cols.cu")
+           / "regent_fft_tpu_torch" / "csrc" / "cols.cuh")
 CASES = {int(m.group(1)): (int(m.group(2)), int(m.group(3)), int(m.group(4)),
                            tuple(int(v) for v in m.group(5).split(",")))
          for m in re.finditer(

@@ -53,7 +53,8 @@ PORT_TESTS = {
     "test_torch_port_gap.py", "test_torch_port_pallas_fft.py",
     "test_torch_port_precision.py", "test_torch_port_fused2_cluster.py",
     "test_torch_port_last_rows.py", "test_torch_port_gap_cluster.py",
-    "test_torch_port_cols_regs.py", "test_torch_port_real_rows.py"}
+    "test_torch_port_cols_regs.py", "test_torch_port_real_rows.py",
+    "test_torch_port_ring_tma.py"}
 
 
 def test_file_lists_cover_the_port():
@@ -67,7 +68,10 @@ def test_file_lists_cover_the_port():
 
 
 def test_no_source_file_names_jax():
+    """Nor do the port's chip scripts (scripts/torch_*.py)."""
     files = list((REPO / "regent_fft_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
+    assert REPO / "scripts" / "torch_ring_compare.py" in files
     for p in files + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():
             s = line.strip()

@@ -31,8 +31,9 @@ The stage lists and block size that csrc/last.cuh compiles (its
 against ``last_stages`` and ``LAST_BLOCK``; and the plans' table prefetch
 (``plan._kernel_lengths``) names ``last_stages`` for every step that runs
 ``fft_last`` or the real row-pair kernels, ``cols_stages`` for the mid-axis
-``stockham`` steps (``fft_cols``, ``fft_axis0``) and ``_kernel_stages`` for
-the ring, four-step and ``fft_cols_tw`` passes.
+``stockham`` steps (``fft_cols``, ``fft_axis0``) and the axis ring,
+``fused2_stages`` for both axes of the two-axis ring, and
+``_kernel_stages`` for the four-step and ``fft_cols_tw`` passes.
 """
 import re
 from pathlib import Path
@@ -347,17 +348,18 @@ def _tables(shape, axes, kind="c2c", **kw):
                                             (256, "last_stages")]),
     # axis 0 of a rank-2 f32 array: fft_axis0
     ((512, 4096), (0,), "c2c", [(512, "cols_stages")]),
-    # the ring and four-step routes (kind with the plan's route fields) keep
-    # the shared tile's tables; the leading axis after the two-axis ring
-    # runs fft_cols
+    # the ring and four-step routes (kind with the plan's route fields):
+    # the axis ring runs fft_cols' column body, the two-axis ring the
+    # cluster body (the leading axis after it runs fft_cols), the four-step
+    # stages keep the shared tile's tables
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "dma"}),
      [(512, "fused2_stages"), (512, "fused2_stages"),
-      (512, "_kernel_stages")]),
+      (512, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "fourstep"}),
      [(512, "fused2_stages"), (512, "fused2_stages"), (16, "_kernel_stages"),
       (32, "_kernel_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"f2_impl": "ring"}),
-     [(512, "_kernel_stages"), (512, "_kernel_stages"),
+     [(512, "fused2_stages"), (512, "fused2_stages"),
       (512, "cols_stages")]),
 ])
 def test_plans_prefetch_the_tables_their_kernels_read(shape, axes, kind,
