@@ -12,8 +12,9 @@ Phases (any failure raises and the script exits non-zero):
    kernel's four instances, fft_fused2's and the gap pass's in f32 and
    bf16, the matmul kernel, the 32 instances of fft_last's row kernel, the
    48 of fft_cols's column kernel, the 10 each of the real pair kernels
-   fft_last_r2c and ifft_last_c2r, on the same row body, and the slab
-   ring's 48 axis-mode and 6 fuse_last instances must spill nothing), the
+   fft_last_r2c and ifft_last_c2r, on the same row body, the slab ring's
+   48 axis-mode and 6 fuse_last instances, and the 21 of the four-step
+   column kernel, on fft_cols' column body, must spill nothing), the
    count of tensor-core instructions (HMMA/HGMMA, from ``cuobjdump -sass``
    of the library) in fft_mm1's and fft_mm2's kernel, which must not be 0,
    fft_fused2's, fft_gap's and the fuse_last ring's cluster size and
@@ -22,8 +23,9 @@ Phases (any failure raises and the script exits non-zero):
    fft_cols's and the axis ring's instances at every admitted length
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows or columns and
    threads a block, registers, shared bytes; the ring's depth, held
-   against ring_geometry), f32 and bf16, and of the real pair kernels'
-   (row pairs a block);
+   against ring_geometry), f32 and bf16, of the real pair kernels' (row
+   pairs a block) and of every four-step column instance (fft_cols_tw and
+   stage a's with the twiddle, stage b's);
 3. kernels: every length the C2C kernel gates admit (ragged batches and
    column counts, both signs; fft_last at B = 1, 37 and one row past a
    whole block, also against fft_last_plain) against torch.fft in
@@ -40,8 +42,13 @@ Phases (any failure raises and the script exits non-zero):
    every gated length (64..4096, axes 0 and 1) and the slab ring at all 24
    lengths of its instance table (ragged trailing extent) and all 93 pairs
    fused2_ring_supported admits, both signs, against torch.fft in float64
-   and fft_axis_ring_plain; fft_fused2 at all 113 pairs
-   ``fused2_supported`` admits, also against its plain version; the three
+   and fft_axis_ring_plain; the four-step kernels against their plain
+   versions on the card: fft_cols_tw at every n1 of the four-step last
+   axis (the split's n2 and a ragged n2 below one tile, batch 3), the a0fs
+   stages (f32 and bf16) at every (r1, r2) split of n = 64..4096 (pre 1,
+   post 1024 and a ragged pre 2, post 37), both signs; fft_fused2 at all
+   113 pairs ``fused2_supported`` admits, also against its plain version;
+   the three
    C2C kernels on bf16 planes (complex32) at every length of the C2C sweep
    and every fused2 pair (odd batches, both signs), each against its plain
    version (within
@@ -167,7 +174,7 @@ KERNELS = {   # name: (replaces, source)
     "fft_fused2": (f"{PS}:875 (_runner_fused2)", STOCKHAM_CU),
     "fft_last_r2c": (f"{PS}:2395 (_runner_last_r2c)", REAL_CU),
     "ifft_last_c2r": (f"{PS}:2521 (_runner_last_c2r)", REAL_CU),
-    "fft_cols_tw": (f"{PS}:1010 (_runner_cols_tw)", STOCKHAM_CU),
+    "fft_cols_tw": (f"{PS}:1010 (_runner_cols_tw)", FOURSTEP_CU),
     "a0fs_a": (f"{PS}:1843 (_runner_a0fs, stage a)", FOURSTEP_CU),
     "a0fs_b": (f"{PS}:1843 (_runner_a0fs, stage b)", FOURSTEP_CU),
     "fft_axis_ring": (f"{PS}:1324 (_runner_axis0_dma)", RING_CU),
@@ -483,6 +490,21 @@ def main() -> int:
             raise AssertionError(f"{kname} ptxas: {lines}")
         print(f"ptxas {kname}: {len(lines)} instances, 0 spill bytes in "
               f"each")
+    # the four-step column kernel: f32 with the twiddle at every power of
+    # two 8..MAX_STOCKHAM_N (fft_cols_tw's n1, stage a's r1), and bf16 with
+    # it and both types without it (stage b) at 8..64; none may spill
+    fs_inst = [(n, dt, tw) for n in (1 << k for k in range(3, 12))
+               for dt in (torch.float32, torch.bfloat16)
+               for tw in (True, False)
+               if n <= 64 or (dt == torch.float32 and tw)]
+    fs_ptxas = [ln for ln in _ptxas(_build.build_log)
+                if "fft_cols_fs_kernel" in ln.split(":")[0]]
+    if len(fs_ptxas) != len(fs_inst) or not all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in fs_ptxas):
+        raise AssertionError(f"fft_cols_fs_kernel ptxas: {fs_ptxas}")
+    print(f"ptxas fft_cols_fs_kernel: {len(fs_ptxas)} instances, 0 spill "
+          f"bytes in each")
     tensor_ops = _tensor_ops(str(_build.library_path()))
     hmma = {}
     for kname, tag in (("fft_mm1", "fft_mm_kernelILb0E"),
@@ -583,6 +605,20 @@ def main() -> int:
                           f"shared" for k, r in res.items()))
         if min(r["blocks_per_sm"] for r in res.values()) < 1:
             raise AssertionError(f"fft_cols n={n}: no block fits an SM")
+    # and the four-step column kernel's: resident blocks an SM, columns and
+    # threads a block, registers a thread, shared bytes a block
+    for n in sorted({n for n, _, _ in fs_inst}):
+        res = {f"{str(dt)[6:]} {'twiddle' if tw else 'stage b'}":
+               sk.fourstep_residency(n, dt, tw)
+               for m, dt, tw in fs_inst if m == n}
+        print(f"fft_cols_fs residency n={n} stages {sk.cols_stages(n)}: "
+              + "; ".join(f"{k} {r['blocks_per_sm']} blocks/SM x "
+                          f"{r['columns_per_block']} columns "
+                          f"({r['threads_per_block']} threads), "
+                          f"{r['registers']} registers, {r['smem_bytes']} B "
+                          f"shared" for k, r in res.items()))
+        if min(r["blocks_per_sm"] for r in res.values()) < 1:
+            raise AssertionError(f"fft_cols_fs n={n}: no block fits an SM")
     # and the real pair kernels': resident blocks an SM, row pairs and
     # threads a block, registers a thread, shared bytes a block
     for n in real_lengths:
@@ -883,6 +919,52 @@ def main() -> int:
     print(f"sweep: {len(fs_lengths)} four-step lengths 4096..2^21, batch 3, "
           f"both signs: worst rel_l2 vs torch.fft {worst:.3e}")
 
+    # the four-step kernels against their plain versions: fft_cols_tw at
+    # every n1 of those lengths (the split's n2, and a ragged n2 below one
+    # tile), the a0fs stages at every split of n = 64..4096 (pre 1 with
+    # post 1024, and a ragged pre 2 with post 37; stage b on the plain stage
+    # a's output), f32 and bf16, both signs
+    a0_lengths = [1 << k for k in range(6, 13)]
+    fs_cases = {}
+
+    def fs_plain(kname, kern, plain, lim):
+        e = dev_rel(cplx(*kern()), cplx(*plain()))
+        w = fs_cases.setdefault(kname, [0.0, 0])
+        w[:] = max(w[0], e), w[1] + 1
+        if not e <= lim:
+            raise AssertionError(f"{kname}: rel_l2 vs plain {e} > {lim}")
+
+    for n in fs_lengths:
+        n1, n2 = sk._four_step_split(n)
+        cols = sk.fourstep_residency(n1)["columns_per_block"]
+        for shape in ((3, n1, n2), (3, n1, cols // 2)):
+            xr, xi = planes(shape)
+            for sign in (-1, 1):
+                fs_plain("fft_cols_tw",
+                         lambda: fs.fft_cols_tw(xr, xi, sign),
+                         lambda: fs.fft_cols_tw_plain(xr, xi, sign),
+                         tolerance(n1 * shape[2]))
+    for n in a0_lengths:
+        for dt in (torch.float32, torch.bfloat16):
+            sfx = sk.C2C_DTYPES[dt]
+            lim = PLAIN_LIMIT["a0fs_a_bf16"] if sfx else tolerance(n)
+            for pre, post in ((1, 1024), (2, 37)):
+                xr, xi = (t.to(dt) for t in planes((pre, n, post)))
+                for sign in (-1, 1):
+                    mid = fs.a0fs_stage_plain("a", xr, xi, sign)
+                    fs_plain("a0fs_a" + sfx,
+                             lambda: fs.a0fs_stage("a", xr, xi, sign),
+                             lambda: mid, lim)
+                    fs_plain("a0fs_b" + sfx,
+                             lambda: fs.a0fs_stage("b", *mid, sign, 0.5),
+                             lambda: fs.a0fs_stage_plain("b", *mid, sign,
+                                                         0.5), lim)
+    print("sweep: the four-step kernels against their plain versions "
+          "(fft_cols_tw every n1, the split's and a ragged n2; a0fs every "
+          "split of 64..4096, post 1024 and a ragged 37; both signs): "
+          + ", ".join(f"{k} {c} cases worst {w:.3e}"
+                      for k, (w, c) in fs_cases.items()))
+
     # the leading-axis four-step at every gated length; the ring at every
     # length of its instance table (fft_cols': trailing extent ragged
     # against the tile) and all 93 ring pairs, both signs, against
@@ -890,7 +972,6 @@ def main() -> int:
     def on_axis(fn, axis):
         return lambda xr, xi, s, sc: fn(xr, xi, axis, rt.Direction(s), sc)
 
-    a0_lengths = [1 << k for k in range(6, 13)]
     worst = 0.0
     for n in a0_lengths:
         for sign in (-1, 1):

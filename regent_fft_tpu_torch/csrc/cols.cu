@@ -126,16 +126,12 @@ fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // Launch the instance on P (n, V) planes; the host's stage list must be the
 // instance's (the C-side check of cols_stages).
 template <typename T, int N, int E, int CF, int CB, int... R>
-cudaError_t launch_cols_list(ColsList<N, E, CF, CB, R...>, const T* xr,
-                             const T* xi, T* yr, T* yi, long long P,
-                             long long V, int sign, float scale,
+cudaError_t launch_cols_list(ColsList<N, E, CF, CB, R...> list,
+                             const T* xr, const T* xi, T* yr, T* yi,
+                             long long P, long long V, int sign, float scale,
                              const float2* tw, int nstages,
                              const int* radices, void* stream) {
-  constexpr int S = sizeof...(R);
-  constexpr int rad[S] = {R...};
-  if (nstages != S) return cudaErrorInvalidValue;
-  for (int i = 0; i < S; ++i)
-    if (radices[i] != rad[i]) return cudaErrorInvalidValue;
+  if (!cols_list_ok(list, nstages, radices)) return cudaErrorInvalidValue;
   if (P <= 0 || V <= 0) return cudaSuccess;
   using G = ColsGeoOf<T, N, E, CF, CB, R...>;
   const long long ntiles = (V + G::C - 1) / G::C;
@@ -160,27 +156,12 @@ cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
   });
 }
 
-// The residency of the instance: out = {resident blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), columns a block, threads
-// a block, registers a thread, shared bytes a block}.
+// The residency of the instance (cols_residency_of).
 template <typename T, int N, int E, int CF, int CB, int... R>
 cudaError_t cols_residency_list(ColsList<N, E, CF, CB, R...>, int* out) {
   using G = ColsGeoOf<T, N, E, CF, CB, R...>;
-  const void* fn = (const void*)fft_cols_kernel<T, G, R...>;
-  cudaError_t e = set_smem(fn, G::SMEM);
-  cudaFuncAttributes attr;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, G::THREADS,
-                                                      G::SMEM);
-  if (e != cudaSuccess) return e;
-  out[0] = blocks;
-  out[1] = G::C;
-  out[2] = G::THREADS;
-  out[3] = attr.numRegs;
-  out[4] = (int)G::SMEM;
-  return cudaSuccess;
+  return cols_residency_of((const void*)fft_cols_kernel<T, G, R...>,
+                           G::THREADS, G::C, G::SMEM, out);
 }
 
 }  // namespace

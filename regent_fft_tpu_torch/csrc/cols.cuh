@@ -1,14 +1,19 @@
 // The register-resident column body of the mid-axis kernels for Hopper
-// (sm_90a): fft_cols_kernel (cols.cu: fft_cols, fft_cols_bf16, fft_axis0)
-// and fft_axis_ring_kernel (ring.cu: the slab ring's axis mode).  A column
-// of N points is held by TPC = N / E threads of E values each, a block
-// takes C neighbouring columns (thread t: column t % C, lane t / C), and
-// the stages of the list run as straight-line code with one shared-memory
-// exchange between stages (cols.cu's note gives the design).  The IO type
-// fixes where stage 0 reads: device memory (ColsIO) or, for the ring, a
-// slab that bulk copies landed in shared memory.  Here: the geometry
-// (ColsGeo), the stage recursion (cols_stage) and the instance table
-// (COLS_CASE, with_cols_list).  Included after stockham_tile.cuh and
+// (sm_90a): fft_cols_kernel (cols.cu: fft_cols, fft_cols_bf16, fft_axis0),
+// fft_axis_ring_kernel (ring.cu: the slab ring's axis mode) and
+// fft_cols_fs_kernel (fourstep.cu: fft_cols_tw and the leading-axis
+// four-step stages).  A column of N points is held by TPC = N / E threads
+// of E values each, a block takes C neighbouring columns (thread t: column
+// t % C, lane t / C), and the stages of the list run as straight-line code
+// with one shared-memory exchange between stages (cols.cu's note gives the
+// design).  The IO type fixes where stage 0 reads (device memory, or with
+// IO::RING a slab that bulk copies landed in shared memory) and where the
+// last stage writes (the input's layout times the scale, or with IO::STORE
+// where io.store places it: FsIO, the four-step kernels' own offset, row
+// stride and twiddle).  Here: the geometry (ColsGeo), the IO types, the
+// stage recursion (cols_stage), the instance table (COLS_CASE,
+// with_cols_list) and the host-side list check and residency query every
+// column kernel's launcher shares.  Included after stockham_tile.cuh and
 // radix.cuh; internal linkage, as they.
 
 #pragma once
@@ -65,6 +70,7 @@ template <typename T>
 struct ColsIO {
   using Elem = T;
   static constexpr bool RING = false;   // stage 0 reads device memory
+  static constexpr bool STORE = false;  // element k goes to off + k*ld
   const T* xr;
   const T* xi;
   T* yr;
@@ -81,14 +87,47 @@ struct ColsIO {
   float scale;
 };
 
+// The store policy of the four-step kernels (fourstep.cu): the last stage
+// writes output element k of the thread's column to ooff + k*old, either
+// times the four-step twiddle W_N^{k*tb}, N = 2 / step a power of two (TW;
+// no scale), or times the scale.  The twiddle is formed from the exact
+// integer phase k*tb < N <= 2^24: (float)(k*tb) * step is exact, so the
+// only rounding is sincospif's own; no table, no recurrence.  A bf16 output
+// is rounded once, after the twiddle or the scale.
+template <typename T, bool TW>
+struct FsIO : ColsIO<T> {
+  static constexpr bool STORE = true;
+  size_t ooff;   // output element 0 of the column
+  size_t old;    // output row stride
+  int tb;        // TW: the column's phase step
+  float step;    // TW: 2 / N
+  __device__ __forceinline__ void store(int k, float re, float im) const {
+    if constexpr (TW) {
+      float sn, cs;
+      sincospif((float)(k * tb) * step, &sn, &cs);
+      sn *= this->s;
+      const float t = re;
+      re = fmaf(t, cs, -im * sn);
+      im = fmaf(t, sn, im * cs);
+    } else {
+      re *= this->scale;
+      im *= this->scale;
+    }
+    const size_t o = ooff + (size_t)k * old;
+    this->yr[o] = from_f32<T>(re);
+    this->yi[o] = from_f32<T>(im);
+  }
+};
+
 // Stage ST of the list (radix R, Ns = NS, its twiddles at TWOFF), then the
 // stages REST.  Butterfly j < M = N/R reads element j + r*M of the column
 // (at stage 0 device memory, or with IO::RING the slab the ring landed in
 // shared memory, element x of column c at x*C + c; shared buffer
 // (ST-1) % BUFS after), twiddles by table entry TWOFF + (r-1)*NS + j%NS,
 // runs an R-point DFT and writes (j - j%NS)*R + j%NS + r*NS (shared buffer
-// ST % BUFS, or device memory with the scale at the last stage, where that
-// is j + r*NS).  With IO::RING, io.release() follows stage 0's reads (the
+// ST % BUFS, or device memory at the last stage, where that is j + r*NS:
+// at off + (j + r*NS)*ld with the scale, or with IO::STORE as io.store
+// places it).  With IO::RING, io.release() follows stage 0's reads (the
 // slab is free then), io.refill() follows them in a one-stage list and
 // opens stage 1 otherwise (where no butterfly values are live), and stage
 // 0 waits at a block barrier before it writes the exchange buffer, which
@@ -151,9 +190,13 @@ __device__ __forceinline__ void cols_stage(const IO& io) {
         if (EXACT || j < M) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            const size_t o = io.off + (size_t)(j + r * NS) * io.ld;
-            io.yr[o] = from_f32<T>(vr[b][r] * io.scale);
-            io.yi[o] = from_f32<T>(vi[b][r] * io.scale);
+            if constexpr (IO::STORE) {
+              io.store(j + r * NS, vr[b][r], vi[b][r]);
+            } else {
+              const size_t o = io.off + (size_t)(j + r * NS) * io.ld;
+              io.yr[o] = from_f32<T>(vr[b][r] * io.scale);
+              io.yi[o] = from_f32<T>(vi[b][r] * io.scale);
+            }
           }
         }
       }
@@ -187,6 +230,48 @@ struct ColsList {};
 
 template <typename T, int N, int E, int CF, int CB, int... R>
 using ColsGeoOf = ColsGeo<N, E, sizeof(T) == 4 ? CF : CB, sizeof...(R)>;
+
+template <class L>
+struct ColsLen;
+template <int N, int E, int CF, int CB, int... R>
+struct ColsLen<ColsList<N, E, CF, CB, R...>> {
+  static constexpr int value = N;
+};
+
+// Is the host's stage list the instance's?  (The C-side check of
+// cols_stages.)
+template <int N, int E, int CF, int CB, int... R>
+bool cols_list_ok(ColsList<N, E, CF, CB, R...>, int nstages,
+                  const int* radices) {
+  constexpr int S = sizeof...(R);
+  constexpr int rad[S] = {R...};
+  if (nstages != S) return false;
+  for (int i = 0; i < S; ++i)
+    if (radices[i] != rad[i]) return false;
+  return true;
+}
+
+// The residency of a column kernel `fn` launched with `threads` threads,
+// `cols` columns a block and `smem` shared bytes: out = {resident blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), columns a block,
+// threads a block, registers a thread, shared bytes a block}.
+cudaError_t cols_residency_of(const void* fn, int threads, int cols,
+                              size_t smem, int* out) {
+  cudaError_t e = set_smem(fn, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  out[0] = blocks;
+  out[1] = cols;
+  out[2] = threads;
+  out[3] = attr.numRegs;
+  out[4] = (int)smem;
+  return cudaSuccess;
+}
 
 // Calls f(ColsList<n, ...>{}) for the instance of length n, the lengths
 // kernel_len_ok(n, last=False) admits up to MAX_STOCKHAM_N with their

@@ -305,6 +305,7 @@ template <typename T, class G>
 struct RingIO {
   using Elem = T;
   static constexpr bool RING = true;
+  static constexpr bool STORE = false;
   const T* lr;
   const T* li;
   T* yr;
@@ -423,16 +424,12 @@ using RingGeoOf =
 // Launch the instance on (pre, N, V) planes; the host's stage list must be
 // the instance's (cols_stages).
 template <typename T, int N, int E, int CF, int CB, int... R>
-cudaError_t launch_axis_list(ColsList<N, E, CF, CB, R...>, const T* xr,
-                             const T* xi, T* yr, T* yi, long long pre,
-                             long long V, int sign, float scale,
-                             const float2* tw, int nstages, const int* radices,
-                             void* stream) {
-  constexpr int S = sizeof...(R);
-  constexpr int rad[S] = {R...};
-  if (nstages != S) return cudaErrorInvalidValue;
-  for (int i = 0; i < S; ++i)
-    if (radices[i] != rad[i]) return cudaErrorInvalidValue;
+cudaError_t launch_axis_list(ColsList<N, E, CF, CB, R...> list,
+                             const T* xr, const T* xi, T* yr, T* yi,
+                             long long pre, long long V, int sign,
+                             float scale, const float2* tw, int nstages,
+                             const int* radices, void* stream) {
+  if (!cols_list_ok(list, nstages, radices)) return cudaErrorInvalidValue;
   if (V % (16 / (long long)sizeof(T)) || pre * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (pre <= 0 || V <= 0) return cudaSuccess;
@@ -775,8 +772,8 @@ int axes2_ring(const T* xr, const T* xi, T* yr, T* yi, long long P, int n1,
                int nstages1, const int* radices1, const float2* tw2,
                int nstages2, const int* radices2, void* stream) {
   StagePlan p1, p2;
-  if (make_plan(n1, nstages1, radices1, &p1, true)
-      || make_plan(n2, nstages2, radices2, &p2, true) || C < 1 || n2 % C)
+  if (make_plan(n1, nstages1, radices1, &p1)
+      || make_plan(n2, nstages2, radices2, &p2) || C < 1 || n2 % C)
     return cudaErrorInvalidValue;
   const float s = (float)sign;
   return with_subslabs<T>(n2 / C, [&](auto sub) {

@@ -1,20 +1,18 @@
 // Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
-// planes: f32 (complex64) or bf16 (complex32).  The shared tile (fft_tile,
-// cols_pass) is in stockham_tile.cuh; the kernels here differ
-// only in how they address global memory, but for fft_fused2_kernel (a
-// thread-block cluster a plane, also the gap pass's strided plane, below)
-// and fft_last_kernel (rows held in registers, the row body of last.cuh,
-// which real.cu's pair kernels share), which run butterflies of their own:
+// planes: f32 (complex64) or bf16 (complex32).  fft_fused2_kernel runs a
+// thread-block cluster a plane (also the gap pass's strided plane, below;
+// its body is fused2.cuh) and fft_last_kernel holds rows in registers (the
+// row body of last.cuh, which real.cu's pair kernels share):
 //
 //   fft_last_kernel<T,n,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
-//   fft_cols_tw_kernel    replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols_tw
 //   fft_fused2_kernel<T,false> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
 //   fft_fused2_kernel<T,true>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2_gap
 //
 // Each computes one DFT along an axis (two for fused2 and gap) with the norm
-// scale (or, for fft_cols_tw, the four-step twiddle) fused into the final
-// write.  The mid-axis pass (fft_cols, fft_cols_bf16, fft_axis0) is
-// cols.cu's fft_cols_kernel, a source of its own so that its instances
+// scale fused into the final write.  The mid-axis pass (fft_cols,
+// fft_cols_bf16, fft_axis0) is cols.cu's fft_cols_kernel and the four-step
+// column passes (fft_cols_tw, the a0fs stages) fourstep.cu's instances of
+// the same column body, sources of their own so that their instances
 // compile beside these.
 //
 // The bf16 instances (C entries fft_last_bf16,
@@ -53,33 +51,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-// --------------------------------------------------------------------------
-// fft_cols_tw_kernel — replaces pallas_stockham.py:_runner_cols_tw, the first
-// pass of the large-last-axis four-step: over (b, n1, n2) planes (a last axis
-// of length N = n1 * n2 viewed as rows of n2), the n1-point FFT along the
-// middle axis, then the twiddle W_N^{k1 * j2} on the write.
-// Bound on H100: bytes (16 B per complex element, one pass; ~5*log2(n1) + 6
-// flops and one sincospif per element, far below the FP32 ridge).  Design:
-// the shared tile's column pass (cols_pass); the twiddle is formed in the write from the
-// exact integer phase index k1 * j2 < N <= 2^21 (no table, no f32 product
-// k1 * j2 / N as on the TPU), so it costs no device-memory traffic.
-// --------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS, 2)
-fft_cols_tw_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                   float* __restrict__ yr, float* __restrict__ yi, int V,
-                   int ntiles, StagePlan p, const float2* __restrict__ tw,
-                   float s, int lN) {
-  extern __shared__ float smem[];
-  const Geo g = cols_geo(p.n);
-  float* sr = smem;
-  float* si = smem + p.n * g.nt;
-  const long long pre = blockIdx.x / ntiles;
-  const int c0 = (blockIdx.x % ntiles) * g.nt;
-  const size_t base = (size_t)pre * p.n * V;
-  cols_pass(xr + base, xi + base, yr + base, yi + base, c0, V, p, tw, s,
-            1.0f, sr, si, ColsOut{V, lN, 1});
-}
 
 // --------------------------------------------------------------------------
 // fft_fused2_kernel — replaces pallas_stockham.py:_runner_fused2 (FFT along
@@ -369,8 +340,8 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
                           const float2* tw2, int nstages2, const int* radices2,
                           void* stream) {
   StagePlan p1, p2;
-  if (make_plan(n1, nstages1, radices1, &p1, true)
-      || make_plan(n2, nstages2, radices2, &p2, true))
+  if (make_plan(n1, nstages1, radices1, &p1)
+      || make_plan(n2, nstages2, radices2, &p2))
     return cudaErrorInvalidValue;
   const size_t smem = fused2_smem(n1, n2, C);
   if (!smem || Y < 1 || (long long)Y * n2 > 0x7fffffffLL
@@ -432,29 +403,6 @@ int fft_last_residency(int n, int bf16, int* out) {
     return bf16 ? last_residency_list<__nv_bfloat16>(list, out)
                 : last_residency_list<float>(list, out);
   });
-}
-
-// Four-step first pass over (P, n1, n2) f32 planes: n1-point FFT along the
-// middle axis times W_{n1*n2}^{k1*j2}; n1 * n2 a power of two <= 2^24.
-int fft_cols_tw(const float* xr, const float* xi, float* yr, float* yi,
-                long long P, int n1, int n2, int sign, const float2* tw,
-                int nstages, const int* radices, void* stream) {
-  StagePlan p;
-  if (make_plan(n1, nstages, radices, &p)) return cudaErrorInvalidValue;
-  const long long big_n = (long long)n1 * n2;
-  if (n2 < 1 || big_n > (1 << 24) || (big_n & (big_n - 1)))
-    return cudaErrorInvalidValue;
-  if (P <= 0) return cudaSuccess;
-  const size_t smem = cols_smem_bytes(n1);
-  cudaError_t e = set_smem((const void*)fft_cols_tw_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const int nt = cols_geo(n1).nt;
-  const int ntiles = (n2 + nt - 1) / nt;
-  fft_cols_tw_kernel<<<(unsigned)(P * ntiles), THREADS, smem,
-                       (cudaStream_t)stream>>>(xr, xi, yr, yi, n2, ntiles, p,
-                                               tw, (float)sign,
-                                               ilog2((int)big_n));
-  return cudaGetLastError();
 }
 
 // FFT along both trailing axes of (P, n1, n2) f32 planes, one plane per

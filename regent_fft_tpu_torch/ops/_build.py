@@ -41,6 +41,7 @@ _SIGNATURES = {
     "fft_last_residency": [_I, _I, _IP],
     "fft_last_real_residency": [_I, _I, _IP],
     "fft_cols_residency": [_I, _I, _IP],
+    "fft_cols_fs_residency": [_I, _I, _I, _IP],
     "fft_gap": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
                 _P, _I, _IP, _P, _I, _IP, _P],
     "fft_last_r2c": [_P, _P, _P, _L, _I, _I, _F, _P, _I, _IP, _P],

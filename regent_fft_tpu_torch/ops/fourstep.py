@@ -16,8 +16,9 @@ wrapper (launch name)       replaces (pallas_stockham.py)       plain version
 ``fft_axes2_ring``)         and its ``fuse_last`` mode
 ==========================  ==================================  ======================
 
-The kernels are in ``csrc/stockham.cu`` (``fft_cols_tw_kernel``),
-``csrc/fourstep.cu`` (``a0fs_a_kernel``, ``a0fs_b_kernel``) and
+The kernels are in ``csrc/fourstep.cu`` (``fft_cols_fs_kernel``: the
+twiddle pass and both a0fs stages, instances of ``fft_cols``' register
+column body in ``csrc/cols.cuh`` with a store policy of their own) and
 ``csrc/ring.cu`` (``fft_axis_ring_kernel``, ``fft_axes2_ring_kernel``);
 their source notes say how each is bound and built.  The entries the plan
 steps call:
@@ -45,8 +46,10 @@ rounded once to f32, as in the JAX package (:func:`_a0fs_tw_mats`,
 :func:`_dft_mat` are exact copies).  On bf16 planes they compute in f32 and
 round where the TPU kernels round: each stage's output (the ring's bf16
 bodies are those of ``fft_cols``/``fft_fused2``).  The four-step CUDA
-kernels run the shared butterfly tile instead of the dense stage products
-and form the twiddles on the write (see ``csrc/fourstep.cu``).  The ring
+kernels hold columns in registers and run the butterflies of
+``cols_stages`` instead of the dense stage products, writing each output
+element once, in the stage's layout, with the twiddle formed from its
+exact integer phase (see ``csrc/fourstep.cu``).  The ring
 runs ``fft_cols``' register columns (axis mode) and ``fft_fused2``'s
 cluster-resident plane (``fuse_last``, the f32 intermediate on chip as
 the TPU kernel keeps it in VMEM), both fed by TMA bulk copies with
@@ -196,15 +199,16 @@ def fft_cols_tw(xr, xi, sign: int) -> Pair:
     """n1-point FFT along the middle axis of (b, n1, n2) f32 planes times
     W_{n1*n2}^{k1*j2} (n1*n2 a power of two).
 
-    CUDA planes launch ``fft_cols_tw_kernel``; CPU planes run
-    :func:`fft_cols_tw_plain`.  Counterpart: ``pallas_stockham.py:1010``.
+    CUDA planes launch ``fft_cols_fs_kernel`` (the stages of
+    ``cols_stages``); CPU planes run :func:`fft_cols_tw_plain`.
+    Counterpart: ``pallas_stockham.py:1010``.
     """
     if not _sk._on_cuda("fft_cols_tw", xr, xi):
         return fft_cols_tw_plain(xr, xi, sign)
     from . import _build
     b, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = _sk.device_tables(n1, sign, xr.device)
+    tw, rad, k = _sk.device_tables(n1, sign, xr.device, _sk.cols_stages)
     _sk._launch("fft_cols_tw", _build.load().fft_cols_tw, xr.device,
                 xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
                 b, n1, n2, sign, tw.data_ptr(), k, rad)
@@ -215,9 +219,10 @@ def a0fs_stage(stage: str, xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """One stage of the leading-axis four-step over (pre, n, post) f32 or
     bf16 planes (see :func:`a0fs_stage_plain`); the scale rides stage b.
 
-    CUDA planes launch ``a0fs_a_kernel`` or ``a0fs_b_kernel`` (counted as
-    ``a0fs_a``/``a0fs_b``, with ``_bf16`` for their bf16 instances); CPU
-    planes run :func:`a0fs_stage_plain`.
+    CUDA planes launch ``fft_cols_fs_kernel``'s instance of length r1
+    (stage a, with the twiddle) or r2 (stage b), the stages of
+    ``cols_stages`` (counted as ``a0fs_a``/``a0fs_b``, with ``_bf16`` for
+    their bf16 instances); CPU planes run :func:`a0fs_stage_plain`.
     Counterpart: ``pallas_stockham.py:1843``.
     """
     name = _a0fs_launch_name(stage, scale)
@@ -228,11 +233,11 @@ def a0fs_stage(stage: str, xr, xi, sign: int, scale: float = 1.0) -> Pair:
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr())
     if stage == "a":
-        tw, rad, k = _sk.device_tables(r1, sign, xr.device)
+        tw, rad, k = _sk.device_tables(r1, sign, xr.device, _sk.cols_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
                     post, sign, tw.data_ptr(), k, rad)
     else:
-        tw, rad, k = _sk.device_tables(r2, sign, xr.device)
+        tw, rad, k = _sk.device_tables(r2, sign, xr.device, _sk.cols_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
                     post, sign, float(scale), tw.data_ptr(), k, rad)
     return yr, yi

@@ -65,12 +65,13 @@ round the scaled output to bf16 once.  The gap-fused pass runs
 at full f32.  The kernels compute the same DFT with FFMA butterflies all
 the way down, for both block types (see the source notes in
 ``csrc/stockham.cu``), from their own float64-generated tables
-(:func:`_stage_tables`) of their stage lists: :func:`_kernel_stages` for
-the shared tile, :func:`fused2_stages` for the cluster kernel of
-``fft_fused2``, :func:`last_stages` for the register-resident rows of
-``fft_last`` and of the real pair kernels ``fft_last_r2c`` and
-``ifft_last_c2r`` (one row body, ``csrc/last.cuh``), :func:`cols_stages`
-for the register-resident columns of ``fft_cols`` and ``fft_axis0``.
+(:func:`_stage_tables`) of their stage lists: :func:`fused2_stages` for
+the cluster kernel of ``fft_fused2``, :func:`last_stages` for the
+register-resident rows of ``fft_last`` and of the real pair kernels
+``fft_last_r2c`` and ``ifft_last_c2r`` (one row body, ``csrc/last.cuh``),
+:func:`cols_stages` for the register-resident columns of ``fft_cols``,
+``fft_axis0``, the axis ring and the four-step passes (one column body,
+``csrc/cols.cuh``).
 
 The gates (``kernel_len_ok``, ``fused2_supported``,
 ``fused_gap_supported``, the ``r2c_*`` gates, the four-step and ring
@@ -669,18 +670,6 @@ def _odd_pow2(n: int) -> Tuple[int, int]:
     return odd, k
 
 
-def _kernel_stages(n: int) -> Tuple[int, ...]:
-    """Butterfly radices of the CUDA tile for length n = odd * 2**k:
-    one radix-2 stage when k is odd, radix-4 stages for the rest of the
-    power of two, and the odd factor (3, 5 or 7) last, so that every
-    stage's Ns (product of the radices before it) is a power of two."""
-    odd, k = _odd_pow2(n)
-    radices = [2] * (k % 2) + [4] * (k // 2)
-    if odd > 1:
-        radices.append(odd)
-    return tuple(radices)
-
-
 def fused2_stages(n: int) -> Tuple[int, ...]:
     """Butterfly radices of the cluster kernel ``fft_fused2`` for length
     n = odd * 2**k: the fewest stages of radix 8 or 4 (ceil(k/3) of them,
@@ -688,7 +677,7 @@ def fused2_stages(n: int) -> Tuple[int, ...]:
     or 7), so that every stage's Ns is a power of two.  A thread keeps
     whole radix-8 butterflies in registers, so a 512-point axis takes
     three shared-memory exchanges (8, 8, 8) instead of the five of
-    :func:`_kernel_stages`."""
+    radix-4 stages."""
     odd, k = _odd_pow2(n)
     s = -(-k // 3)
     radices = [1 << (k // s + (i < k % s)) for i in range(s)]
@@ -717,15 +706,17 @@ def last_stages(n: int) -> Tuple[int, ...]:
 
 def cols_stages(n: int) -> Tuple[int, ...]:
     """Butterfly radices of the column kernel ``fft_cols`` (and
-    ``fft_axis0``) for length n: the list of :func:`last_stages`, radix 16
+    ``fft_axis0``, the axis ring, ``fft_cols_tw`` and the a0fs stages) for
+    length n: the list of :func:`last_stages`, radix 16
     while four factors of two remain, then the rest of the power of two,
     then the odd factor, so every Ns is a power of two.  A column is held
     by n / R0 threads, R0 its first radix (n / 32 from n = 160 on: two
     radix-16 butterflies a thread in the first stages), at most two exchanges of shared memory at
     a power of two up to 2048 and three at 1536.  csrc/cols.cu compiles
     one kernel instance per length ``kernel_len_ok(n, False)`` admits up to
-    ``MAX_STOCKHAM_N`` with this list (``COLS_CASE``) and refuses any
-    other."""
+    ``MAX_STOCKHAM_N`` with this list (``COLS_CASE``), csrc/fourstep.cu one
+    per power of two it runs (8..2048 for ``fft_cols_tw``, 8..64 for the
+    a0fs factors), and each refuses any other."""
     return last_stages(n)
 
 
@@ -851,13 +842,6 @@ def last_geometry(n: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def _kernel_tables(n: int, sign: int) -> np.ndarray:
-    """Twiddles of every kernel stage (:func:`_kernel_stages`) as a (T, 2)
-    f32 (re, im) array; see :func:`_stage_tables`."""
-    return _stage_tables(_kernel_stages(n), sign)
-
-
-@functools.lru_cache(maxsize=256)
 def _stage_tables(radices: Tuple[int, ...], sign: int) -> np.ndarray:
     """Twiddles of the stages ``radices`` as a (T, 2) f32 (re, im) array.
 
@@ -880,12 +864,13 @@ def _stage_tables(radices: Tuple[int, ...], sign: int) -> np.ndarray:
 _DEVICE_TABLES: dict = {}
 
 
-def device_tables(n: int, sign: int, device: torch.device, stages=None):
+def device_tables(n: int, sign: int, device: torch.device, stages):
     """(twiddle tensor on ``device``, ctypes radix array, stage count) for
     the kernels, uploaded once per (n, sign, device, stage list); plans
-    fetch theirs when they are made.  ``stages`` (default
-    :func:`_kernel_stages`) makes the radix list from n."""
-    rad = (stages or _kernel_stages)(n)
+    fetch theirs when they are made.  ``stages`` (:func:`cols_stages`,
+    :func:`last_stages` or :func:`fused2_stages`) makes the radix list from
+    n."""
+    rad = stages(n)
     key = (n, sign, device, rad)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
@@ -1058,6 +1043,22 @@ def cols_residency(n: int, dtype=torch.float32) -> dict:
                                           out)
     if err:
         raise RuntimeError(f"fft_cols_residency(n={n}): CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "columns_per_block",
+                     "threads_per_block", "registers", "smem_bytes"), out))
+
+
+def fourstep_residency(n: int, dtype=torch.float32, tw: bool = True) -> dict:
+    """How the four-step column instance for length n sits on the card
+    (planes of ``dtype``; ``tw``: the twiddle instance of ``fft_cols_tw``
+    and a0fs stage a, else stage b's): resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), columns and
+    threads a block, registers a thread, shared bytes a block."""
+    from . import _build
+    out = (ctypes.c_int * 5)()
+    err = _build.load().fft_cols_fs_residency(
+        n, int(dtype == torch.bfloat16), int(tw), out)
+    if err:
+        raise RuntimeError(f"fft_cols_fs_residency(n={n}): CUDA error {err}")
     return dict(zip(("blocks_per_sm", "columns_per_block",
                      "threads_per_block", "registers", "smem_bytes"), out))
 

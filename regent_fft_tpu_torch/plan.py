@@ -575,28 +575,25 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
     ``stockham4`` step, the half-length core of the real ``half`` route)
     and the real row-pair kernels of the ``kernel`` route take
-    ``last_stages``; ``fft_cols``, ``fft_axis0`` (every other ``stockham``
-    step) and the axis ring (``dma_ring``) ``cols_stages``; every other
-    kernel (``fft_cols_tw``, the four-step passes) ``_kernel_stages``.
-    ``ndim`` is the rank of the planes the steps transform."""
-    ks, ls, fs2 = _sk._kernel_stages, _sk.last_stages, _sk.fused2_stages
+    ``last_stages``; the column kernels ``cols_stages``: ``fft_cols`` and
+    ``fft_axis0`` (every other ``stockham`` step), the axis ring
+    (``dma_ring``), ``fft_cols_tw`` (the n1 of a ``stockham4`` step) and
+    both four-step stages (``fourstep_ring``: r1 and r2).  ``ndim`` is the
+    rank of the planes the steps transform."""
+    cs, ls, fs2 = _sk.cols_stages, _sk.last_stages, _sk.fused2_stages
     out = []
     for kind_, a, arg in steps:
-        if kind_ not in KERNEL_STEPS:
-            continue
         if kind_ in ("stockham2", "stockham_gap", "fused2_ring"):
             out += [(arg[0], fs2), (arg[1], fs2)]
         elif kind_ == "stockham4":
             n1, n2 = _sk._four_step_split(arg)
-            out += [(n1, ks), (n2, ls)]
+            out += [(n1, cs), (n2, ls)]
         elif kind_ == "fourstep_ring":
-            out += [(r, ks) for r in _sk._a0fs_split(arg)]
+            out += [(r, cs) for r in _sk._a0fs_split(arg)]
         elif kind_ == "stockham" and a == ndim - 1 and ndim > 1:
             out.append((arg, ls))
         elif kind_ in ("stockham", "dma_ring"):
-            out.append((arg, _sk.cols_stages))
-        else:
-            out.append((arg, ks))
+            out.append((arg, cs))
     if real is not None and real.route == "half":
         out.append((real.n // 2, ls))
     elif real is not None and real.route == "kernel":

@@ -147,57 +147,63 @@ def test_a0fs_stages_compose_to_the_fft(n, sign):
         fs.a0fs_stage("a", *t, sign, 0.5)
 
 
-def _emulate_cols_pass(x, n, out, stride, lN, tdiv, obase, sign):
-    """numpy model of stockham_tile.cuh:cols_pass as the new kernels call
-    it: (P, n, V) complex planes, per group q the n-point DFT along axis 1;
-    element (k, c) of group q goes to out[obase(q) + k * stride + c], times
-    W_{2^lN}^{k * (c // tdiv)} when lN > 0."""
-    p, _, v = x.shape
+def _emulate_store_policy(x, g, tdiv, lN, scale, sign):
+    """numpy model of csrc/fourstep.cu's fft_cols_fs_kernel at the level of
+    its store policy (FsIO, csrc/cols.cuh): over (P, n, V) complex planes,
+    the n-point DFT along axis 1; output element k of column v of plane q
+    goes to ooff + k*old with ooff = ((q // g)*g*n + q % g)*V + v and
+    old = g*V, times W_{2^lN}^{k*(v // tdiv)} when lN > 0 (from the exact
+    integer phase), else times the scale.  Every output element is written
+    once."""
+    p, n, v = x.shape
     y = (np.fft.fft(x, axis=1) if sign < 0
          else np.fft.ifft(x, axis=1) * n)
     k = np.arange(n)[:, None]
     c = np.arange(v)[None, :]
     if lN:
         e = k * (c // tdiv)
-        assert e.max() < 2 ** lN
+        assert e.max() < 2 ** lN <= 2 ** 24
         y = y * np.exp(sign * 2j * np.pi * e / 2 ** lN)
+    else:
+        y = y * scale
+    out = np.full(p * n * v, np.nan, complex)
     for q in range(p):
-        idx = obase(q) + k * stride + c
+        idx = ((q // g) * g * n + q % g) * v + c + k * (g * v)
+        assert np.isnan(out[idx]).all(), "an element written twice"
         out[idx.ravel()] = y[q].ravel()
+    assert not np.isnan(out).any()
     return out
 
 
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_kernel_addressing_emulation(sign):
-    """The column-pass arguments of fft_cols_tw_kernel, a0fs_a_kernel and
-    a0fs_b_kernel (csrc/stockham.cu, csrc/fourstep.cu) compose to the
-    four-step and leading-axis FFTs."""
+    """The store-policy arguments of fft_cols_fs_kernel as the C entries
+    fft_cols_tw, a0fs_a and a0fs_b (csrc/fourstep.cu) pass them compose to
+    the four-step and leading-axis FFTs."""
     rng = np.random.default_rng(11)
-    # fft_cols_tw over (b, n1, n2), then the last-axis pass and the swap
+    # fft_cols_tw over (b, n1, n2): g = 1, tdiv = 1, N = n1*n2; then the
+    # last-axis pass and the swap
     b, n1, n2 = 3, 8, 512
     n = n1 * n2
     x = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
-    a = _emulate_cols_pass(x.reshape(b, n1, n2), n1,
-                           np.zeros(b * n, complex), n2, 12, 1,
-                           lambda q: q * n1 * n2, sign).reshape(b, n1, n2)
+    a = _emulate_store_policy(x.reshape(b, n1, n2), 1, 1, 12, 1.0,
+                              sign).reshape(b, n1, n2)
     y = (np.fft.fft(a, axis=2) if sign < 0 else np.fft.ifft(a, axis=2) * n2)
     y = y.transpose(0, 2, 1).reshape(b, n)
     ref = np.fft.fft(x, axis=1) if sign < 0 else np.fft.ifft(x, axis=1) * n
     assert rel_l2(y, ref) <= 1e-12
-    # a0fs_a over (pre, r1, r2*post), then a0fs_b over (pre*r1, r2, post)
+    # a0fs_a over (pre, r1, r2*post): g = 1, tdiv = post, N = n; then a0fs_b
+    # over (pre*r1, r2, post): g = r1, the scale
     pre, n, post = 2, 512, 6
     r1, r2 = sk._a0fs_split(n)
     x = (rng.standard_normal((pre, n, post))
          + 1j * rng.standard_normal((pre, n, post)))
-    a = _emulate_cols_pass(x.reshape(pre, r1, r2 * post), r1,
-                           np.zeros(pre * n * post, complex), r2 * post, 9,
-                           post, lambda q: q * n * post, sign)
-    y = _emulate_cols_pass(a.reshape(pre * r1, r2, post), r2,
-                           np.zeros(pre * n * post, complex), r1 * post, 0, 1,
-                           lambda q: ((q // r1) * r1 * r2 + q % r1) * post,
-                           sign).reshape(pre, n, post)
+    a = _emulate_store_policy(x.reshape(pre, r1, r2 * post), 1, post, 9, 1.0,
+                              sign)
+    y = _emulate_store_policy(a.reshape(pre * r1, r2, post), r1, 1, 0, 0.5,
+                              sign).reshape(pre, n, post)
     ref = np.fft.fft(x, axis=1) if sign < 0 else np.fft.ifft(x, axis=1) * n
-    assert rel_l2(y, ref) <= 1e-12
+    assert rel_l2(y, ref * 0.5) <= 1e-12
 
 
 def test_cols_tw_and_ring_plain_versions():

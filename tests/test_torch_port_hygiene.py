@@ -54,7 +54,7 @@ PORT_TESTS = {
     "test_torch_port_precision.py", "test_torch_port_fused2_cluster.py",
     "test_torch_port_last_rows.py", "test_torch_port_gap_cluster.py",
     "test_torch_port_cols_regs.py", "test_torch_port_real_rows.py",
-    "test_torch_port_ring_tma.py"}
+    "test_torch_port_ring_tma.py", "test_torch_port_fourstep_regs.py"}
 
 
 def test_file_lists_cover_the_port():

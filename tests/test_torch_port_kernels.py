@@ -1,6 +1,5 @@
 """The port's kernel wrappers on CPU tensors (their plain versions) against
-the JAX package's Pallas entry points in interpret mode, and the CUDA
-kernels' butterfly schedule + twiddle table emulated in numpy.
+the JAX package's Pallas entry points in interpret mode.
 
 Bound: tolerance(n) between the packages and for each side against the
 float64 numpy FFT."""
@@ -88,55 +87,6 @@ def test_fused2_plain_matches_jax(shape, direction, scale):
                                 interpret=True)
     _check(port, jx, _np_ref(xr, xi, (-2, -1), int(direction), scale),
            shape[-2] * shape[-1])
-
-
-def _emulate_kernel_tile(x, n, sign):
-    """numpy model of csrc/stockham.cu's fft_tile on (n, B) complex64
-    columns: stage (R, Ns) reads x[j + r*m], twiddles by the table entry
-    (r-1)*Ns + j%Ns, runs an R-point DFT and writes
-    out[(j - j%Ns)*R + j%Ns + q*Ns]."""
-    tab = sk._kernel_tables(n, sign)
-    tw = (tab[:, 0] + 1j * tab[:, 1]).astype(np.complex64)
-    ns, off = 1, 0
-    for r in sk._kernel_stages(n):
-        m = n // r
-        j = np.arange(m)
-        k = j % ns
-        v = x.reshape(r, m, -1).copy()
-        if ns > 1:
-            v[1:] *= tw[off:off + (r - 1) * ns].reshape(r - 1, ns)[:, k][..., None]
-        q = np.arange(r)
-        dft = np.exp(sign * 2j * np.pi * np.outer(q, q) / r).astype(np.complex64)
-        y = np.einsum("qr,rjb->qjb", dft, v)
-        out = np.empty_like(x)
-        for qq in range(r):
-            out[(j - k) * r + k + qq * ns] = y[qq]
-        x = out
-        off += (r - 1) * ns
-        ns *= r
-    assert off == len(tw)
-    return x
-
-
-@pytest.mark.parametrize("sign", [-1, 1])
-@pytest.mark.parametrize("n", [2 ** k for k in range(1, 12)]
-                         + [24, 96, 160, 384, 640, 768, 896, 1536, 1792])
-def test_kernel_schedule_emulation(n, sign):
-    rng = np.random.default_rng(n)
-    x = (rng.standard_normal((n, 3))
-         + 1j * rng.standard_normal((n, 3))).astype(np.complex64)
-    y = _emulate_kernel_tile(x, n, sign)
-    ref = np.fft.fft(x.astype(np.complex128), axis=0) if sign < 0 else \
-        np.fft.ifft(x.astype(np.complex128), axis=0) * n
-    assert rel_l2(y, ref) <= tolerance(n)
-    # what make_plan in csrc/stockham.cu accepts: radices in {2,3,4,5,7}
-    # whose running product Ns is a power of two at every stage
-    rad = sk._kernel_stages(n)
-    assert int(np.prod(rad)) == n and set(rad) <= {2, 3, 4, 5, 7}
-    ns = 1
-    for r in rad:
-        assert ns & (ns - 1) == 0
-        ns *= r
 
 
 def test_wrappers_reject_other_devices():

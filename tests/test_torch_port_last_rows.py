@@ -30,10 +30,10 @@ The stage lists and block size that csrc/last.cuh compiles (its
 ``LAST_CASE`` table and ``LAST_BLOCK``) are read from the source and held
 against ``last_stages`` and ``LAST_BLOCK``; and the plans' table prefetch
 (``plan._kernel_lengths``) names ``last_stages`` for every step that runs
-``fft_last`` or the real row-pair kernels, ``cols_stages`` for the mid-axis
-``stockham`` steps (``fft_cols``, ``fft_axis0``) and the axis ring,
-``fused2_stages`` for both axes of the two-axis ring, and
-``_kernel_stages`` for the four-step and ``fft_cols_tw`` passes.
+``fft_last`` or the real row-pair kernels, ``cols_stages`` for the column
+kernels (the mid-axis ``stockham`` steps' ``fft_cols`` and ``fft_axis0``,
+the axis ring, ``fft_cols_tw`` and both four-step stages), and
+``fused2_stages`` for both axes of the two-axis ring.
 """
 import re
 from pathlib import Path
@@ -321,7 +321,7 @@ def _tables(shape, axes, kind="c2c", **kw):
     ((4096, 1024), (1,), "c2c", [(1024, "last_stages")]),
     ((4096, 640), (1,), "c2c", [(640, "last_stages")]),
     # the four-step last axis: fft_cols_tw over n1, fft_last over n2
-    ((64, 1 << 20), (1,), "c2c", [(512, "_kernel_stages"),
+    ((64, 1 << 20), (1,), "c2c", [(512, "cols_stages"),
                                   (2048, "last_stages")]),
     # 3-D: the fused pair, then the leading axis on fft_cols
     ((512, 512, 512), (0, 1, 2), "c2c", [(512, "fused2_stages"),
@@ -349,15 +349,15 @@ def _tables(shape, axes, kind="c2c", **kw):
     # axis 0 of a rank-2 f32 array: fft_axis0
     ((512, 4096), (0,), "c2c", [(512, "cols_stages")]),
     # the ring and four-step routes (kind with the plan's route fields):
-    # the axis ring runs fft_cols' column body, the two-axis ring the
-    # cluster body (the leading axis after it runs fft_cols), the four-step
-    # stages keep the shared tile's tables
+    # the axis ring and both four-step stages run fft_cols' column body,
+    # the two-axis ring the cluster body (the leading axis after it runs
+    # fft_cols)
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "dma"}),
      [(512, "fused2_stages"), (512, "fused2_stages"),
       (512, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "fourstep"}),
-     [(512, "fused2_stages"), (512, "fused2_stages"), (16, "_kernel_stages"),
-      (32, "_kernel_stages")]),
+     [(512, "fused2_stages"), (512, "fused2_stages"), (16, "cols_stages"),
+      (32, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"f2_impl": "ring"}),
      [(512, "fused2_stages"), (512, "fused2_stages"),
       (512, "cols_stages")]),
@@ -372,6 +372,6 @@ def test_complex32_four_step_prefetch():
     """complex32 takes the same steps and tables (the four-step runs its
     kernels on f32 planes, fft_last_bf16 reads the f32 kernel's table)."""
     assert (_tables((64, 1 << 20), (1,), dtype="complex32")
-            == [(512, "_kernel_stages"), (2048, "last_stages")])
+            == [(512, "cols_stages"), (2048, "last_stages")])
     assert (_tables((4096, 1024), (1,), dtype="complex32")
             == [(1024, "last_stages")])
