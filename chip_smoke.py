@@ -64,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
    fft_mm2 at every n <= 16384 that two_stage_split admits (batch 3)
    against fft_mm2_plain on the card, every 16th of those lengths and the
    main path's also against torch.fft in float64 on the host;
-   then each kernel at every shape the main path gives it, held against
+   then each kernel at every shape the main path gives it (fft_last also
+   at Bluestein's 16384 x 2048 inner planes), held against
    its plain PyTorch version on the card (rel_l2 <= tolerance(n), or
    ``PLAIN_LIMIT`` = 1e-3 for the bf16 kernels) and timed
    (median of CUDA-event runs with the L2 flushed before each) beside its
@@ -137,9 +138,23 @@ Phases (any failure raises and the script exits non-zero):
    "highest") and the columns of a 512 x 262144 array with
    ``precision="default"`` (the axis-0 step of a rank-2 complex64 array
    launches fft_axis0 at every tier and norm), one group each as in
-   phase 7.
+   phase 7;
+11. the general 1-D pipeline (Rader, Bluestein), the reference's
+   interface and guru plans: every 16th of the 1820 C2C and 1917 real
+   lengths in 1..4096 that no kernel, direct DFT or two-factor split takes
+   (the port refused them before Rader and Bluestein; batch 3, C2C both
+   signs), each step line held against ``schedule_description`` and each
+   result against torch.fft in float64; then ``GENERAL_PLANS``, one group
+   each as in phase 7 (Bluestein 1009 on two ``fft_last`` launches of
+   m = 2048 a call, complex32 included; Rader 2053 and complex128 on
+   contractions only), timed with their steps beside the bound and one
+   torch.fft call, and traced; the ``generate_fft_interface`` plans of a
+   512^3 C2C, a 256^3 R2C and a batched 4 x 256^3 C2C, each make_plan's
+   cached plan, run and destroyed; a ``plan_many`` of interleaved fields
+   and a transposing ``plan_guru`` layout on flat buffers, both 4096 x
+   1024, against torch.fft.
 
-Prints how long each phase took, one ``{"plans": [...]}`` line (31 plans),
+Prints how long each phase took, one ``{"plans": [...]}`` line (39 plans),
 one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
 have launched), the nvidia-smi line, and last the device line.  Exits
@@ -294,6 +309,26 @@ GAP_PLANS = [
      {"fft_gap": 1, "fft_cols": 1}),
     ("gap_complex32", CUBE, (0, 1, 2), "complex32", {}, GAP_STEPS,
      {"fft_gap_bf16": 1, "fft_cols_bf16": 1}),
+]
+
+
+# Phase 11: full-width shapes of the general 1-D pipeline, one group each:
+# (label, shape, axes, kind, dtype, launches of one call).  Bluestein's inner
+# transforms of m = 2048 run fft_last (f32, also for complex32); Rader's
+# convolution and complex128 run dense contractions only.
+GENERAL_PLANS = [
+    ("prime1009_batch512", (512, 1009), (1,), "c2c", "complex64",
+     {"fft_last": 2}),
+    ("bluestein1009", (16384, 1009), (1,), "c2c", "complex64",
+     {"fft_last": 2}),
+    ("rader2053", (16384, 2053), (1,), "c2c", "complex64", {}),
+    ("r2c2018", (16384, 2018), (1,), "r2c", "complex64", {"fft_last": 2}),
+    ("c2r2018", (16384, 2018), (1,), "c2r", "complex64", {"fft_last": 2}),
+    ("general1009x1031", (1009, 1031), (0, 1), "c2c", "complex64",
+     {"fft_last": 2}),
+    ("bluestein1009_c32", (16384, 1009), (1,), "c2c", "complex32",
+     {"fft_last": 2}),
+    ("bluestein1009_c128", (4096, 1009), (1,), "c2c", "complex128", {}),
 ]
 
 
@@ -1460,7 +1495,9 @@ def main() -> int:
                      # stage 2 of the 64 x 2^20 four-step
                      lambda: c2c_case("fft_last", (32768, 2048), (1,)),
                      # the half-length C2R of 4096 x 1024
-                     lambda: c2c_case("fft_last", (4096, 512), (1,))],
+                     lambda: c2c_case("fft_last", (4096, 512), (1,)),
+                     # Bluestein's inner transforms of 16384 x 1009 (m = 2048)
+                     lambda: c2c_case("fft_last", (16384, 2048), (1,))],
         "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,)),
                      # the mid axis of the 512^3 gap-fused plan
                      lambda: c2c_case("fft_cols", CUBE, (1,)),
@@ -1944,6 +1981,220 @@ def main() -> int:
           f"{prec_ms['precision_high_cube_c32']:.4f} (default "
           f"{c32_ms['complex32_cube']:.4f})")
     phase("10 (precision tiers)")
+
+    # 11. the general pipeline (Rader, Bluestein), FFTInterface and guru
+    from regent_fft_tpu_torch.ops import factor
+    from regent_fft_tpu_torch.ops.stockham import schedule_description
+
+    def conv(n):
+        return factor.plan_factors(n)[0] in ("rader", "bluestein")
+
+    def inner_m(n):
+        """Bluestein's m where its inner transforms run fft_last, else None."""
+        kind, m = factor.plan_factors(n)
+        return (m if kind == "bluestein" and 64 <= m <= sk.MAX_LAST_N
+                and m & (m - 1) == 0 else None)
+    # the lengths 1..4096 whose plans took no kernel, direct DFT or
+    # two-factor split (C2C: above xla_direct_max; real: the core, n or n/2)
+    c2c_new = [n for n in range(513, 4097) if conv(n)]
+    real_new = [n for n in range(2, 4097) if conv(n if n % 2 else n // 2)]
+    if (len(c2c_new), len(real_new)) != (1820, 1917):
+        raise AssertionError(f"general lengths: {len(c2c_new)} C2C, "
+                             f"{len(real_new)} real")
+    sweep_worst, swept = 0.0, 0
+    for kind, lengths in (("c2c", c2c_new[::16]), ("r2c", real_new[::16]),
+                          ("c2r", real_new[::16])):
+        for n in lengths:
+            core = n if kind == "c2c" or n % 2 else n // 2
+            for d in ((-1, 1) if kind == "c2c" else (-1 if kind == "r2c"
+                                                     else 1,)):
+                p = rt.make_plan((3, n), axes=(1,), kind=kind, direction=d)
+                lines = [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+                if kind == "c2c":
+                    want = [f"(axis 1: 1d-pipeline["
+                            f"{schedule_description(n)}])"]
+                    km = getattr(p.steps[0][2], "kernel_m", None)
+                else:
+                    want = [f"(real axis 1: n={n} conjugate-even einsum "
+                            f"{kind})"]
+                    km = p.real.fn.kernel_m
+                if lines != want or km != inner_m(core):
+                    raise AssertionError(f"{kind} {n}: steps {lines}, "
+                                         f"kernel_m {km}")
+                x = torch.complex(randn((3, n)), randn((3, n))).to(
+                    torch.complex128)
+                if kind == "c2c":
+                    y = p(x.to(torch.complex64))
+                    ref = (torch.fft.fft(x) if d < 0 else torch.fft.ifft(x))
+                elif kind == "r2c":
+                    y, ref = p(x.real.float()), torch.fft.rfft(x.real)
+                else:
+                    h = torch.fft.rfft(x.real)
+                    y, ref = p(h.to(torch.complex64)), torch.fft.irfft(h, n)
+                err = dev_rel(y, ref)
+                if not err <= tolerance(n):
+                    raise AssertionError(f"{kind} {n} sign {d}: rel_l2 {err}")
+                sweep_worst, swept = max(sweep_worst, err), swept + 1
+        rt.clear_plan_cache()
+    print(f"general sweep: {swept} plans (every 16th of the {len(c2c_new)} "
+          f"C2C and {len(real_new)} real lengths 1..4096 the port refused "
+          f"before Rader and Bluestein; C2C both signs; batch 3), worst "
+          f"rel_l2 vs torch.fft float64 {sweep_worst:.3e}", flush=True)
+
+    for label, shape, axes, kind, dtype, want in GENERAL_PLANS:
+        direction = 1 if kind == "c2r" else -1
+        p = rt.make_plan(shape, axes=axes, kind=kind, direction=direction,
+                         dtype=dtype)
+        print(p.describe())
+        got = [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+        if kind == "c2c":
+            expect = [f"(axis {a}: 1d-pipeline["
+                      f"{schedule_description(shape[a])}])"
+                      for a in sorted(axes, reverse=True)]
+        else:
+            expect = [f"(real axis 1: n={shape[1]} conjugate-even einsum "
+                      f"{kind})"]
+        if got != expect:
+            raise AssertionError(f"{label} steps: {got}")
+        g = torch.Generator(device=dev).manual_seed(len(plan_rows))
+        pd = {"complex32": torch.bfloat16, "complex64": torch.float32,
+              "complex128": torch.float64}[dtype]
+        if kind == "c2c":
+            xr = torch.randn(shape, device=dev, generator=g).to(pd)
+            xi = torch.randn(shape, device=dev, generator=g).to(pd)
+            x = (rt.SplitComplex(xr, xi) if dtype == "complex32"
+                 else torch.complex(xr, xi))
+            xd = cplx(xr, xi)
+            ref = torch.fft.fftn(xd, dim=axes)
+            # cuFFT takes complex32 at powers of two only: the yardstick of
+            # the complex32 plan is complex64
+            lib_in = (torch.complex(xr.float(), xi.float())
+                      if dtype == "complex32" else x)
+            lib = lambda: torch.fft.fftn(lib_in, dim=axes)
+            steps = lambda: p.execute_split(xr, xi)
+        elif kind == "r2c":
+            x = torch.randn(shape, device=dev, generator=g)
+            ref = torch.fft.rfft(x.double())
+            lib = lambda: torch.fft.rfft(x)
+            steps = lambda: p.execute_real(x)
+        else:
+            x = torch.fft.rfft(torch.randn(shape, device=dev, generator=g))
+            ref = torch.fft.irfft(x.to(torch.complex128), shape[1])
+            hr, hi = x.real.contiguous(), x.imag.contiguous()
+            lib = lambda: torch.fft.irfft(x, shape[1])
+            steps = lambda: p.execute_split(hr, hi)
+        (y,), launches = run_counted(label, [p], [x], want)
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = launches[kname]
+            row["launches"] += launches[kname]
+        yc = cplx(y.re, y.im) if isinstance(y, rt.SplitComplex) else y
+        if (tuple(yc.shape) != tuple(ref.shape)
+                or not bool(torch.isfinite(torch.view_as_real(yc)
+                                           if yc.is_complex() else yc).all())):
+            raise AssertionError(f"{label}: output {tuple(yc.shape)}")
+        tol = tolerance(p.spec.logical_n, dtype)
+        err = dev_rel(yc, ref)
+        del yc, y, ref
+        if not err <= tol:
+            raise AssertionError(f"{label}: rel_l2 {err} > {tol}")
+        ms = timed(lambda: p(x))
+        steps_ms = timed(steps)
+        lib_ms = timed(lib)
+        b_ms, b_by = bound(p.bytes_ideal, p.flops)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            p(x)
+            torch.cuda.synchronize()
+        by = sorted(((e.key, e.self_device_time_total / 1e3)
+                     for e in prof.key_averages()
+                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        plan_rows.append({
+            "kind": kind, "dtype": dtype, "route": label,
+            "shape": list(shape), "axes": list(axes), "steps": got,
+            "rel_err_vs_torch_fft_f64": err, "tolerance": tol, "ms": ms,
+            "steps_ms": steps_ms, "gflops": p.flops / (ms * 1e-3) / 1e9,
+            "bytes_ideal": p.bytes_ideal, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_fraction": b_ms / ms,
+            "library_ms": lib_ms,
+            "library_call": ("torch.fft complex64" if dtype == "complex32"
+                             else f"torch.fft {dtype}"),
+            "launches": {k: v for k, v in launches.items() if v},
+            "device_ms": sum(v for _, v in by),
+            "device_ms_by_kernel": [[k[:120], v] for k, v in by]})
+        print(f"{label} {shape} {kind} {dtype}: {ms:.4f} ms (steps "
+              f"{steps_ms:.4f}, bound {b_ms:.4f} ({b_by}), torch.fft "
+              f"{lib_ms:.4f}), rel_l2 vs torch.fft float64 {err:.3e} "
+              f"(tolerance {tol:.3e}); device {sum(v for _, v in by):.4f} "
+              f"ms: " + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:8]),
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+    # the reference's interface: its plans are make_plan's cached plans
+    # (norm "none"), run, compared and destroyed, one counted group each
+    cube = (512, 512, 512)
+    for label, dtype_in, shape, batch, want in (
+            ("iface_c2c", torch.complex64, cube, False,
+             {"fft_fused2": 1, "fft_cols": 1}),
+            ("iface_r2c", torch.float32, (256, 256, 256), False,
+             {"fft_last_r2c": 1, "fft_cols": 2}),
+            ("iface_batch", torch.complex64, (256, 256, 256, 4), True,
+             {"fft_cols": 3})):
+        iface = rt.generate_fft_interface(3, dtype_in, torch.complex64)
+        p = (iface.make_plan_batch(shape) if batch
+             else iface.make_plan(shape))
+        axes = (0, 1, 2)
+        same = rt.make_plan(shape, axes=axes, kind=iface.kind, norm="none",
+                            direction=-1)
+        if p is not same:
+            raise AssertionError(f"{label}: not make_plan's cached plan")
+        g = torch.Generator(device=dev).manual_seed(len(plan_rows))
+        x = torch.randn(shape, device=dev, generator=g)
+        if iface.kind == rt.Kind.C2C:
+            x = torch.complex(x, torch.randn(shape, device=dev, generator=g))
+        (y,), launches = run_counted(
+            label, [lambda v: iface.execute_plan_task(p, v)], [x], want)
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = launches[kname]
+            row["launches"] += launches[kname]
+        ref = (torch.fft.fftn(x, dim=axes) if iface.kind == rt.Kind.C2C
+               else torch.fft.rfftn(x, dim=axes))
+        err = dev_rel(y, ref)
+        del y, ref
+        tol = tolerance(p.spec.logical_n)
+        iface.destroy_plan_task(p)
+        try:
+            p(x)
+            gone = False
+        except RuntimeError:
+            gone = p not in rt.cached_plans()
+        if not (err <= tol and gone):
+            raise AssertionError(f"{label}: rel_l2 {err}, destroyed {gone}")
+        print(f"{label} {shape}: FFTInterface plan is make_plan's cached "
+              f"plan; rel_l2 vs torch.fft {err:.3e}; destroyed", flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+    # guru: interleaved fields (plan_many, istride 2) and a transposing
+    # layout, over flat buffers on the card
+    gp = rt.plan_many((1024,), howmany=4096, istride=2, idist=2048)
+    buf = torch.complex(randn(4096 * 2048), randn(4096 * 2048))
+    tr = rt.plan_guru([(1024, 1, 4096)], [(4096, 1024, 1)])
+    a = torch.complex(randn(4096 * 1024), randn(4096 * 1024))
+    (y1, y2), launches = run_counted("guru", [gp, tr], [buf, a],
+                                     {"fft_last": 2})
+    for kname, row in rows.items():
+        row["launches_by_path"]["guru"] = launches[kname]
+        row["launches"] += launches[kname]
+    e1 = dev_rel(y1, torch.fft.fft(buf.view(4096, 2048)[:, ::2]).reshape(-1))
+    e2 = dev_rel(y2, torch.fft.fft(a.view(4096, 1024)).T.reshape(-1))
+    if not max(e1, e2) <= tolerance(1024) or y1.device.type != "cuda":
+        raise AssertionError(f"guru: rel_l2 {e1}, {e2}")
+    guru_ms = [timed(lambda: gp(buf)), timed(lambda: tr(a))]
+    print(f"guru: plan_many interleaved 4096 x 1024 rel_l2 {e1:.3e} "
+          f"{guru_ms[0]:.4f} ms, transposing plan_guru 4096 x 1024 rel_l2 "
+          f"{e2:.3e} {guru_ms[1]:.4f} ms", flush=True)
+    del buf, a, y1, y2
+    phase("11 (general pipeline, FFTInterface, guru)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

@@ -1,27 +1,34 @@
 """regent_fft_tpu_torch — the PyTorch/CUDA port of ``regent_fft_tpu``.
 
-C2C, R2C and C2R plans at any rank, forward and inverse, with all four
-norms and the three precision tiers, in complex64 (f32 planes), complex32
-(bf16 planes, f32 compute) and complex128 (f64 contraction steps), run on
-an NVIDIA H100 through twenty-two hand-written CUDA entry points
-(``csrc/stockham.cu``, ``csrc/real.cu``, ``csrc/fourstep.cu``,
-``csrc/ring.cu`` and ``csrc/matmul.cu``, built with ``nvcc`` at first
-use).  The routes: the butterfly passes (last axis, middle axes, the fused
-trailing pair, the axis-0 pass, the gap-fused pass behind
-``REGENT_FFT_GAP_FUSED``), the real row-pair kernels, the four-step last
-axis (n = 4096..2M), the leading-axis four-step and slab-ring routes
+C2C, R2C and C2R plans at any rank and every length (Rader and Bluestein
+where no kernel, direct DFT or two-factor split takes one), forward and
+inverse, with all four norms and the three precision tiers, in complex64
+(f32 planes), complex32 (bf16 planes, f32 compute) and complex128 (f64
+contraction steps), run on an NVIDIA H100 through twenty-two hand-written
+CUDA entry points (``csrc/stockham.cu``, ``csrc/real.cu``,
+``csrc/fourstep.cu``, ``csrc/ring.cu`` and ``csrc/matmul.cu``, built with
+``nvcc`` at first use).  The routes: the butterfly passes (last axis,
+middle axes, the fused trailing pair, the axis-0 pass, the gap-fused pass
+behind ``REGENT_FFT_GAP_FUSED``), the real row-pair kernels, the four-step
+last axis (n = 4096..2M), the leading-axis four-step and slab-ring routes
 (``axis0_impl``/``f2_impl``), and under ``backend="pallas"`` the
-matmul-form kernels.  Plans default to ``device="cuda"``; ``device="cpu"``
-runs the kernels' plain versions.  The JAX package ``regent_fft_tpu`` is
-the reference; this package imports nothing of it or of JAX.
+matmul-form kernels.  Around the plans: the reference's typed interface
+(``generate_fft_interface``), guru and ``plan_many`` plans over flat
+buffers, the shift and frequency helpers.  Plans default to
+``device="cuda"``; ``device="cpu"`` runs the kernels' plain versions.  The
+JAX package ``regent_fft_tpu`` is the reference; this package imports
+nothing of it or of JAX.
 """
 from .dtypes import Direction, Kind, Norm, SplitComplex, as_split, from_split
 from .plan import (Plan, PlanSpec, make_plan, execute_plan, destroy_plan,
                    clear_plan_cache, cached_plans, spec_from_jax)
 from .api import (fft, ifft, fft2, ifft2, fftn, ifftn,
                   rfft, irfft, rfft2, irfft2, rfftn, irfftn, hfft, ihfft,
-                  hfftn, hfft2, ihfftn, ihfft2)
-from .ops.factor import next_fast_len
+                  hfftn, hfft2, ihfftn, ihfft2, fftshift, ifftshift, fftfreq,
+                  rfftfreq, FFTInterface, generate_fft_interface,
+                  set_workers, get_workers)
+from .guru import IODim, GuruPlan, plan_guru, plan_many
+from .ops.factor import next_fast_len, prev_fast_len
 
 __version__ = "0.1.0"
 

@@ -1,10 +1,11 @@
 """numpy.fft-style one-shot functions over the plan cache: C2C, real
-(``rfft*``/``irfft*``) and Hermitian (``hfft*``/``ihfft*``).
+(``rfft*``/``irfft*``) and Hermitian (``hfft*``/``ihfft*``); the shift and
+frequency helpers; the reference's typed interface (:class:`FFTInterface`,
+``generate_fft_interface``); the advisory worker count.
 
-Counterpart: ``regent_fft_tpu/api.py`` (:102-248).  Each call plans
-through the cache, so repeated calls for one problem reuse the plan.
-Extra keyword options (``device``, ``backend``, ...) go to
-:class:`PlanSpec`.
+Counterpart: ``regent_fft_tpu/api.py``.  Each call plans through the
+cache, so repeated calls for one problem reuse the plan.  Extra keyword
+options (``device``, ``backend``, ...) go to :class:`PlanSpec`.
 
 The plan dtype follows the input (:func:`_dtype_of`, api.py:32-45): a
 :class:`SplitComplex` is complex32 (bf16 planes out), float64 or
@@ -19,8 +20,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .dtypes import Direction, Kind, Norm, SplitComplex
-from .plan import PlanSpec, make_plan
+from .dtypes import Direction, Kind, Norm, SplitComplex, canonical_dtype
+from .plan import (Plan, PlanSpec, _unported, destroy_plan, execute_plan,
+                   make_plan)
 
 _NORMS = {None: Norm.BACKWARD, "backward": Norm.BACKWARD, "ortho": Norm.ORTHO,
           "forward": Norm.FORWARD, "none": Norm.NONE}
@@ -272,3 +274,183 @@ def ihfftn(x, s=None, axes=None, norm=None, **opts):
 def ihfft2(x, s=None, axes=(-2, -1), norm=None, **opts):
     """Counterpart: ``regent_fft_tpu/api.py:246``."""
     return ihfftn(x, s=s, axes=axes, norm=norm, **opts)
+
+
+# ---------------------------------------------------------------------------
+# Shift and frequency helpers (numpy.fft parity); a SplitComplex shifts
+# plane by plane.  Counterpart: regent_fft_tpu/api.py:253-276.
+# ---------------------------------------------------------------------------
+def _roll_half(x, axes, inverse: bool):
+    x = torch.as_tensor(x)
+    if axes is None:
+        axes = tuple(range(x.ndim))
+    elif isinstance(axes, int):
+        axes = (axes,)
+    shifts = [(-(x.shape[a] // 2) if inverse else x.shape[a] // 2)
+              for a in axes]
+    return torch.roll(x, shifts, tuple(axes))
+
+
+def fftshift(x, axes=None):
+    """Move the zero-frequency bin to the centre.
+    Counterpart: ``regent_fft_tpu/api.py:253``."""
+    if isinstance(x, SplitComplex):
+        return SplitComplex(_roll_half(x.re, axes, False),
+                            _roll_half(x.im, axes, False))
+    return _roll_half(x, axes, False)
+
+
+def ifftshift(x, axes=None):
+    """Inverse of :func:`fftshift`.
+    Counterpart: ``regent_fft_tpu/api.py:260``."""
+    if isinstance(x, SplitComplex):
+        return SplitComplex(_roll_half(x.re, axes, True),
+                            _roll_half(x.im, axes, True))
+    return _roll_half(x, axes, True)
+
+
+def fftfreq(n, d=1.0, dtype=torch.float32, device="cuda"):
+    """numpy.fft.fftfreq as a tensor on ``device`` (the card by default,
+    like plans).  Counterpart: ``regent_fft_tpu/api.py:267``."""
+    return torch.from_numpy(np.fft.fftfreq(n, d)).to(device=device,
+                                                     dtype=dtype)
+
+
+def rfftfreq(n, d=1.0, dtype=torch.float32, device="cuda"):
+    """numpy.fft.rfftfreq as a tensor on ``device``.
+    Counterpart: ``regent_fft_tpu/api.py:271``."""
+    return torch.from_numpy(np.fft.rfftfreq(n, d)).to(device=device,
+                                                      dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Reference-parity interface (src/fft.rg:31 generate_fft_interface)
+# ---------------------------------------------------------------------------
+class FFTInterface:
+    """Typed interface for a fixed (dim, dtype_in, dtype_out): ``make_plan``
+    checks the rank against ``dim`` and plans the interface's kind and
+    dtype, as the reference's per-type ``iface`` table does
+    (the reference's ``src/fft.rg:31-664``).  Real input (float32/float64)
+    means R2C, anything else C2C; the plan dtype is complex32 when either
+    side is (a SplitComplex), complex128 when the output is, else
+    complex64.  Keyword options go to every plan (``device``, ...).
+
+    Counterpart: ``regent_fft_tpu/api.py:278``.
+    """
+
+    def __init__(self, dim: int, dtype_in, dtype_out, **default_opts):
+        if not 1 <= dim <= 3:
+            raise ValueError("generate_fft_interface supports 1 <= dim <= 3 "
+                             "(use the numpy-style API for higher rank)")
+        self.dim = dim
+        self.dtype_in = canonical_dtype(dtype_in)
+        self.dtype_out = canonical_dtype(dtype_out)
+        self.kind = (Kind.R2C if self.dtype_in in ("float32", "float64")
+                     else Kind.C2C)
+        self._opts = default_opts
+
+    def _dtype_str(self) -> str:
+        if "complex32" in (self.dtype_in, self.dtype_out):
+            return "complex32"
+        if self.dtype_out == "complex128":
+            return "complex128"
+        return "complex64"
+
+    def _spec(self, shape, axes, direction, norm, opts) -> PlanSpec:
+        return PlanSpec(shape=shape, axes=axes, kind=self.kind,
+                        direction=direction, norm=_NORMS[norm],
+                        dtype=self._dtype_str(), **{**self._opts, **opts})
+
+    def make_plan(self, shape, direction=Direction.FORWARD, norm="none",
+                  **opts) -> Plan:
+        """Plan over all ``dim`` axes (the reference's whole-region FFT).
+        Counterpart: ``regent_fft_tpu/api.py:308``."""
+        shape = tuple(shape)
+        if len(shape) != self.dim:
+            raise ValueError(f"interface is {self.dim}-D, got shape {shape}")
+        return make_plan(self._spec(shape, tuple(range(self.dim)), direction,
+                                    norm, opts))
+
+    def make_plan_batch(self, shape, direction=Direction.FORWARD,
+                        norm="none", batch_axis: int = -1, **opts) -> Plan:
+        """Transform every axis but ``batch_axis``, at any rank (the
+        reference's is 3-D only, with an off-by-one, ``src/fft.rg:416-504``).
+        Counterpart: ``regent_fft_tpu/api.py:318``."""
+        shape = tuple(shape)
+        b = batch_axis % len(shape)
+        axes = tuple(a for a in range(len(shape)) if a != b)
+        return make_plan(self._spec(shape, axes, direction, norm, opts))
+
+    def make_plan_distrib(self, shape, mesh=None,
+                          direction=Direction.FORWARD, norm="none", **opts):
+        """Per-shard plans over the leading axis (``src/fft.rg:513-537``).
+        Counterpart: ``regent_fft_tpu/api.py:335``."""
+        _unported("make_plan_distrib", "ROADMAP Queue 1 #12")
+
+    @staticmethod
+    def execute_plan(plan: Plan, x):
+        return execute_plan(plan, x)
+
+    # the reference wraps execute in a task for its mapper
+    # (src/fft.rg:613-617); here the plan's device decides
+    execute_plan_task = execute_plan
+
+    @staticmethod
+    def destroy_plan(plan: Plan):
+        destroy_plan(plan)
+
+    destroy_plan_task = destroy_plan
+
+    @staticmethod
+    def get_num_nodes() -> int:
+        """The reference's tunable (src/fft.rg:146-148): the
+        ``torch.distributed`` world size, or 1 outside a process group."""
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        return 1
+
+    @staticmethod
+    def get_num_local_devices() -> int:
+        """The reference's tunable (src/fft.rg:151-153): CUDA devices."""
+        return torch.cuda.device_count()
+
+
+def generate_fft_interface(dim: int, dtype_in, dtype_out,
+                           **opts) -> FFTInterface:
+    """Reference-parity factory (the reference's ``src/fft.rg:31``).
+    Counterpart: ``regent_fft_tpu/api.py:372``."""
+    return FFTInterface(dim, dtype_in, dtype_out, **opts)
+
+
+# ---------------------------------------------------------------------------
+# Worker count (scipy.fft.set_workers analog)
+# ---------------------------------------------------------------------------
+_WORKERS = [1]
+
+
+class set_workers:
+    """Context manager mirroring ``scipy.fft.set_workers``.  Advisory, as
+    in the JAX package: the count is recorded for :func:`get_workers` and
+    changes nothing on the card, whose kernels use every SM.
+    Counterpart: ``regent_fft_tpu/api.py:384``."""
+
+    def __init__(self, workers: int):
+        workers = int(workers)
+        if workers == 0:
+            raise ValueError("workers must be nonzero")
+        self.workers = workers
+
+    def __enter__(self):
+        _WORKERS.append(self.workers)
+        return self.workers
+
+    def __exit__(self, *exc):
+        _WORKERS.pop()
+        return False
+
+
+def get_workers() -> int:
+    """The current advisory worker count (``scipy.fft.get_workers``).
+    Counterpart: ``regent_fft_tpu/api.py:414``."""
+    return _WORKERS[-1]

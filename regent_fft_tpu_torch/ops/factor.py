@@ -110,6 +110,22 @@ def next_fast_len(n: int, max_radix: int = DEFAULT_MAX_RADIX) -> int:
     return best
 
 
+@functools.lru_cache(maxsize=4096)
+def prev_fast_len(n: int, max_radix: int = DEFAULT_MAX_RADIX) -> int:
+    """Largest smooth size <= n (scipy.fft.prev_fast_len analog), by the
+    smoothness of :func:`next_fast_len`.
+
+    Counterpart: ``regent_fft_tpu/ops/factor.py:123``.
+    """
+    if n < 1:
+        raise ValueError(f"n must be positive, got {n}")
+    cap = 5 if max_radix >= 5 else (3 if max_radix >= 3 else 2)
+    m = n
+    while m > 1 and not is_smooth(m, cap):
+        m -= 1
+    return m
+
+
 def stage_flops(n: int, factors: Tuple[int, ...]) -> int:
     """Real-FLOP count of the matmul-form mixed-radix schedule.
 

@@ -4,7 +4,7 @@ Counterpart: ``regent_fft_tpu/ops/nd.py``.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -56,3 +56,14 @@ def apply_along_axis_real_out(fn_1d: Callable, axis: int, xr, xi):
     h = xr.shape[-1]
     y = fn_1d(xr.reshape(-1, h), xi.reshape(-1, h))
     return y.reshape(*lead, y.shape[-1]).movedim(-1, axis).contiguous()
+
+
+def c2c_nd(fns_by_axis: Sequence[Tuple[int, Callable]], xr, xi) -> Pair:
+    """Multi-axis C2C: apply each (axis, fn_1d) in turn (the DFTs commute;
+    the order matters for speed only).
+
+    Counterpart: ``regent_fft_tpu/ops/nd.py:76``.
+    """
+    for axis, fn in fns_by_axis:
+        xr, xi = apply_along_axis(fn, axis, xr, xi)
+    return xr, xi

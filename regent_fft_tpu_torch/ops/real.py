@@ -9,10 +9,12 @@ complex transform of (x + 0i) and keeps bins 0..n//2.
 ``cfft`` / ``cinv`` inject the half-length complex core: the plan passes
 the butterfly kernel there (``stockham_kernels.fft_axis_stockham``), so
 this reduction runs one kernel pass on the card; otherwise the core is
-``stockham.build_c2c_1d``'s dense pipeline.
+``stockham.build_c2c_1d``'s general pipeline, Rader and Bluestein
+included, built for the plan's ``device`` and plane ``dtype``.
 
 Every function is unscaled (DFT / n-times-inverse-DFT); the plan applies
-the norm once.
+the norm once.  Each carries its complex core's ``kernel_m`` (Bluestein's
+inner length on ``fft_last``, or None) for the plan's table prefetch.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ def _untangle_table(n: int, like: torch.Tensor):
 
 
 def build_r2c_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
-                 use_3m: bool = False, cfft=None):
+                 use_3m: bool = False, cfft=None, device=None,
+                 dtype: torch.dtype = torch.float32):
     """fn((B, n) real) -> ((B, n//2+1), (B, n//2+1)) split half spectrum.
 
     Counterpart: ``regent_fft_tpu/ops/real.py:28``.
@@ -41,17 +44,20 @@ def build_r2c_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
     if n == 1:
         return lambda x: (x, torch.zeros_like(x))
     if n % 2:
-        full = build_c2c_1d(n, Direction.FORWARD, max_radix, use_3m)
+        full = build_c2c_1d(n, Direction.FORWARD, max_radix, use_3m, device,
+                            dtype)
         h = n // 2 + 1
 
         def fn_odd(x):
             yr, yi = full(x, torch.zeros_like(x))
             return yr[:, :h].contiguous(), yi[:, :h].contiguous()
+        fn_odd.kernel_m = getattr(full, "kernel_m", None)
         return fn_odd
 
     m = n // 2
     if cfft is None:
-        cfft = build_c2c_1d(m, Direction.FORWARD, max_radix, use_3m)
+        cfft = build_c2c_1d(m, Direction.FORWARD, max_radix, use_3m, device,
+                            dtype)
 
     def fn(x):
         wr, wi = _untangle_table(n, x)
@@ -70,11 +76,13 @@ def build_r2c_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
         # X = Xe + w^k Xo
         tr, ti = cmul_elem(xo_r, xo_i, wr[None], wi[None])
         return xe_r + tr, xe_i + ti
+    fn.kernel_m = getattr(cfft, "kernel_m", None)
     return fn
 
 
 def build_c2r_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
-                 use_3m: bool = False, cinv=None):
+                 use_3m: bool = False, cinv=None, device=None,
+                 dtype: torch.dtype = torch.float32):
     """fn((B, n//2+1) split half spectrum) -> (B, n) real, n times the
     inverse.  The imaginary parts of bins 0 and n/2 are ignored, as in
     numpy's ``irfft``.
@@ -84,7 +92,8 @@ def build_c2r_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
     if n == 1:
         return lambda xr, xi: xr
     if n % 2:
-        full = build_c2c_1d(n, Direction.BACKWARD, max_radix, use_3m)
+        full = build_c2c_1d(n, Direction.BACKWARD, max_radix, use_3m, device,
+                            dtype)
         h = n // 2 + 1
 
         def fn_odd(xr, xi):
@@ -92,11 +101,13 @@ def build_c2r_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
             fr = torch.cat([xr, xr[:, 1:h].flip(1)], 1)
             fi = torch.cat([xi, -xi[:, 1:h].flip(1)], 1)
             return full(fr, fi)[0]
+        fn_odd.kernel_m = getattr(full, "kernel_m", None)
         return fn_odd
 
     m = n // 2
     if cinv is None:
-        cinv = build_c2c_1d(m, Direction.BACKWARD, max_radix, use_3m)
+        cinv = build_c2c_1d(m, Direction.BACKWARD, max_radix, use_3m, device,
+                            dtype)
 
     def fn(xr, xi):
         wr, wi = _untangle_table(n, xr)
@@ -114,4 +125,5 @@ def build_c2r_1d(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX,
         # Z = Xe + i Xo; V = unscaled IDFT_m(Z); y_even = 2 Vr, y_odd = 2 Vi
         vr, vi = cinv((xe_r - xo_i).contiguous(), (xe_i + xo_r).contiguous())
         return torch.stack([2.0 * vr, 2.0 * vi], -1).reshape(xr.shape[0], n)
+    fn.kernel_m = getattr(cinv, "kernel_m", None)
     return fn

@@ -10,9 +10,9 @@ callers on the card keep ``torch.backends.cuda.matmul.allow_tf32`` False
 f32 by the plan, as in the JAX package.
 
 :func:`build_c2c_1d` is the general 1-D pipeline on (B, n) planes: one
-direct product, or the recursive mixed-radix schedule of
-``factor.plan_factors``.  Its Rader and Bluestein branches are ROADMAP
-Queue 1 #8 and raise here.
+direct product, the recursive mixed-radix schedule of
+``factor.plan_factors``, or for the other lengths Rader's prime-length
+convolution (``ops/rader.py``) or Bluestein's chirp-z (``ops/bluestein.py``).
 """
 from __future__ import annotations
 
@@ -174,11 +174,16 @@ def best_two_factor(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX):
 
 def build_c2c_1d(n: int, direction: Direction,
                  max_radix: int = _factor.DEFAULT_MAX_RADIX,
-                 use_3m: bool = False):
+                 use_3m: bool = False, device=None,
+                 dtype: torch.dtype = torch.float32):
     """fn((B, n) re, im) -> (re, im), an unscaled DFT of each row.
 
-    Dispatches direct / mixed radix by ``factor.plan_factors``; the Rader
-    and Bluestein branches raise (ROADMAP Queue 1 #8).
+    Dispatches direct / mixed radix / Rader / Bluestein by
+    ``factor.plan_factors``.  ``device`` and ``dtype`` are the plan's
+    device and plane dtype (f32 or f64): the Rader and Bluestein tables go
+    there now, and Bluestein's inner transforms take the last-axis kernel
+    when the device is CUDA, the planes f32 and ``fft_last`` takes the
+    padded length (``bluestein._inner_kernel_pair``).
     Counterpart: ``regent_fft_tpu/ops/stockham.py:269``.
     """
     sign = int(direction)
@@ -187,9 +192,15 @@ def build_c2c_1d(n: int, direction: Direction,
         return lambda xr, xi: direct_dft(xr, xi, n, sign, use_3m)
     if kind == "mixed":
         return lambda xr, xi: mixed_radix_fft(xr, xi, n, info, sign, use_3m)
-    raise NotImplementedError(
-        f"the general 1-D pipeline's {kind} branch (n={n}) is ROADMAP "
-        "Queue 1 #8 of the PyTorch port")
+    if kind == "rader":
+        from . import rader as _rader
+        return _rader.build_rader_1d(n, direction, max_radix, use_3m, device,
+                                     dtype)
+    from . import bluestein as _bluestein
+    inner = (_bluestein._inner_kernel_pair(info, device)
+             if dtype == torch.float32 else None)
+    return _bluestein.build_bluestein_1d(n, direction, info, max_radix,
+                                         use_3m, inner, device, dtype)
 
 
 @functools.lru_cache(maxsize=512)
@@ -205,5 +216,5 @@ def schedule_description(n: int,
     if kind == "mixed":
         stages = " -> ".join(f"radix-{r}" for r in info)
         return f"mixed({n} = {'*'.join(map(str, info))}): {stages}"
-    inner = schedule_description(info, max_radix)
+    inner = schedule_description(info, max_radix)   # rader, bluestein
     return f"{kind}({n}, conv={info}: {inner})"

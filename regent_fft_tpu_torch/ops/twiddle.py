@@ -45,6 +45,17 @@ def twiddle_outer(n_rows: int, n_cols: int, denom: int, sign: int,
 
 
 @functools.lru_cache(maxsize=1024)
+def chirp(n: int, sign: int, dtype=np.float32):
+    """Bluestein chirp c[j] = exp(sign*pi*i*j^2/n) as an (re, im) pair, with
+    j^2 reduced mod 2n in integers (exp has period 2n in j^2).
+
+    Counterpart: ``regent_fft_tpu/ops/twiddle.py:54``.
+    """
+    j = np.arange(n, dtype=np.int64)
+    return _exp_table(np.mod(j * j, 2 * n), 2 * n, sign, dtype)
+
+
+@functools.lru_cache(maxsize=1024)
 def halfcomplex_untangle(n: int, dtype=np.float32):
     """w^k = exp(-2*pi*i*k/n) for k = 0..n/2 as an (re, im) pair: the r2c
     untangle of an n/2-point FFT of reals packed z[m] = x[2m] + i*x[2m+1].

@@ -24,8 +24,10 @@ plan's device:
   (``fft_last_four_step``: the twiddle column pass, the last-axis pass,
   the sub-axis swap);
 * ``direct`` / ``mixed2`` dense DFT contractions (``ops/stockham.py``);
-* ``general`` the 1-D pipeline of ``stockham.build_c2c_1d`` (direct or
-  mixed radix), or under ``backend="pallas"`` the matmul-form kernels of
+* ``general`` the 1-D pipeline of ``stockham.build_c2c_1d`` (direct,
+  mixed radix, Rader or Bluestein; Bluestein's two inner transforms take
+  ``fft_last`` on a CUDA plan where the padded length is a kernel length),
+  or under ``backend="pallas"`` the matmul-form kernels of
   ``ops/pallas_fft.build_c2c_1d_pallas`` (``fft_mm1`` for n <= 128,
   ``fft_mm2`` for a two-factor n with both factors in 16..128), as in the
   JAX package (plan.py:318-326, 400-402): every transformed axis is a
@@ -61,11 +63,11 @@ its b32 bf16x3 scheme to the four-step stages, plan.py:276-297;
 ``"default"`` runs one-pass bf16 products); the port computes exact f32
 (f64 for complex128) at every tier, which is at least as accurate.
 
-Outside the port so far (each raises ``NotImplementedError`` naming its
-ROADMAP item): the Rader and Bluestein branches of the general pipeline
-and planners other than ``"estimate"``.  ``REGENT_FFT_GAP_FUSED`` is the
-one environment switch the port reads (in :func:`make_plan`): it is the
-JAX package's only way to the gap-fused pass.
+Outside the port so far: planners other than ``"estimate"`` (they raise
+``NotImplementedError`` naming ROADMAP Queue 1 #11).
+``REGENT_FFT_GAP_FUSED`` is the one environment switch the port reads (in
+:func:`make_plan`): it is the JAX package's only way to the gap-fused
+pass.
 """
 from __future__ import annotations
 
@@ -243,7 +245,7 @@ def _norm_scale(spec: PlanSpec) -> float:
 
 
 def axis_steps(spec: PlanSpec, backend: str, axes_list,
-               gap_fused: bool = False):
+               gap_fused: bool = False, device=None):
     """Per-axis steps with the JAX package's routing.
 
     Counterpart: ``regent_fft_tpu/plan.py:333`` (``axis_steps``): with
@@ -260,6 +262,7 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
     ``backend="pallas"`` every axis without a kernel step is a ``general``
     step on :func:`_pallas_general` (plan.py:400-402).  A complex128 plan
     takes no kernel step (plan.py:331): the kernels compute in f32.
+    ``device`` is the plan's: the ``general`` steps are built for it.
     """
     steps = []
     ndim = len(spec.shape)
@@ -297,7 +300,7 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
                     steps.append(("stockham4", a, n))
                     continue
         if backend == "pallas":
-            steps.append(("general", a, _pallas_general(spec, n)))
+            steps.append(("general", a, _pallas_general(spec, n, device)))
             continue
         ov = _factor._SCHEDULE_OVERRIDES.get((n, spec.max_radix))
         if ov is not None:
@@ -306,14 +309,14 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
             elif len(ov) == 2:
                 steps.append(("mixed2", a, (n, ov[0])))
             else:
-                steps.append(("general", a, _general(spec, n)))
+                steps.append(("general", a, _general(spec, n, device)))
             continue
         if 2 <= n <= spec.xla_direct_max:
             steps.append(("direct", a, n))
             continue
         split = _stockham.best_two_factor(n, spec.max_radix)
         if split is None:
-            steps.append(("general", a, _general(spec, n)))
+            steps.append(("general", a, _general(spec, n, device)))
         else:
             steps.append(("mixed2", a, (n, split[0])))
     return steps
@@ -358,12 +361,20 @@ def route_steps(spec: PlanSpec, steps, shape):
     return out
 
 
-def _general(spec: PlanSpec, n: int) -> Callable:
+def _general_dtype(spec: PlanSpec) -> torch.dtype:
+    """The planes a ``general`` step runs on: f64 for complex128, else f32
+    (``run_steps`` casts bf16 planes to f32 around it)."""
+    return torch.float64 if spec.dtype == "complex128" else torch.float32
+
+
+def _general(spec: PlanSpec, n: int, device=None) -> Callable:
+    """The dense 1-D pipeline for the plan's ``device`` (Counterpart:
+    ``build_1d``, ``regent_fft_tpu/plan.py:318``)."""
     return _stockham.build_c2c_1d(n, spec.direction, spec.max_radix,
-                                  spec.use_3m)
+                                  spec.use_3m, device, _general_dtype(spec))
 
 
-def _pallas_general(spec: PlanSpec, n: int) -> Callable:
+def _pallas_general(spec: PlanSpec, n: int, device=None) -> Callable:
     """The ``general`` step of a ``backend="pallas"`` axis: the matmul-form
     kernels, or the dense pipeline where they have no schedule and for
     complex128 (f64 planes; the kernels compute in f32, and the JAX plan
@@ -372,7 +383,7 @@ def _pallas_general(spec: PlanSpec, n: int) -> Callable:
     fn = None
     if spec.dtype != "complex128":
         fn = _pf.build_c2c_1d_pallas(n, spec.direction)
-    return fn if fn is not None else _general(spec, n)
+    return fn if fn is not None else _general(spec, n, device)
 
 
 def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
@@ -522,12 +533,13 @@ class RealRoute(NamedTuple):
     note: str              # describe()'s real-axis note
 
 
-def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
+def _real_route(spec: PlanSpec, backend: str, steps,
+                device=None) -> RealRoute:
     """The JAX package's choice for the real axis (plan.py:619-739): the
     row-pair kernels where ``r2c_last_supported``, except that a 1-D C2R
     plan prefers the half-length reduction on the last-axis kernel (as
     does a 1-D R2C plan the row-pair kernel cannot take); else the
-    reduction on the dense pipeline."""
+    reduction on the dense pipeline, built for the plan's ``device``."""
     r2c = spec.kind == Kind.R2C
     axis = spec.axes[-1]
     n = spec.shape[axis]
@@ -553,7 +565,8 @@ def _real_route(spec: PlanSpec, backend: str, steps) -> RealRoute:
             def core(zr, zi):
                 return _sk.fft_axis_stockham(zr, zi, -1, spec.direction)
         build = _real.build_r2c_1d if r2c else _real.build_c2r_1d
-        fn = build(n, spec.max_radix, spec.use_3m, core)
+        fn = build(n, spec.max_radix, spec.use_3m, core, device,
+                   _general_dtype(spec))
     tag = "r2c" if r2c else "c2r"
     if kernel:
         route = "kernel"
@@ -578,8 +591,11 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     ``last_stages``; the column kernels ``cols_stages``: ``fft_cols`` and
     ``fft_axis0`` (every other ``stockham`` step), the axis ring
     (``dma_ring``), ``fft_cols_tw`` (the n1 of a ``stockham4`` step) and
-    both four-step stages (``fourstep_ring``: r1 and r2).  ``ndim`` is the
-    rank of the planes the steps transform."""
+    both four-step stages (``fourstep_ring``: r1 and r2); Bluestein's
+    padded length m takes ``last_stages`` where its inner transforms run
+    ``fft_last`` (a ``general`` step's, or the ``einsum`` real route's
+    core, whose ``kernel_m`` is m).  ``ndim`` is the rank of the planes
+    the steps transform."""
     cs, ls, fs2 = _sk.cols_stages, _sk.last_stages, _sk.fused2_stages
     out = []
     for kind_, a, arg in steps:
@@ -594,6 +610,10 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
             out.append((arg, ls))
         elif kind_ in ("stockham", "dma_ring"):
             out.append((arg, cs))
+        elif kind_ == "general" and getattr(arg, "kernel_m", None):
+            out.append((arg.kernel_m, ls))
+    if real is not None and getattr(real.fn, "kernel_m", None):
+        out.append((real.fn.kernel_m, ls))
     if real is not None and real.route == "half":
         out.append((real.n // 2, ls))
     elif real is not None and real.route == "kernel":
@@ -623,9 +643,9 @@ class Plan:
         self.backend = backend
         axes = spec.axes if spec.kind == Kind.C2C else spec.axes[:-1]
         steps = axis_steps(spec, backend, sorted(axes, reverse=True),
-                           gap_fused)
+                           gap_fused, self.device)
         self.real = (None if spec.kind == Kind.C2C
-                     else _real_route(spec, backend, steps))
+                     else _real_route(spec, backend, steps, self.device))
         step_shape = list(spec.shape)      # the planes the steps transform
         if self.real is not None:
             r = self.real
@@ -725,6 +745,15 @@ class Plan:
         s = self.spec
         return (f"Plan({s.kind.value}, shape={s.shape}, axes={s.axes}, "
                 f"dir={int(s.direction)}, dtype={s.dtype}, device={s.device})")
+
+    @property
+    def core_fn(self) -> Callable:
+        """The split-plane core: :meth:`execute_real` for an R2C plan (one
+        real plane in, the half-spectrum planes out), else
+        :meth:`execute_split`.  Counterpart: ``regent_fft_tpu/plan.py:1010``.
+        """
+        return (self.execute_real if self.spec.kind == Kind.R2C
+                else self.execute_split)
 
     # -- execution -------------------------------------------------------
     def _steps(self, xr, xi):

@@ -108,3 +108,73 @@ def check_shift(fft_fn: Callable, n: int, s: int = 1, seed: int = 0) -> float:
     k = np.arange(n)
     rhs = to_numpy_complex(fft_fn(x)) * np.exp(-2j * np.pi * s * k / n)
     return rel_l2(lhs, rhs)
+
+
+def verify_plan(plan, x=None, seed: int = 0) -> dict:
+    """Golden check of a plan against numpy float64: {'rel_l2', 'tol',
+    'ok'} for any kind, axes and norm; ``x`` defaults to a seeded normal
+    input (complex64, or float32 for R2C).
+
+    Counterpart: ``regent_fft_tpu/utils/verify.py:128``.
+    """
+    from ..dtypes import Direction, Kind
+    from ..plan import _half_shape
+
+    spec = plan.spec
+    rng = np.random.default_rng(seed)
+    if spec.kind == Kind.R2C:
+        x_in = (rng.standard_normal(spec.shape).astype(np.float32)
+                if x is None else x)
+        ref = np.fft.rfftn(to_numpy_complex(x_in).real,
+                           axes=spec.axes) * _fwd_scale(spec)
+    elif spec.kind == Kind.C2R:
+        hs = _half_shape(spec)
+        x_in = ((rng.standard_normal(hs) + 1j * rng.standard_normal(hs))
+                .astype(np.complex64) if x is None else x)
+        ref = np.fft.irfftn(to_numpy_complex(x_in),
+                            s=[spec.shape[a] for a in spec.axes],
+                            axes=spec.axes) * _np_norm_undo(spec)
+    else:
+        x_in = ((rng.standard_normal(spec.shape)
+                 + 1j * rng.standard_normal(spec.shape)).astype(np.complex64)
+                if x is None else x)
+        xc = to_numpy_complex(x_in)
+        if spec.direction == Direction.FORWARD:
+            ref = np.fft.fftn(xc, axes=spec.axes)
+        else:
+            ref = np.fft.ifftn(xc, axes=spec.axes) * spec.logical_n
+        ref = ref * _fwd_scale(spec)
+    err = rel_l2(plan(x_in), ref)
+    tol = tolerance(spec.logical_n, spec.dtype)
+    return {"rel_l2": err, "tol": tol, "ok": err <= tol}
+
+
+def _fwd_scale(spec) -> float:
+    """The scale that turns the unscaled DFT into the plan's norm.
+
+    Counterpart: ``regent_fft_tpu/utils/verify.py:164``.
+    """
+    from ..plan import _norm_scale
+    return _norm_scale(spec)
+
+
+def _np_norm_undo(spec) -> float:
+    """numpy's irfftn applies 1/N; this rescales it to the plan's norm.
+
+    Counterpart: ``regent_fft_tpu/utils/verify.py:170``.
+    """
+    from ..plan import _norm_scale
+    return _norm_scale(spec) * spec.logical_n
+
+
+def check_parseval(fft_fn: Callable, n: int, seed: int = 0) -> float:
+    """Parseval: sum |X|^2 == n * sum |x|^2; the relative difference.
+
+    Counterpart: ``regent_fft_tpu/utils/verify.py:176``.
+    """
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    y = to_numpy_complex(fft_fn(x))
+    lhs = float(np.sum(np.abs(y) ** 2))
+    rhs = float(n * np.sum(np.abs(x) ** 2))
+    return abs(lhs - rhs) / rhs

@@ -20,7 +20,8 @@ import regent_fft_tpu_torch.ops._build, regent_fft_tpu_torch.ops.stockham_kernel
 import regent_fft_tpu_torch.ops.nd, regent_fft_tpu_torch.utils.verify
 import regent_fft_tpu_torch.ops.real, regent_fft_tpu_torch.ops.stockham
 import regent_fft_tpu_torch.ops.fourstep, regent_fft_tpu_torch.ops.pallas_fft
-import regent_fft_tpu_torch.utils.plog
+import regent_fft_tpu_torch.utils.plog, regent_fft_tpu_torch.guru
+import regent_fft_tpu_torch.ops.bluestein, regent_fft_tpu_torch.ops.rader
 import chip_smoke
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
@@ -38,10 +39,10 @@ def test_import_pulls_in_no_jax():
 
 # Every module of the port; a new module must be added here and to _PROBE.
 PORT_MODULES = {
-    "__init__.py", "api.py", "dtypes.py", "plan.py", "ops/__init__.py",
-    "ops/_build.py", "ops/factor.py", "ops/fourstep.py", "ops/nd.py",
-    "ops/pallas_fft.py", "ops/real.py", "ops/stockham.py",
-    "ops/stockham_kernels.py",
+    "__init__.py", "api.py", "dtypes.py", "guru.py", "plan.py",
+    "ops/__init__.py", "ops/_build.py", "ops/bluestein.py", "ops/factor.py",
+    "ops/fourstep.py", "ops/nd.py", "ops/pallas_fft.py", "ops/rader.py",
+    "ops/real.py", "ops/stockham.py", "ops/stockham_kernels.py",
     "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
@@ -54,7 +55,9 @@ PORT_TESTS = {
     "test_torch_port_precision.py", "test_torch_port_fused2_cluster.py",
     "test_torch_port_last_rows.py", "test_torch_port_gap_cluster.py",
     "test_torch_port_cols_regs.py", "test_torch_port_real_rows.py",
-    "test_torch_port_ring_tma.py", "test_torch_port_fourstep_regs.py"}
+    "test_torch_port_ring_tma.py", "test_torch_port_fourstep_regs.py",
+    "test_torch_port_rader_bluestein.py", "test_torch_port_guru.py",
+    "test_torch_port_iface.py"}
 
 
 def test_file_lists_cover_the_port():

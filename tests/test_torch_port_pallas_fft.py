@@ -371,7 +371,8 @@ def test_pallas_plan_matches_jax(shape, axes, norm):
 
 def test_pallas_plan_steps_pick_the_kernels():
     """Which kernel each general step takes: mm1 up to 128, mm2 for a
-    two-factor split, the dense pipeline otherwise (130 has none)."""
+    two-factor split, the dense pipeline otherwise (130 has none; the
+    prime 2053 takes its Rader branch)."""
     def fns(shape, axes, dtype="complex64"):
         p = rt.make_plan(shape, axes=axes, backend="pallas", dtype=dtype,
                          device="cpu")
@@ -379,8 +380,8 @@ def test_pallas_plan_steps_pick_the_kernels():
     assert fns((6, 1024), (1,)) == ["build_c2c_1d_pallas"]
     assert fns((3, 130), (1,)) == ["build_c2c_1d"]
     assert fns((6, 1024), (1,), "complex128") == ["build_c2c_1d"]
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        rt.make_plan((2053,), backend="pallas", device="cpu")
+    # no schedule for the matmul kernels: the dense pipeline's Rader branch
+    assert fns((2053,), (0,)) == ["build_rader_1d"]
 
 
 @pytest.mark.parametrize("shape,axes", PLAN_CASES[:3])
