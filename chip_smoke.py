@@ -152,9 +152,33 @@ Phases (any failure raises and the script exits non-zero):
    512^3 C2C, a 256^3 R2C and a batched 4 x 256^3 C2C, each make_plan's
    cached plan, run and destroyed; a ``plan_many`` of interleaved fields
    and a transposing ``plan_guru`` layout on flat buffers, both 4096 x
-   1024, against torch.fft.
+   1024, against torch.fft;
+12. the r2r kinds, CZT, FFTLog and NUFFT (``R2R_GROUPS``,
+   ``SLICE_GROUPS``), one counted group each: f32 r2r on ``fft_last`` at
+   its core length L (``dctn`` type 2 on 512^3, ``dstn`` type 1 on 511^3
+   with L = 1024, DCT-IV on 4096 x 512, R2HC/HC2R/DHT on 4096 x 1024, an
+   orthonormal ``idctn`` on 2048^2, a guru REDFT10 of interleaved fields),
+   each plan's routes asserted; ``dctn`` of a float64 256^3 on the dense
+   pipeline (no launch); ``zoom_fft`` of 4096 x 1000 and ``czt`` of
+   16384 x 1009 (dense, L 5-smooth, no launch); ``fht``/``ifht`` of
+   16384 x 1024 at bias 0 and -0.5 (``fft_last_r2c`` and the half-length
+   C2R's ``fft_last``), on the JAX suite's sample family and on power-law
+   spectra (``POWER_LAW_JAX_ERR``); NUFFT types 1 and 2 in 1-D (2^20 modes, 2^22
+   points, grid 2^21 on the four-step), 2-D (1024^2 modes, 2^20 points,
+   grid 2048^2) and 3-D (128^3 modes, 2^18 points, grid 256^3), and type 3
+   in 1-D (2^20 points and frequencies, inner grid 2^21), eps 1e-6, each
+   with its peak device memory.  Each result is held against a float64
+   oracle (scipy/numpy on the host; the NUFFT against direct sums at 64
+   sampled modes or points, in chunks on the card) within its bound
+   (``tolerance(L)``, the complex128 tolerance, 1e-5 for CZT, 2e-5 for
+   FFTLog, 2e-5/5e-5/1e-4 for the NUFFT by dimension), and timed beside
+   its bytes bound and, where one PyTorch call computes a comparable
+   transform, that call.  Phase 3b holds each kernel against its plain
+   version, in both signs, on every planes' shape phase 12 feeds it (the
+   511^3 DST-I's (511^2, 1024) planes among them); phase 12 records the
+   shapes its launches get and fails on one that 3b did not hold.
 
-Prints how long each phase took, one ``{"plans": [...]}`` line (39 plans),
+Prints how long each phase took, one ``{"plans": [...]}`` line (65 plans),
 one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
 have launched), the nvidia-smi line, and last the device line.  Exits
@@ -331,6 +355,63 @@ GENERAL_PLANS = [
     ("bluestein1009_c128", (4096, 1009), (1,), "c2c", "complex128", {}),
 ]
 
+# Phase 12: the r2r kinds (f32 on fft_last where it takes the core length
+# L, f64 on the dense pipeline), CZT (dense, L 5-smooth), FFTLog (fft_last_r2c
+# and the half-length C2R on fft_last) and the NUFFT (the grid's C2C plan),
+# one counted group each: (label, launches of one call).
+R2R_GROUPS = [
+    ("dctn2_512cubed", {"fft_last": 3}),         # L = 512 on each axis
+    ("dstn1_511cubed", {"fft_last": 3}),         # L = 2 * (511 + 1) = 1024
+    ("dct4_4096x512", {"fft_last": 1}),          # L = 2 * 512
+    ("r2hc_4096x1024", {"fft_last": 1}),
+    ("hc2r_4096x1024", {"fft_last": 1}),
+    ("dht_4096x1024", {"fft_last": 1}),
+    ("idctn2_ortho_2048sq", {"fft_last": 2}),    # DCT-III, L = 2048
+    ("guru_redft10_interleaved", {"fft_last": 1}),
+    ("dctn2_256cubed_f64", {}),                  # dense f64
+]
+SLICE_GROUPS = [
+    ("zoom_fft_4096x1000", {}),                  # L = 2000, dense
+    ("czt_16384x1009", {}),                      # L = 2025, dense
+    ("fht_16384x1024_bias0", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("ifht_16384x1024_bias0", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("fht_16384x1024_bias-0.5", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("ifht_16384x1024_bias-0.5", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("fht_powerlaw_16384x1024_bias0", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("ifht_powerlaw_16384x1024_bias0", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("fht_powerlaw_16384x1024_bias-0.5", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("ifht_powerlaw_16384x1024_bias-0.5",
+     {"fft_last_r2c": 1, "fft_last": 1}),
+    ("nufft1d1_2^20", {"fft_cols_tw": 1, "fft_last": 1}),   # grid 2^21
+    ("nufft1d2_2^20", {"fft_cols_tw": 1, "fft_last": 1}),
+    ("nufft2d1_1024sq", {"fft_last": 1, "fft_axis0": 1}),    # grid 2048^2
+    ("nufft2d2_1024sq", {"fft_last": 1, "fft_axis0": 1}),
+    ("nufft3d1_128cubed", {"fft_fused2": 1, "fft_cols": 1}),  # grid 256^3
+    ("nufft3d2_128cubed", {"fft_fused2": 1, "fft_cols": 1}),
+    ("nufft1d3_2^20", {"fft_cols_tw": 1, "fft_last": 1}),   # inner 2^21
+]
+
+# FFTLog on power-law spectra, r^s / (1 + r^2)^1.5 on logspace(-4, 4, 1024)
+# with a slope s in [1, 1.5) per row.  With a bias, the float32 FFTs'
+# roundoff grows up to e^4.6 toward one end of the grid, and the biased
+# ifht reads above 2e-5 against scipy's float64 in the JAX package too.  Each
+# group is held to 2e-5, or to REFERENCE_MARGIN times the JAX package's own
+# rel_l2 on the same rows where that is larger.  POWER_LAW_JAX_ERR holds the
+# JAX package's readings on the CPU (float32 input, scipy float64 oracle);
+# tests/test_torch_port_fftlog.py checks them against the package.
+POWER_LAW_JAX_ERR = {("fht", 0.0): 3.13e-7, ("ifht", 0.0): 3.13e-7,
+                     ("fht", -0.5): 6.17e-6, ("ifht", -0.5): 4.98e-5}
+REFERENCE_MARGIN = 1.25
+
+
+def power_law_spectra(rows=16384):
+    """(dln, (rows, 1024) float32 numpy) power-law spectra from a seed."""
+    import numpy as np
+    r = np.logspace(-4, 4, 1024)
+    slope = 1.0 + 0.5 * np.random.default_rng(16).random((rows, 1))
+    return (float(np.log(r[1] / r[0])),
+            (r ** slope / (1 + r ** 2) ** 1.5).astype(np.float32))
+
 
 def _pipeline(axis, sched):
     return f"(axis {axis}: 1d-pipeline[{sched}])"
@@ -427,6 +508,8 @@ def main() -> int:
         print(f"phase {label} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
     import regent_fft_tpu_torch as rt
     from regent_fft_tpu_torch.ops import _build
     from regent_fft_tpu_torch.ops import fourstep as fs
@@ -692,6 +775,16 @@ def main() -> int:
             torch.cuda.synchronize()
             out.append(a.elapsed_time(b))
         return float(np.median(out))
+
+    def device_trace(fn):
+        """Device ms of one call of `fn` by kernel, longest first
+        (torch.profiler, CUDA activity only, so nothing counts twice)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted(((e.key, e.self_device_time_total / 1e3)
+                       for e in prof.key_averages()
+                       if e.self_device_time_total > 0), key=lambda t: -t[1])
 
     src = torch.empty(256 << 20, dtype=torch.float32, device=dev)
     dst = torch.empty_like(src)
@@ -1210,6 +1303,27 @@ def main() -> int:
         del xr, xi, xc
         return case
 
+    def dst1_case(n):
+        """``fft_last`` on the (n^2, 2(n+1)) planes of an n^3 DST-I's axis,
+        [0, x, 0, -rev(x)] and zeros, against ``fft_last_plain``."""
+        x = randn((n * n, n))
+        z = x.new_zeros((n * n, 1))
+        vr = torch.cat([z, x, z, -x.flip(1)], 1)
+        vi = torch.zeros_like(vr)
+        del x, z
+        L = vr.shape[1]
+        vc = torch.complex(vr, vi)
+        case = kernel_case(
+            tuple(vr.shape), L,
+            [(lambda: torch.complex(*sk.fft_last(vr, vi, -1)),
+              lambda: torch.complex(*sk.fft_last_plain(vr, vi, -1)))],
+            lambda: sk.fft_last(vr, vi, -1),
+            lambda: sk.fft_last_plain(vr, vi, -1),
+            lambda: torch.fft.fft(vc), 16 * vr.numel(),
+            5 * vr.numel() * math.log2(L))
+        del vr, vi, vc
+        return case
+
     def r2c_case(shape, packed):
         b, n = shape
         x = randn(shape)
@@ -1497,24 +1611,42 @@ def main() -> int:
                      # the half-length C2R of 4096 x 1024
                      lambda: c2c_case("fft_last", (4096, 512), (1,)),
                      # Bluestein's inner transforms of 16384 x 1009 (m = 2048)
-                     lambda: c2c_case("fft_last", (16384, 2048), (1,))],
+                     lambda: c2c_case("fft_last", (16384, 2048), (1,)),
+                     # the 511^3 DST-I's planes: L = 1024, imag zero
+                     lambda: dst1_case(511),
+                     # phase 12: dctn 512^3's axes; idctn 2048^2 and the
+                     # 2048^2 NUFFT grid's last axis; FFTLog's half-length
+                     # C2R; stage 2 of the 2^21 NUFFT grid's four-step
+                     lambda: c2c_case("fft_last", (262144, 512), (1,)),
+                     lambda: c2c_case("fft_last", (2048, 2048), (1,)),
+                     lambda: c2c_case("fft_last", (16384, 512), (1,)),
+                     lambda: c2c_case("fft_last", (1024, 2048), (1,))],
         "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,)),
                      # the mid axis of the 512^3 gap-fused plan
                      lambda: c2c_case("fft_cols", CUBE, (1,)),
                      # axes 2 and 1 of the packed 4 x 256^3 real plans
                      lambda: c2c_case("fft_cols", (1024, 256, 128), (1,)),
-                     lambda: c2c_case("fft_cols", (4, 256, 32768), (1,))],
+                     lambda: c2c_case("fft_cols", (4, 256, 32768), (1,)),
+                     # phase 12: the leading axis of the 256^3 NUFFT grid
+                     lambda: c2c_case("fft_cols", (1, 256, 65536), (1,))],
         "fft_fused2": [lambda: c2c_case("fft_fused2", (512, 512, 512),
                                         (1, 2)),
                        # the trailing pair of the 4 x 256^3 mid-axis plan
                        lambda: c2c_case("fft_fused2", (1024, 256, 256),
                                         (1, 2)),
                        lambda: c2c_case("fft_fused2", (16, 512, 512),
+                                        (1, 2)),
+                       # phase 12: the trailing pair of the 256^3 NUFFT grid
+                       lambda: c2c_case("fft_fused2", (256, 256, 256),
                                         (1, 2))],
         "fft_last_r2c": [lambda: r2c_case((4096, 1024), False),
-                         lambda: r2c_case((262144, 256), True)],
+                         lambda: r2c_case((262144, 256), True),
+                         # phase 12: FFTLog's rfft
+                         lambda: r2c_case((16384, 1024), False)],
         "ifft_last_c2r": [lambda: c2r_case((262144, 256), True)],
-        "fft_cols_tw": [lambda: cols_tw_case(64, 1 << 20)],
+        "fft_cols_tw": [lambda: cols_tw_case(64, 1 << 20),
+                        # phase 12: the 2^21 NUFFT grid (one row)
+                        lambda: cols_tw_case(1, 1 << 21)],
         "a0fs_a": [lambda: a0fs_case("a", CUBE, 0),
                    lambda: a0fs_case("a", mid4, 1)],
         "a0fs_b": [lambda: a0fs_case("b", CUBE, 0),
@@ -1549,7 +1681,9 @@ def main() -> int:
         "fft_axes2_ring_bf16": [lambda: bf16_case(
             "fft_axes2_ring", CUBE, (1, 2), ring_fn(True), ring_fn(True, True))],
         # the 512^3 leading axis, and the columns plan of PRECISION_PLANS
-        "fft_axis0": [lambda: axis0_case((512, 262144))],
+        "fft_axis0": [lambda: axis0_case((512, 262144)),
+                      # phase 12: the leading axis of the 2048^2 NUFFT grid
+                      lambda: axis0_case((2048, 2048))],
         # the rows every axis of the PALLAS_PLANS gives the kernels
         "fft_mm1": [lambda: mm_case("fft_mm1", (262144, 128))],
         "fft_mm2": [lambda: mm_case("fft_mm2", (4096, 1024)),
@@ -1733,16 +1867,9 @@ def main() -> int:
         print(f"{s.kind.value} {s.shape}: {ms:.4f} ms (steps {steps_ms:.4f}, "
               f"bound {b_ms:.4f}, torch.fft {lib_ms:.4f}), rel_l2 {err:.3e}, "
               f"roundtrip {back:.3e}")
-    # device time of one call of each real plan, by kernel (torch.profiler,
-    # CUDA activity only, so nothing is counted twice)
-    from torch.profiler import ProfilerActivity, profile
+    # device time of one call of each real plan, by kernel
     for row, p, x in zip(plan_rows[len(MAIN_PLANS):], plans, inputs):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            p(x)
-            torch.cuda.synchronize()
-        by = sorted(((e.key, e.self_device_time_total / 1e3)
-                     for e in prof.key_averages()
-                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        by = device_trace(lambda: p(x))
         row["device_ms_by_kernel"] = {k[:80]: ms for k, ms in by}
         print(f"profile {row['kind']} {tuple(row['shape'])}: device "
               f"{sum(ms for _, ms in by):.4f} ms in {len(by)} kernels: "
@@ -1798,12 +1925,7 @@ def main() -> int:
         steps_ms = timed(lambda: p.execute_split(xr, xi))
         lib_ms = timed(lambda: torch.fft.fftn(x, dim=s.axes))
         b_ms = 1e3 * p.bytes_ideal / bw
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            p(x)
-            torch.cuda.synchronize()
-        by = sorted(((e.key, e.self_device_time_total / 1e3)
-                     for e in prof.key_averages()
-                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        by = device_trace(lambda: p(x))
         plan_rows.append({
             "kind": "c2c", "route": label, "shape": list(s.shape),
             "axes": list(s.axes), "steps": got,
@@ -1888,12 +2010,7 @@ def main() -> int:
         elif dtype == "complex128":
             own_ms = timed(lambda: torch.fft.fftn(xd, dim=s.axes))
         b_ms = 1e3 * p.bytes_ideal / bw
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            p(x)
-            torch.cuda.synchronize()
-        by = sorted(((e.key, e.self_device_time_total / 1e3)
-                     for e in prof.key_averages()
-                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        by = device_trace(lambda: p(x))
         plan_rows.append({
             "kind": "c2c", "dtype": dtype, "route": label,
             "shape": list(s.shape), "axes": list(s.axes), "steps": got,
@@ -2101,12 +2218,7 @@ def main() -> int:
         steps_ms = timed(steps)
         lib_ms = timed(lib)
         b_ms, b_by = bound(p.bytes_ideal, p.flops)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            p(x)
-            torch.cuda.synchronize()
-        by = sorted(((e.key, e.self_device_time_total / 1e3)
-                     for e in prof.key_averages()
-                     if e.self_device_time_total > 0), key=lambda t: -t[1])
+        by = device_trace(lambda: p(x))
         plan_rows.append({
             "kind": kind, "dtype": dtype, "route": label,
             "shape": list(shape), "axes": list(axes), "steps": got,
@@ -2195,6 +2307,363 @@ def main() -> int:
           f"{e2:.3e} {guru_ms[1]:.4f} ms", flush=True)
     del buf, a, y1, y2
     phase("11 (general pipeline, FFTInterface, guru)")
+
+    # 12. r2r, CZT, FFTLog and NUFFT on the port's plans and kernels: each
+    # group counted, held against a float64 oracle, timed beside its bytes
+    # bound (input read once, output written once) and a yardstick call
+    import scipy.fft as sfft
+    import scipy.signal as ssig
+    from regent_fft_tpu_torch.ops import fftlog as fl
+    from regent_fft_tpu_torch.ops import nufft as nu
+    R2R = rt.R2RKind
+    workers = os.cpu_count() or 1
+    groups = dict(R2R_GROUPS + SLICE_GROUPS)
+
+    def host64(t):
+        return t.detach().to(torch.float64 if not t.is_complex()
+                             else torch.complex128).cpu().numpy()
+
+    def on_dev(h):
+        """A host oracle array on the card."""
+        return torch.from_numpy(np.ascontiguousarray(h)).to(dev)
+
+    on_cuda = sk._on_cuda
+    fed = set()       # (kernel, planes' shape) of every phase-12 launch
+
+    def seen(name, *planes, **kw):
+        fed.add((name, tuple(planes[0].shape)))
+        return on_cuda(name, *planes, **kw)
+
+    def counted(label, fn):
+        sk._on_cuda = seen
+        try:
+            (y,), launches = run_counted(label, [lambda _: fn()], [None],
+                                         groups[label])
+        finally:
+            sk._on_cuda = on_cuda
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = launches[kname]
+            row["launches"] += launches[kname]
+        return y, launches
+
+    def report(kind, label, shape, fn, err, tol, steps, nbytes, launches,
+               lib=None, lib_call=None, mem=None):
+        if not err <= tol:
+            raise AssertionError(f"{label}: rel_l2 {err} > {tol}")
+        ms = timed(fn)
+        b_ms = 1e3 * nbytes / bw
+        lib_ms = timed(lib) if lib is not None else None
+        row = {"kind": kind, "route": label, "shape": list(shape),
+               "steps": steps, "rel_err_vs_f64": err, "tolerance": tol,
+               "ms": ms, "bytes_ideal": nbytes, "bound_ms": b_ms,
+               "bound_by": "bytes", "bound_fraction": b_ms / ms,
+               "library_ms": lib_ms, "library_call": lib_call,
+               "launches": {k: v for k, v in launches.items() if v}}
+        if mem is not None:
+            row["peak_bytes"], row["peak_rise_bytes"] = mem
+        by = device_trace(fn)
+        row["device_ms"] = sum(v for _, v in by)
+        row["device_ms_by_kernel"] = [[k[:120], v] for k, v in by]
+        plan_rows.append(row)
+        print(f"{label} trace: device {row['device_ms']:.4f} ms: "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:6]))
+        print(f"{label} {tuple(shape)}: {ms:.4f} ms (bound {b_ms:.4f} bytes"
+              + (f", {lib_call} {lib_ms:.4f}" if lib is not None else "")
+              + f"), rel_l2 vs float64 {err:.3e} (bound {tol:.1e}); launches "
+              f"{row['launches']}"
+              + ("" if mem is None else f"; peak memory {mem[0]} B ({mem[1]}"
+                 f" B over the {mem[0] - mem[1]} B resident)")
+              + "; steps " + " ".join(steps), flush=True)
+
+    def r2r_steps(p):
+        return [p.description] + [f"(axis {a}: {k} L={L} {r})"
+                                  for a, k, L, r in p.routes]
+
+    def r2hc_ref(h):
+        f = np.fft.rfft(h)
+        return np.concatenate([f.real, f.imag[:, 1:-1][:, ::-1]], 1)
+
+    def hc2r_ref(h):
+        n = h.shape[1]
+        im = np.zeros((h.shape[0], n // 2 + 1))
+        im[:, 1:n // 2] = h[:, n // 2 + 1:][:, ::-1]     # hc[n - k]
+        return n * np.fft.irfft(h[:, :n // 2 + 1] + 1j * im, n)
+
+    def dht_ref(h):
+        f = np.fft.fft(h)
+        return f.real - f.imag
+
+    # r2r, f32: the kernel route on every transformed axis
+    for label, shape, axes, kind, call, ref_fn, L in (
+            ("dctn2_512cubed", (512, 512, 512), (0, 1, 2), R2R.REDFT10,
+             lambda x: rt.dctn(x, type=2),
+             lambda h: sfft.dctn(h, type=2, workers=workers), 512),
+            ("dstn1_511cubed", (511, 511, 511), (0, 1, 2), R2R.RODFT00,
+             lambda x: rt.dstn(x, type=1),
+             lambda h: sfft.dstn(h, type=1, workers=workers), 1024),
+            ("dct4_4096x512", (4096, 512), (1,), R2R.REDFT11,
+             lambda x: rt.dct(x, type=4),
+             lambda h: sfft.dct(h, type=4, workers=workers), 1024),
+            ("r2hc_4096x1024", (4096, 1024), (1,), R2R.R2HC,
+             lambda x: rt.r2r(x, R2R.R2HC), r2hc_ref, 1024),
+            ("hc2r_4096x1024", (4096, 1024), (1,), R2R.HC2R,
+             lambda x: rt.r2r(x, R2R.HC2R), hc2r_ref, 1024),
+            ("dht_4096x1024", (4096, 1024), (1,), R2R.DHT,
+             lambda x: rt.dht(x), dht_ref, 1024),
+            ("idctn2_ortho_2048sq", (2048, 2048), (0, 1), R2R.REDFT01,
+             lambda x: rt.idctn(x, type=2, norm="ortho"),
+             lambda h: sfft.idctn(h, type=2, norm="ortho", workers=workers),
+             2048)):
+        x = randn(shape)
+        p = rt.plan_r2r(shape, kind, axes=axes)
+        if p.routes != tuple((a, kind.name, L, "kernel") for a in axes):
+            raise AssertionError(f"{label}: routes {p.routes}")
+        y, launches = counted(label, lambda: call(x))
+        if y.dtype != torch.float32 or tuple(y.shape) != shape:
+            raise AssertionError(f"{label}: output {y.dtype} {tuple(y.shape)}")
+        err = dev_rel(y, on_dev(ref_fn(host64(x))))
+        del y
+        report("r2r", label, shape, lambda: call(x), err, tolerance(L),
+               r2r_steps(p), 8 * x.numel(), launches,
+               lambda: torch.fft.rfftn(x, dim=axes), "torch.fft.rfftn f32")
+        del x
+        torch.cuda.empty_cache()
+
+    # guru r2r: REDFT10 of field 0 of two interleaved fields (is = 2)
+    label = "guru_redft10_interleaved"
+    gp = rt.plan_guru_r2r([(1024, 2, 1)], R2R.REDFT10, [(4096, 2048, 1024)])
+    buf = randn(4096 * 2048)
+    y, launches = counted(label, lambda: gp(buf))
+    ref = sfft.dct(host64(buf).reshape(4096, 2048)[:, ::2], type=2, axis=1,
+                   workers=workers).ravel()
+    err = dev_rel(y, on_dev(ref))
+    del y, ref
+    field = buf.view(4096, 2048)[:, ::2]
+    report("r2r", label, (4096, 1024), lambda: gp(buf), err, tolerance(1024),
+           gp.describe().splitlines() + [
+               f"(axis {a}: {k} L={L} {r})" for a, k, L, r in gp._plan.routes],
+           8 * 4096 * 1024, launches, lambda: torch.fft.rfft(field),
+           "torch.fft.rfft f32 (strided view)")
+    del buf, field
+
+    # r2r, f64: the dense pipeline, no kernel
+    label = "dctn2_256cubed_f64"
+    x = randn((256, 256, 256)).double()
+    y, launches = counted(label, lambda: rt.dctn(x, type=2))
+    if y.dtype != torch.float64:
+        raise AssertionError(f"{label}: output {y.dtype}")
+    err = dev_rel(y, on_dev(sfft.dctn(host64(x), type=2, workers=workers)))
+    del y
+    report("r2r", label, x.shape, lambda: rt.dctn(x, type=2), err,
+           tolerance(256, "complex128"),
+           [rt.plan_r2r(x.shape, R2R.REDFT10).description,
+            "(f64: dense pipeline on every axis)"],
+           16 * x.numel(), launches, lambda: torch.fft.rfftn(x),
+           "torch.fft.rfftn f64")
+    del x
+    torch.cuda.empty_cache()
+
+    # CZT: the dense pipeline at a 5-smooth L, no kernel; bound 1e-5
+    x = torch.complex(randn((4096, 1000)), randn((4096, 1000)))
+    zp = rt.ZoomFFT(1000, [0.1, 0.4], 1000)
+    if zp._L != 2000:
+        raise AssertionError(f"zoom L {zp._L}")
+    label = "zoom_fft_4096x1000"
+    y, launches = counted(label, lambda: rt.zoom_fft(x, [0.1, 0.4], 1000))
+    ref = ssig.zoom_fft(host64(x), [0.1, 0.4], 1000, fs=2)
+    err = dev_rel(y, on_dev(ref))
+    del y, ref
+    report("czt", label, x.shape, lambda: rt.zoom_fft(x, [0.1, 0.4], 1000),
+           err, 1e-5, ["(zoom fft [0.1, 0.4] m=1000: dense L=2000)"],
+           16 * x.numel(), launches)
+    x = torch.complex(randn((16384, 1009)), randn((16384, 1009)))
+    if rt.CZT(1009)._L != 2025:
+        raise AssertionError("czt L")
+    label = "czt_16384x1009"
+    y, launches = counted(label, lambda: rt.czt(x))
+    err = dev_rel(y, on_dev(ssig.czt(host64(x))))
+    del y
+    report("czt", label, x.shape, lambda: rt.czt(x), err, 1e-5,
+           ["(czt m=1009 default w: dense L=2025)"], 16 * x.numel(), launches,
+           lambda: torch.fft.fft(x), "torch.fft.fft c64")
+    del x
+    torch.cuda.empty_cache()
+
+    # FFTLog: batched Hankel transforms of power spectra, mu = 0.5: the JAX
+    # suite's sample r^1.5 exp(-(r/r0)^2/2) on its grid (tests/test_fftlog.py
+    # _sample), a cutoff r0 per row; fht's rfft is fft_last_r2c, its irfft
+    # the half-length C2R on fft_last
+    r = np.logspace(-3, 3, 1024)
+    dln = float(np.log(r[1] / r[0]))
+    r0 = 10 ** (0.6 * torch.rand(16384, 1, device=dev, generator=gen) - 0.3)
+    rd = torch.from_numpy(r).to(dev)
+    a = (rd ** 1.5 * torch.exp(-(rd / r0.double()) ** 2 / 2)).float()
+    real_steps = [ln.strip() for k, d in (("r2c", -1), ("c2r", 1))
+                  for ln in rt.make_plan((16384, 1024), axes=(1,), kind=k,
+                                         direction=d).describe().splitlines()
+                  if "real axis" in ln]
+    for bias in (0.0, -0.5):
+        offset = rt.fhtoffset(dln, 0.5, bias=bias)
+        for name, fn, ref_fn in (("fht", rt.fht, sfft.fht),
+                                 ("ifht", rt.ifht, sfft.ifht)):
+            label = f"{name}_16384x1024_bias{bias:g}"
+            call = (lambda fn=fn: fn(a, dln, 0.5, offset=offset, bias=bias))
+            y, launches = counted(label, call)
+            err = dev_rel(y, on_dev(ref_fn(host64(a), dln, 0.5,
+                                           offset=offset, bias=bias)))
+            del y
+            report("fftlog", label, a.shape, call, err, 2e-5, real_steps,
+                   8 * a.numel(), launches)
+    del a, rd, r0
+
+    # FFTLog on power-law spectra (POWER_LAW_JAX_ERR): each held to 2e-5, or
+    # to REFERENCE_MARGIN x the JAX package's rel_l2 on the same rows where
+    # that is larger; beside it the same algorithm on torch.fft's f32 and
+    # f64 transforms, on the same coefficients
+    dln, host = power_law_spectra()
+    a = on_dev(host)
+    for bias in (0.0, -0.5):
+        offset = rt.fhtoffset(dln, 0.5, bias=bias)
+        for name, fn, ref_fn in (("fht", rt.fht, sfft.fht),
+                                 ("ifht", rt.ifht, sfft.ifht)):
+            label = f"{name}_powerlaw_16384x1024_bias{bias:g}"
+            call = (lambda fn=fn: fn(a, dln, 0.5, offset=offset, bias=bias))
+            y, launches = counted(label, call)
+            ref = on_dev(ref_fn(host.astype(np.float64), dln, 0.5,
+                                offset=offset, bias=bias))
+            err = dev_rel(y, ref)
+            cu, pre, post, _ = fl._tables(1024, dln, 0.5, offset, bias,
+                                          name == "ifht", str(dev))
+            lib = {}
+            for dt, ct in ((torch.float32, torch.complex64),
+                           (torch.float64, torch.complex128)):
+                v = a.to(dt) * (1 if pre is None else pre.to(dt))
+                v = torch.fft.irfft(torch.fft.rfft(v) * cu.to(ct),
+                                    1024).flip(-1)
+                lib[dt] = dev_rel(v * (1 if post is None else post.to(dt)),
+                                  ref)
+            del y, ref, v
+            jax_err = POWER_LAW_JAX_ERR[(name, bias)]
+            tol = max(2e-5, REFERENCE_MARGIN * jax_err)
+            print(f"{label}: rel_l2 {err:.3e}; the JAX package's "
+                  f"{jax_err:.3e} on these rows (bound {tol:.3e}); the same "
+                  f"algorithm on torch.fft f32 {lib[torch.float32]:.3e}, "
+                  f"f64 {lib[torch.float64]:.3e}")
+            report("fftlog", label, a.shape, call, err, tol, real_steps,
+                   8 * a.numel(), launches)
+            plan_rows[-1].update(
+                rel_err_jax=jax_err,
+                rel_err_torch_fft_f32=lib[torch.float32],
+                rel_err_torch_fft_f64=lib[torch.float64])
+    del a, host
+
+    # NUFFT, eps = 1e-6: each result held against a float64 direct sum at
+    # 64 sampled modes or points, computed in chunks on the card; an
+    # unbatched 1-D grid is planned as one row
+    def direct(tgt, src, w, isign, chunk=1 << 19):
+        """sum_j w_j exp(isign i tgt_k . src_j) in float64: tgt (T, d),
+        src (S, d), w (S,) complex128."""
+        acc = torch.zeros(tgt.shape[0], dtype=torch.complex128, device=dev)
+        for i in range(0, src.shape[0], chunk):
+            ph = tgt @ src[i:i + chunk].T
+            acc += (torch.polar(torch.ones_like(ph), isign * ph)
+                    * w[i:i + chunk]).sum(1)
+        return acc
+
+    def modes(ns):
+        """All mode vectors (K, d) of a centred grid, float64, row-major."""
+        ks = [torch.arange(-(n // 2), (n + 1) // 2, device=dev,
+                           dtype=torch.float64) for n in ns]
+        return torch.stack([g.reshape(-1) for g in
+                            torch.meshgrid(*ks, indexing="ij")], 1)
+
+    sample = torch.Generator(device="cpu").manual_seed(12)
+
+    def pick(count):
+        return torch.randperm(count, generator=sample)[:64].to(dev)
+
+    def grid_steps(shape, ndim):
+        p = nu.grid_plan(shape, ndim, True, dev)
+        return p, [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+
+    def nufft_group(label, shape, call, got_at, tgt, src, w, tol, nbytes,
+                    grid, ndim, kinds):
+        gpn, steps = grid_steps(grid, ndim)
+        if [k for k, _, _ in gpn.steps] != kinds:
+            raise AssertionError(f"{label}: grid steps {steps}")
+        y, launches = counted(label, call)
+        if y.dtype != torch.complex64 or not bool(
+                torch.isfinite(torch.view_as_real(y)).all()):
+            raise AssertionError(f"{label}: output {y.dtype}")
+        err = dev_rel(got_at(y), direct(tgt, src, w, 1))
+        del y
+        mem = peak_bytes(call)
+        report("nufft", label, shape, call, err, tol,
+               [f"(grid {grid})"] + steps, nbytes, launches, mem=mem)
+        torch.cuda.empty_cache()
+
+    def crandn(shape):
+        return torch.complex(randn(shape), randn(shape))
+
+    def upoints(m):
+        return (2 * torch.rand(m, device=dev, generator=gen) - 1) * math.pi
+
+    for d, ns, m, grid, kinds, tol in (
+            (1, (1 << 20,), 1 << 22, (1, 1 << 21), ["stockham4"], 2e-5),
+            (2, (1024, 1024), 1 << 20, (2048, 2048),
+             ["stockham", "stockham"], 5e-5),
+            (3, (128, 128, 128), 1 << 18, (256, 256, 256),
+             ["stockham2", "stockham"], 1e-4)):
+        pts = [upoints(m) for _ in range(d)]
+        src = torch.stack(pts, 1).double()
+        c = crandn(m)
+        nmodes = int(np.prod(ns))
+        kall = modes(ns)
+        t1, t2 = {1: ("nufft1d1_2^20", "nufft1d2_2^20"),
+                  2: ("nufft2d1_1024sq", "nufft2d2_1024sq"),
+                  3: ("nufft3d1_128cubed", "nufft3d2_128cubed")}[d]
+        entry1 = {1: rt.nufft1d1, 2: rt.nufft2d1, 3: rt.nufft3d1}[d]
+        entry2 = {1: rt.nufft1d2, 2: rt.nufft2d2, 3: rt.nufft3d2}[d]
+        idx = pick(nmodes)
+        nufft_group(t1, ns, lambda: entry1(*pts, c, *ns),
+                    lambda y: y.reshape(-1)[idx], kall[idx], src,
+                    c.to(torch.complex128), tol,
+                    4 * d * m + 8 * m + 8 * nmodes, grid, d, kinds)
+        f = crandn(ns)
+        jdx = pick(m)
+        nufft_group(t2, ns, lambda: entry2(*pts, f), lambda y: y[jdx],
+                    src[jdx], kall, f.reshape(-1).to(torch.complex128), tol,
+                    4 * d * m + 8 * nmodes + 8 * m, grid, d, kinds)
+        del pts, src, c, kall, f
+        torch.cuda.empty_cache()
+
+    # type 3, M = nk = 2^20: the sources in [-pi, pi], the frequencies sized
+    # so the fine grid's half-size n3 is 2^19 and the inner type 2 runs on a
+    # grid of 2^21 (the four-step last axis)
+    m = 1 << 20
+    x3 = upoints(m)
+    smax = 130250 * math.pi / float(x3.abs().max())
+    s3 = (2 * torch.rand(m, device=dev, generator=gen) - 1) * smax
+    s3[0] = smax
+    c3 = crandn(m)
+    (_, n3, _), = nu.t3_params((x3,), (s3,))
+    if n3 != 1 << 19:
+        raise AssertionError(f"type 3 n3 {n3}")
+    kdx = pick(m)
+    nufft_group("nufft1d3_2^20", (m,), lambda: rt.nufft1d3(x3, c3, s3),
+                lambda y: y[kdx], s3[kdx].double()[:, None],
+                x3.double()[:, None], c3.to(torch.complex128), 2e-5,
+                4 * m + 8 * m + 4 * m + 8 * m, (1, 4 * n3), 1, ["stockham4"])
+    del x3, s3, c3
+    torch.cuda.empty_cache()
+    held = {(k, tuple(c["shape"])) for k, row in rows.items()
+            for c in row["cases"]}
+    if fed - held:
+        raise AssertionError("phase 12 fed kernels planes no phase-3b case "
+                             f"holds against the plain version: {fed - held}")
+    print("phase 12 kernel planes, each held against its plain version in "
+          "3b: " + ", ".join(f"{k} {s}" for k, s in sorted(fed)))
+    phase("12 (r2r, CZT, FFTLog, NUFFT)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

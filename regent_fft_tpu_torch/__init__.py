@@ -14,7 +14,11 @@ last axis (n = 4096..2M), the leading-axis four-step and slab-ring routes
 (``axis0_impl``/``f2_impl``), and under ``backend="pallas"`` the
 matmul-form kernels.  Around the plans: the reference's typed interface
 (``generate_fft_interface``), guru and ``plan_many`` plans over flat
-buffers, the shift and frequency helpers.  Plans default to
+buffers, the shift and frequency helpers.  On the plans and kernels: the
+eleven FFTW real-to-real kinds (DCT/DST types 1-4, DHT, halfcomplex;
+``plan_r2r``, scipy's ``dct``/``dst`` families, guru r2r plans), the
+chirp-z transform and zoom FFT, the fast Hankel transform (FFTLog) and
+the non-uniform FFT, types 1-3 in one to three dimensions.  Plans default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain versions.  The
 JAX package ``regent_fft_tpu`` is the reference; this package imports
 nothing of it or of JAX.
@@ -27,8 +31,15 @@ from .api import (fft, ifft, fft2, ifft2, fftn, ifftn,
                   hfftn, hfft2, ihfftn, ihfft2, fftshift, ifftshift, fftfreq,
                   rfftfreq, FFTInterface, generate_fft_interface,
                   set_workers, get_workers)
-from .guru import IODim, GuruPlan, plan_guru, plan_many
+from .guru import (IODim, GuruPlan, GuruR2RPlan, plan_guru, plan_guru_r2r,
+                   plan_many)
 from .ops.factor import next_fast_len, prev_fast_len
+from .ops.r2r import (R2RKind, R2RPlan, plan_r2r, r2r, dct, dst, dht,
+                      idct, idst, idht, dctn, idctn, dstn, idstn)
+from ._czt import CZT, ZoomFFT, czt, zoom_fft
+from .ops.fftlog import fht, ifht, fhtoffset
+from .ops.nufft import (nufft1d1, nufft1d2, nufft2d1, nufft2d2,
+                        nufft3d1, nufft3d2, nufft1d3, nufft2d3, nufft3d3)
 
 __version__ = "0.1.0"
 

@@ -14,8 +14,8 @@ sides are the same view of a C2C plan).  Overlapping output strides are
 refused at plan time (undefined in FFTW too); overlapping inputs are legal.
 
 ``plan_many`` is ``fftw_plan_many_dft``'s flat (n, howmany, stride, dist)
-surface on the guru layer.  ``plan_guru_r2r`` waits for the r2r kinds
-(ROADMAP Queue 1 #9).
+surface on the guru layer; :class:`GuruR2RPlan` (``plan_guru_r2r``) the
+r2r kinds' guru plans, on ``ops/r2r.py``'s plans.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 
 from .dtypes import (Direction, Kind, Norm, SplitComplex, as_real, as_split,
                      from_split)
-from .plan import Plan, PlanSpec, _unported, make_plan
+from .plan import Plan, PlanSpec, make_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,9 +235,87 @@ def plan_guru(dims, howmany_dims=(), kind: Kind = Kind.C2C,
                     norm=norm, dtype=dtype, out_size=out_size, **plan_opts)
 
 
-def plan_guru_r2r(dims, kinds, howmany_dims=(), **opts):
-    """``fftw_plan_guru_r2r`` analog (``regent_fft_tpu/guru.py:370``)."""
-    _unported("plan_guru_r2r", "ROADMAP Queue 1 #9 (r2r)")
+class GuruR2RPlan:
+    """Guru-layout real-to-real plan (``fftw_plan_guru_r2r`` analog,
+    ``fftw-3.3.8/api/plan-guru-r2r.c``): one r2r kind per transform
+    dimension, arbitrary element strides over flat real buffers.
+
+    r2r transforms keep extents, so the input and output layouts are both
+    ``howmany_dims + dims``.  The gather and scatter are index ops whose
+    index tensors go to the plan's device once, when the plan is made; the
+    input is cast to float32, as in the JAX package.  Unnormalized FFTW
+    semantics, like :class:`~.ops.r2r.R2RPlan`.
+    Counterpart: ``regent_fft_tpu/guru.py:294``.
+    """
+
+    def __init__(self, dims, kinds, howmany_dims=(), dtype: str = "float32",
+                 out_size: Optional[int] = None, max_radix: int = 128,
+                 precision: str = "highest", device="cuda"):
+        from .ops.r2r import R2RKind, plan_r2r
+        self.dims = _as_iodims(dims)
+        self.howmany_dims = _as_iodims(howmany_dims)
+        if not self.dims:
+            raise ValueError("at least one transform dimension required")
+        if isinstance(kinds, int) or not isinstance(kinds, Sequence):
+            kinds = (kinds,) * len(self.dims)
+        self.kinds = tuple(R2RKind(k) for k in kinds)
+        if len(self.kinds) != len(self.dims):
+            raise ValueError(f"{len(self.kinds)} kinds for "
+                             f"{len(self.dims)} dims")
+        shape = tuple(d.n for d in self.howmany_dims + self.dims)
+        axes = tuple(range(len(self.howmany_dims), len(shape)))
+        self._plan = plan_r2r(shape, self.kinds, axes=axes,
+                              max_radix=max_radix, precision=precision,
+                              device=device)
+        all_dims = self.howmany_dims + self.dims
+        idx_in = _index_map(all_dims, "in")
+        idx_out = _index_map(all_dims, "out")
+        self.in_size = _check_layout(idx_in, "input", require_unique=False)
+        min_out = _check_layout(idx_out, "output", require_unique=True)
+        self.out_size = out_size if out_size is not None else min_out
+        if self.out_size < min_out:
+            raise ValueError(f"out_size {self.out_size} < layout span "
+                             f"{min_out}")
+        dev = self._plan.device
+        self._gather = _gatherer(None, idx_in, dev)
+        self._scatter = _scatterer(None, idx_out, self.out_size, dev)
+        self._destroyed = False
+
+    def __call__(self, x):
+        """Counterpart: ``regent_fft_tpu/guru.py:350``."""
+        if self._destroyed:
+            raise RuntimeError("plan was destroyed (destroy_plan); "
+                               "re-plan first")
+        from .ops.r2r import _as_tensor
+        x = _as_tensor(x)
+        if x.ndim != 1:
+            raise ValueError(f"guru plans take FLAT buffers; got shape "
+                             f"{tuple(x.shape)}")
+        if x.shape[0] < self.in_size:
+            raise ValueError(f"input buffer length {x.shape[0]} < "
+                             f"layout span {self.in_size}")
+        x = x.to(device=self._plan.device, dtype=torch.float32)
+        return self._scatter(self._plan._core(self._gather(x)))
+
+    execute = __call__
+
+    def describe(self) -> str:
+        """Counterpart: ``regent_fft_tpu/guru.py:361``."""
+        dims = " ".join(f"(n={d.n} is={d.ins} os={d.outs})" for d in self.dims)
+        hm = " ".join(f"(n={d.n} is={d.ins} os={d.outs})"
+                      for d in self.howmany_dims)
+        kinds = ",".join(k.name for k in self.kinds)
+        return (f"(guru-r2r kinds=[{kinds}] dims=[{dims}] howmany=[{hm}] "
+                f"in_size={self.in_size} out_size={self.out_size})\n"
+                + self._plan.description)
+
+
+def plan_guru_r2r(dims, kinds, howmany_dims=(), **opts) -> GuruR2RPlan:
+    """``fftw_plan_guru_r2r`` analog over flat real buffers: ``dims``/
+    ``howmany_dims`` are IODims or (n, is, os) tuples, ``kinds`` one
+    :class:`~.ops.r2r.R2RKind` per transform dim (or one for all).
+    Counterpart: ``regent_fft_tpu/guru.py:370``."""
+    return GuruR2RPlan(dims, kinds, howmany_dims, **opts)
 
 
 def plan_many(n: Sequence[int], howmany: int = 1, *,

@@ -215,14 +215,17 @@ def _compute_dtype(spec: PlanSpec) -> torch.dtype:
     return torch.float32
 
 
-def _resolve_device(spec: PlanSpec) -> torch.device:
-    dev = torch.device(spec.device)
+def resolve_device(device) -> torch.device:
+    """The torch device of a plan or entry point: ``"cuda"`` (the current
+    card) or ``"cpu"`` (opt-in, the plain versions); a CUDA device without
+    a card raises."""
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: regent_fft_tpu_torch plans run on the card; "
             "pass device='cpu' to run the plain versions on the host")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {spec.device!r}")
+        raise ValueError(f"unsupported device {device!r}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -634,7 +637,7 @@ class Plan:
         _check_scope(spec)
         self.spec = spec
         self.gap_fused = gap_fused
-        self.device = _resolve_device(spec)
+        self.device = resolve_device(spec.device)
         backend = spec.backend
         if backend == "auto":
             # plan.py:316: the kernel hybrid on the accelerator, the

@@ -1,7 +1,7 @@
 """The port's guru layer (``regent_fft_tpu_torch/guru.py``: ``IODim``,
-``GuruPlan``, ``plan_guru``, ``plan_many``) against the JAX package's on
-the same flat buffers, mirroring the C2C, R2C and C2R cases of
-``tests/test_guru.py``.
+``GuruPlan``, ``plan_guru``, ``plan_many``, ``GuruR2RPlan``) against the
+JAX package's on the same flat buffers, mirroring the C2C, R2C, C2R and
+r2r cases of ``tests/test_guru.py``.
 
 Inputs are made with numpy from a seed.  Tolerance: ``tolerance(n)`` =
 8 * 2^-23 * sqrt(log2 n) for complex64 (n the transform's logical size),
@@ -257,8 +257,103 @@ def test_guru_zero_copy_buffer_layout():
 
 
 def test_guru_r2r_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        guru.plan_guru_r2r([(8, 1, 1)], 0)
+    """Queue 1 #9 is done: plan_guru_r2r plans (it raised, naming the
+    item, before the r2r kinds were ported)."""
+    p = guru.plan_guru_r2r([(8, 1, 1)], 0, device="cpu")
+    assert isinstance(p, guru.GuruR2RPlan)
+    x = np.random.default_rng(0).standard_normal(8).astype(np.float32)
+    h = np.fft.rfft(x.astype(np.float64))
+    ref = np.concatenate([h.real[:5], h.imag[1:4][::-1]])
+    assert rel_l2(p(x), ref) <= tolerance(8)
+
+
+# --- guru r2r (tests/test_guru.py:148-180) ----------------------------------
+def _r2r_pair(dims, kinds, howmany=(), **kw):
+    """(port GuruR2RPlan on the CPU, JAX GuruR2RPlan) of one layout."""
+    tp = rt.plan_guru_r2r(dims, kinds, howmany, device="cpu", **kw)
+    jp = R.plan_guru_r2r(_tuples(dims), R.R2RKind(int(kinds))
+                         if isinstance(kinds, int) else
+                         tuple(R.R2RKind(int(k)) for k in kinds),
+                         _tuples(howmany), **kw)
+    assert (tp.in_size, tp.out_size) == (jp.in_size, jp.out_size)
+    assert tp.describe() == jp.describe()
+    return tp, jp
+
+
+def test_guru_r2r_strided_dct_matches_dense():
+    """The transform dim strided by b (a transposed layout), the batch dim
+    stride 1, against scipy in float64 and the JAX plan (1e-4, the JAX
+    suite's bound, and tolerance(n) between the packages)."""
+    import scipy.fft as sfft
+    n, b = 32, 8
+    tp, jp = _r2r_pair([(n, b, b)], rt.R2RKind.REDFT10, [(b, 1, 1)])
+    x = np.random.default_rng(5).standard_normal(n * b).astype(np.float32)
+    y = tp(x)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (n * b,)
+    ref = sfft.dct(x.reshape(n, b).astype(np.float64), type=2, axis=0)
+    assert rel_l2(y.reshape(n, b), ref) < 1e-4
+    assert rel_l2(y, np.asarray(jp(x))) <= tolerance(n)
+
+
+def test_guru_r2r_mixed_kinds_2d():
+    import scipy.fft as sfft
+    n1, n2 = 8, 16
+    tp, jp = _r2r_pair([(n1, n2, n2), (n2, 1, 1)],
+                       (rt.R2RKind.REDFT10, rt.R2RKind.RODFT10))
+    x = np.random.default_rng(5).standard_normal((n1, n2)).astype(np.float32)
+    y = tp(x.ravel()).reshape(n1, n2)
+    ref = sfft.dst(sfft.dct(x.astype(np.float64), type=2, axis=0),
+                   type=2, axis=1)
+    assert rel_l2(y, ref) < 1e-4
+    assert rel_l2(y.reshape(-1), np.asarray(jp(x.ravel()))) <= tolerance(
+        n1 * n2)
+
+
+def test_guru_r2r_overlapping_output_rejected():
+    with pytest.raises(ValueError):
+        rt.plan_guru_r2r(dims=[(8, 1, 0)], kinds=rt.R2RKind.DHT, device="cpu")
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 5, 7, 10])
+def test_guru_r2r_interleaved_fields_match_jax(kind):
+    """Field 0 of two interleaved fields (``is`` = 2), output dense with a
+    padded ``out_size``; float64 input is cast to float32 as in JAX."""
+    n, b = 24, 5
+    tp, jp = _r2r_pair([(n, 2, 1)], kind, [(b, 2 * n, n)],
+                       out_size=n * b + 3)
+    x = np.random.default_rng(kind).standard_normal(2 * n * b)
+    y = tp(x)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (n * b + 3,)
+    assert np.all(y[n * b:].numpy() == 0)
+    assert rel_l2(y, np.asarray(jp(x.astype(np.float32)))) <= 2e-5 * np.log2(
+        2 * n + 2)
+
+
+def test_guru_r2r_validation_and_kernel_route(monkeypatch):
+    from regent_fft_tpu_torch.ops import bluestein, r2r as r2r_mod
+    from regent_fft_tpu_torch.ops import stockham_kernels as sk
+    tp = rt.plan_guru_r2r([(64, 2, 1)], rt.R2RKind.REDFT10, [(4, 128, 64)],
+                          device="cpu")
+    with pytest.raises(ValueError, match="FLAT"):
+        tp(np.zeros((2, 256), np.float32))
+    with pytest.raises(ValueError, match="span"):
+        tp(np.zeros(100, np.float32))
+    with pytest.raises(ValueError, match="kinds for"):
+        rt.plan_guru_r2r([(8, 1, 1), (4, 8, 8)], (0, 1, 2), device="cpu")
+    # as on a CUDA device: one fft_last launch for the one transform dim
+    monkeypatch.setattr(bluestein, "_inner_kernel_pair",
+                        lambda m, device: bluestein.kernel_pair(m))
+    r2r_mod._R2R_CACHE.clear()
+    calls = []
+    plain = sk.fft_last_plain
+    monkeypatch.setattr(sk, "fft_last_plain", lambda *a: calls.append(
+        tuple(a[0].shape)) or plain(*a))
+    tk = rt.plan_guru_r2r([(64, 2, 1)], rt.R2RKind.REDFT10, [(4, 128, 64)],
+                          device="cpu")
+    x = np.random.default_rng(1).standard_normal(512).astype(np.float32)
+    assert rel_l2(tk(x), tp(x)) <= tolerance(64)
+    assert calls == [(4, 64)]
+    r2r_mod._R2R_CACHE.clear()
 
 
 def test_guru_plan_runs_on_the_plan_device(monkeypatch):

@@ -22,6 +22,8 @@ import regent_fft_tpu_torch.ops.real, regent_fft_tpu_torch.ops.stockham
 import regent_fft_tpu_torch.ops.fourstep, regent_fft_tpu_torch.ops.pallas_fft
 import regent_fft_tpu_torch.utils.plog, regent_fft_tpu_torch.guru
 import regent_fft_tpu_torch.ops.bluestein, regent_fft_tpu_torch.ops.rader
+import regent_fft_tpu_torch.ops.r2r, regent_fft_tpu_torch._czt
+import regent_fft_tpu_torch.ops.fftlog, regent_fft_tpu_torch.ops.nufft
 import chip_smoke
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
@@ -39,9 +41,10 @@ def test_import_pulls_in_no_jax():
 
 # Every module of the port; a new module must be added here and to _PROBE.
 PORT_MODULES = {
-    "__init__.py", "api.py", "dtypes.py", "guru.py", "plan.py",
+    "__init__.py", "_czt.py", "api.py", "dtypes.py", "guru.py", "plan.py",
     "ops/__init__.py", "ops/_build.py", "ops/bluestein.py", "ops/factor.py",
-    "ops/fourstep.py", "ops/nd.py", "ops/pallas_fft.py", "ops/rader.py",
+    "ops/fftlog.py", "ops/fourstep.py", "ops/nd.py", "ops/nufft.py",
+    "ops/pallas_fft.py", "ops/r2r.py", "ops/rader.py",
     "ops/real.py", "ops/stockham.py", "ops/stockham_kernels.py",
     "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py"}
 # The port's CPU test files, one or more per slice.
@@ -57,7 +60,9 @@ PORT_TESTS = {
     "test_torch_port_cols_regs.py", "test_torch_port_real_rows.py",
     "test_torch_port_ring_tma.py", "test_torch_port_fourstep_regs.py",
     "test_torch_port_rader_bluestein.py", "test_torch_port_guru.py",
-    "test_torch_port_iface.py"}
+    "test_torch_port_iface.py", "test_torch_port_r2r.py",
+    "test_torch_port_czt.py", "test_torch_port_fftlog.py",
+    "test_torch_port_nufft.py"}
 
 
 def test_file_lists_cover_the_port():
@@ -93,6 +98,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rt.fft(torch.zeros(8, 1024, dtype=torch.complex64))
     assert rt.cached_plans() == []
+    x = torch.zeros(8, 64)
+    for call in (lambda: rt.dct(x), lambda: rt.czt(x),
+                 lambda: rt.fht(x, 0.1, 0.5),
+                 lambda: rt.nufft1d1(x[0], x[0], 16),
+                 lambda: rt.plan_r2r((8, 64), rt.R2RKind.REDFT10),
+                 lambda: rt.plan_guru_r2r([(64, 1, 1)], rt.R2RKind.DHT)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_cpu_is_opt_in_and_output_is_complex64_on_device():
