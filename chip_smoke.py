@@ -176,14 +176,35 @@ Phases (any failure raises and the script exits non-zero):
    transform, that call.  Phase 3b holds each kernel against its plain
    version, in both signs, on every planes' shape phase 12 feeds it (the
    511^3 DST-I's (511^2, 1024) planes among them); phase 12 records the
-   shapes its launches get and fails on one that 3b did not hold.
+   shapes its launches get and fails on one that 3b did not hold;
+13. the planner tiers (wisdom autoload off for the whole run): the
+   ``planner="patient"`` race of the 512^3 plan in complex64 and
+   complex32 (the schedules, the backends, the leading-axis x
+   trailing-pair routes), ``planner="measure"`` on c64 4096 x 1024,
+   64 x 2^20 and R2C 4 x 256^3 and ``planner="exhaustive"`` on complex32
+   512^3 (its knob grid, none of which the card races), each candidate's
+   median ms and the winner printed, every candidate that plans finite;
+   each raced plan counted once beside its winner's routes planned
+   directly (the same launches), held within tolerance(n, dtype) of the
+   estimate plan and timed beside it; ``planner="model"`` against
+   ``"estimate"`` on c64 16384 x 1000 (``backend="xla"``); ``calibrate()``
+   at full size (its bandwidth at most 1.05 x the datasheet's);
+   ``Plan.benchmark()`` of the 512^3 grid plan within 10 % of phase 4's
+   steps ms; the wisdom exported and read back in a fresh process, whose
+   patient plan reports "cached-wisdom" and the same step lines; and
+   ``bench_cli --suite baseline --verify``.  Every time in this script
+   comes from ``utils/timing.py`` (one warm-up, the median of 10
+   CUDA-event runs, the L2 flushed before each).
 
 Prints how long each phase took, one ``{"plans": [...]}`` line (65 plans),
+one ``{"planners": [...]}`` line (phase 13),
 one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
 have launched), the nvidia-smi line, and last the device line.  Exits
 non-zero, with no result, when no CUDA device is present.
 """
+import contextlib
+import functools
 import json
 import math
 import os
@@ -508,14 +529,17 @@ def main() -> int:
         print(f"phase {label} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
+    # hermetic planning: no wisdom file of an earlier process (phase 13
+    # writes its own and reads it back in a fresh process)
+    os.environ["REGENT_FFT_NO_WISDOM"] = "1"
     import regent_fft_tpu_torch as rt
     from regent_fft_tpu_torch.ops import _build
     from regent_fft_tpu_torch.ops import fourstep as fs
     from regent_fft_tpu_torch.ops import pallas_fft as pf
     from regent_fft_tpu_torch.ops import stockham_kernels as sk
     from regent_fft_tpu_torch.plan import _half_shape
+    from regent_fft_tpu_torch.utils import timing
     from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
 
     # 1. environment
@@ -752,7 +776,6 @@ def main() -> int:
     phase("2 (build)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB
 
     def randn(shape):
         return torch.randn(shape, device=dev, generator=gen)
@@ -760,31 +783,10 @@ def main() -> int:
     def planes(shape):
         return randn(shape), randn(shape)
 
-    def timed(fn, reps=10):
-        """Median ms of `reps` runs, each after an L2 flush."""
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
-        return float(np.median(out))
-
-    def device_trace(fn):
-        """Device ms of one call of `fn` by kernel, longest first
-        (torch.profiler, CUDA activity only, so nothing counts twice)."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sorted(((e.key, e.self_device_time_total / 1e3)
-                       for e in prof.key_averages()
-                       if e.self_device_time_total > 0), key=lambda t: -t[1])
+    # the port's timer (utils/timing.py), the one Plan.benchmark, bench_cli
+    # and the planner races use: the median ms of 10 runs after one
+    # warm-up, each between CUDA events after an L2 flush
+    timed = functools.partial(timing.time_ms, device=dev)
 
     src = torch.empty(256 << 20, dtype=torch.float32, device=dev)
     dst = torch.empty_like(src)
@@ -1656,7 +1658,11 @@ def main() -> int:
         # bf16 planes: the complex32 plans' shapes, and 512 where the JAX
         # body is _direct_tile (1024: _mxu_tile_tw)
         "fft_last_bf16": [lambda: bf16_case("fft_last", (4096, 1024), (1,)),
-                          lambda: bf16_case("fft_last", (8192, 512), (1,))],
+                          lambda: bf16_case("fft_last", (8192, 512), (1,)),
+                          # phase 13: the last axis of the complex32 512^3
+                          # plans whose trailing pair is unfused
+                          lambda: bf16_case("fft_last", (262144, 512),
+                                            (1,))],
         "fft_cols_bf16": [lambda: bf16_case("fft_cols", (1, 512, 262144),
                                             (1,)),
                           lambda: bf16_case("fft_cols", CUBE, (1,))],
@@ -1869,7 +1875,7 @@ def main() -> int:
               f"roundtrip {back:.3e}")
     # device time of one call of each real plan, by kernel
     for row, p, x in zip(plan_rows[len(MAIN_PLANS):], plans, inputs):
-        by = device_trace(lambda: p(x))
+        by = timing.trace(lambda: p(x), dev)[1]
         row["device_ms_by_kernel"] = {k[:80]: ms for k, ms in by}
         print(f"profile {row['kind']} {tuple(row['shape'])}: device "
               f"{sum(ms for _, ms in by):.4f} ms in {len(by)} kernels: "
@@ -1925,7 +1931,7 @@ def main() -> int:
         steps_ms = timed(lambda: p.execute_split(xr, xi))
         lib_ms = timed(lambda: torch.fft.fftn(x, dim=s.axes))
         b_ms = 1e3 * p.bytes_ideal / bw
-        by = device_trace(lambda: p(x))
+        by = timing.trace(lambda: p(x), dev)[1]
         plan_rows.append({
             "kind": "c2c", "route": label, "shape": list(s.shape),
             "axes": list(s.axes), "steps": got,
@@ -2010,7 +2016,7 @@ def main() -> int:
         elif dtype == "complex128":
             own_ms = timed(lambda: torch.fft.fftn(xd, dim=s.axes))
         b_ms = 1e3 * p.bytes_ideal / bw
-        by = device_trace(lambda: p(x))
+        by = timing.trace(lambda: p(x), dev)[1]
         plan_rows.append({
             "kind": "c2c", "dtype": dtype, "route": label,
             "shape": list(s.shape), "axes": list(s.axes), "steps": got,
@@ -2218,7 +2224,7 @@ def main() -> int:
         steps_ms = timed(steps)
         lib_ms = timed(lib)
         b_ms, b_by = bound(p.bytes_ideal, p.flops)
-        by = device_trace(lambda: p(x))
+        by = timing.trace(lambda: p(x), dev)[1]
         plan_rows.append({
             "kind": kind, "dtype": dtype, "route": label,
             "shape": list(shape), "axes": list(axes), "steps": got,
@@ -2328,19 +2334,40 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(h)).to(dev)
 
     on_cuda = sk._on_cuda
-    fed = set()       # (kernel, planes' shape) of every phase-12 launch
+    fed = set()   # (kernel, planes' shape) of every launch in recording()
 
     def seen(name, *planes, **kw):
-        fed.add((name, tuple(planes[0].shape)))
+        fed.add((name + sk.C2C_DTYPES.get(planes[0].dtype, ""),
+                 tuple(planes[0].shape)))
         return on_cuda(name, *planes, **kw)
 
-    def counted(label, fn):
+    @contextlib.contextmanager
+    def recording():
+        """Record the (kernel, planes' shape) of every launch, the bf16
+        instances under their own names, as LAUNCHES counts them."""
         sk._on_cuda = seen
         try:
-            (y,), launches = run_counted(label, [lambda _: fn()], [None],
-                                         groups[label])
+            yield
         finally:
             sk._on_cuda = on_cuda
+
+    def check_held(what):
+        """Fail on a recorded (kernel, planes) that no phase-3b case held
+        against its plain version; then forget the record."""
+        held = {(k, tuple(c["shape"])) for k, row in rows.items()
+                for c in row["cases"]}
+        if fed - held:
+            raise AssertionError(f"{what} fed kernels planes no phase-3b "
+                                 f"case holds against the plain version: "
+                                 f"{fed - held}")
+        print(f"{what} kernel planes, each held against its plain version "
+              "in 3b: " + ", ".join(f"{k} {s}" for k, s in sorted(fed)))
+        fed.clear()
+
+    def counted(label, fn):
+        with recording():
+            (y,), launches = run_counted(label, [lambda _: fn()], [None],
+                                         groups[label])
         for kname, row in rows.items():
             row["launches_by_path"][label] = launches[kname]
             row["launches"] += launches[kname]
@@ -2361,7 +2388,7 @@ def main() -> int:
                "launches": {k: v for k, v in launches.items() if v}}
         if mem is not None:
             row["peak_bytes"], row["peak_rise_bytes"] = mem
-        by = device_trace(fn)
+        by = timing.trace(fn, dev)[1]
         row["device_ms"] = sum(v for _, v in by)
         row["device_ms_by_kernel"] = [[k[:120], v] for k, v in by]
         plan_rows.append(row)
@@ -2656,14 +2683,288 @@ def main() -> int:
                 4 * m + 8 * m + 4 * m + 8 * m, (1, 4 * n3), 1, ["stockham4"])
     del x3, s3, c3
     torch.cuda.empty_cache()
-    held = {(k, tuple(c["shape"])) for k, row in rows.items()
-            for c in row["cases"]}
-    if fed - held:
-        raise AssertionError("phase 12 fed kernels planes no phase-3b case "
-                             f"holds against the plain version: {fed - held}")
-    print("phase 12 kernel planes, each held against its plain version in "
-          "3b: " + ", ".join(f"{k} {s}" for k, s in sorted(fed)))
+    check_held("phase 12")
     phase("12 (r2r, CZT, FFTLog, NUFFT)")
+
+    # 13. the planner tiers on the card: the patient, measure and
+    # exhaustive races (each candidate's median ms and the winner), the
+    # model planner beside "estimate", calibration, Plan.benchmark against
+    # phase 4's steps ms, the wisdom read back in a fresh process, bench_cli
+    import tempfile
+    from dataclasses import replace
+
+    from regent_fft_tpu_torch import bench_cli
+    from regent_fft_tpu_torch import plan as planmod
+    from regent_fft_tpu_torch.native import planner as native
+    from regent_fft_tpu_torch.utils import measure
+    t13 = time.perf_counter()
+    rt.cleanup()
+    torch.cuda.empty_cache()
+    if not native.available():
+        raise AssertionError("native planner did not build")
+    print(f"native planner: {native.library_path().name} (version "
+          f"{native.version()})")
+    planner_rows = []
+    cube = (512, 512, 512)
+
+    def step_lines(p):
+        return [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+
+    def refused(spec, key, cand):
+        """Whether the race's candidate `cand` is refused at plan build."""
+        if key == "backend":
+            spec = replace(spec, backend=cand)
+        else:
+            a0, f2 = (kv.split("=")[1] for kv in cand.split())
+            spec = replace(spec, planner="estimate", axis0_impl=a0,
+                           f2_impl=f2)
+        try:
+            planmod._build_core(spec)
+        except measure.REFUSED:
+            return True
+        return False
+
+    def race_report(label, p):
+        """Print each race of plan p, candidate by candidate, and its
+        winner; a candidate that plans must time finite."""
+        for key, m in p.measurements.items():
+            races = m["timings"]
+            if isinstance(races, dict) and key == "exhaustive":
+                races = {f"exhaustive {k}": v for k, v in races.items()}
+            elif isinstance(races, dict):
+                races = {str(key): races}
+            else:
+                print(f"race {label} {key}: {races}, winner {m['winner']}")
+                continue
+            for sub, t in races.items():
+                print(f"race {label} {sub} (ms): " + ", ".join(
+                    f"{c} {1e3 * v:.4f}" for c, v in t.items())
+                    + f"; winner {m['winner']}")
+                for c, v in t.items():
+                    if not math.isfinite(v) and not (
+                            key in ("backend", "patient")
+                            and refused(p.spec, key, c)):
+                        raise AssertionError(f"{label} {sub}: {c} planned "
+                                             f"but timed {v}")
+
+    def as_c64(y):
+        return (torch.complex(y.re.float(), y.im.float())
+                if isinstance(y, rt.SplitComplex) else y)
+
+    def tier_group(label, raced, est, x, tol):
+        """Run the raced plan once, its winner's routes planned as an
+        estimate plan (`twin`) once, each counted: both launch the same
+        kernels; the output within `tol` of the estimate plan's; ms of
+        both."""
+        w = {}
+        for key in ("patient", "exhaustive"):
+            if key in raced.measurements:
+                w = raced.measurements[key]["winner"]
+        s = raced.spec
+        twin = rt.make_plan(
+            s.shape, axes=s.axes, kind=s.kind, direction=s.direction,
+            dtype=s.dtype, backend=w.get("backend", raced.backend),
+            axis0_impl=w.get("axis0_impl", "auto"),
+            f2_impl=w.get("f2_impl", "auto"))
+        if step_lines(twin) != step_lines(raced):
+            raise AssertionError(f"{label}: {step_lines(raced)} vs the "
+                                 f"winner's {step_lines(twin)}")
+        with recording():
+            sk.reset_launches()
+            y = raced(x)
+            torch.cuda.synchronize()
+            got = dict(sk.LAUNCHES)
+            sk.reset_launches()
+            twin(x)
+            torch.cuda.synchronize()
+            want = dict(sk.LAUNCHES)
+        ran = {k: v for k, v in got.items() if v}
+        print(f"{label} launches {ran}; the winner's routes planned "
+              f"directly: {({k: v for k, v in want.items() if v})}")
+        if got != want or (raced.backend != "xla" and not ran):
+            raise AssertionError(f"{label} launches {got} != {want}")
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = got[kname]
+            row["launches"] += got[kname]
+        if not bool(torch.isfinite(torch.view_as_real(as_c64(y))).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        err = dev_rel(as_c64(y), as_c64(est(x)))
+        if not err <= tol:
+            raise AssertionError(f"{label}: rel_l2 {err} to the estimate "
+                                 f"plan, tolerance {tol}")
+        ms, est_ms = timed(lambda: raced(x)), timed(lambda: est(x))
+        print(f"{label}: steps {step_lines(raced)}; {ms:.4f} ms (estimate "
+              f"plan {est_ms:.4f} ms, steps {step_lines(est)}); rel_l2 to "
+              f"the estimate plan {err:.3e} (tolerance {tol:.3e})")
+        planner_rows.append({
+            "label": label, "shape": list(s.shape), "dtype": s.dtype,
+            "planner": s.planner, "steps": step_lines(raced),
+            "estimate_steps": step_lines(est), "ms": ms, "estimate_ms": est_ms,
+            "rel_err_vs_estimate": err, "tolerance": tol, "launches": ran,
+            "races": {str(k): m for k, m in raced.measurements.items()}})
+
+    # Plan.benchmark on the c64 512^3 grid plan against phase 4's steps ms
+    # (before any race: a measured backend would steer "auto" plans)
+    grid = rt.make_plan(cube)
+    if step_lines(grid) != plan_rows[0]["steps"]:
+        raise AssertionError(f"512^3 steps {step_lines(grid)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        bres = grid.benchmark(profile_dir=tmp)
+        traced = sorted(os.listdir(tmp))
+    ratio = 1e3 * bres["time_s"] / plan_rows[0]["steps_ms"]
+    print(f"Plan.benchmark c64 512^3: {1e3 * bres['time_s']:.4f} ms "
+          f"({bres['methodology']}, {bres['gflops_convention']:.1f} GFLOP/s, "
+          f"roofline {bres['roofline_fraction']}, hardware "
+          f"{bres['hardware']}); phase 4 steps ms "
+          f"{plan_rows[0]['steps_ms']:.4f} (ratio {ratio:.4f}); trace "
+          f"{bres['trace']['ms']:.4f} ms, files {traced}")
+    if not 0.9 <= ratio <= 1.1:
+        raise AssertionError(f"Plan.benchmark {bres} vs steps ms "
+                             f"{plan_rows[0]['steps_ms']}")
+    planner_rows.append({"label": "Plan.benchmark c64 512^3",
+                         "time_s": bres["time_s"],
+                         "steps_ms_phase4": plan_rows[0]["steps_ms"],
+                         "ratio": ratio})
+
+
+    g13 = torch.Generator(device=dev).manual_seed(13)
+
+    def c_input(shape, dtype="complex64"):
+        xr = torch.randn(shape, device=dev, generator=g13)
+        xi = torch.randn(shape, device=dev, generator=g13)
+        if dtype == "complex32":
+            return rt.SplitComplex(xr.to(torch.bfloat16), xi.to(torch.bfloat16))
+        return torch.complex(xr, xi)
+
+    # each estimate plan is made before its race: "auto" plans made after
+    # one take the measured backend
+    patient, ests = {}, {}
+    for dtype in ("complex64", "complex32"):
+        est = ests[dtype] = rt.make_plan(cube, dtype=dtype)
+        t0 = time.perf_counter()
+        p = rt.make_plan(cube, dtype=dtype, planner="patient")
+        print(f"patient {dtype} 512^3 planned in "
+              f"{time.perf_counter() - t0:.2f} s")
+        race_report(f"patient {dtype} 512^3", p)
+        tier_group(f"patient {dtype} 512^3", p, est, c_input(cube, dtype),
+                   tolerance(512 ** 3, dtype))
+        patient[dtype] = p
+    torch.cuda.empty_cache()
+
+    for label, shape, axes, kind in (
+            ("measure c64 4096x1024", (4096, 1024), (1,), "c2c"),
+            ("measure c64 64x2^20", (64, 1 << 20), (1,), "c2c"),
+            ("measure r2c 4x256^3", (4, 256, 256, 256), (1, 2, 3), "r2c")):
+        k_, d_ = (rt.Kind.R2C, rt.FORWARD) if kind == "r2c" else (
+            rt.Kind.C2C, rt.FORWARD)
+        est = rt.make_plan(shape, axes=axes, kind=k_, direction=d_)
+        t0 = time.perf_counter()
+        p = rt.make_plan(shape, axes=axes, kind=k_, direction=d_,
+                         planner="measure")
+        print(f"{label} planned in {time.perf_counter() - t0:.2f} s")
+        race_report(label, p)
+        x = (torch.randn(shape, device=dev, generator=g13) if kind == "r2c"
+             else c_input(shape))
+        tier_group(label, p, est, x, tolerance(p.spec.logical_n))
+        del x
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ex = rt.make_plan(cube, dtype="complex32", planner="exhaustive")
+    print(f"exhaustive complex32 512^3 planned in "
+          f"{time.perf_counter() - t0:.2f} s")
+    race_report("exhaustive complex32 512^3", ex)
+    ew = ex.measurements["exhaustive"]
+    grid = measure.knob_combos(ex.spec, planmod._build_core(replace(
+        ex.spec, planner="estimate", backend=ew["winner"]["backend"])).steps)
+    print(f"exhaustive knobs: the JAX package's grid "
+          f"{[measure.knob_name(c) for c in grid]}; raced on the card "
+          f"{sorted(measure.RACED_KNOBS)} (none selects another kernel "
+          f"instance or plain body here: utils/measure.py RACED_KNOBS); "
+          f"winner knobs {ew['winner']['knobs']}, plan knobs {ex.knobs}")
+    if ex.knobs or list(ew["timings"]["knobs"]) != ["defaults"]:
+        raise AssertionError(f"exhaustive knobs {ew}")
+    tier_group("exhaustive complex32 512^3", ex, ests["complex32"],
+               c_input(cube, "complex32"), tolerance(512 ** 3, "complex32"))
+    torch.cuda.empty_cache()
+
+    # the model planner on a contraction-path shape
+    shape = (16384, 1000)
+    est = rt.make_plan(shape, axes=(1,), backend="xla")
+    mod = rt.make_plan(shape, axes=(1,), backend="xla", planner="model")
+    x = c_input(shape)
+    ref = torch.fft.fft(x.to(torch.complex128), dim=1)
+    errs = [dev_rel(q(x), ref) for q in (est, mod)]
+    tms = [timed(lambda q=q: q(x)) for q in (est, mod)]
+    print(f"model vs estimate c64 16384x1000 backend=xla: estimate "
+          f"{step_lines(est)} {tms[0]:.4f} ms rel_l2 {errs[0]:.3e}, cost "
+          f"{est.cost():.4e}; model {step_lines(mod)} {tms[1]:.4f} ms rel_l2 "
+          f"{errs[1]:.3e}, cost {mod.cost():.4e}")
+    if not max(errs) <= tolerance(1000):
+        raise AssertionError(f"model/estimate rel_l2 {errs}")
+    planner_rows.append({"label": "model vs estimate c64 16384x1000 xla",
+                         "steps": step_lines(mod),
+                         "estimate_steps": step_lines(est), "ms": tms[1],
+                         "estimate_ms": tms[0], "rel_err_vs_torch_fft": errs,
+                         "cost": mod.cost()})
+    del x, ref
+
+    # calibration at full size, against the datasheet
+    t0 = time.perf_counter()
+    cal = rt.calibrate()
+    print(f"calibrate() in {time.perf_counter() - t0:.2f} s: {cal.to_dict()}; "
+          f"mxu_tflops {cal.mxu_tflops:.3f} (f32 matmul, TF32 off; datasheet "
+          f"FP32 {fp32 / 1e12}), vpu_gflops {cal.vpu_gflops:.1f}, hbm_gbps "
+          f"{cal.hbm_gbps:.1f} (datasheet {bw / 1e9}), stage_overhead_s "
+          f"{cal.stage_overhead_s:.3e}; cost parameters vpu_rate "
+          f"{cal.vpu_rate:.4e}, bw_unit {cal.bw_unit:.3f}, stage_overhead "
+          f"{cal.stage_overhead_units():.4e}")
+    if not (cal.mxu_tflops > 0 and cal.vpu_gflops > 0
+            and 0 < cal.hbm_gbps <= 1.05 * bw / 1e9
+            and cal.stage_overhead_s >= 0):
+        raise AssertionError(f"calibration {cal}")
+    planner_rows.append({"label": "calibration", **cal.to_dict()})
+
+    # the wisdom of this run in a fresh process: the patient plan there is
+    # the cached winner's
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wisdom.json")
+        rt.export_wisdom_to_filename(path)
+        code = (
+            "import json, sys, torch\n"
+            "import regent_fft_tpu_torch as rt\n"
+            "n = rt.import_wisdom_from_filename(sys.argv[1], build=False)\n"
+            "p = rt.make_plan((512, 512, 512), planner='patient')\n"
+            "g = torch.Generator(device='cuda').manual_seed(0)\n"
+            "x = torch.randn((512, 512, 512), device='cuda', generator=g)\n"
+            "y = p(torch.complex(x, x))\n"
+            "print(json.dumps({'entries': n, 'timings': "
+            "p.measurements['patient']['timings'], 'steps': [ln.strip() for "
+            "ln in p.describe().splitlines()[1:-1]], 'finite': "
+            "bool(torch.isfinite(torch.view_as_real(y)).all())}))\n")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code, path],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"wisdom subprocess: {r.stderr[-3000:]}")
+    fresh = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"wisdom in a fresh process ({time.perf_counter() - t0:.2f} s): "
+          f"{fresh}")
+    if (fresh["timings"] != "cached-wisdom" or not fresh["finite"]
+            or fresh["steps"] != step_lines(patient["complex64"])):
+        raise AssertionError(f"fresh-process wisdom {fresh} vs "
+                             f"{step_lines(patient['complex64'])}")
+
+    check_held("phase 13")
+
+    # bench_cli's baseline suite on the card
+    rc = bench_cli.main(["--suite", "baseline", "--verify"])
+    if rc:
+        raise AssertionError(f"bench_cli --suite baseline exit {rc}")
+    print(json.dumps({"planners": planner_rows}, default=str))
+    print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    phase("13 (planner tiers)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

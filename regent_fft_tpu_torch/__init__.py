@@ -20,12 +20,19 @@ eleven FFTW real-to-real kinds (DCT/DST types 1-4, DHT, halfcomplex;
 chirp-z transform and zoom FFT, the fast Hankel transform (FFTLog) and
 the non-uniform FFT, types 1-3 in one to three dimensions.  Plans default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain versions.  The
-JAX package ``regent_fft_tpu`` is the reference; this package imports
-nothing of it or of JAX.
+planner tiers ``"estimate"``, ``"model"`` (the native cost model),
+``"measure"``, ``"patient"`` and ``"exhaustive"`` (candidates raced on the
+plan's device with CUDA events), their wisdom (``export_wisdom_*``,
+``import_wisdom_*``, autoloaded from ``REGENT_FFT_WISDOM`` or
+``~/.regent_fft_tpu_torch.wisdom.json`` unless ``REGENT_FFT_NO_WISDOM`` is
+set), ``calibrate``, ``Plan.cost``/``Plan.benchmark``, ``cleanup`` and the
+FFTW-grammar CLI ``python -m regent_fft_tpu_torch.bench_cli``.  The JAX
+package ``regent_fft_tpu`` is the reference; this package imports nothing
+of it or of JAX.
 """
 from .dtypes import Direction, Kind, Norm, SplitComplex, as_split, from_split
 from .plan import (Plan, PlanSpec, make_plan, execute_plan, destroy_plan,
-                   clear_plan_cache, cached_plans, spec_from_jax)
+                   clear_plan_cache, cached_plans, cleanup, spec_from_jax)
 from .api import (fft, ifft, fft2, ifft2, fftn, ifftn,
                   rfft, irfft, rfft2, irfft2, rfftn, irfftn, hfft, ihfft,
                   hfftn, hfft2, ihfftn, ihfft2, fftshift, ifftshift, fftfreq,
@@ -34,6 +41,13 @@ from .api import (fft, ifft, fft2, ifft2, fftn, ifftn,
 from .guru import (IODim, GuruPlan, GuruR2RPlan, plan_guru, plan_guru_r2r,
                    plan_many)
 from .ops.factor import next_fast_len, prev_fast_len
+from .utils.measure import set_timelimit, get_timelimit, NO_TIMELIMIT
+from .utils import wisdom
+from .utils.wisdom import (export_wisdom_to_string, export_wisdom_to_filename,
+                           import_wisdom_from_string,
+                           import_wisdom_from_filename, forget_wisdom)
+from .utils.calibrate import (calibrate, Calibration, install_calibration,
+                              reset_calibration)
 from .ops.r2r import (R2RKind, R2RPlan, plan_r2r, r2r, dct, dst, dht,
                       idct, idst, idht, dctn, idctn, dstn, idstn)
 from ._czt import CZT, ZoomFFT, czt, zoom_fft
@@ -42,6 +56,10 @@ from .ops.nufft import (nufft1d1, nufft1d2, nufft2d1, nufft2d2,
                         nufft3d1, nufft3d2, nufft1d3, nufft2d3, nufft3d3)
 
 __version__ = "0.1.0"
+
+# System wisdom (FFTW's import-system-wisdom): winners and calibration of
+# earlier processes, from $REGENT_FFT_WISDOM or the default file.
+wisdom.autoload_system_wisdom()
 
 FORWARD = Direction.FORWARD
 BACKWARD = Direction.BACKWARD

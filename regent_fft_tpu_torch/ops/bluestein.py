@@ -97,8 +97,8 @@ def build_bluestein_1d(n: int, direction: Direction, m: int,
     from .stockham import build_c2c_1d   # stockham imports this module
 
     sign = int(direction)
-    fwd = build_c2c_1d(m, Direction.FORWARD, max_radix, use_3m)
-    inv = build_c2c_1d(m, Direction.BACKWARD, max_radix, use_3m)
+    fwd = build_c2c_1d(m, Direction.FORWARD, max_radix, use_3m, device)
+    inv = build_c2c_1d(m, Direction.BACKWARD, max_radix, use_3m, device)
     tables = {}
 
     def upload(dev, dt):

@@ -1,9 +1,9 @@
 """Size factorization: the static planner core (numpy-free, stdlib only).
 
-The port's own copy of ``regent_fft_tpu/ops/factor.py``.  Only the
-"estimate" schedule and the matmul-form kernels' ``pallas_schedule`` are
-carried; the calibrated native cost model (``planner="model"``) is
-ROADMAP Queue 1 #11.
+The port's own copy of ``regent_fft_tpu/ops/factor.py``: the greedy
+"estimate" schedule, the matmul-form kernels' ``pallas_schedule``, and the
+"model" schedule of the port's native cost model (``native/planner.cc``,
+built at first use; the greedy schedule where it cannot be built).
 """
 from __future__ import annotations
 
@@ -191,13 +191,24 @@ def pallas_schedule(n: int, max_radix: int = DEFAULT_MAX_RADIX,
     return best
 
 
-# Schedule overrides: (n, max_radix) -> factors.  The port has no
-# measure-mode autotuner yet, so only set_schedule_override fills it.
+# Schedule overrides: (device type, n, max_radix) -> factors.  Filled by
+# measure-mode planning (utils/measure.measure_schedule) and by wisdom
+# import.  The device type is part of the key, as in plan._backend_key: a
+# schedule timed on the CPU never steers a CUDA plan's steps.
 _SCHEDULE_OVERRIDES: dict = {}
 
 
-def set_schedule_override(n: int, factors, max_radix: int = DEFAULT_MAX_RADIX):
-    """Pin the radix schedule for a size.
+def device_type(device) -> str:
+    """The overrides' device key: "cpu" for None (the host, as the 1-D
+    builders read it), else the type of ``device`` ("cuda" for "cuda:1")."""
+    if device is None:
+        return "cpu"
+    return getattr(device, "type", None) or str(device).split(":")[0]
+
+
+def set_schedule_override(n: int, factors, max_radix: int = DEFAULT_MAX_RADIX,
+                          device="cuda"):
+    """Pin the radix schedule for a size on plans of ``device``'s type.
 
     Counterpart: ``regent_fft_tpu/ops/factor.py:217``.
     """
@@ -209,28 +220,47 @@ def set_schedule_override(n: int, factors, max_radix: int = DEFAULT_MAX_RADIX):
             raise ValueError(f"factor {f} > max_radix {max_radix}")
     if prod != n:
         raise ValueError(f"product of {factors} != {n}")
-    _SCHEDULE_OVERRIDES[(n, max_radix)] = factors
+    _SCHEDULE_OVERRIDES[(device_type(device), n, max_radix)] = factors
 
 
-def schedule(n: int, max_radix: int = DEFAULT_MAX_RADIX):
-    """Radix schedule for a smooth size (None if not smooth); overrides win.
+def schedule_override(n: int, max_radix: int = DEFAULT_MAX_RADIX,
+                      device="cuda"):
+    """The pinned schedule of a size on ``device``'s type, or None."""
+    return _SCHEDULE_OVERRIDES.get((device_type(device), n, max_radix))
 
-    Counterpart: ``regent_fft_tpu/ops/factor.py:230`` in "estimate" mode.
+
+def schedule(n: int, max_radix: int = DEFAULT_MAX_RADIX,
+             mode: str = "estimate", device="cuda"):
+    """Radix schedule for a smooth size (None if not smooth).
+
+    ``mode`` "estimate": the greedy grouping; "model": the native cost
+    model's DP (``native/planner.best_schedule``), the greedy grouping
+    where the library cannot be built.  Overrides of ``device``'s type win
+    in every mode.
+    Counterpart: ``regent_fft_tpu/ops/factor.py:230``.
     """
-    ov = _SCHEDULE_OVERRIDES.get((n, max_radix))
+    ov = schedule_override(n, max_radix, device)
     if ov is not None:
         return ov
+    if mode == "model":
+        from ..native import planner as _native
+        s = _native.best_schedule(n, max_radix)
+        if s:
+            return tuple(sorted(s, reverse=True))
     return factorize(n, max_radix)
 
 
-def plan_factors(n: int, max_radix: int = DEFAULT_MAX_RADIX):
-    """('direct'|'mixed'|'rader'|'bluestein', info) for a length.
+def plan_factors(n: int, max_radix: int = DEFAULT_MAX_RADIX,
+                 mode: str = "estimate", device="cuda"):
+    """('direct'|'mixed'|'rader'|'bluestein', info) for a length on plans
+    of ``device``'s type, the smooth schedule by :func:`schedule` in
+    ``mode``.
 
     Counterpart: ``regent_fft_tpu/ops/factor.py:256``.
     """
-    if n <= max_radix and (n, max_radix) not in _SCHEDULE_OVERRIDES:
+    if n <= max_radix and schedule_override(n, max_radix, device) is None:
         return ("direct", n)
-    factors = schedule(n, max_radix)
+    factors = schedule(n, max_radix, mode, device)
     if factors is not None:
         if len(factors) == 1:
             return ("direct", n)

@@ -95,8 +95,8 @@ def build_rader_1d(p: int, direction: Direction,
 
     sign = int(direction)
     L = p - 1
-    fwd = build_c2c_1d(L, Direction.FORWARD, max_radix, use_3m)
-    inv = build_c2c_1d(L, Direction.BACKWARD, max_radix, use_3m)
+    fwd = build_c2c_1d(L, Direction.FORWARD, max_radix, use_3m, device)
+    inv = build_c2c_1d(L, Direction.BACKWARD, max_radix, use_3m, device)
     tables = {}
 
     def upload(dev, dt):

@@ -175,7 +175,8 @@ def best_two_factor(n: int, max_radix: int = _factor.DEFAULT_MAX_RADIX):
 def build_c2c_1d(n: int, direction: Direction,
                  max_radix: int = _factor.DEFAULT_MAX_RADIX,
                  use_3m: bool = False, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 planner: str = "estimate"):
     """fn((B, n) re, im) -> (re, im), an unscaled DFT of each row.
 
     Dispatches direct / mixed radix / Rader / Bluestein by
@@ -183,11 +184,12 @@ def build_c2c_1d(n: int, direction: Direction,
     device and plane dtype (f32 or f64): the Rader and Bluestein tables go
     there now, and Bluestein's inner transforms take the last-axis kernel
     when the device is CUDA, the planes f32 and ``fft_last`` takes the
-    padded length (``bluestein._inner_kernel_pair``).
+    padded length (``bluestein._inner_kernel_pair``).  ``planner`` is the
+    schedule mode of ``factor.schedule`` ("model": the native cost model).
     Counterpart: ``regent_fft_tpu/ops/stockham.py:269``.
     """
     sign = int(direction)
-    kind, info = _factor.plan_factors(n, max_radix)
+    kind, info = _factor.plan_factors(n, max_radix, planner)
     if kind == "direct":
         return lambda xr, xi: direct_dft(xr, xi, n, sign, use_3m)
     if kind == "mixed":
@@ -205,16 +207,18 @@ def build_c2c_1d(n: int, direction: Direction,
 
 @functools.lru_cache(maxsize=512)
 def schedule_description(n: int,
-                         max_radix: int = _factor.DEFAULT_MAX_RADIX) -> str:
-    """Human-readable schedule, for the plan's step lines.
+                         max_radix: int = _factor.DEFAULT_MAX_RADIX,
+                         device: str = "cuda") -> str:
+    """Human-readable schedule on plans of the device type ``device``,
+    for the plan's step lines.
 
     Counterpart: ``regent_fft_tpu/ops/stockham.py:300``.
     """
-    kind, info = _factor.plan_factors(n, max_radix)
+    kind, info = _factor.plan_factors(n, max_radix, device=device)
     if kind == "direct":
         return f"direct-dft-{n} (1 matmul)"
     if kind == "mixed":
         stages = " -> ".join(f"radix-{r}" for r in info)
         return f"mixed({n} = {'*'.join(map(str, info))}): {stages}"
-    inner = schedule_description(info, max_radix)   # rader, bluestein
+    inner = schedule_description(info, max_radix, device)  # rader, bluestein
     return f"{kind}({n}, conv={info}: {inner})"

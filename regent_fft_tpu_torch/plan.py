@@ -63,9 +63,18 @@ its b32 bf16x3 scheme to the four-step stages, plan.py:276-297;
 ``"default"`` runs one-pass bf16 products); the port computes exact f32
 (f64 for complex128) at every tier, which is at least as accurate.
 
-Outside the port so far: planners other than ``"estimate"`` (they raise
-``NotImplementedError`` naming ROADMAP Queue 1 #11).
-``REGENT_FFT_GAP_FUSED`` is the one environment switch the port reads (in
+The planner rigor ladder (plan.py:61-70 there): ``"estimate"`` (static
+routing), ``"model"`` (contraction splits from the native cost model,
+``native/planner.cc``), ``"measure"`` (the radix schedules of every length
+and, under ``backend="auto"``, the backends raced on the plan's device,
+``utils/measure.py``), ``"patient"`` (also the leading-axis x trailing-pair
+routes) and ``"exhaustive"`` (also the deep schedule space and the kernel
+knobs that select a kernel on the device: none so far).  Winners persist
+in ``_BACKEND_WISDOM``/``_PATIENT_WISDOM``/``_EXHAUSTIVE_WISDOM``, keyed
+with the plan's device type as the schedule overrides of
+``ops/factor.py`` are (``utils/wisdom.py`` exports them).
+
+``REGENT_FFT_GAP_FUSED`` is the one environment switch the plans read (in
 :func:`make_plan`): it is the JAX package's only way to the gap-fused
 pass.
 """
@@ -192,11 +201,34 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is {item} of the PyTorch port")
 
 
-def _check_scope(spec: PlanSpec):
-    """Raise for the parts of the JAX plan outside the port so far."""
-    check_dtype(spec.dtype)
-    if spec.planner != "estimate":
-        _unported(f'planner="{spec.planner}"', "ROADMAP Queue 1 #11")
+# Measured winners, each keyed by _backend_key(spec): the backend
+# (measure mode), the {"axis0_impl", "f2_impl", "backend"} of the patient
+# race, and that dict with "knobs" of the exhaustive race.  Counterpart:
+# regent_fft_tpu/plan.py:173-199; utils/wisdom.py persists them.
+_BACKEND_WISDOM: dict = {}
+_PATIENT_WISDOM: dict = {}
+_EXHAUSTIVE_WISDOM: dict = {}
+
+
+def _backend_key(spec: PlanSpec) -> PlanSpec:
+    """The winner tables' key: the spec with the raced fields at their
+    defaults and its device reduced to the device type, so a winner
+    measured on the CPU never steers a CUDA plan, and one measured on a
+    card steers every card's plans.  Counterpart: plan.py:186."""
+    return dataclasses.replace(spec, backend="auto", planner="estimate",
+                               donate=False, axis0_impl="auto",
+                               f2_impl="auto",
+                               device=torch.device(spec.device).type)
+
+
+def _auto_backend(spec: PlanSpec) -> str:
+    """The backend of a ``backend="auto"`` plan: a measured winner first
+    (plan.py:306-309), else plan.py:316: the kernel hybrid on the card,
+    the contraction path elsewhere.  The measure race always times the
+    hybrid on a CUDA plan (``measure.backend_candidates``), so a winner it
+    stores has beaten this default."""
+    return _BACKEND_WISDOM.get(_backend_key(spec)) or (
+        "hybrid" if torch.device(spec.device).type == "cuda" else "xla")
 
 
 def _compute_dtype(spec: PlanSpec) -> torch.dtype:
@@ -305,7 +337,7 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
         if backend == "pallas":
             steps.append(("general", a, _pallas_general(spec, n, device)))
             continue
-        ov = _factor._SCHEDULE_OVERRIDES.get((n, spec.max_radix))
+        ov = _factor.schedule_override(n, spec.max_radix, spec.device)
         if ov is not None:
             if len(ov) == 1:
                 steps.append(("direct", a, n))
@@ -317,6 +349,13 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
         if 2 <= n <= spec.xla_direct_max:
             steps.append(("direct", a, n))
             continue
+        if spec.planner == "model":
+            # the native cost model's split (plan.py:418-423); its search
+            # mirrors the executor, so two factors are a mixed2 step
+            ms = _factor.schedule(n, spec.max_radix, "model", spec.device)
+            if ms is not None and len(ms) == 2:
+                steps.append(("mixed2", a, (n, ms[0])))
+                continue
         split = _stockham.best_two_factor(n, spec.max_radix)
         if split is None:
             steps.append(("general", a, _general(spec, n, device)))
@@ -374,7 +413,8 @@ def _general(spec: PlanSpec, n: int, device=None) -> Callable:
     """The dense 1-D pipeline for the plan's ``device`` (Counterpart:
     ``build_1d``, ``regent_fft_tpu/plan.py:318``)."""
     return _stockham.build_c2c_1d(n, spec.direction, spec.max_radix,
-                                  spec.use_3m, device, _general_dtype(spec))
+                                  spec.use_3m, device, _general_dtype(spec),
+                                  spec.planner)
 
 
 def _pallas_general(spec: PlanSpec, n: int, device=None) -> Callable:
@@ -408,8 +448,9 @@ def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
     if kind_ == "stockham_gap":
         return f"kernel-gap-fused{arg}"
     if kind_ == "general":
-        return ("1d-pipeline["
-                f"{_stockham.schedule_description(spec.shape[a], spec.max_radix)}]")
+        desc = _stockham.schedule_description(
+            spec.shape[a], spec.max_radix, _factor.device_type(spec.device))
+        return f"1d-pipeline[{desc}]"
     n, n1 = arg
     return f"einsum-mixed2({n}={n1}x{n // n1})"
 
@@ -630,32 +671,39 @@ class Plan:
 
     Create with :func:`make_plan`.  Reusable for any input of the planned
     shape.  ``gap_fused`` is the ``REGENT_FFT_GAP_FUSED`` switch as
-    :func:`make_plan` read it.  Counterpart: ``regent_fft_tpu/plan.py:790``.
+    :func:`make_plan` read it.  With ``race`` (the default) a
+    "measure", "patient" or "exhaustive" planner races its candidates on
+    the plan's device first (:meth:`_race`; the results in
+    ``measurements``); ``race=False`` builds the steps of ``spec`` as it
+    stands (:func:`_build_core`, a race's candidate).
+    Counterpart: ``regent_fft_tpu/plan.py:790``.
     """
 
-    def __init__(self, spec: PlanSpec, gap_fused: bool = False):
-        _check_scope(spec)
+    def __init__(self, spec: PlanSpec, gap_fused: bool = False,
+                 race: bool = True):
+        check_dtype(spec.dtype)
         self.spec = spec
         self.gap_fused = gap_fused
         self.device = resolve_device(spec.device)
-        backend = spec.backend
+        self.measurements = {}
+        self.knobs = {}
+        exec_spec = self._race(spec) if race else spec
+        backend = exec_spec.backend
         if backend == "auto":
-            # plan.py:316: the kernel hybrid on the accelerator, the
-            # contraction path elsewhere
-            backend = "hybrid" if self.device.type == "cuda" else "xla"
+            backend = _auto_backend(exec_spec)
         self.backend = backend
         axes = spec.axes if spec.kind == Kind.C2C else spec.axes[:-1]
-        steps = axis_steps(spec, backend, sorted(axes, reverse=True),
+        steps = axis_steps(exec_spec, backend, sorted(axes, reverse=True),
                            gap_fused, self.device)
         self.real = (None if spec.kind == Kind.C2C
-                     else _real_route(spec, backend, steps, self.device))
+                     else _real_route(exec_spec, backend, steps, self.device))
         step_shape = list(spec.shape)      # the planes the steps transform
         if self.real is not None:
             r = self.real
             step_shape[r.axis] = r.n // 2 if r.packed else r.n // 2 + 1
-        self.steps = route_steps(spec, steps, step_shape)
+        self.steps = route_steps(exec_spec, steps, step_shape)
         self.cdtype = _compute_dtype(spec)
-        self.trace_log = {i: _step_name(spec, k, a, arg)
+        self.trace_log = {i: _step_name(exec_spec, k, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
         sign = int(spec.direction)
@@ -666,6 +714,49 @@ class Plan:
         self.scale = _norm_scale(spec)
         self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
         self._destroyed = False
+
+    def _race(self, spec: PlanSpec) -> PlanSpec:
+        """The spec the plan runs, after the races of its planner tier on
+        the plan's device (plan.py:802-872 there): "measure" and up race
+        the schedules of every length (``deep`` for "exhaustive") and,
+        under ``backend="auto"``, the backends; "patient" the routes;
+        "exhaustive" the routes and the knobs.  A winner already in a
+        wisdom table is taken as it stands ("cached-wisdom")."""
+        if spec.planner not in ("measure", "patient", "exhaustive"):
+            return spec
+        from .utils import measure as _measure
+
+        def build(s):
+            return _build_core(s, self.gap_fused)
+        key = _backend_key(spec)
+        self.measurements = _measure.measure_plan_sizes(
+            spec, deep=spec.planner == "exhaustive")
+        exec_spec = spec
+        if spec.backend == "auto":
+            winner = _BACKEND_WISDOM.get(key)
+            timings = "cached-wisdom"
+            if winner is None:
+                winner, timings = _measure.measure_backends(spec, build)
+                _BACKEND_WISDOM[key] = winner
+            self.measurements["backend"] = {"winner": winner,
+                                            "timings": timings}
+            exec_spec = dataclasses.replace(spec, backend=winner)
+        tier = spec.planner
+        if tier == "measure":
+            return exec_spec
+        table = _PATIENT_WISDOM if tier == "patient" else _EXHAUSTIVE_WISDOM
+        race = (_measure.measure_patient if tier == "patient"
+                else _measure.measure_exhaustive)
+        w = table.get(key)
+        timings = "cached-wisdom"
+        if w is None:
+            w, timings = race(exec_spec, build)
+            table[key] = dict(w)
+        self.measurements[tier] = {"winner": dict(w), "timings": timings}
+        self.knobs = dict(w.get("knobs") or {})
+        return dataclasses.replace(
+            exec_spec, axis0_impl=w.get("axis0_impl", exec_spec.axis0_impl),
+            f2_impl=w.get("f2_impl", exec_spec.f2_impl))
 
     # -- accounting ------------------------------------------------------
     @property
@@ -685,11 +776,11 @@ class Plan:
         n_all = self.spec.logical_n
         mr = self.spec.max_radix
         for n in self.spec.transform_lengths:
-            kind, info = _factor.plan_factors(n, mr)
+            kind, info = _factor.plan_factors(n, mr, device=self.device)
             factors = (n,) if kind == "direct" else info if kind == "mixed" else None
             if factors is None:
                 m = info
-                kind2, mf = _factor.plan_factors(m, mr)
+                kind2, mf = _factor.plan_factors(m, mr, device=self.device)
                 if kind2 == "direct":
                     mf = (m,)
                 cmuls = 1 if kind == "rader" else 3
@@ -699,6 +790,23 @@ class Plan:
                 total += (n_all // n) * _factor.stage_flops(n, factors)
         scale = 1.0 if self.spec.kind == Kind.C2C else 0.5
         return int(self.spec.batch * total * scale)
+
+    def cost(self) -> float:
+        """``fftw_cost`` analog: the native cost model's estimate for the
+        plan, in its time units; 0.0 where the model is not built or a
+        length falls outside it (FFTW's "no cost information").
+        Counterpart: ``regent_fft_tpu/plan.py:914``."""
+        from .native import planner as _native
+        if not _native.available():
+            return 0.0
+        total = 0.0
+        n_all = self.spec.logical_n
+        for n in self.spec.transform_lengths:
+            per = _native.schedule_cost(n, self.spec.max_radix)
+            if per is None or per <= 0:
+                return 0.0
+            total += per * (n_all // max(n, 1))
+        return self.spec.batch * total
 
     @property
     def bytes_ideal(self) -> int:
@@ -757,6 +865,48 @@ class Plan:
         """
         return (self.execute_real if self.spec.kind == Kind.R2C
                 else self.execute_split)
+
+    def benchmark(self, iters: int = 10, seed: int = 0, *,
+                  latency: bool = False,
+                  profile_dir: Optional[str] = None) -> dict:
+        """Time the plan by the port's one method (``utils/timing.py``):
+        the median of ``iters`` calls of :attr:`core_fn` on the plan's
+        device, CUDA events with the L2 flushed on a card; or with
+        ``latency`` the fastest ``plan(x)`` from a host array, the round
+        trip included (``latency_s``).  Reports GFLOP/s by the 5 N log2 N
+        convention and the fraction of the device's roofline, priced on
+        its datasheet whatever calibration is installed (None on a device
+        with no entry: ``flopcount.datasheet``): the function's bound, :attr:`bytes_ideal` over the memory rate or :attr:`flops`
+        (5 N log2 N) over the FP32 peak, whichever is larger; the JAX
+        package prices :attr:`algorithm_flops`, the dense matmul
+        schedule's, which the butterfly kernels do not run.  ``profile_dir``
+        adds one traced call (``timing.trace``), written there as a
+        Chrome trace, its total and its kernels under ``"trace"``.
+        Counterpart: ``regent_fft_tpu/plan.py:1014``."""
+        from .utils import flopcount as _fc
+        from .utils import timing as _timing
+        if latency:
+            best = _timing.time_plan_latency(self, iters=iters, seed=seed)
+        else:
+            best = _timing.time_plan(self, reps=iters, seed=seed)
+        hw = _fc.datasheet(self.device)
+        out = {
+            "time_s": best,
+            "gflops_convention": self.flops / best / 1e9,
+            "roofline_fraction": _fc.roofline_fraction(
+                self.bytes_ideal, self.flops, best, hw),
+            "hardware": None if hw is None else hw.name,
+            "methodology": ("latency" if latency
+                            else _timing.methodology(self.device)),
+        }
+        if latency:
+            out["latency_s"] = best
+        if profile_dir:
+            args = _timing.plan_inputs(self, seed)
+            total, rows = _timing.trace(lambda: self.core_fn(*args),
+                                        self.device, profile_dir)
+            out["trace"] = {"ms": total, "by_kernel": rows}
+        return out
 
     # -- execution -------------------------------------------------------
     def _steps(self, xr, xi):
@@ -928,3 +1078,18 @@ def clear_plan_cache():
 def cached_plans():
     """Counterpart: ``regent_fft_tpu/plan.py:1170``."""
     return list(_PLAN_CACHE.values())
+
+
+def _build_core(spec: PlanSpec, gap_fused: bool = False) -> Plan:
+    """The unraced, uncached plan of ``spec`` as it stands: a race's
+    candidate (``utils/measure.py`` times its ``core_fn``).
+    Counterpart: ``regent_fft_tpu/plan.py:296``."""
+    return Plan(spec, gap_fused, race=False)
+
+
+def cleanup():
+    """``fftw_cleanup`` analog: drop every cached plan and all planner
+    knowledge (schedule overrides, winners, calibration).  Plans a caller
+    holds keep working.  Counterpart: ``regent_fft_tpu/plan.py:1174``."""
+    from .utils import wisdom as _wisdom
+    _wisdom.forget_wisdom()

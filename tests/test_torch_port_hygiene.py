@@ -24,6 +24,10 @@ import regent_fft_tpu_torch.utils.plog, regent_fft_tpu_torch.guru
 import regent_fft_tpu_torch.ops.bluestein, regent_fft_tpu_torch.ops.rader
 import regent_fft_tpu_torch.ops.r2r, regent_fft_tpu_torch._czt
 import regent_fft_tpu_torch.ops.fftlog, regent_fft_tpu_torch.ops.nufft
+import regent_fft_tpu_torch.native.planner, regent_fft_tpu_torch.bench_cli
+import regent_fft_tpu_torch.utils.flopcount, regent_fft_tpu_torch.utils.timing
+import regent_fft_tpu_torch.utils.calibrate, regent_fft_tpu_torch.utils.measure
+import regent_fft_tpu_torch.utils.wisdom
 import chip_smoke
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
@@ -46,7 +50,10 @@ PORT_MODULES = {
     "ops/fftlog.py", "ops/fourstep.py", "ops/nd.py", "ops/nufft.py",
     "ops/pallas_fft.py", "ops/r2r.py", "ops/rader.py",
     "ops/real.py", "ops/stockham.py", "ops/stockham_kernels.py",
-    "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py"}
+    "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py",
+    "bench_cli.py", "native/__init__.py", "native/planner.py",
+    "utils/calibrate.py", "utils/flopcount.py", "utils/measure.py",
+    "utils/timing.py", "utils/wisdom.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
     "test_torch_port_hygiene.py", "test_torch_port_tables.py",
@@ -62,7 +69,9 @@ PORT_TESTS = {
     "test_torch_port_rader_bluestein.py", "test_torch_port_guru.py",
     "test_torch_port_iface.py", "test_torch_port_r2r.py",
     "test_torch_port_czt.py", "test_torch_port_fftlog.py",
-    "test_torch_port_nufft.py"}
+    "test_torch_port_nufft.py", "test_torch_port_planner.py",
+    "test_torch_port_measure.py", "test_torch_port_wisdom.py",
+    "test_torch_port_calibrate.py", "test_torch_port_bench_cli.py"}
 
 
 def test_file_lists_cover_the_port():

@@ -173,18 +173,27 @@ def test_spec_from_jax_maps_fields():
     dict(planner="measure"),
 ])
 def test_out_of_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        rt.make_plan((4, 64), device="cpu", **kwargs)
+    # the planners but "estimate" raised before the port had Queue 1 #11;
+    # they plan now (tests/test_torch_port_measure.py holds the races)
+    p = rt.make_plan((4, 64), device="cpu", **kwargs)
+    x = _crand((4, 64), 11)
+    dt = kwargs.get("dtype", "complex64")
+    assert rel_l2(p(x), np.fft.fftn(x.astype(np.complex128))) \
+        <= tolerance(256, dt)
+    rt.cleanup()
 
 
 def test_out_of_slice_lengths_and_api_raise():
-    # 2053 (prime, Rader) raised before the port had Queue 1 #8; the
-    # planners but "estimate" are still outside it (Queue 1 #11)
+    # 2053 (prime, Rader) raised before the port had Queue 1 #8, and
+    # planner="measure" before it had Queue 1 #11
     x53 = _crand((2053,), 3)
     assert rel_l2(rt.fft(x53, device="cpu"),
                   np.fft.fft(x53.astype(np.complex128))) <= tolerance(2053)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        rt.make_plan((2053,), planner="measure", device="cpu")
+    p = rt.make_plan((2053,), planner="measure", device="cpu")
+    assert p.measurements["backend"]["winner"] == "xla"
+    assert rel_l2(p(x53), np.fft.fft(x53.astype(np.complex128))) \
+        <= tolerance(2053)
+    rt.cleanup()
     # float64 data plans complex128 (it raised before the port had it)
     import scipy.fft
     x = np.random.default_rng(2).standard_normal((8, 8))
@@ -211,7 +220,7 @@ def test_schedule_override_and_apply_along_axis():
     from regent_fft_tpu_torch.ops import stockham as tstockham
     x = _crand((3, 96, 5), 4)
     ref = np.fft.fft(x.astype(np.complex128), axis=1)
-    factor.set_schedule_override(96, (12, 8))
+    factor.set_schedule_override(96, (12, 8), device="cpu")
     try:
         p = rt.make_plan((3, 96, 5), axes=(1,), device="cpu")
         assert _step_lines(p.describe()) == ["(axis 1: einsum-mixed2(96=12x8))"]
