@@ -194,9 +194,30 @@ Phases (any failure raises and the script exits non-zero):
    patient plan reports "cached-wisdom" and the same step lines; and
    ``bench_cli --suite baseline --verify``.  Every time in this script
    comes from ``utils/timing.py`` (one warm-up, the median of 10
-   CUDA-event runs, the L2 flushed before each).
+   CUDA-event runs, the L2 flushed before each);
+14. the signal and spectral functions and the two adapters
+   (``SIGNAL_SHAPES``, ``SIGNAL_GROUPS``), one counted group each at full
+   width, the plan cache cleared before it: ``fftconvolve`` of a 32 x
+   1000^2 image blur and ``correlate`` ("same", packed 1024^2 plans), a
+   480^3 volume (packed 512^3) and a complex 256 x 16000 matched filter,
+   ``oaconvolve`` of 64 x 480000 with a 257-tap FIR, ``stft``/``istft``,
+   ``welch``/``csd``/``coherence``/``spectrogram`` on the same channels,
+   ``hilbert`` (1024 x 16384 and 64 x 2^20), ``hilbert2`` 2048^2,
+   ``resample`` (real and complex), ``periodogram``; ``torch_fft`` on CUDA
+   tensors with every ``torch.fft`` function raising while the counted
+   call runs; ``scipy.fft`` calls, numpy in and out, under the card's
+   backend alone (``only=True``) with its ``RuntimeWarning`` an error.
+   Each is held against scipy/numpy in float64 at the JAX suites' bounds
+   (on 4 seeded rows where scipy on the batch is slow; the volume against
+   direct sums at 64 points; the 3-D transforms against torch.fft in
+   float64 on the card), timed beside its bound and a PyTorch yardstick
+   (``torch.stft``/``torch.istft``, else the ``torch.fft`` chain, as
+   labelled), traced (the port's kernels' share of the device time), the
+   3-D and STFT groups with their peak memory; a group with no launch
+   says its route is dense.  Phase 3b holds every (kernel, planes) shape
+   phase 14 feeds (``check_held``).
 
-Prints how long each phase took, one ``{"plans": [...]}`` line (65 plans),
+Prints how long each phase took, one ``{"plans": [...]}`` line (92 plans),
 one ``{"planners": [...]}`` line (phase 13),
 one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
@@ -477,6 +498,60 @@ PRECISION_PLANS = [
      {"precision": "default"}, ["(axis 0: kernel-butterfly(n=512))"],
      {"fft_axis0": 1}),
 ]
+
+
+# Phase 14: signal.py, spectral.py, torch_fft.py and scipy_backend.py at
+# full width.  Shapes (the workloads the JAX package's docstrings name:
+# image blur, volume deconvolution, a matched filter, a long FIR, 64
+# channels of 10 s at 48 kHz for the STFT and the Welch family), and one
+# counted group per function: (label, launches of one call).  A group with
+# no launch runs the dense pipeline (its length is no kernel length); its
+# line says so.
+SIGNAL_SHAPES = {
+    "blur": ((32, 1000, 1000), (32, 25, 25)),     # axes (1, 2) -> 1024^2
+    "volume": ((480, 480, 480), (33, 33, 33)),   # -> 512^3
+    "matched": ((256, 16000), (256, 385)),       # c64, axis 1 -> 16384
+    "long": (64, 480000), "fir": (64, 257),      # blocks (125, 64, 3840)
+    "hilbert": (1024, 16384), "hilbert_long": (64, 1 << 20),
+    "hilbert2": (2048, 2048), "resample": (4096, 2048),
+    "periodogram": (4096, 1024), "rows": (4096, 1024),
+    "volumes": (4, 256, 256, 256), "cube": (512, 512, 512),
+    "dctn": (512, 512, 512), "fht": (16384, 1024)}
+SIGNAL_ROWS = 4      # rows held against scipy where the batch is slow there
+SIGNAL_GROUPS = [
+    ("fftconvolve_blur", {"fft_last_r2c": 2, "fft_cols": 3,
+                          "ifft_last_c2r": 1}),
+    ("fftconvolve_volume", {"fft_last_r2c": 2, "fft_cols": 6,
+                            "ifft_last_c2r": 1}),
+    ("fftconvolve_complex", {}),                 # 16384 = 128 x 128: dense
+    ("correlate_same", {"fft_last_r2c": 2, "fft_cols": 3,
+                        "ifft_last_c2r": 1}),
+    ("oaconvolve_fir", {"fft_last": 3}),         # half-length route, 2048
+    ("hilbert", {}),                             # 16384: dense
+    ("hilbert_long", {"fft_cols_tw": 2, "fft_last": 2}),
+    ("hilbert2", {"fft_last": 2, "fft_axis0": 2}),
+    ("resample_real", {"fft_last": 2}),
+    ("resample_complex", {"fft_last": 1}),       # ifft 4096 = 64 x 64: dense
+    ("stft", {"fft_last_r2c": 1}),
+    ("istft", {"fft_last": 1}),
+    ("welch", {"fft_last_r2c": 1}),
+    ("csd", {"fft_last_r2c": 2}),
+    ("coherence", {"fft_last_r2c": 4}),
+    ("spectrogram", {"fft_last_r2c": 1}),
+    ("periodogram", {"fft_last_r2c": 1}),
+    ("torch_fft_fft_c64", {"fft_last": 1}),
+    ("torch_fft_fft_bf16", {"fft_last": 1}),
+    ("torch_fft_rfftn", {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("torch_fft_irfftn", {"fft_cols": 2, "ifft_last_c2r": 1}),
+    ("torch_fft_fftn_cube", {"fft_fused2": 1, "fft_cols": 1}),
+    ("scipy_fft_fft_c64", {"fft_last": 1}),
+    ("scipy_fft_rfftn", {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("scipy_fft_dctn", {"fft_last": 3}),
+    ("scipy_fft_fht", {"fft_last_r2c": 1, "fft_last": 1}),
+    ("scipy_fft_fft_f64", {}),                   # complex128: dense f64
+]
+# The port's own kernels in a profiler trace (the rest is torch glue).
+PORT_KERNEL = re.compile(r"\b(i?fft_\w*kernel|real_kernel)\b")
 
 
 def _ptxas(log: str):
@@ -1359,6 +1434,7 @@ def main() -> int:
                            lambda: torch.fft.irfft(h, n=n),
                            8 * b * w + 4 * b * n, 2.5 * b * n * math.log2(n))
         case["layout"] = "packed" if packed else "narrow"
+        case["planes"] = list(hr.shape)   # what the kernel is fed
         del h, hr, hi
         return case
 
@@ -1622,7 +1698,13 @@ def main() -> int:
                      lambda: c2c_case("fft_last", (262144, 512), (1,)),
                      lambda: c2c_case("fft_last", (2048, 2048), (1,)),
                      lambda: c2c_case("fft_last", (16384, 512), (1,)),
-                     lambda: c2c_case("fft_last", (1024, 2048), (1,))],
+                     lambda: c2c_case("fft_last", (1024, 2048), (1,)),
+                     # phase 14: oaconvolve's blocks (half-length route at
+                     # 2048), istft's half-length C2R of 512, resample's
+                     # complex rows
+                     lambda: c2c_case("fft_last", (8000, 2048), (1,)),
+                     lambda: c2c_case("fft_last", (240064, 256), (1,)),
+                     lambda: c2c_case("fft_last", (4096, 2048), (1,))],
         "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,)),
                      # the mid axis of the 512^3 gap-fused plan
                      lambda: c2c_case("fft_cols", CUBE, (1,)),
@@ -1630,7 +1712,12 @@ def main() -> int:
                      lambda: c2c_case("fft_cols", (1024, 256, 128), (1,)),
                      lambda: c2c_case("fft_cols", (4, 256, 32768), (1,)),
                      # phase 12: the leading axis of the 256^3 NUFFT grid
-                     lambda: c2c_case("fft_cols", (1, 256, 65536), (1,))],
+                     lambda: c2c_case("fft_cols", (1, 256, 65536), (1,)),
+                     # phase 14: the packed 32 x 1024^2 and 512^3
+                     # convolutions' complex axes
+                     lambda: c2c_case("fft_cols", (32, 1024, 512), (1,)),
+                     lambda: c2c_case("fft_cols", (512, 512, 256), (1,)),
+                     lambda: c2c_case("fft_cols", (1, 512, 131072), (1,))],
         "fft_fused2": [lambda: c2c_case("fft_fused2", (512, 512, 512),
                                         (1, 2)),
                        # the trailing pair of the 4 x 256^3 mid-axis plan
@@ -1644,8 +1731,19 @@ def main() -> int:
         "fft_last_r2c": [lambda: r2c_case((4096, 1024), False),
                          lambda: r2c_case((262144, 256), True),
                          # phase 12: FFTLog's rfft
-                         lambda: r2c_case((16384, 1024), False)],
-        "ifft_last_c2r": [lambda: c2r_case((262144, 256), True)],
+                         lambda: r2c_case((16384, 1024), False),
+                         # phase 14: the packed 32 x 1024^2 and 512^3
+                         # convolutions; the STFT's, Welch's and the
+                         # spectrogram's segments
+                         lambda: r2c_case((32768, 1024), True),
+                         lambda: r2c_case((262144, 512), True),
+                         lambda: r2c_case((240064, 512), False),
+                         lambda: r2c_case((59904, 1024), False),
+                         lambda: r2c_case((34240, 1024), False)],
+        "ifft_last_c2r": [lambda: c2r_case((262144, 256), True),
+                          # phase 14: the packed convolutions' C2R
+                          lambda: c2r_case((32768, 1024), True),
+                          lambda: c2r_case((262144, 512), True)],
         "fft_cols_tw": [lambda: cols_tw_case(64, 1 << 20),
                         # phase 12: the 2^21 NUFFT grid (one row)
                         lambda: cols_tw_case(1, 1 << 21)],
@@ -2354,8 +2452,8 @@ def main() -> int:
     def check_held(what):
         """Fail on a recorded (kernel, planes) that no phase-3b case held
         against its plain version; then forget the record."""
-        held = {(k, tuple(c["shape"])) for k, row in rows.items()
-                for c in row["cases"]}
+        held = {(k, tuple(c.get("planes", c["shape"])))
+                for k, row in rows.items() for c in row["cases"]}
         if fed - held:
             raise AssertionError(f"{what} fed kernels planes no phase-3b "
                                  f"case holds against the plain version: "
@@ -2374,16 +2472,21 @@ def main() -> int:
         return y, launches
 
     def report(kind, label, shape, fn, err, tol, steps, nbytes, launches,
-               lib=None, lib_call=None, mem=None):
+               lib=None, lib_call=None, mem=None, nflops=0,
+               metric="rel_l2"):
+        """Check err <= tol, time fn and its yardstick lib, trace fn once,
+        add its plans row; the bound is bytes over the memory rate or
+        nflops over the FP32 rate, whichever is larger."""
         if not err <= tol:
-            raise AssertionError(f"{label}: rel_l2 {err} > {tol}")
+            raise AssertionError(f"{label}: {metric} {err} > {tol}")
         ms = timed(fn)
-        b_ms = 1e3 * nbytes / bw
+        b_ms, b_by = bound(nbytes, nflops)
         lib_ms = timed(lib) if lib is not None else None
         row = {"kind": kind, "route": label, "shape": list(shape),
-               "steps": steps, "rel_err_vs_f64": err, "tolerance": tol,
-               "ms": ms, "bytes_ideal": nbytes, "bound_ms": b_ms,
-               "bound_by": "bytes", "bound_fraction": b_ms / ms,
+               "steps": steps, "rel_err_vs_f64": err, "error_metric": metric,
+               "tolerance": tol, "ms": ms, "bytes_ideal": nbytes,
+               "flops": nflops, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_fraction": b_ms / ms,
                "library_ms": lib_ms, "library_call": lib_call,
                "launches": {k: v for k, v in launches.items() if v}}
         if mem is not None:
@@ -2394,9 +2497,9 @@ def main() -> int:
         plan_rows.append(row)
         print(f"{label} trace: device {row['device_ms']:.4f} ms: "
               + ", ".join(f"{k[:60]} {v:.4f}" for k, v in by[:6]))
-        print(f"{label} {tuple(shape)}: {ms:.4f} ms (bound {b_ms:.4f} bytes"
+        print(f"{label} {tuple(shape)}: {ms:.4f} ms (bound {b_ms:.4f} {b_by}"
               + (f", {lib_call} {lib_ms:.4f}" if lib is not None else "")
-              + f"), rel_l2 vs float64 {err:.3e} (bound {tol:.1e}); launches "
+              + f"), {metric} vs float64 {err:.3e} (bound {tol:.1e}); launches "
               f"{row['launches']}"
               + ("" if mem is None else f"; peak memory {mem[0]} B ({mem[1]}"
                  f" B over the {mem[0] - mem[1]} B resident)")
@@ -2965,6 +3068,468 @@ def main() -> int:
     print(json.dumps({"planners": planner_rows}, default=str))
     print(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     phase("13 (planner tiers)")
+
+    # 14. signal.py, spectral.py, torch_fft.py and scipy_backend.py on the
+    # card: one counted group per function at full width (SIGNAL_GROUPS),
+    # each held against scipy/numpy in float64 at the JAX suites' bounds
+    # (max|y - ref| / max|ref| for signal and spectral, rel_l2 for the
+    # adapters) on SIGNAL_ROWS rows chosen by a numpy seed where scipy on
+    # the whole batch is slow, the 3-D volume against direct sums at 64
+    # sampled points, the 3-D transforms against torch.fft in float64 on
+    # the card; timed beside its bound and a PyTorch yardstick, and traced
+    import warnings
+
+    import torch.nn.functional as F
+
+    from regent_fft_tpu_torch import scipy_backend as sb
+    from regent_fft_tpu_torch import torch_fft as tf
+    t14 = time.perf_counter()
+    rt.cleanup()          # phase 13's winners and schedules steer no plan here
+    groups.update(SIGNAL_GROUPS)
+    S = SIGNAL_SHAPES
+    pick_rng = np.random.default_rng(14)
+    c64 = torch.complex64
+
+    def pick(n):
+        """SIGNAL_ROWS row indices chosen by a numpy seed."""
+        return sorted(pick_rng.choice(n, min(SIGNAL_ROWS, n),
+                                      replace=False).tolist())
+
+    def max_rel(got, ref):
+        """max |got - ref| / max |ref| (the JAX suites' _check, _close)."""
+        got, ref = np.asarray(got), np.asarray(ref)
+        if got.shape != ref.shape:
+            raise AssertionError(f"shape {got.shape} != {ref.shape}")
+        return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+    def rel(got, ref):
+        """rel_l2 on the host (the JAX suites' _agree, _rel)."""
+        got = np.asarray(got, np.complex128)
+        ref = np.asarray(ref, np.complex128)
+        return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+    def rfl(n, rows):
+        return 2.5 * rows * n * math.log2(n)
+
+    def cfl(n, rows):
+        return 5.0 * rows * n * math.log2(n)
+
+    def no_torch_fft(fn):
+        """fn with every torch.fft function raising while it runs."""
+        def run():
+            saved = {k: getattr(torch.fft, k) for k in tf.__all__
+                     if hasattr(torch.fft, k)}
+
+            def boom(*a, **k):
+                raise AssertionError("a torch_fft call reached torch.fft")
+            try:
+                for k in saved:
+                    setattr(torch.fft, k, boom)
+                return fn()
+            finally:
+                for k, v in saved.items():
+                    setattr(torch.fft, k, v)
+        return run
+
+    def via_backend(fn):
+        """fn under the card's scipy.fft backend alone (only=True: a call
+        it declined raises), its RuntimeWarning an error."""
+        def run():
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                with sfft.set_backend(sb.RegentFFTBackend, only=True):
+                    return fn()
+        return run
+
+    def group(kind, label, shape, call, check, tol, nbytes, nflops, lib,
+              lib_call, mem=False, metric="max_rel", counted_call=None,
+              steps=None):
+        """One counted run (the plan cache cleared first, so the plans are
+        this call's), check(y) -> error, then report; the device time
+        split between the port's kernels and the torch glue."""
+        rt.clear_plan_cache()
+        y, launches = counted(label, counted_call or call)
+        err = check(y)
+        del y
+        steps = (steps or []) + [
+            f"{p.spec.kind.value} {list(p.spec.shape)} "
+            + " ".join(ln.strip() for ln in p.describe().splitlines()[1:-1])
+            for p in rt.cached_plans()]
+        if not any(launches.values()):
+            steps.append("(dense pipeline: no kernel launch)")
+        m = peak_bytes(call) if mem else None
+        report(kind, label, shape, call, err, tol, steps, nbytes, launches,
+               lib, lib_call, m, nflops, metric)
+        row = plan_rows[-1]
+        row["port_kernels_ms"] = sum(v for k, v in row["device_ms_by_kernel"]
+                                     if PORT_KERNEL.search(k))
+        print(f"{label}: port kernels {row['port_kernels_ms']:.4f} of "
+              f"{row['device_ms']:.4f} device ms, the rest torch glue")
+        torch.cuda.empty_cache()
+        return row
+
+    # fftconvolve and correlate: the image blur, packed R2C/C2R at 1024^2
+    (sa, sk_) = S["blur"]
+    a, k = randn(sa), randn(sk_)
+    ia = pick(sa[0])
+    ha, hk = host64(a[ia]), host64(k[ia])
+    s2 = tuple(rt.signal._conv_sizes(sa, sk_, (1, 2), "auto")[0][1:])
+    st = [(sk_[i] - 1) // 2 for i in (1, 2)]
+
+    def torch_same(x, w):
+        y = torch.fft.irfftn(torch.fft.rfftn(x, s2, dim=(1, 2))
+                             * torch.fft.rfftn(w, s2, dim=(1, 2)), s2,
+                             dim=(1, 2))
+        return y[:, st[0]:st[0] + sa[1], st[1]:st[1] + sa[2]]
+
+    nb2 = 4 * (2 * a.numel() + k.numel())
+    fl2 = 3 * sa[0] * 2.5 * s2[0] * s2[1] * math.log2(s2[0] * s2[1])
+    group("signal", "fftconvolve_blur", sa,
+          lambda: rt.fftconvolve(a, k, mode="same", axes=(1, 2)),
+          lambda y: max_rel(host64(y[ia]), np.stack(
+              [ssig.fftconvolve(ha[j], hk[j], mode="same")
+               for j in range(len(ia))])),
+          2e-4, nb2, fl2, lambda: torch_same(a, k),
+          "torch.fft rfftn/irfftn chain")
+    group("signal", "correlate_same", sa,
+          lambda: rt.correlate(a, k, mode="same", axes=(1, 2)),
+          lambda y: max_rel(host64(y[ia]), np.stack(
+              [ssig.correlate(ha[j], hk[j], mode="same", method="fft")
+               for j in range(len(ia))])),
+          2e-4, nb2, fl2, lambda: torch_same(a, k.flip((1, 2))),
+          "torch.fft rfftn/irfftn chain (flipped kernel)")
+    del a, k
+
+    # fftconvolve: the volume, packed R2C/C2R at 512^3, held against
+    # direct sums at 64 sampled points of the "same" output on the card
+    (sv, svk) = S["volume"]
+    a, k = randn(sv), randn(svk)
+    s3 = rt.signal._conv_sizes(sv, svk, (0, 1, 2), "auto")[0]
+    pts = np.random.default_rng(15).integers(0, sv[0], size=(64, 3))
+    half = [(m - 1) // 2 for m in svk]
+
+    def direct(p):
+        i = [int(p[d]) + half[d] for d in range(3)]
+        lo = [max(i[d] - svk[d] + 1, 0) for d in range(3)]
+        hi = [min(i[d], sv[d] - 1) + 1 for d in range(3)]
+        aw = a[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]].double()
+        kw = k[i[0] - hi[0] + 1:i[0] - lo[0] + 1,
+               i[1] - hi[1] + 1:i[1] - lo[1] + 1,
+               i[2] - hi[2] + 1:i[2] - lo[2] + 1].double().flip((0, 1, 2))
+        return float((aw * kw).sum())
+
+    ref3 = np.array([direct(p) for p in pts])
+
+    def torch_volume():
+        y = torch.fft.irfftn(torch.fft.rfftn(a, s3) * torch.fft.rfftn(k, s3),
+                             s3)
+        return y[half[0]:half[0] + sv[0], half[1]:half[1] + sv[1],
+                 half[2]:half[2] + sv[2]]
+
+    group("signal", "fftconvolve_volume", sv,
+          lambda: rt.fftconvolve(a, k, mode="same"),
+          lambda y: max_rel(
+              np.array([float(y[tuple(p)]) for p in pts]), ref3),
+          2e-4, 4 * (2 * a.numel() + k.numel()),
+          3 * 2.5 * np.prod(s3) * math.log2(np.prod(s3)), torch_volume,
+          "torch.fft rfftn/irfftn chain", mem=True)
+    del a, k
+
+    # fftconvolve, complex: the matched filter (C2C at next_fast_len)
+    (sm, smk) = S["matched"]
+    a = torch.complex(randn(sm), randn(sm))
+    k = torch.complex(randn(smk), randn(smk))
+    ia = pick(sm[0])
+    ha, hk = host64(a[ia]), host64(k[ia])
+    nm = rt.next_fast_len(sm[1] + smk[1] - 1)
+    group("signal", "fftconvolve_complex", sm,
+          lambda: rt.fftconvolve(a, k, axes=(1,)),
+          lambda y: max_rel(host64(y[ia]), np.stack(
+              [ssig.fftconvolve(ha[j], hk[j]) for j in range(len(ia))])),
+          2e-4, 8 * (2 * a.numel() + k.numel()), 3 * cfl(nm, sm[0]),
+          lambda: torch.fft.ifft(torch.fft.fft(a, nm) * torch.fft.fft(k, nm)),
+          "torch.fft fft/ifft chain")
+    del a, k
+
+    # oaconvolve: a long FIR, blocks of 4096 riding the batch axis
+    (bl, nl), (_, kl) = S["long"], S["fir"]
+    x, h = randn((bl, nl)), randn((bl, kl))
+    il = pick(bl)
+    hx, hh = host64(x[il]), host64(h[il])
+    L = rt.signal._next_pow2(8 * kl) - (kl - 1)
+    nbk = -(-nl // L)
+    xb = F.pad(x, (0, nbk * L - nl)).reshape(bl, nbk, L)
+    nfl = L + kl - 1
+    group("signal", "oaconvolve_fir", (bl, nl),
+          lambda: rt.oaconvolve(x, h, mode="same", axes=(1,)),
+          lambda y: max_rel(host64(y[il]), np.stack(
+              [ssig.oaconvolve(hx[j], hh[j], mode="same")
+               for j in range(len(il))])),
+          2e-4, 4 * (2 * x.numel() + h.numel()), 3 * rfl(nfl, bl * nbk),
+          lambda: torch.fft.irfft(torch.fft.rfft(xb, nfl)
+                                  * torch.fft.rfft(h, nfl)[:, None], nfl),
+          f"torch.fft rfft/irfft of the same {tuple(xb.shape)} blocks "
+          "(no overlap-add)")
+    del xb
+
+    # stft / istft on the same channels: nperseg 512, noverlap 384
+    win = torch.hann_window(512, periodic=True, device=dev)
+    group("signal", "stft", (bl, nl),
+          lambda: rt.stft(x, nperseg=512, noverlap=384)[2],
+          lambda y: max_rel(host64(y[il]), ssig.stft(
+              hx, nperseg=512, noverlap=384, detrend=False)[2]),
+          1e-4, 4 * x.numel() + 8 * bl * 257 * (nl // 128 + 1),
+          rfl(512, bl * (nl // 128 + 1)),
+          lambda: torch.stft(x, 512, 128, window=win, center=True,
+                             pad_mode="constant", return_complex=True),
+          "torch.stft", mem=True)
+    z = rt.stft(x, nperseg=512, noverlap=384)[2]
+    hz = host64(z[il])
+    zt = torch.stft(x, 512, 128, window=win, center=True, pad_mode="constant",
+                    return_complex=True)
+    group("signal", "istft", tuple(z.shape),
+          lambda: rt.istft(z, nperseg=512, noverlap=384)[1],
+          lambda y: max_rel(host64(y[il]), ssig.istft(
+              hz, nperseg=512, noverlap=384)[1][..., :y.shape[-1]]),
+          1e-4, 8 * z.numel() + 4 * x.numel(), rfl(512, z.numel() // 257),
+          lambda: torch.istft(zt, 512, 128, window=win, center=True),
+          "torch.istft", mem=True)
+    del z, zt
+
+    # the Welch family on the same channels: nperseg 1024
+    y2 = randn((bl, nl))
+    hy = host64(y2[il])
+    w1k = torch.hann_window(1024, periodic=True, device=dev)
+
+    def torch_spec(u, step=512):
+        seg = u.unfold(-1, 1024, step)
+        return torch.fft.rfft((seg - seg.mean(-1, keepdim=True)) * w1k)
+
+    nseg = (nl - 1024) // 512 + 1
+    lbl = "torch.fft chain (unfold, detrend, window, rfft, products, mean)"
+    spec_bytes = 4 * x.numel() + 4 * bl * 513
+    group("spectral", "welch", (bl, nl),
+          lambda: rt.welch(x, nperseg=1024)[1],
+          lambda y: max_rel(host64(y[il]),
+                            ssig.welch(hx, nperseg=1024)[1]),
+          2e-4, spec_bytes, rfl(1024, bl * nseg),
+          lambda: (torch_spec(x).abs() ** 2).mean(-2), lbl)
+    group("spectral", "csd", (bl, nl),
+          lambda: rt.csd(x, y2, nperseg=1024)[1],
+          lambda y: max_rel(host64(y[il]),
+                            ssig.csd(hx, hy, nperseg=1024)[1]),
+          2e-4, spec_bytes + 4 * y2.numel() + 4 * bl * 513,
+          2 * rfl(1024, bl * nseg),
+          lambda: (torch_spec(x).conj() * torch_spec(y2)).mean(-2), lbl)
+
+    def torch_coh():
+        fx, fy = torch_spec(x), torch_spec(y2)
+        pxy = (fx.conj() * fy).mean(-2)
+        return pxy.abs() ** 2 / ((fx.abs() ** 2).mean(-2)
+                                 * (fy.abs() ** 2).mean(-2))
+
+    group("spectral", "coherence", (bl, nl),
+          lambda: rt.coherence(x, y2, nperseg=1024)[1],
+          lambda y: max_rel(host64(y[il]),
+                            ssig.coherence(hx, hy, nperseg=1024)[1]),
+          1e-3, spec_bytes + 4 * y2.numel(), 4 * rfl(1024, bl * nseg),
+          torch_coh, lbl)
+    nseg_s = (nl - 1024) // 896 + 1
+    group("spectral", "spectrogram", (bl, nl),
+          lambda: rt.spectrogram(x, nperseg=1024)[2],
+          lambda y: max_rel(host64(y[il]),
+                            ssig.spectrogram(hx, nperseg=1024)[2]),
+          5e-4, 4 * x.numel() + 4 * bl * 513 * nseg_s,
+          rfl(1024, bl * nseg_s),
+          lambda: torch_spec(x, 896).abs() ** 2,
+          "torch.fft chain (unfold, detrend, window, rfft, |X|^2)")
+    del y2
+
+    # hilbert on the same channels' length class, and on 1024 x 16384
+    for label, shape in (("hilbert", S["hilbert"]),
+                         ("hilbert_long", S["hilbert_long"])):
+        xh = randn(shape)
+        ih = pick(shape[0])
+        hxh = host64(xh[ih])
+        n = shape[1]
+        hvec = torch.zeros(n, device=dev)
+        hvec[0] = hvec[n // 2] = 1.0
+        hvec[1:n // 2] = 2.0
+        group("signal", label, shape, lambda: rt.hilbert(xh),
+              lambda y: max_rel(host64(y[ih]), ssig.hilbert(hxh)),
+              2e-4, 12 * xh.numel(), 2 * cfl(n, shape[0]),
+              lambda: torch.fft.ifft(torch.fft.fft(xh) * hvec),
+              "torch.fft fft/ifft chain")
+        del xh
+    del x, h
+
+    # hilbert2: 2048^2 on the 2-D C2C route
+    sh2 = S["hilbert2"]
+    xh = randn(sh2)
+    h1 = torch.zeros(sh2[0], device=dev)
+    h1[0] = 1.0
+    h1[1:(sh2[0] + 1) // 2] = 2.0
+    group("signal", "hilbert2", sh2, lambda: rt.hilbert2(xh),
+          lambda y: max_rel(host64(y), ssig.hilbert2(host64(xh))),
+          2e-4, 12 * xh.numel(), 2 * cfl(xh.numel(), 1),
+          lambda: torch.fft.ifft2(torch.fft.fft2(xh) * torch.outer(h1, h1)),
+          "torch.fft fft2/ifft2 chain")
+    del xh
+
+    # resample: real 2048 -> 1024 and complex 2048 -> 4096 along the rows
+    sr = S["resample"]
+    xr = randn(sr)
+    xc = torch.complex(randn(sr), randn(sr))
+    ir = pick(sr[0])
+    nr = sr[1]
+    group("signal", "resample_real", sr,
+          lambda: rt.resample(xr, nr // 2, axis=-1),
+          lambda y: max_rel(host64(y[ir]),
+                            ssig.resample(host64(xr[ir]), nr // 2, axis=-1)),
+          5e-4, 4 * xr.numel() * 3 // 2, rfl(nr, sr[0]) + rfl(nr // 2, sr[0]),
+          lambda: torch.fft.irfft(torch.fft.rfft(xr)[:, :nr // 4 + 1],
+                                  nr // 2),
+          "torch.fft rfft -> crop -> irfft chain")
+    zpad = torch.zeros((sr[0], nr), dtype=c64, device=dev)
+
+    def torch_upsample():
+        f = torch.fft.fft(xc)
+        return torch.fft.ifft(torch.cat([f[:, :nr // 2], zpad,
+                                         f[:, nr // 2:]], 1))
+
+    group("signal", "resample_complex", sr,
+          lambda: rt.resample(xc, 2 * nr, axis=-1),
+          lambda y: max_rel(host64(y[ir]),
+                            ssig.resample(host64(xc[ir]), 2 * nr, axis=-1)),
+          5e-4, 8 * xc.numel() * 3, cfl(nr, sr[0]) + cfl(2 * nr, sr[0]),
+          torch_upsample, "torch.fft fft -> zero-pad -> ifft chain")
+    del xr, xc, zpad
+
+    # periodogram: 4096 rows of 1024, one segment each
+    sp = S["periodogram"]
+    xp = randn(sp)
+    group("spectral", "periodogram", sp, lambda: rt.periodogram(xp)[1],
+          lambda y: max_rel(host64(y), ssig.periodogram(host64(xp))[1]),
+          2e-4, 4 * xp.numel() + 4 * sp[0] * (sp[1] // 2 + 1),
+          rfl(sp[1], sp[0]),
+          lambda: torch.fft.rfft(xp - xp.mean(-1, keepdim=True)).abs() ** 2,
+          "torch.fft chain (detrend, rfft, |X|^2)")
+    del xp
+
+    # torch_fft on CUDA tensors; torch.fft raises while each counted call
+    # runs, so none of them reaches it
+    srow = S["rows"]
+    xc = torch.complex(randn(srow), randn(srow))
+    ir = pick(srow[0])
+    hxc = host64(xc[ir])
+    group("torch_fft", "torch_fft_fft_c64", srow, lambda: tf.fft(xc),
+          lambda y: rel(host64(y[ir]), np.fft.fft(hxc)), 2e-5,
+          16 * xc.numel(), cfl(srow[1], srow[0]), lambda: torch.fft.fft(xc),
+          "torch.fft.fft", metric="rel_l2",
+          counted_call=no_torch_fft(lambda: tf.fft(xc)))
+    xb = randn(srow).to(torch.bfloat16)
+    group("torch_fft", "torch_fft_fft_bf16", srow, lambda: tf.fft(xb),
+          lambda y: rel(host64(y[ir]), np.fft.fft(host64(xb[ir]))), 2e-5,
+          2 * xb.numel() + 8 * xb.numel(), cfl(srow[1], srow[0]),
+          lambda: torch.fft.fft(xb.float()),
+          "torch.fft.fft of the widened data", metric="rel_l2",
+          counted_call=no_torch_fft(lambda: tf.fft(xb)))
+    del xc, xb
+    svol = S["volumes"]
+    v = randn(svol)
+    hv = v.cpu().numpy()
+    ref_v = sfft.rfftn(hv.astype(np.float64), axes=(1, 2, 3), workers=workers)
+    group("torch_fft", "torch_fft_rfftn", svol,
+          lambda: tf.rfftn(v, dim=(1, 2, 3)),
+          lambda y: rel(y.cpu().numpy(), ref_v), 2e-5,
+          4 * v.numel() + 8 * v.numel() // svol[-1] * (svol[-1] // 2 + 1),
+          rfl(v.numel() // svol[0], svol[0]),
+          lambda: torch.fft.rfftn(v, dim=(1, 2, 3)), "torch.fft.rfftn",
+          metric="rel_l2",
+          counted_call=no_torch_fft(lambda: tf.rfftn(v, dim=(1, 2, 3))))
+    zv = tf.rfftn(v, dim=(1, 2, 3))
+    group("torch_fft", "torch_fft_irfftn", svol,
+          lambda: tf.irfftn(zv, s=svol[1:], dim=(1, 2, 3)),
+          lambda y: dev_rel(y, v), 2e-5, 8 * zv.numel() + 4 * v.numel(),
+          rfl(v.numel() // svol[0], svol[0]),
+          lambda: torch.fft.irfftn(zv, s=svol[1:], dim=(1, 2, 3)),
+          "torch.fft.irfftn", metric="rel_l2 (round trip to the input)",
+          counted_call=no_torch_fft(
+              lambda: tf.irfftn(zv, s=svol[1:], dim=(1, 2, 3))))
+    del zv
+    scube = S["cube"]
+    xq = torch.complex(randn(scube), randn(scube))
+    group("torch_fft", "torch_fft_fftn_cube", scube, lambda: tf.fftn(xq),
+          lambda y: dev_rel(y, torch.fft.fftn(xq.to(torch.complex128))),
+          2e-5, 16 * xq.numel(), cfl(xq.numel(), 1),
+          lambda: torch.fft.fftn(xq), "torch.fft.fftn", metric="rel_l2",
+          counted_call=no_torch_fft(lambda: tf.fftn(xq)))
+    del xq
+
+    # scipy.fft through the card's backend: numpy in, numpy out
+    hxc = torch.complex(randn(srow), randn(srow)).cpu().numpy()
+    ir = pick(srow[0])
+
+    def host_torch(fn, h):
+        return lambda: fn(torch.from_numpy(h).to(dev)).cpu().numpy()
+
+    for label, h, want_dtype in (
+            ("scipy_fft_fft_c64", hxc, np.complex64),
+            ("scipy_fft_fft_f64", hxc.astype(np.complex128), np.complex128)):
+        call = via_backend(lambda h=h: sfft.fft(h))
+
+        def check(y, h=h, want_dtype=want_dtype):
+            if not isinstance(y, np.ndarray) or y.dtype != want_dtype:
+                raise AssertionError(f"scipy backend output {type(y)} "
+                                     f"{getattr(y, 'dtype', None)}")
+            if want_dtype == np.complex128 and not any(
+                    p.spec.dtype == "complex128" for p in rt.cached_plans()):
+                raise AssertionError("the f64 call planned no complex128 "
+                                     "plan: it did not run on the port")
+            return rel(y[ir], np.fft.fft(h[ir].astype(np.complex128)))
+
+        group("scipy_backend", label, srow, call, check, 1e-5,
+              2 * h.nbytes, cfl(srow[1], srow[0]),
+              host_torch(torch.fft.fft, h),
+              "torch.fft.fft with the host copies", metric="rel_l2")
+    group("scipy_backend", "scipy_fft_rfftn", svol,
+          via_backend(lambda: sfft.rfftn(hv, axes=(1, 2, 3))),
+          lambda y: rel(y, ref_v), 1e-5,
+          hv.nbytes + 8 * hv.size // svol[-1] * (svol[-1] // 2 + 1),
+          rfl(hv.size // svol[0], svol[0]),
+          host_torch(lambda t: torch.fft.rfftn(t, dim=(1, 2, 3)), hv),
+          "torch.fft.rfftn with the host copies", metric="rel_l2")
+    del v, hv, ref_v
+    hd = randn(S["dctn"]).cpu().numpy()
+    ref_d = sfft.dctn(hd.astype(np.float64), type=2, workers=workers)
+    group("scipy_backend", "scipy_fft_dctn", S["dctn"],
+          via_backend(lambda: sfft.dctn(hd, type=2)),
+          lambda y: rel(y, ref_d), 1e-4, 2 * hd.nbytes,
+          rfl(hd.size, 1), host_torch(torch.fft.rfftn, hd),
+          "torch.fft.rfftn with the host copies (not the same function)",
+          metric="rel_l2", steps=r2r_steps(rt.plan_r2r(
+              S["dctn"], R2R.REDFT10, axes=(0, 1, 2))))
+    del hd, ref_d
+    # fht: the JAX suite's sample r^1.5 exp(-(r/r0)^2/2), a cutoff per row,
+    # float64 numpy (the port computes it in float32, as the JAX package)
+    sfh = S["fht"]
+    r = np.logspace(-3, 3, sfh[1])
+    dln = float(np.log(r[1] / r[0]))
+    r0 = 10 ** (0.6 * np.random.default_rng(16).random((sfh[0], 1)) - 0.3)
+    hf = r ** 1.5 * np.exp(-(r / r0) ** 2 / 2)
+    off = rt.fhtoffset(dln, 0.5)
+    ifh = pick(sfh[0])
+    group("scipy_backend", "scipy_fft_fht", sfh,
+          via_backend(lambda: sfft.fht(hf, dln, 0.5, offset=off)),
+          lambda y: rel(y[ifh], sfft.fht(hf[ifh], dln, 0.5, offset=off)),
+          1e-4, 2 * hf.nbytes, 2 * rfl(sfh[1], sfh[0]),
+          host_torch(lambda t: torch.fft.irfft(torch.fft.rfft(t)), hf),
+          "torch.fft rfft/irfft chain with the host copies", metric="rel_l2")
+    del hf
+    torch.cuda.empty_cache()
+    check_held("phase 14")
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    phase("14 (signal, spectral, torch_fft, scipy_backend)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

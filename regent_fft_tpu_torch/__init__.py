@@ -18,7 +18,11 @@ buffers, the shift and frequency helpers.  On the plans and kernels: the
 eleven FFTW real-to-real kinds (DCT/DST types 1-4, DHT, halfcomplex;
 ``plan_r2r``, scipy's ``dct``/``dst`` families, guru r2r plans), the
 chirp-z transform and zoom FFT, the fast Hankel transform (FFTLog) and
-the non-uniform FFT, types 1-3 in one to three dimensions.  Plans default to
+the non-uniform FFT, types 1-3 in one to three dimensions; ``scipy.signal``'s
+FFT convolution, correlation, overlap-add, Hilbert, resampling, STFT and
+the Welch family (``signal.py``, ``spectral.py``); the ``torch.fft``
+namespace (``torch_fft``) and a ``scipy.fft`` backend (``scipy_backend``),
+both loaded on first use.  Plans default to
 ``device="cuda"``; ``device="cpu"`` runs the kernels' plain versions.  The
 planner tiers ``"estimate"``, ``"model"`` (the native cost model),
 ``"measure"``, ``"patient"`` and ``"exhaustive"`` (candidates raced on the
@@ -54,6 +58,9 @@ from ._czt import CZT, ZoomFFT, czt, zoom_fft
 from .ops.fftlog import fht, ifht, fhtoffset
 from .ops.nufft import (nufft1d1, nufft1d2, nufft2d1, nufft2d2,
                         nufft3d1, nufft3d2, nufft1d3, nufft2d3, nufft3d3)
+from .signal import (fftconvolve, oaconvolve, correlate, stft, istft,
+                     hilbert, hilbert2, resample)
+from .spectral import periodogram, welch, csd, coherence, spectrogram
 
 __version__ = "0.1.0"
 
@@ -63,3 +70,12 @@ wisdom.autoload_system_wisdom()
 
 FORWARD = Direction.FORWARD
 BACKWARD = Direction.BACKWARD
+
+
+def __getattr__(name):
+    # The ecosystem adapters load on first use (PEP 562), so importing the
+    # package does not touch scipy's uarray machinery.
+    if name in ("torch_fft", "scipy_backend"):
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -33,6 +33,10 @@ DICTS = [dict(device="test", mxu_tflops=40.0, vpu_gflops=2000.0,
 
 @pytest.fixture(autouse=True)
 def _clean():
+    # before as well as after: a JAX test file earlier in the same
+    # worker may have left plans and winners in the JAX tables
+    rt.cleanup()
+    R.cleanup()
     yield
     rt.cleanup()
     R.cleanup()

@@ -28,6 +28,8 @@ import regent_fft_tpu_torch.native.planner, regent_fft_tpu_torch.bench_cli
 import regent_fft_tpu_torch.utils.flopcount, regent_fft_tpu_torch.utils.timing
 import regent_fft_tpu_torch.utils.calibrate, regent_fft_tpu_torch.utils.measure
 import regent_fft_tpu_torch.utils.wisdom
+import regent_fft_tpu_torch.signal, regent_fft_tpu_torch.spectral
+import regent_fft_tpu_torch.torch_fft, regent_fft_tpu_torch.scipy_backend
 import chip_smoke
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
@@ -53,7 +55,8 @@ PORT_MODULES = {
     "ops/twiddle.py", "utils/__init__.py", "utils/plog.py", "utils/verify.py",
     "bench_cli.py", "native/__init__.py", "native/planner.py",
     "utils/calibrate.py", "utils/flopcount.py", "utils/measure.py",
-    "utils/timing.py", "utils/wisdom.py"}
+    "utils/timing.py", "utils/wisdom.py", "signal.py", "spectral.py",
+    "torch_fft.py", "scipy_backend.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
     "test_torch_port_hygiene.py", "test_torch_port_tables.py",
@@ -71,7 +74,9 @@ PORT_TESTS = {
     "test_torch_port_czt.py", "test_torch_port_fftlog.py",
     "test_torch_port_nufft.py", "test_torch_port_planner.py",
     "test_torch_port_measure.py", "test_torch_port_wisdom.py",
-    "test_torch_port_calibrate.py", "test_torch_port_bench_cli.py"}
+    "test_torch_port_calibrate.py", "test_torch_port_bench_cli.py",
+    "test_torch_port_signal.py", "test_torch_port_spectral.py",
+    "test_torch_port_torch_fft.py", "test_torch_port_scipy_backend.py"}
 
 
 def test_file_lists_cover_the_port():

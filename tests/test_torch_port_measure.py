@@ -87,6 +87,11 @@ def cpu_overrides() -> dict:
 
 @pytest.fixture(autouse=True)
 def _clean():
+    # before as well as after: a JAX test file earlier in the same
+    # worker may have left plans and winners in the JAX tables
+    rt.cleanup()
+    R.cleanup()
+    Rstockham.schedule_description.cache_clear()
     yield
     rt.cleanup()
     R.cleanup()
