@@ -215,9 +215,31 @@ Phases (any failure raises and the script exits non-zero):
    labelled), traced (the port's kernels' share of the device time), the
    3-D and STFT groups with their peak memory; a group with no launch
    says its route is dense.  Phase 3b holds every (kernel, planes) shape
-   phase 14 feeds (``check_held``).
+   phase 14 feeds (``check_held``);
+15. the distributed plans (``parallel/``) in this process as a one-rank
+   NCCL group (``init_distributed(device="cuda", init_method="file://...",
+   world_size=1, rank=0)``; NCCL takes one rank a card, and the host has
+   one card), ``DIST_GROUPS``, one counted group each at full width:
+   c64 512^3 shards, slab, its inverse round trip, ``transposed_out``
+   chained into ``transposed_in``, ``pipeline_chunks=4``, pencil 1 x 1
+   and its ``transposed_out``, ``make_plan_distributed`` in estimate mode
+   and with ``planner="measure"`` (the race printed, its ``"distrib"``
+   wisdom exported and read back); complex32 slab 512^3 (every exchange
+   buffer bf16), complex128 slab 256^3, ``howmany=2`` on 256^3; the
+   rank-1 plan at n = 2^22 = 2048 x 2048, natural and scrambled; the
+   transpose of an 8192^2 c64 matrix and ``make_plan_many_transpose`` of
+   4096^2 x 2; the slab at 1024^3 once (the size a 4-card slab is planned
+   at).  Each is held against torch.fft in float64 (the 1024^3 slab
+   against the single-device plan, slab by slab) within
+   tolerance(n, dtype), the transposes exactly; timed beside the
+   single-device plan of the same spec; traced (the port's kernels, the
+   NCCL kernel, and the rest: the pack/unpack copies around each
+   exchange, pads and the scale) with its peak memory; one
+   ``{"distributed": [...]}`` line.  Phase 3b holds every (kernel,
+   planes) shape phase 15 feeds (the 1024^3 slab's through its plain
+   versions on 16 slabs).  Multi-card NCCL is not run.
 
-Prints how long each phase took, one ``{"plans": [...]}`` line (92 plans),
+Prints how long each phase took, one ``{"plans": [...]}`` line,
 one ``{"planners": [...]}`` line (phase 13),
 one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
@@ -549,6 +571,30 @@ SIGNAL_GROUPS = [
     ("scipy_fft_dctn", {"fft_last": 3}),
     ("scipy_fft_fht", {"fft_last_r2c": 1, "fft_last": 1}),
     ("scipy_fft_fft_f64", {}),                   # complex128: dense f64
+]
+# Phase 15: each distributed mode's counted run and the launches its local
+# stages make at world size 1 (the slab: fft_fused2 on the local trailing
+# pair, fft_cols on the former slab axis, once a chunk; the pencil:
+# fft_last, then fft_cols twice; the rank-1 plan: fft_axis0 on the R
+# columns, fft_last on the C rows; the transposes exchange only).  The
+# measure race's group is set from its winner's chunk count.
+DIST_GROUPS = [
+    ("dist_shards_512cubed", {"fft_fused2": 1, "fft_cols": 1}),
+    ("dist_slab_512cubed", {"fft_fused2": 1, "fft_cols": 1}),
+    ("dist_slab_inverse_roundtrip", {"fft_fused2": 2, "fft_cols": 2}),
+    ("dist_slab_transposed_pair", {"fft_fused2": 2, "fft_cols": 2}),
+    ("dist_slab_chunks4", {"fft_fused2": 1, "fft_cols": 4}),
+    ("dist_pencil_1x1", {"fft_last": 1, "fft_cols": 2}),
+    ("dist_pencil_transposed_out", {"fft_last": 1, "fft_cols": 2}),
+    ("dist_slab_howmany2_256cubed", {"fft_fused2": 1, "fft_cols": 1}),
+    ("dist_slab_c32_512cubed", {"fft_fused2_bf16": 1, "fft_cols_bf16": 1}),
+    ("dist_slab_c128_256cubed", {}),             # complex128: dense f64
+    ("dist_slab1d_2p22", {"fft_axis0": 1, "fft_last": 1}),
+    ("dist_slab1d_2p22_scrambled", {"fft_axis0": 1, "fft_last": 1}),
+    ("dist_transpose_8192sq", {}),
+    ("dist_many_transpose_4096sq_x2", {}),
+    ("dist_auto_estimate_512cubed", {"fft_fused2": 1, "fft_cols": 1}),
+    ("dist_slab_1024cubed", {"fft_last": 1, "fft_cols": 2}),
 ]
 # The port's own kernels in a profiler trace (the rest is torch glue).
 PORT_KERNEL = re.compile(r"\b(i?fft_\w*kernel|real_kernel)\b")
@@ -1679,6 +1725,59 @@ def main() -> int:
         del xr, xi, xc
         return case
 
+    def big_case(kname, shape, dims, axis):
+        """c2c_case for planes too large to hold the plain version's whole
+        output and a float64 comparison beside them (phase 15's 1024^3
+        slab): the kernel on the whole planes, its plain version on 16
+        slabs along `axis` (a batch axis: the transform is independent
+        across it), rel_l2 summed in float64 over the slabs; plain_ms is
+        one run of the plain version over all the slabs; no library call
+        (it would hold two more 8 GiB arrays)."""
+        kern, plain = getattr(sk, kname), getattr(sk, kname + "_plain")
+        n = int(np.prod([shape[d] for d in dims]))
+        xr, xi = planes(shape)
+        scale = 1.0 / math.sqrt(n)
+        limit = tolerance(n)
+        step = max(1, shape[axis] // 16)
+        slabs = []
+        for a in range(0, shape[axis], step):
+            sl = [slice(None)] * len(shape)
+            sl[axis] = slice(a, a + step)
+            slabs.append(tuple(sl))
+
+        def plain_all(s, sc):
+            for sl in slabs:
+                yield sl, plain(xr[sl].contiguous(), xi[sl].contiguous(), s,
+                                sc)
+        max_abs = max_rel = 0.0
+        for s in (-1, 1):
+            kr, ki = kern(xr, xi, s, scale)
+            num = den = 0.0
+            for sl, (pr, pi) in plain_all(s, scale):
+                pr, pi = pr.double(), pi.double()
+                dr, di = kr[sl].double() - pr, ki[sl].double() - pi
+                d2 = dr * dr + di * di
+                num += float(d2.sum())
+                den += float((pr * pr + pi * pi).sum())
+                max_abs = max(max_abs, float(d2.max().sqrt()))
+                del pr, pi, dr, di, d2
+            rel = math.sqrt(num / den)
+            if not rel <= limit:
+                raise AssertionError(f"{shape}: kernel vs plain rel_l2 {rel} "
+                                     f"> {limit}")
+            max_rel = max(max_rel, rel)
+            del kr, ki
+        b_ms, b_by = bound(16 * xr.numel(), 5 * xr.numel() * math.log2(n))
+        case = {"shape": list(shape), "n": n, "max_abs_err": max_abs,
+                "max_rel_err": max_rel, "plain_limit": limit,
+                "ms": timed(lambda: kern(xr, xi, -1, 1.0)),
+                "plain_ms": timing.time_ms(
+                    lambda: [None for _ in plain_all(-1, 1.0)], 1, dev),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "plain_in_slabs": len(slabs)}
+        del xr, xi
+        return case
+
     mid4 = (4, 256, 256, 256)
     gap = {"kern": sk.fft_axes_gap, "plain": sk.fft_axes_gap_plain}
     cases = {
@@ -1704,7 +1803,9 @@ def main() -> int:
                      # complex rows
                      lambda: c2c_case("fft_last", (8000, 2048), (1,)),
                      lambda: c2c_case("fft_last", (240064, 256), (1,)),
-                     lambda: c2c_case("fft_last", (4096, 2048), (1,))],
+                     lambda: c2c_case("fft_last", (4096, 2048), (1,)),
+                     # phase 15: the last axis of the 1024^3 slab
+                     lambda: big_case("fft_last", (1048576, 1024), (1,), 0)],
         "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,)),
                      # the mid axis of the 512^3 gap-fused plan
                      lambda: c2c_case("fft_cols", CUBE, (1,)),
@@ -1717,7 +1818,16 @@ def main() -> int:
                      # convolutions' complex axes
                      lambda: c2c_case("fft_cols", (32, 1024, 512), (1,)),
                      lambda: c2c_case("fft_cols", (512, 512, 256), (1,)),
-                     lambda: c2c_case("fft_cols", (1, 512, 131072), (1,))],
+                     lambda: c2c_case("fft_cols", (1, 512, 131072), (1,)),
+                     # phase 15: the slab's chunked axis 0 at 512^3 (4
+                     # chunks), the howmany=2 256^3 slab's axis 0, and the
+                     # 1024^3 slab's axes 1 and 0
+                     lambda: c2c_case("fft_cols", (1, 512, 65536), (1,)),
+                     lambda: c2c_case("fft_cols", (2, 256, 65536), (1,)),
+                     lambda: big_case("fft_cols", (1024, 1024, 1024), (1,),
+                                      0),
+                     lambda: big_case("fft_cols", (1, 1024, 1048576), (1,),
+                                      2)],
         "fft_fused2": [lambda: c2c_case("fft_fused2", (512, 512, 512),
                                         (1, 2)),
                        # the trailing pair of the 4 x 256^3 mid-axis plan
@@ -1727,6 +1837,9 @@ def main() -> int:
                                         (1, 2)),
                        # phase 12: the trailing pair of the 256^3 NUFFT grid
                        lambda: c2c_case("fft_fused2", (256, 256, 256),
+                                        (1, 2)),
+                       # phase 15: the howmany=2 256^3 slab's local pair
+                       lambda: c2c_case("fft_fused2", (512, 256, 256),
                                         (1, 2))],
         "fft_last_r2c": [lambda: r2c_case((4096, 1024), False),
                          lambda: r2c_case((262144, 256), True),
@@ -3530,6 +3643,318 @@ def main() -> int:
     check_held("phase 14")
     print(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     phase("14 (signal, spectral, torch_fft, scipy_backend)")
+
+    # 15. the distributed plans (parallel/) in this process as a one-rank
+    # NCCL group (the card is one H100; NCCL takes one rank a card): each
+    # mode counted once at full width, held against torch.fft in float64
+    # (the 1024^3 slab against the single-device plan), timed beside the
+    # single-device plan of the same spec, traced (the port's kernels, the
+    # NCCL kernel, and the rest: the pack/unpack copies around the
+    # exchange, pads and the scale), with its peak memory.  Multi-card
+    # NCCL (world size > 1) is not run here.
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from regent_fft_tpu_torch.parallel import distributed as pdist
+    from regent_fft_tpu_torch.parallel import mesh as pmesh
+    t15 = time.perf_counter()
+    rt.cleanup()
+    groups.update(DIST_GROUPS)
+    ddev = "cuda"
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    pmesh.init_distributed(device=ddev, init_method="file://"
+                           + os.path.join(store, "store"), world_size=1,
+                           rank=0)
+    print(f"phase 15: process group {tdist.get_backend()}, world size "
+          f"{tdist.get_world_size()}; {pmesh.num_nodes()} node, "
+          f"{pmesh.num_local_devices()} local devices")
+    if tdist.get_backend() != "nccl" or tdist.get_world_size() != 1:
+        raise AssertionError("phase 15 needs a one-rank NCCL group")
+    dist_rows = []
+
+    def split_trace(rows_):
+        """A trace's device ms: the port's kernels, NCCL's, the rest."""
+        k = sum(v for n, v in rows_ if PORT_KERNEL.search(n))
+        c = sum(v for n, v in rows_ if "nccl" in n.lower())
+        return k, c, sum(v for _, v in rows_) - k - c
+
+    def dist_case(label, plan, fn, check, tol, single=None, reps=10,
+                  nbytes=0):
+        """One counted run of fn (the plan's execute_split), check(y) ->
+        error <= tol, fn timed (median of reps) beside the single-device
+        plan's call `single`, traced once, its peak memory read."""
+        y, launches = counted(label, fn)
+        err = check(y)
+        del y
+        if not err <= tol:
+            raise AssertionError(f"{label}: rel_l2 {err} > {tol}")
+        ms = timing.time_ms(fn, reps, dev)
+        single_ms = (None if single is None
+                     else timing.time_ms(single, reps, dev))
+        total, by = timing.trace(fn, dev)
+        k_ms, n_ms, c_ms = split_trace(by)
+        mem = peak_bytes(fn)
+        b_ms, b_by = bound(nbytes, 0)
+        desc = plan.description if plan is not None else ""
+        cores = [] if plan is None else [
+            f"{list(c.spec.shape)} "
+            + " ".join(ln.strip() for ln in c.describe().splitlines()[1:-1])
+            for c in getattr(plan, "cores", [])]
+        row = {"kind": "distributed", "route": label, "description": desc,
+               "steps": cores, "rel_err_vs_f64": err, "tolerance": tol,
+               "ms": ms, "single_device_ms": single_ms,
+               "bytes_ideal": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+               "device_ms": total, "kernels_ms": k_ms, "nccl_ms": n_ms,
+               "copies_ms": c_ms, "peak_bytes": mem[0],
+               "peak_rise_bytes": mem[1],
+               "launches": {k: v for k, v in launches.items() if v}}
+        plan_rows.append(row)
+        dist_rows.append(row)
+        print(f"{label}: {ms:.4f} ms (single-device plan "
+              + ("-" if single_ms is None else f"{single_ms:.4f}")
+              + f" ms; bound {b_ms:.4f}); traced device {total:.4f} ms = "
+              f"port kernels {k_ms:.4f} + NCCL kernels {n_ms:.4f} + copies "
+              f"and glue {c_ms:.4f} (the profiler drops records); rel_l2 "
+              f"{err:.3e} (bound {tol:.1e}); peak "
+              f"{mem[0]} B ({mem[1]} B over the resident); launches "
+              f"{row['launches']}; {desc}", flush=True)
+        print(f"{label} trace: " + ", ".join(f"{n[:60]} {v:.4f}"
+                                             for n, v in by[:8]))
+        if cores:
+            print(f"{label} local stages: " + "; ".join(cores))
+        return row
+
+    def cplanes(shape, dtype=torch.float32):
+        xr, xi = planes(shape)
+        return xr.to(dtype), xi.to(dtype)
+
+    def ref_of(xr, xi, dims):
+        return torch.fft.fftn(torch.complex(xr.double(), xi.double()),
+                              dim=dims)
+
+    def rel_to(ref):
+        return lambda y: dev_rel(torch.complex(y[0].double(), y[1].double()),
+                                 ref)
+
+    tol64 = tolerance(CUBE[0] ** 3)
+    xr, xi = cplanes(CUBE)
+    ref = ref_of(xr, xi, (0, 1, 2))
+    single = rt.make_plan(CUBE)
+    one = lambda: single.execute_split(xr, xi)   # noqa: E731
+    p = pdist.make_plan_shards(CUBE, norm=rt.Norm.NONE, device=ddev)
+    dist_case("dist_shards_512cubed", p, lambda: p.execute_split(xr, xi),
+              rel_to(ref), tol64, one, nbytes=16 * xr.numel())
+    fwd = pdist.make_plan_slab(CUBE, norm=rt.Norm.NONE, device=ddev)
+    dist_case("dist_slab_512cubed", fwd, lambda: fwd.execute_split(xr, xi),
+              rel_to(ref), tol64, one, nbytes=16 * xr.numel())
+    # one exchange of the slab's planes timed whole and its collective
+    # alone (at P = 1 NCCL's all-to-all is a device-to-device copy, and
+    # torch.profiler names it and the pack/unpack copies alike)
+    ax0 = pdist._mesh_axis(fwd.mesh, fwd.mesh.mesh_dim_names[0])
+    for dt, (er, ei) in ((torch.float32, (xr, xi)),
+                         (torch.bfloat16, (xr.to(torch.bfloat16),
+                                           xi.to(torch.bfloat16)))):
+        ex_ms = timing.time_ms(lambda: pdist._a2a(er, ei, ax0, 2, 0), 10,
+                               dev)
+        sbuf = er.new_empty((1, 2) + CUBE)
+        rbuf = torch.empty_like(sbuf)
+        coll_ms = timing.time_ms(lambda: tdist.all_to_all_single(
+            rbuf, sbuf, group=ax0.group), 10, dev)
+        nb = 2 * sbuf.numel() * sbuf.element_size()
+        print(f"exchange {str(dt)[6:]} 512^3 planes (P = 1): {ex_ms:.4f} ms ="
+              f" all_to_all_single {coll_ms:.4f} + pack/unpack copies "
+              f"{ex_ms - coll_ms:.4f}; bound of the three passes "
+              f"{bound(3 * nb, 0)[0]:.4f} ms, of the collective "
+              f"{bound(nb, 0)[0]:.4f}")
+        dist_rows.append({"kind": "exchange", "dtype": str(dt)[6:],
+                          "shape": list(CUBE), "ms": ex_ms,
+                          "collective_ms": coll_ms,
+                          "copies_ms": ex_ms - coll_ms,
+                          "bound_ms": bound(3 * nb, 0)[0]})
+        del sbuf, rbuf, er, ei
+    inv = pdist.make_plan_slab(CUBE, direction=rt.Direction.BACKWARD,
+                               device=ddev)
+    dist_case("dist_slab_inverse_roundtrip", inv,
+              lambda: inv.execute_split(*fwd.execute_split(xr, xi)),
+              lambda y: dev_rel(torch.complex(*y), torch.complex(xr, xi)),
+              tol64, nbytes=32 * xr.numel())
+    t_out = pdist.make_plan_slab(CUBE, norm=rt.Norm.NONE,
+                                 transposed_out=True, device=ddev)
+    t_in = pdist.make_plan_slab(CUBE, direction=rt.Direction.BACKWARD,
+                                transposed_in=True, device=ddev)
+    yt = t_out.execute_split(xr, xi)
+    err_t = rel_to(ref)(yt)
+    del yt
+    if not err_t <= tol64 or t_out.out_spec[-1] != "fft":
+        raise AssertionError(f"transposed_out: {err_t} {t_out.out_spec}")
+    dist_case("dist_slab_transposed_pair", t_in,
+              lambda: t_in.execute_split(*t_out.execute_split(xr, xi)),
+              lambda y: dev_rel(torch.complex(*y), torch.complex(xr, xi)),
+              tol64, nbytes=32 * xr.numel())
+    ch = pdist.make_plan_slab(CUBE, norm=rt.Norm.NONE, pipeline_chunks=4,
+                              device=ddev)
+    if "pipelined x4" not in ch.description:
+        raise AssertionError(ch.description)
+    dist_case("dist_slab_chunks4", ch, lambda: ch.execute_split(xr, xi),
+              rel_to(ref), tol64, one, nbytes=16 * xr.numel())
+    for label, kw in (("dist_pencil_1x1", {}),
+                      ("dist_pencil_transposed_out",
+                       dict(transposed_out=True))):
+        pp = pdist.make_plan_pencil(CUBE, norm=rt.Norm.NONE, mesh_shape=(1, 1),
+                                    device=ddev, **kw)
+        dist_case(label, pp, lambda: pp.execute_split(xr, xi), rel_to(ref),
+                  tol64, one, nbytes=16 * xr.numel())
+    est = pdist.make_plan_distributed(CUBE, norm=rt.Norm.NONE, device=ddev)
+    if est.strategy != {"mode": "slab", "pipeline_chunks": 1}:
+        raise AssertionError(f"estimate strategy {est.strategy}")
+    dist_case("dist_auto_estimate_512cubed", est,
+              lambda: est.execute_split(xr, xi), rel_to(ref), tol64, one,
+              nbytes=16 * xr.numel())
+    # the strategy race: every candidate timed on every rank, the slowest
+    # rank's time kept (here the one rank's)
+    raced = pdist.make_plan_distributed(CUBE, norm=rt.Norm.NONE,
+                                        planner="measure", device=ddev)
+    key = pdist._distrib_key(CUBE, 1, rt.Direction.FORWARD, rt.Norm.NONE)
+    winner = pdist._DISTRIB_WISDOM[key]
+    race_t = raced.measurements["timings"]
+    print("race distributed 512^3 c64 (P = 1): " + ", ".join(
+        f"{k} {1e3 * v:.4f} ms" for k, v in race_t.items())
+        + f"; winner {pdist.strategy_name(winner)}")
+    if raced.strategy != winner or len(race_t) != 3 or not all(
+            math.isfinite(v) for v in race_t.values()):
+        raise AssertionError(f"raced plan {raced.strategy} != {winner}, "
+                             f"{race_t}")
+    groups["dist_auto_measure_512cubed"] = {
+        "fft_fused2": 1, "fft_cols": winner.get("pipeline_chunks", 1)}
+    dist_case("dist_auto_measure_512cubed", raced,
+              lambda: raced.execute_split(xr, xi), rel_to(ref), tol64, one,
+              nbytes=16 * xr.numel())
+    wis = rt.export_wisdom_to_string()
+    entries = json.loads(wis)["distrib"]
+    rt.forget_wisdom()
+    rt.import_wisdom_from_string(wis, build=False)
+    again = pdist.make_plan_distributed(CUBE, norm=rt.Norm.NONE, device=ddev)
+    print(f"distrib wisdom: {entries}; read back, the estimate plan takes "
+          f"{pdist.strategy_name(again.strategy)}")
+    if again.strategy != winner or len(entries) != 1:
+        raise AssertionError(f"distrib wisdom {entries} -> {again.strategy}")
+    del p, fwd, inv, t_out, t_in, ch, pp, est, raced, again, single, one
+    # complex32: bf16 planes, and every exchange moves bf16
+    br, bi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+    ref32 = ref_of(br, bi, (0, 1, 2))
+    del ref, xr, xi
+    c32 = pdist.make_plan_slab(CUBE, norm=rt.Norm.NONE, dtype="complex32",
+                               device=ddev)
+    a2a_dtypes = []
+    a2a = tdist.all_to_all_single
+
+    def spy(out, inp, *a, **k):
+        a2a_dtypes.append(inp.dtype)
+        return a2a(out, inp, *a, **k)
+    tdist.all_to_all_single = spy
+    try:
+        y32 = c32.execute_split(br, bi)
+    finally:
+        tdist.all_to_all_single = a2a
+    err32 = rel_to(ref32)(y32)
+    print(f"complex32 slab exchanges: {[str(d) for d in a2a_dtypes]}; "
+          f"output {y32[0].dtype}, rel_l2 {err32:.3e}")
+    if (a2a_dtypes != [torch.bfloat16] * 2
+            or y32[0].dtype != torch.bfloat16):
+        raise AssertionError(f"complex32 exchange dtypes {a2a_dtypes}")
+    del y32
+    s32 = rt.make_plan(CUBE, dtype="complex32")
+    dist_case("dist_slab_c32_512cubed", c32,
+              lambda: c32.execute_split(br, bi), rel_to(ref32),
+              tolerance(CUBE[0] ** 3, "complex32"),
+              lambda: s32.execute_split(br, bi), nbytes=8 * br.numel())
+    del c32, s32, br, bi, ref32
+    torch.cuda.empty_cache()
+    # howmany = 2 on 256^3, and complex128 256^3
+    c256 = (256, 256, 256)
+    hr, hi = cplanes((2,) + c256)
+    href = ref_of(hr, hi, (1, 2, 3))
+    hm = pdist.make_plan_slab(c256, norm=rt.Norm.NONE, howmany=2,
+                              device=ddev)
+    hs = rt.make_plan((2,) + c256, axes=(1, 2, 3))
+    dist_case("dist_slab_howmany2_256cubed", hm,
+              lambda: hm.execute_split(hr, hi), rel_to(href),
+              tolerance(256 ** 3), lambda: hs.execute_split(hr, hi),
+              nbytes=16 * hr.numel())
+    del hm, hs, hr, hi, href
+    dr_, di_ = cplanes(c256, torch.float64)
+    dref = ref_of(dr_, di_, (0, 1, 2))
+    d128 = pdist.make_plan_slab(c256, norm=rt.Norm.NONE, dtype="complex128",
+                                device=ddev)
+    ds = rt.make_plan(c256, dtype="complex128")
+    dist_case("dist_slab_c128_256cubed", d128,
+              lambda: d128.execute_split(dr_, di_), rel_to(dref),
+              tolerance(256 ** 3, "complex128"),
+              lambda: ds.execute_split(dr_, di_), nbytes=32 * dr_.numel())
+    del d128, ds, dr_, di_, dref
+    # the rank-1 plan: n = 2^22 = 2048 x 2048, natural and scrambled
+    n1 = 1 << 22
+    vr, vi = cplanes((n1,))
+    vref = torch.fft.fft(torch.complex(vr.double(), vi.double()))
+    vs = rt.make_plan((n1,))
+    for label, kw, want in (
+            ("dist_slab1d_2p22", {}, vref),
+            ("dist_slab1d_2p22_scrambled", dict(scrambled_out=True),
+             vref.reshape(2048, 2048).transpose(0, 1).reshape(-1))):
+        p1 = pdist.make_plan_slab_1d(n1, norm=rt.Norm.NONE, device=ddev,
+                                     **kw)
+        if "2048x2048" not in p1.description:
+            raise AssertionError(p1.description)
+        dist_case(label, p1, lambda: p1.execute_split(vr, vi), rel_to(want),
+                  tolerance(n1), lambda: vs.execute_split(vr, vi),
+                  nbytes=16 * n1)
+    del p1, vs, vr, vi, vref, want
+    # the transposes: exact
+    from regent_fft_tpu_torch.parallel import transpose as ptrans
+    tx = torch.complex(*planes((8192, 8192)))
+    tp = ptrans.make_plan_transpose(8192, 8192, device=ddev)
+    dist_case("dist_transpose_8192sq", tp, lambda: (tp(tx),),
+              lambda y: 0.0 if torch.equal(y[0], tx.transpose(0, 1)) else 1.0,
+              0.0, lambda: tx.transpose(0, 1).contiguous(),
+              nbytes=2 * 16 * tx.numel())
+    del tx
+    mx = randn((4096, 4096, 2))
+    mp_ = ptrans.make_plan_many_transpose(4096, 4096, 2, device=ddev)
+    dist_case("dist_many_transpose_4096sq_x2", mp_, lambda: (mp_(mx),),
+              lambda y: 0.0 if torch.equal(y[0], mx.transpose(0, 1)) else 1.0,
+              0.0, lambda: mx.transpose(0, 1).contiguous(),
+              nbytes=2 * 4 * mx.numel())
+    del mx, tp, mp_
+    torch.cuda.empty_cache()
+    # the slab at 1024^3, the size a 4-card slab is planned at: once,
+    # held against the single-device plan slab by slab in float64
+    big = (1024, 1024, 1024)
+    gr, gi = cplanes(big)
+    gp = pdist.make_plan_slab(big, norm=rt.Norm.NONE, device=ddev)
+    gs = rt.make_plan(big)
+
+    def against_single(y):
+        sr, si = gs.execute_split(gr, gi)
+        num = den = 0.0
+        for a in range(0, big[0], 64):
+            dr = y[0][a:a + 64].double() - sr[a:a + 64].double()
+            di = y[1][a:a + 64].double() - si[a:a + 64].double()
+            num += float((dr * dr + di * di).sum())
+            den += float((sr[a:a + 64].double() ** 2
+                          + si[a:a + 64].double() ** 2).sum())
+        return math.sqrt(num / den)
+    dist_case("dist_slab_1024cubed", gp, lambda: gp.execute_split(gr, gi),
+              against_single, tolerance(1024 ** 3),
+              lambda: gs.execute_split(gr, gi), reps=3,
+              nbytes=16 * gr.numel())
+    del gp, gs, gr, gi
+    torch.cuda.empty_cache()
+    check_held("phase 15")
+    tdist.destroy_process_group()
+    print(json.dumps({"distributed": dist_rows}))
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    phase("15 (distributed plans, one-rank NCCL group)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

@@ -30,7 +30,11 @@ plan's device with CUDA events), their wisdom (``export_wisdom_*``,
 ``import_wisdom_*``, autoloaded from ``REGENT_FFT_WISDOM`` or
 ``~/.regent_fft_tpu_torch.wisdom.json`` unless ``REGENT_FFT_NO_WISDOM`` is
 set), ``calibrate``, ``Plan.cost``/``Plan.benchmark``, ``cleanup`` and the
-FFTW-grammar CLI ``python -m regent_fft_tpu_torch.bench_cli``.  The JAX
+FFTW-grammar CLI ``python -m regent_fft_tpu_torch.bench_cli``.  Over
+``torch.distributed`` (``parallel``, loaded on first use; NCCL on the card,
+gloo on the host): device meshes, the per-shard plans, the slab, pencil and
+rank-1 global C2C plans on each rank's local block, the distributed
+transpose and the strategy race with its wisdom.  The JAX
 package ``regent_fft_tpu`` is the reference; this package imports nothing
 of it or of JAX.
 """
@@ -49,7 +53,8 @@ from .utils.measure import set_timelimit, get_timelimit, NO_TIMELIMIT
 from .utils import wisdom
 from .utils.wisdom import (export_wisdom_to_string, export_wisdom_to_filename,
                            import_wisdom_from_string,
-                           import_wisdom_from_filename, forget_wisdom)
+                           import_wisdom_from_filename, forget_wisdom,
+                           gather_wisdom, broadcast_wisdom)
 from .utils.calibrate import (calibrate, Calibration, install_calibration,
                               reset_calibration)
 from .ops.r2r import (R2RKind, R2RPlan, plan_r2r, r2r, dct, dst, dht,
@@ -72,10 +77,32 @@ FORWARD = Direction.FORWARD
 BACKWARD = Direction.BACKWARD
 
 
+# The distributed names, loaded on first use from parallel/ (the JAX
+# package's top-level exports of parallel.mesh, .distributed, .transpose).
+_PARALLEL = {
+    "mesh": ("make_fft_mesh", "make_pencil_mesh", "make_multislice_mesh",
+             "init_distributed"),
+    "distributed": ("DistributedFFTPlan", "make_plan_shards", "make_plan_slab",
+                    "make_plan_pencil", "make_plan_slab_r2c",
+                    "make_plan_slab_c2r", "make_plan_pencil_r2c",
+                    "make_plan_pencil_c2r", "make_plan_slab_1d",
+                    "unpack_halfcomplex_rank1", "pack_halfcomplex_rank1",
+                    "make_plan_distributed", "destroy_plan_distrib",
+                    "make_plan_slab_r2r"),
+    "transpose": ("TransposePlan", "make_plan_transpose",
+                  "make_plan_many_transpose"),
+}
+
+
 def __getattr__(name):
-    # The ecosystem adapters load on first use (PEP 562), so importing the
-    # package does not touch scipy's uarray machinery.
-    if name in ("torch_fft", "scipy_backend"):
-        import importlib
+    # The ecosystem adapters and the distributed plans load on first use
+    # (PEP 562): importing the package touches neither scipy's uarray
+    # machinery nor torch.distributed, and needs no process group.
+    import importlib
+    if name in ("torch_fft", "scipy_backend", "parallel"):
         return importlib.import_module(f".{name}", __name__)
+    for mod, names in _PARALLEL.items():
+        if name in names:
+            return getattr(importlib.import_module(f".parallel.{mod}",
+                                                   __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .dtypes import Direction, Kind, Norm, SplitComplex, canonical_dtype
-from .plan import (Plan, PlanSpec, _unported, destroy_plan, execute_plan,
+from .plan import (Plan, PlanSpec, destroy_plan, execute_plan,
                    make_plan)
 
 _NORMS = {None: Norm.BACKWARD, "backward": Norm.BACKWARD, "ortho": Norm.ORTHO,
@@ -383,9 +383,15 @@ class FFTInterface:
 
     def make_plan_distrib(self, shape, mesh=None,
                           direction=Direction.FORWARD, norm="none", **opts):
-        """Per-shard plans over the leading axis (``src/fft.rg:513-537``).
+        """Per-shard plans over the leading axis (``src/fft.rg:513-537``):
+        ``parallel.distributed.make_plan_shards`` in the interface's kind
+        and dtype, built collectively over the ``torch.distributed``
+        world; each rank transforms its own block.
         Counterpart: ``regent_fft_tpu/api.py:335``."""
-        _unported("make_plan_distrib", "ROADMAP Queue 1 #12")
+        from .parallel import distributed as _dist
+        return _dist.make_plan_shards(
+            shape, kind=self.kind, direction=direction, norm=_NORMS[norm],
+            dtype=self._dtype_str(), mesh=mesh, **{**self._opts, **opts})
 
     @staticmethod
     def execute_plan(plan: Plan, x):

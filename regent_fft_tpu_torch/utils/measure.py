@@ -5,7 +5,8 @@ and EXHAUSTIVE, ``kernel/planner.c``: time candidate solvers and keep the
 winner as wisdom).  The candidates are radix schedules of the contraction
 steps (:func:`measure_schedule`), whole-plan backends
 (:func:`measure_backends`), the leading-axis and trailing-pair routes
-(:func:`measure_patient`) and the kernel knobs (:func:`measure_exhaustive`).
+(:func:`measure_patient`), the kernel knobs (:func:`measure_exhaustive`)
+and the distributed strategies (:func:`measure_distributed`).
 Every candidate is timed by ``utils/timing.py`` (one untimed call, then
 the median of CUDA-event runs with the L2 flushed) after the kernel
 library is built.
@@ -354,3 +355,91 @@ def measure_plan_sizes(spec, batch: int = 1024, k: int = 10,
             device=device)
         results[n] = {"winner": winner, "timings": t}
     return results
+
+
+def time_distributed(plan, reps: int = 3, seed: int = 0) -> float:
+    """Seconds per call of a distributed plan's ``execute_split`` on this
+    rank's seeded local planes (``timing.time_ms``: CUDA events with the
+    L2 flushed on the card, the host clock on the CPU)."""
+    from . import timing as _timing
+    g = torch.Generator(device=plan.device).manual_seed(seed)
+    shape = plan.local_in_shape
+    xr = torch.randn(shape, generator=g, device=plan.device).to(
+        plan.plane_dtype())
+    xi = torch.randn(shape, generator=g, device=plan.device).to(
+        plan.plane_dtype())
+    return 1e-3 * _timing.time_ms(lambda: plan.execute_split(xr, xi), reps,
+                                  plan.device)
+
+
+def measure_distributed(shape, direction=None, norm=None, n_devices=None,
+                        kind=None, chunk_candidates=(1, 2, 4),
+                        iters: int = 3, reps: int = 2, install: bool = True,
+                        plans_out=None, **build_kw):
+    """Race the feasible distributed C2C strategies of ``shape`` on the
+    world's ranks (collective: every rank calls it alike).
+
+    Every candidate is built by ``distributed.build_strategy`` after a
+    barrier and timed on every rank by :func:`time_distributed` (the median
+    of ``iters`` calls; ``reps`` is kept for the JAX signature); the ranks'
+    times are combined by ``all_reduce(MAX)``, so every rank sees the
+    slowest rank's time and picks the same winner (a winner per rank would
+    build different plans on different ranks and hang the next
+    exchange).  A build refused by its route (``REFUSED``) records ``inf``;
+    the time limit is agreed the same way (``MAX`` of the ranks' verdicts).
+    The winner goes to distributed wisdom with ``install``.  Returns
+    ``(winner, {name: seconds})``.  The R2C/C2R carries are ROADMAP
+    Queue 1 #12b.  Counterpart: ``measure.py:318``."""
+    import torch.distributed as dist
+    from ..dtypes import Direction, Kind, Norm
+    from ..parallel import distributed as _dist
+    direction = Direction.FORWARD if direction is None else direction
+    norm = Norm.BACKWARD if norm is None else norm
+    kind = Kind.C2C if kind is None else Kind(kind)
+    if kind != Kind.C2C:
+        _dist._unported(f"measure_distributed of kind {kind.value}")
+    n_devices = int(n_devices or dist.get_world_size())
+    shape = tuple(shape)
+    cands = _dist.candidate_strategies(shape, n_devices, chunk_candidates,
+                                       kind=kind)
+    if not cands:
+        raise ValueError(
+            f"no feasible distributed strategies for {shape} ({kind}) on "
+            f"{n_devices} devices")
+    dev = torch.device(build_kw.get("device", "cuda"))
+    _prepare(dev)
+    flag_dev = dev if dev.type == "cuda" else torch.device("cpu")
+
+    def agreed_max(v: float) -> float:
+        t = torch.tensor([v], dtype=torch.float64, device=flag_dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    timings = {}
+    by_name = {}
+    deadline = _PlanDeadline()
+    for strat in cands:
+        name = _dist.strategy_name(strat)
+        if agreed_max(float(deadline.over(timings))) > 0:
+            break
+        by_name[name] = strat
+        dist.barrier()
+        try:
+            plan = _dist.build_strategy(strat, shape, direction=direction,
+                                        norm=norm, n_devices=n_devices,
+                                        kind=kind, **build_kw)
+        except REFUSED:
+            timings[name] = float("inf")
+            continue
+        timings[name] = agreed_max(time_distributed(plan, iters))
+        if plans_out is not None:
+            plans_out[name] = plan
+    winner_name = min(timings, key=timings.get)
+    if timings[winner_name] == float("inf"):
+        raise RuntimeError(f"every distributed strategy was refused for "
+                           f"{shape} on {n_devices} devices")
+    winner = by_name[winner_name]
+    if install:
+        key = _dist._distrib_key(shape, n_devices, direction, norm, kind)
+        _dist._DISTRIB_WISDOM[key] = dict(winner)
+    return winner, timings

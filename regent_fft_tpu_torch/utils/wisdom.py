@@ -16,8 +16,10 @@ package's keys and ``WISDOM_VERSION``.  Three differences:
 
 ``REGENT_FFT_WISDOM`` (another file) and ``REGENT_FFT_NO_WISDOM`` (no
 autoload) are read as the JAX package reads them.  The distributed
-strategies' table (``"distrib"``) is exported empty and not read: the
-port's distributed plans are still to come.
+strategies' winners (``"distrib"``) travel under the JAX package's keys,
+and :func:`gather_wisdom`/:func:`broadcast_wisdom` move wisdom between the
+ranks of a ``torch.distributed`` world (``fftw_mpi_gather_wisdom``,
+``fftw_mpi_broadcast_wisdom``).
 """
 from __future__ import annotations
 
@@ -72,7 +74,12 @@ def export_wisdom_to_string() -> str:
     for key, table in _tables().items():
         out[key] = [{"spec": _spec_to_dict(k), "winner": w if key == "backends"
                      else dict(w)} for k, w in table.items()]
-    out["distrib"] = []
+    from ..parallel.distributed import _DISTRIB_WISDOM
+    out["distrib"] = [{"shape": list(shape), "n_devices": ndev,
+                       "direction": d, "norm": nv, "kind": kv,
+                       "strategy": dict(strat)}
+                      for (shape, ndev, d, nv, kv), strat
+                      in _DISTRIB_WISDOM.items()]
     cal = _calibrate.current()
     if cal is not None:
         out["calibration"] = cal.to_dict()
@@ -114,6 +121,16 @@ def import_wisdom_from_string(s: str, build: bool = True) -> int:
             table[_backend_key(_spec_from_dict(o["spec"]))] = (
                 w if key == "backends" else dict(w))
             n += 1
+    if data.get("distrib"):
+        from ..parallel.distributed import _DISTRIB_WISDOM, _distrib_key
+        for o in data["distrib"]:
+            strat = dict(o["strategy"])
+            if "mesh_shape" in strat:
+                strat["mesh_shape"] = tuple(strat["mesh_shape"])
+            _DISTRIB_WISDOM[_distrib_key(
+                o["shape"], o["n_devices"], Direction(o["direction"]),
+                Norm(o["norm"]), Kind(o.get("kind", Kind.C2C.value)))] = strat
+            n += 1
     for d in data.get("plans", []):
         if build:
             make_plan(_spec_from_dict(d))
@@ -128,17 +145,60 @@ def import_wisdom_from_filename(path: str, build: bool = True) -> int:
 
 def forget_wisdom() -> None:
     """fftw_forget_wisdom analog: drop the plan cache, the schedule
-    overrides, every winner table and the calibration.
-    Counterpart: ``regent_fft_tpu/utils/wisdom.py:143``."""
+    overrides, every winner table (the distributed strategies' too) and
+    the calibration.  Counterpart: ``regent_fft_tpu/utils/wisdom.py:143``."""
     from ..ops import factor as _factor
     from ..ops import stockham as _stockham
+    from ..parallel.distributed import _DISTRIB_WISDOM
     from . import calibrate as _calibrate
     _PLAN_CACHE.clear()
+    _DISTRIB_WISDOM.clear()
     _factor._SCHEDULE_OVERRIDES.clear()
     _stockham.schedule_description.cache_clear()
     for table in _tables().values():
         table.clear()
     _calibrate.reset_calibration()
+
+
+def _multi_rank() -> bool:
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def gather_wisdom(build: bool = False) -> int:
+    """Merge every rank's wisdom into rank 0 (``fftw_mpi_gather_wisdom``,
+    ``mpi/wisdom-api.c:86-105``): rank 0 imports the others' in rank
+    order, the last import winning a conflict.  Collective over the
+    default group.  Returns the entries imported on rank 0; 0 on the other
+    ranks and in a one-rank (or no) world.
+    Counterpart: ``regent_fft_tpu/utils/wisdom.py:182``."""
+    if not _multi_rank():
+        return 0
+    import torch.distributed as dist
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, export_wisdom_to_string())
+    me = dist.get_rank()
+    if me != 0:
+        return 0
+    return sum(import_wisdom_from_string(w, build=build)
+               for i, w in enumerate(everyone) if i != me)
+
+
+def broadcast_wisdom(build: bool = False) -> int:
+    """Import rank 0's wisdom on every other rank
+    (``fftw_mpi_broadcast_wisdom``, ``mpi/wisdom-api.c:44-64``): after
+    :func:`gather_wisdom`, every rank plans alike.  Collective over the
+    default group.  Returns the entries imported (0 on rank 0 and in a
+    one-rank world).  Counterpart: ``regent_fft_tpu/utils/wisdom.py:204``."""
+    if not _multi_rank():
+        return 0
+    import torch.distributed as dist
+    box = [export_wisdom_to_string() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    if dist.get_rank() == 0:
+        return 0
+    return import_wisdom_from_string(box[0], build=build)
 
 
 def default_wisdom_path() -> str:

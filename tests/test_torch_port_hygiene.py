@@ -30,7 +30,12 @@ import regent_fft_tpu_torch.utils.calibrate, regent_fft_tpu_torch.utils.measure
 import regent_fft_tpu_torch.utils.wisdom
 import regent_fft_tpu_torch.signal, regent_fft_tpu_torch.spectral
 import regent_fft_tpu_torch.torch_fft, regent_fft_tpu_torch.scipy_backend
+import regent_fft_tpu_torch.parallel.mesh
+import regent_fft_tpu_torch.parallel.distributed
+import regent_fft_tpu_torch.parallel.transpose
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_dist_pool
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "regent_fft_tpu" or m.startswith("regent_fft_tpu.")]
@@ -56,7 +61,8 @@ PORT_MODULES = {
     "bench_cli.py", "native/__init__.py", "native/planner.py",
     "utils/calibrate.py", "utils/flopcount.py", "utils/measure.py",
     "utils/timing.py", "utils/wisdom.py", "signal.py", "spectral.py",
-    "torch_fft.py", "scipy_backend.py"}
+    "torch_fft.py", "scipy_backend.py", "parallel/__init__.py",
+    "parallel/mesh.py", "parallel/distributed.py", "parallel/transpose.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
     "test_torch_port_hygiene.py", "test_torch_port_tables.py",
@@ -76,7 +82,12 @@ PORT_TESTS = {
     "test_torch_port_measure.py", "test_torch_port_wisdom.py",
     "test_torch_port_calibrate.py", "test_torch_port_bench_cli.py",
     "test_torch_port_signal.py", "test_torch_port_spectral.py",
-    "test_torch_port_torch_fft.py", "test_torch_port_scipy_backend.py"}
+    "test_torch_port_torch_fft.py", "test_torch_port_scipy_backend.py",
+    "test_torch_port_distributed.py", "test_torch_port_distributed_uneven.py",
+    "test_torch_port_distributed_p8.py"}
+# The rank pool of the distributed tests: every rank imports it, so it
+# stands alone like the port.
+POOL = "tests/torch_dist_pool.py"
 
 
 def test_file_lists_cover_the_port():
@@ -90,9 +101,11 @@ def test_file_lists_cover_the_port():
 
 
 def test_no_source_file_names_jax():
-    """Nor do the port's chip scripts (scripts/torch_*.py)."""
+    """Nor do the port's chip scripts (scripts/torch_*.py) and the rank
+    pool of the distributed tests."""
     files = list((REPO / "regent_fft_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "scripts").glob("torch_*.py"))
+    files.append(REPO / POOL)
     assert REPO / "scripts" / "torch_ring_compare.py" in files
     for p in files + [REPO / "chip_smoke.py"]:
         for line in p.read_text().splitlines():

@@ -204,14 +204,12 @@ def test_cleanup_empties_every_table_and_held_plans_run(monkeypatch):
 
 def test_exports_hold_the_jax_names():
     """Every name the JAX package exports from its measure, wisdom and
-    calibrate modules, and cleanup, but the distributed ones (gather and
-    broadcast, ROADMAP Queue 1 #12)."""
+    calibrate modules, and cleanup."""
     mods = {"regent_fft_tpu.utils.measure", "regent_fft_tpu.utils.wisdom",
             "regent_fft_tpu.utils.calibrate"}
     names = {n for n in dir(R) if not n.startswith("_")
              and getattr(getattr(R, n), "__module__", None) in mods}
     names |= {"cleanup", "NO_TIMELIMIT", "wisdom"}
-    names -= {"gather_wisdom", "broadcast_wisdom"}
     assert names >= {"set_timelimit", "get_timelimit", "calibrate",
                      "Calibration", "export_wisdom_to_string",
                      "import_wisdom_from_filename", "forget_wisdom"}
