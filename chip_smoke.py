@@ -237,7 +237,23 @@ Phases (any failure raises and the script exits non-zero):
    exchange, pads and the scale) with its peak memory; one
    ``{"distributed": [...]}`` line.  Phase 3b holds every (kernel,
    planes) shape phase 15 feeds (the 1024^3 slab's through its plain
-   versions on 16 slabs).  Multi-card NCCL is not run.
+   versions on 16 slabs).  Multi-card NCCL is not run;
+16. the real distributed plans (``parallel/`` part 2) in the same one-rank
+   NCCL group, ``DIST_REAL_GROUPS``, one counted group each at full
+   width: the packed slab R2C of 512^3 (and ``transposed_out``), its C2R
+   on a random non-Hermitian spectrum, R2C ``transposed_out`` into C2R
+   ``transposed_in``, pencil 1 x 1 R2C and its C2R back,
+   ``make_plan_distributed(kind=R2C)`` in estimate mode and with
+   ``planner="measure"`` (its "distrib" wisdom keyed "r2c"), the
+   distributed r2r DCT-II of 512^3 (and ``transposed_out``; every
+   exchange one real plane) and DCT-II into DCT-III, the unpacked R2C
+   slab of 512 x 512 x 2048, the rank-1 R2C and C2R at n = 2^23 (m =
+   2048 x 2048), and the packed R2C slab of 1024^3.  Each is held against
+   a float64 torch.fft oracle on the card (rfftn, irfftn, rfft, a
+   Makhoul DCT-II; the round trips against their input) within
+   tolerance(n), timed beside the single-device plan, traced, with its
+   peak memory; one ``{"distributed_real": [...]}`` line and the phase's
+   time.  Phase 3b holds every (kernel, planes) shape phase 16 feeds.
 
 Prints how long each phase took, one ``{"plans": [...]}`` line,
 one ``{"planners": [...]}`` line (phase 13),
@@ -595,6 +611,32 @@ DIST_GROUPS = [
     ("dist_many_transpose_4096sq_x2", {}),
     ("dist_auto_estimate_512cubed", {"fft_fused2": 1, "fft_cols": 1}),
     ("dist_slab_1024cubed", {"fft_last": 1, "fft_cols": 2}),
+]
+# Phase 16: the real distributed plans at world size 1.  The packed slab
+# and pencil R2C: fft_last_r2c on the rows, fft_cols on the mid axis and on
+# axis 0; C2R the same with ifft_last_c2r; the unpacked R2C at a last axis
+# of 2048: fft_last (the half-length reduction at 1024), fft_cols twice;
+# the rank-1 plans: fft_axis0 on the R columns, fft_last on the C rows;
+# the r2r plan: fft_last at L = 512 on each axis.
+DIST_REAL_GROUPS = [
+    ("dist_slab_r2c_512cubed", {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("dist_slab_r2c_512cubed_transposed_out",
+     {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("dist_slab_c2r_512cubed", {"ifft_last_c2r": 1, "fft_cols": 2}),
+    ("dist_slab_r2c_c2r_transposed_pair",
+     {"fft_last_r2c": 1, "ifft_last_c2r": 1, "fft_cols": 4}),
+    ("dist_pencil_r2c_1x1", {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("dist_pencil_r2c_c2r_1x1",
+     {"fft_last_r2c": 1, "ifft_last_c2r": 1, "fft_cols": 4}),
+    ("dist_auto_r2c_estimate_512cubed", {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("dist_auto_r2c_measure_512cubed", {"fft_last_r2c": 1, "fft_cols": 2}),
+    ("dist_r2r_dct2_512cubed", {"fft_last": 3}),
+    ("dist_r2r_dct2_512cubed_transposed_out", {"fft_last": 3}),
+    ("dist_r2r_dct2_dct3_roundtrip", {"fft_last": 6}),
+    ("dist_slab_r2c_unpacked_512x512x2048", {"fft_last": 1, "fft_cols": 2}),
+    ("dist_slab1d_r2c_2p23", {"fft_axis0": 1, "fft_last": 1}),
+    ("dist_slab1d_c2r_2p23", {"fft_axis0": 1, "fft_last": 1}),
+    ("dist_slab_r2c_1024cubed", {"fft_last_r2c": 1, "fft_cols": 2}),
 ]
 # The port's own kernels in a profiler trace (the rest is torch glue).
 PORT_KERNEL = re.compile(r"\b(i?fft_\w*kernel|real_kernel)\b")
@@ -1731,8 +1773,8 @@ def main() -> int:
         slab): the kernel on the whole planes, its plain version on 16
         slabs along `axis` (a batch axis: the transform is independent
         across it), rel_l2 summed in float64 over the slabs; plain_ms is
-        one run of the plain version over all the slabs; no library call
-        (it would hold two more 8 GiB arrays)."""
+        one run of the plain version over all the slabs; library_ms one
+        torch.fft call on the complex planes (16 GiB in and out)."""
         kern, plain = getattr(sk, kname), getattr(sk, kname + "_plain")
         n = int(np.prod([shape[d] for d in dims]))
         xr, xi = planes(shape)
@@ -1773,9 +1815,12 @@ def main() -> int:
                 "ms": timed(lambda: kern(xr, xi, -1, 1.0)),
                 "plain_ms": timing.time_ms(
                     lambda: [None for _ in plain_all(-1, 1.0)], 1, dev),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by,
                 "plain_in_slabs": len(slabs)}
+        xc = torch.complex(xr, xi)
         del xr, xi
+        case["library_ms"] = timed(lambda: torch.fft.fftn(xc, dim=dims))
+        del xc
         return case
 
     mid4 = (4, 256, 256, 256)
@@ -1805,7 +1850,10 @@ def main() -> int:
                      lambda: c2c_case("fft_last", (240064, 256), (1,)),
                      lambda: c2c_case("fft_last", (4096, 2048), (1,)),
                      # phase 15: the last axis of the 1024^3 slab
-                     lambda: big_case("fft_last", (1048576, 1024), (1,), 0)],
+                     lambda: big_case("fft_last", (1048576, 1024), (1,), 0),
+                     # phase 16: the half-length R2C core of the unpacked
+                     # 512 x 512 x 2048 slab
+                     lambda: c2c_case("fft_last", (262144, 1024), (1,))],
         "fft_cols": [lambda: c2c_case("fft_cols", (1, 512, 262144), (1,)),
                      # the mid axis of the 512^3 gap-fused plan
                      lambda: c2c_case("fft_cols", CUBE, (1,)),
@@ -1827,7 +1875,14 @@ def main() -> int:
                      lambda: big_case("fft_cols", (1024, 1024, 1024), (1,),
                                       0),
                      lambda: big_case("fft_cols", (1, 1024, 1048576), (1,),
-                                      2)],
+                                      2),
+                     # phase 16: the unpacked 512 x 512 x 2048 R2C slab's
+                     # mid axis and axis 0 (1025 bins), the packed 1024^3
+                     # R2C slab's (512 bins)
+                     lambda: c2c_case("fft_cols", (512, 512, 1025), (1,)),
+                     lambda: c2c_case("fft_cols", (1, 512, 524800), (1,)),
+                     lambda: c2c_case("fft_cols", (1024, 1024, 512), (1,)),
+                     lambda: c2c_case("fft_cols", (1, 1024, 524288), (1,))],
         "fft_fused2": [lambda: c2c_case("fft_fused2", (512, 512, 512),
                                         (1, 2)),
                        # the trailing pair of the 4 x 256^3 mid-axis plan
@@ -1852,7 +1907,9 @@ def main() -> int:
                          lambda: r2c_case((262144, 512), True),
                          lambda: r2c_case((240064, 512), False),
                          lambda: r2c_case((59904, 1024), False),
-                         lambda: r2c_case((34240, 1024), False)],
+                         lambda: r2c_case((34240, 1024), False),
+                         # phase 16: the packed 1024^3 R2C slab's rows
+                         lambda: r2c_case((1048576, 1024), True)],
         "ifft_last_c2r": [lambda: c2r_case((262144, 256), True),
                           # phase 14: the packed convolutions' C2R
                           lambda: c2r_case((32768, 1024), True),
@@ -3951,10 +4008,225 @@ def main() -> int:
     del gp, gs, gr, gi
     torch.cuda.empty_cache()
     check_held("phase 15")
-    tdist.destroy_process_group()
     print(json.dumps({"distributed": dist_rows}))
     print(f"phase 15 took {time.perf_counter() - t15:.1f} s")
     phase("15 (distributed plans, one-rank NCCL group)")
+
+    # 16. the real distributed plans (parallel/ part 2) in the same
+    # one-rank NCCL group: the slab and pencil R2C/C2R plans (packed at
+    # 512^3 and 1024^3, unpacked at a last axis of 2048), the rank-1 real
+    # plans at n = 2^23, the distributed r2r plan and the real kinds of
+    # the strategy layer, each counted once at full width, held against a
+    # float64 torch.fft oracle on the card, timed beside the single-device
+    # plan of the same spec, traced, with its peak memory.
+    from regent_fft_tpu_torch.parallel import distributed_r2r as pr2r
+    t16 = time.perf_counter()
+    rt.cleanup()
+    groups.update(DIST_REAL_GROUPS)
+    n15 = len(dist_rows)
+    half_cube = CUBE[:2] + (CUBE[2] // 2 + 1,)
+
+    def rel_real(ref):
+        return lambda y: dev_rel(y.double(), ref)
+
+    def real_bytes(shape):
+        """A real transform's ideal bytes: the real side read or written
+        once (4 B an element), the half spectrum once (8 B a bin)."""
+        h = shape[:-1] + (shape[-1] // 2 + 1,)
+        return 4 * math.prod(shape) + 8 * math.prod(h)
+
+    xr3 = randn(CUBE)
+    rref = torch.fft.rfftn(xr3.double())
+    s_r2c = rt.make_plan(CUBE, kind=rt.Kind.R2C)
+    one_r2c = lambda: s_r2c.execute_real(xr3)    # noqa: E731
+    for label, kw in (("dist_slab_r2c_512cubed", {}),
+                      ("dist_slab_r2c_512cubed_transposed_out",
+                       dict(transposed_out=True))):
+        rp = pdist.make_plan_slab_r2c(CUBE, norm=rt.Norm.NONE, device=ddev,
+                                      **kw)
+        if rp.out_spec[1 if kw else 0] != "fft":
+            raise AssertionError(f"{label}: out_spec {rp.out_spec}")
+        dist_case(label, rp, lambda: rp.execute_real(xr3), rel_to(rref),
+                  tol64, one_r2c, nbytes=real_bytes(CUBE))
+    # C2R on a random non-Hermitian spectrum against irfftn in float64
+    hr3, hi3 = randn(half_cube), randn(half_cube)
+    cref = torch.fft.irfftn(torch.complex(hr3.double(), hi3.double()),
+                            s=CUBE)
+    cp = pdist.make_plan_slab_c2r(CUBE, device=ddev)
+    if "nyquist-packed" not in cp.description:
+        raise AssertionError(cp.description)
+    s_c2r = rt.make_plan(CUBE, kind=rt.Kind.C2R,
+                         direction=rt.Direction.BACKWARD)
+    dist_case("dist_slab_c2r_512cubed", cp, lambda: cp.execute_split(hr3, hi3),
+              rel_real(cref), tol64, lambda: s_c2r.execute_split(hr3, hi3),
+              nbytes=real_bytes(CUBE))
+    del hr3, hi3, cref
+    t_o = pdist.make_plan_slab_r2c(CUBE, norm=rt.Norm.NONE,
+                                   transposed_out=True, device=ddev)
+    t_i = pdist.make_plan_slab_c2r(CUBE, transposed_in=True, device=ddev)
+    dist_case("dist_slab_r2c_c2r_transposed_pair", t_i,
+              lambda: t_i.execute_split(*t_o.execute_real(xr3)),
+              rel_real(xr3.double()), tol64, nbytes=2 * real_bytes(CUBE))
+    for label, ctor, fn_of, check in (
+            ("dist_pencil_r2c_1x1", pdist.make_plan_pencil_r2c,
+             lambda p: lambda: p.execute_real(xr3), rel_to(rref)),
+            ("dist_pencil_r2c_c2r_1x1", pdist.make_plan_pencil_c2r,
+             lambda p: lambda: p.execute_split(*pr_fwd.execute_real(xr3)),
+             rel_real(xr3.double()))):
+        pp = ctor(CUBE, norm=(rt.Norm.NONE if ctor is pdist.make_plan_pencil_r2c
+                              else rt.Norm.BACKWARD),
+                  mesh_shape=(1, 1), device=ddev)
+        if ctor is pdist.make_plan_pencil_r2c:
+            pr_fwd = pp
+            if pp.out_spec[0] != ("fy", "fz"):
+                raise AssertionError(f"{label}: out_spec {pp.out_spec}")
+        dist_case(label, pp, fn_of(pp), check, tol64,
+                  one_r2c if ctor is pdist.make_plan_pencil_r2c else None,
+                  nbytes=real_bytes(CUBE) * (1 if ctor is
+                                             pdist.make_plan_pencil_r2c
+                                             else 2))
+    est = pdist.make_plan_distributed(CUBE, norm=rt.Norm.NONE,
+                                      kind=rt.Kind.R2C, device=ddev)
+    if est.strategy != {"mode": "slab", "pipeline_chunks": 1}:
+        raise AssertionError(f"R2C estimate strategy {est.strategy}")
+    dist_case("dist_auto_r2c_estimate_512cubed", est,
+              lambda: est.execute_real(xr3), rel_to(rref), tol64, one_r2c,
+              nbytes=real_bytes(CUBE))
+    raced = pdist.make_plan_distributed(CUBE, norm=rt.Norm.NONE,
+                                        kind=rt.Kind.R2C, planner="measure",
+                                        device=ddev)
+    rkey = pdist._distrib_key(CUBE, 1, rt.Direction.FORWARD, rt.Norm.NONE,
+                              rt.Kind.R2C)
+    race_t = raced.measurements["timings"]
+    print("race distributed R2C 512^3 (P = 1): " + ", ".join(
+        f"{k} {1e3 * v:.4f} ms" for k, v in race_t.items())
+        + f"; winner {pdist.strategy_name(pdist._DISTRIB_WISDOM[rkey])}")
+    if (raced.strategy != pdist._DISTRIB_WISDOM[rkey]
+            or list(race_t) != ["slab/c1"]
+            or not all(math.isfinite(v) for v in race_t.values())):
+        raise AssertionError(f"R2C race {raced.strategy} {race_t}")
+    dist_case("dist_auto_r2c_measure_512cubed", raced,
+              lambda: raced.execute_real(xr3), rel_to(rref), tol64, one_r2c,
+              nbytes=real_bytes(CUBE))
+    entries = [e for e in json.loads(rt.export_wisdom_to_string())["distrib"]
+               if e["kind"] == "r2c"]
+    if len(entries) != 1 or entries[0]["strategy"] != raced.strategy:
+        raise AssertionError(f"R2C distrib wisdom {entries}")
+    del rp, cp, s_c2r, t_o, t_i, pp, pr_fwd, est, raced, rref
+    # the distributed r2r plan: DCT-II 512^3, each exchange one real plane
+    r2r_k = rt.R2RKind.REDFT10
+
+    def dct2_f64(x):
+        """FFTW's REDFT10 of every axis in float64 on the card (Makhoul's
+        reorder and one torch.fft.fft an axis)."""
+        y = x.double()
+        for d in range(y.ndim):
+            v = y.movedim(d, -1)
+            n = v.shape[-1]
+            v = torch.cat([v[..., 0::2], v[..., 1::2].flip(-1)], -1)
+            k = torch.arange(n, device=v.device, dtype=torch.float64)
+            w = torch.polar(torch.ones_like(k), -math.pi * k / (2 * n))
+            y = (2 * (torch.fft.fft(v) * w).real).movedim(-1, d)
+        return y
+    dref = dct2_f64(xr3)
+    s_dct = rt.plan_r2r(CUBE, r2r_k)
+    for label, kw in (("dist_r2r_dct2_512cubed", {}),
+                      ("dist_r2r_dct2_512cubed_transposed_out",
+                       dict(transposed_out=True))):
+        dp = pr2r.make_plan_slab_r2r(CUBE, r2r_k, device=ddev, **kw)
+        a2a_bufs = []
+        spy_a2a = tdist.all_to_all_single
+
+        def spy_r2r(out, inp, *a, **k):
+            a2a_bufs.append(tuple(inp.shape))
+            return spy_a2a(out, inp, *a, **k)
+        tdist.all_to_all_single = spy_r2r
+        try:
+            dp.execute_real(xr3)
+        finally:
+            tdist.all_to_all_single = spy_a2a
+        if any(b[1] != 1 for b in a2a_bufs) or len(a2a_bufs) != (
+                1 if kw else 2):
+            raise AssertionError(f"{label}: exchange buffers {a2a_bufs}")
+        dist_case(label, dp, lambda: dp.execute_real(xr3), rel_real(dref),
+                  tolerance(CUBE[0]), lambda: s_dct(xr3),
+                  nbytes=8 * xr3.numel())
+    inv_k = pr2r.make_plan_slab_r2r(CUBE, rt.R2RKind.REDFT01, device=ddev)
+    fwd_k = pr2r.make_plan_slab_r2r(CUBE, r2r_k, device=ddev)
+    scale_k = float(math.prod(2 * s for s in CUBE))
+    dist_case("dist_r2r_dct2_dct3_roundtrip", inv_k,
+              lambda: inv_k.execute_real(fwd_k.execute_real(xr3)),
+              lambda y: dev_rel(y.double() / scale_k, xr3.double()),
+              tolerance(CUBE[0]), nbytes=16 * xr3.numel())
+    del dp, inv_k, fwd_k, s_dct, dref, s_r2c, one_r2c
+    # the unpacked route: a last axis of 2048 (above MAX_REAL_N) takes the
+    # local R2C core (the half-length reduction on fft_last at 1024)
+    ushape = (512, 512, 2048)
+    xu = randn(ushape)
+    up = pdist.make_plan_slab_r2c(ushape, norm=rt.Norm.NONE, device=ddev)
+    uref = torch.fft.rfftn(xu.double())
+    su = rt.make_plan(ushape, kind=rt.Kind.R2C)
+    dist_case("dist_slab_r2c_unpacked_512x512x2048", up,
+              lambda: up.execute_real(xu), rel_to(uref),
+              tolerance(math.prod(ushape)), lambda: su.execute_real(xu),
+              nbytes=real_bytes(ushape))
+    del up, uref, su, xu, xr3
+    torch.cuda.empty_cache()
+    # the rank-1 real plans at n = 2^23 (m = 2^22 = 2048 x 2048)
+    n23 = 1 << 23
+    x23 = randn((n23,))
+    f23 = torch.fft.rfft(x23.double())
+
+    def unpack_dev(y):
+        """The packed (m,) halfcomplex planes -> numpy's (m+1,) bins."""
+        yr, yi = y[0].double(), y[1].double()
+        re = torch.cat([yr, yi[:1]])
+        im = torch.cat([yi.new_zeros(1), yi[1:], yi.new_zeros(1)])
+        return torch.complex(re, im)
+    r1 = pdist.make_plan_slab_1d(n23, kind=rt.Kind.R2C, norm=rt.Norm.NONE,
+                                 device=ddev)
+    if "2048x2048" not in r1.description or not r1.packed_layout:
+        raise AssertionError(r1.description)
+    s23 = rt.make_plan((n23,), kind=rt.Kind.R2C)
+    dist_case("dist_slab1d_r2c_2p23", r1, lambda: r1.execute_real(x23),
+              lambda y: dev_rel(unpack_dev(y), f23), tolerance(n23),
+              lambda: s23.execute_real(x23), nbytes=8 * n23)
+    pr23 = f23[:-1].to(torch.complex64)
+    hr23, hi23 = pr23.real.contiguous(), pr23.imag.clone()
+    hi23[0] = f23[-1].real.float()
+    c1 = pdist.make_plan_slab_1d(n23, kind=rt.Kind.C2R, device=ddev)
+    dist_case("dist_slab1d_c2r_2p23", c1,
+              lambda: c1.execute_split(hr23, hi23), rel_real(x23.double()),
+              tolerance(n23), nbytes=8 * n23)
+    del r1, c1, s23, x23, f23, pr23, hr23, hi23
+    torch.cuda.empty_cache()
+    # the R2C slab at 1024^3, what a four-card slab would plan: held
+    # against rfftn in float64 slab by slab
+    big_r = (1024, 1024, 1024)
+    xg = randn(big_r)
+    gp = pdist.make_plan_slab_r2c(big_r, norm=rt.Norm.NONE, device=ddev)
+    gs = rt.make_plan(big_r, kind=rt.Kind.R2C)
+
+    def against_rfftn(y):
+        ref = torch.fft.rfftn(xg.double())
+        num = den = 0.0
+        for a in range(0, big_r[0], 64):
+            dr = y[0][a:a + 64].double() - ref[a:a + 64].real
+            di = y[1][a:a + 64].double() - ref[a:a + 64].imag
+            num += float((dr * dr + di * di).sum())
+            den += float((ref[a:a + 64].abs() ** 2).sum())
+        del ref
+        return math.sqrt(num / den)
+    dist_case("dist_slab_r2c_1024cubed", gp, lambda: gp.execute_real(xg),
+              against_rfftn, tolerance(math.prod(big_r)),
+              lambda: gs.execute_real(xg), reps=3, nbytes=real_bytes(big_r))
+    del gp, gs, xg
+    torch.cuda.empty_cache()
+    check_held("phase 16")
+    tdist.destroy_process_group()
+    print(json.dumps({"distributed_real": dist_rows[n15:]}))
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
+    phase("16 (real distributed plans, r2r, one-rank NCCL group)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

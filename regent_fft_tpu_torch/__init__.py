@@ -87,8 +87,8 @@ _PARALLEL = {
                     "make_plan_slab_c2r", "make_plan_pencil_r2c",
                     "make_plan_pencil_c2r", "make_plan_slab_1d",
                     "unpack_halfcomplex_rank1", "pack_halfcomplex_rank1",
-                    "make_plan_distributed", "destroy_plan_distrib",
-                    "make_plan_slab_r2r"),
+                    "make_plan_distributed", "destroy_plan_distrib"),
+    "distributed_r2r": ("DistributedR2RPlan", "make_plan_slab_r2r"),
     "transpose": ("TransposePlan", "make_plan_transpose",
                   "make_plan_many_transpose"),
 }

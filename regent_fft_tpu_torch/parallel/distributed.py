@@ -1,4 +1,4 @@
-"""Distributed transforms: the per-shard mode and global C2C FFTs.
+"""Distributed transforms: the per-shard mode and global FFTs.
 
 Counterpart: ``regent_fft_tpu/parallel/distributed.py``.  Modes:
 
@@ -6,15 +6,24 @@ Counterpart: ``regent_fft_tpu/parallel/distributed.py``.  Modes:
    (the reference's ``src/fft.rg:513-537``): the leading axis is split
    evenly over the mesh and every rank transforms its own block, with no
    communication (C2C, R2C and C2R);
-2. ``slab``: one global N-D C2C FFT, the first axis distributed: transform
+2. ``slab``: one global N-D FFT, the first axis distributed: transform
    the local axes, one all-to-all exchange (the distributed transpose),
    transform the former first axis (``transposed_out``/``transposed_in``:
-   FFTW_MPI_TRANSPOSED_OUT/IN);
-3. ``pencil``: a global 3-D C2C FFT over a 2-D mesh, two exchanges, each
-   within one mesh axis's process group (AccFFT's GPU pencil
-   decomposition, arXiv 1506.07933);
+   FFTW_MPI_TRANSPOSED_OUT/IN); the real plans trade axis 0 for axis 1,
+   so the halved last axis never crosses an exchange;
+3. ``pencil``: a global 3-D FFT over a 2-D mesh, each exchange within one
+   mesh axis's process group (AccFFT's GPU pencil decomposition, arXiv
+   1506.07933); the real plans leave Z split over both mesh axes;
 4. ``slab1d``: one vector over the mesh, the four-step n = R*C with three
-   exchanges (two with ``scrambled_in``/``scrambled_out``).
+   exchanges (two with ``scrambled_in``/``scrambled_out``); the real kinds
+   run it at n/2 on the packed vector (``mpi/rdft-rank1-bigvec.c``).
+
+Where the last axis n has ``r2c_packed_supported(n)`` and no block is
+uneven, the real plans carry the half spectrum Nyquist-packed (n/2 wide,
+the real Nyquist bin in bin 0's imaginary slot) through every exchange,
+from the packed row kernels ``fft_last_r2c``/``ifft_last_c2r``, and
+untangle (or tangle) bin 0 at the end (start) with a frequency reversal
+over the split axis: a flip and two permutations between ranks.
 
 The JAX plans take one global array under ``shard_map``.  On
 ``torch.distributed`` every rank is a process holding only its block, as in
@@ -34,8 +43,7 @@ and ``fft_cols``, the pencil ``fft_last`` and ``fft_cols``, the rank-1 plan
 Exchanges move one buffer holding both planes (bf16 for complex32, f64 for
 complex128) through ``all_to_all_single``: NCCL for CUDA plans, gloo for CPU
 plans.  A CUDA plan on a gloo group raises; nothing is staged through the
-host.  The real global plans and the distributed r2r plans raise
-``NotImplementedError`` (ROADMAP Queue 1 #12b).
+host.  The distributed r2r plans are in ``distributed_r2r.py``.
 """
 from __future__ import annotations
 
@@ -48,12 +56,8 @@ import torch.distributed as dist
 
 from ..dtypes import (PLANE_DTYPES, Direction, Kind, Norm, SplitComplex,
                       as_real, as_split, check_dtype, from_split)
+from ..ops import stockham_kernels as _sk
 from .mesh import check_backend, make_fft_mesh, make_pencil_mesh, _world
-
-
-def _unported(what: str):
-    raise NotImplementedError(
-        f"{what} is ROADMAP Queue 1 #12b of the PyTorch port")
 
 
 # ---------------------------------------------------------------------------
@@ -197,11 +201,34 @@ def _mesh_axis(mesh, name: str) -> _MeshAxis:
 
 
 def _coords(mesh, rank: int) -> dict:
-    """{axis name: coordinate} of ``rank`` in ``mesh``."""
+    """{axis name: coordinate} of ``rank`` in ``mesh``, and for a mesh of
+    several axes {(every name): the row-major position}, the coordinate
+    along an array axis split over all of them jointly (the JAX
+    ``P((a1, a2))``)."""
     pos = (mesh.mesh == int(rank)).nonzero()
     if pos.shape[0] != 1:
         raise ValueError(f"rank {rank} is not in the mesh")
-    return {n: int(c) for n, c in zip(mesh.mesh_dim_names, pos[0])}
+    names = tuple(mesh.mesh_dim_names)
+    out = {n: int(c) for n, c in zip(names, pos[0])}
+    if len(names) > 1:
+        out[names] = int(np.ravel_multi_index(
+            tuple(int(c) for c in pos[0]), tuple(mesh.mesh.shape)))
+    return out
+
+
+def _joint_axis(mesh) -> _MeshAxis:
+    """Every axis of ``mesh`` as one, positions in row-major mesh order,
+    over the world's group (a mesh spans the world, as every mesh maker
+    builds it), with the permutation from group ranks to positions."""
+    names = tuple(mesh.mesh_dim_names)
+    line = [int(r) for r in mesh.mesh.reshape(-1)]
+    if sorted(line) != list(range(dist.get_world_size())):
+        raise ValueError(f"a joint mesh axis spans the world: mesh ranks "
+                         f"{sorted(line)}")
+    perm = tuple(line.index(r) for r in range(len(line)))
+    return _MeshAxis(names, dist.group.WORLD, len(line),
+                     _coords(mesh, dist.get_rank())[names],
+                     None if perm == tuple(range(len(line))) else perm)
 
 
 class _Pending:
@@ -273,6 +300,100 @@ def _a2a(xr, xi, ax: _MeshAxis, split: int, concat: int, into=None):
     """The exchange of both planes, waited for.
     Counterpart: ``distributed.py:109``."""
     return tuple(_exchange_start([xr, xi], ax, split, concat, into).wait())
+
+
+def _ppermute(x, ax: _MeshAxis, what: str, dest: int, src: int):
+    """``lax.ppermute`` of one tensor over ``ax``: this rank sends ``x`` to
+    mesh position ``dest`` and returns what position ``src`` sent (every
+    rank holds the same shape).  ``torch.distributed``'s ``send``/``recv``
+    refuse the caller's own rank, which the permutation of a one-rank
+    world or the middle of an odd one sends to, so it is one
+    ``all_to_all_single`` whose split sizes are zero but for the peer."""
+    from ..utils.plog import log_collective
+    log_collective(f"ppermute({what})", ax.name, x.shape)
+
+    def grank(pos):
+        return pos if ax.perm is None else ax.perm.index(pos)
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty_like(flat)
+    sizes_in, sizes_out = [0] * ax.size, [0] * ax.size
+    sizes_in[grank(dest)] = sizes_out[grank(src)] = flat.numel()
+    dist.all_to_all_single(out, flat, sizes_out, sizes_in, group=ax.group)
+    return out.view(x.shape)
+
+
+def _rev_freq_sharded(x, axis: int, ax: _MeshAxis):
+    """x[k] -> x[(-k) mod n] along an axis split over ``ax`` (a joint axis
+    in row-major mesh order included): the local flip sent to position
+    p-1-q gives g[k] = x[n-1-k], and one row moved to the next position
+    turns that into the modular reversal, bin 0 arriving from the last
+    position.  Two permutations, one of them a single row.
+    Counterpart: ``distributed.py:128``."""
+    p, q = ax.size, ax.coord
+    c = x.shape[axis]
+    mirror = (p - 1 - q) % p
+    g = _ppermute(x.flip(axis), ax, "q -> p-1-q", mirror, mirror)
+    prev_last = _ppermute(g.narrow(axis, c - 1, 1), ax, "q -> q+1",
+                          (q + 1) % p, (q - 1) % p)
+    return torch.cat([prev_last, g.narrow(axis, 0, c - 1)], axis)
+
+
+def _untangle_packed(yr, yi, loc_axes, sh_axis: int, ax: _MeshAxis):
+    """Packed (..., n/2) planes -> (..., n/2+1) half spectrum, split over
+    ``ax`` along ``sh_axis``: ``plan._unpack_nyquist`` with the reversal
+    along the split axis by :func:`_rev_freq_sharded` (lane 0 only).
+    Counterpart: ``distributed.py:152``."""
+    from ..plan import _rev_freq
+    zr, zi = yr[..., 0], yi[..., 0]
+    rr = _rev_freq_sharded(_rev_freq(zr, loc_axes), sh_axis, ax)
+    ri = _rev_freq_sharded(_rev_freq(zi, loc_axes), sh_axis, ax)
+    x0r, x0i = 0.5 * (zr + rr), 0.5 * (zi - ri)
+    nqr, nqi = 0.5 * (zi + ri), -0.5 * (zr - rr)
+    return (torch.cat([x0r[..., None], yr[..., 1:], nqr[..., None]], -1),
+            torch.cat([x0i[..., None], yi[..., 1:], nqi[..., None]], -1))
+
+
+def _tangle_packed(xr, xi, loc_axes, sh_axis: int, ax: _MeshAxis):
+    """(..., n/2+1) half spectrum split over ``ax`` -> packed (..., n/2)
+    planes: ``plan._pack_nyquist`` with the sharded reversal, the bin-0 and
+    Nyquist slabs projected onto their conjugate-even parts first, so a
+    non-Hermitian spectrum gives ``numpy.irfftn``'s answer.
+    Counterpart: ``distributed.py:180``."""
+    from ..plan import _rev_freq
+    m = xr.shape[-1] - 1
+
+    def herm(r, i):
+        rr = _rev_freq_sharded(_rev_freq(r, loc_axes), sh_axis, ax)
+        ri = _rev_freq_sharded(_rev_freq(i, loc_axes), sh_axis, ax)
+        return 0.5 * (r + rr), 0.5 * (i - ri)
+
+    x0r, x0i = herm(xr[..., 0], xi[..., 0])
+    nqr, nqi = herm(xr[..., m], xi[..., m])
+    pr, pi = xr[..., :m].clone(), xi[..., :m].clone()
+    pr[..., 0] = x0r - nqi
+    pi[..., 0] = x0i + nqr
+    return pr, pi
+
+
+def _r2c_rows(x, scale: float = 1.0):
+    """The packed R2C row kernel along the last axis of a real block:
+    (..., n) -> (..., n/2) Nyquist-packed planes, ``scale`` fused
+    (``fft_last_r2c``; its plain version on the host).
+    Counterpart: ``fft_last_r2c_stockham(packed=True)``."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    yr, yi = _sk.fft_last_r2c(x.contiguous().reshape(-1, n), packed=True,
+                              scale=scale)
+    return yr.view(lead + (n // 2,)), yi.view(lead + (n // 2,))
+
+
+def _c2r_rows(xr, xi, n: int, scale: float = 1.0):
+    """n times the inverse of :func:`_r2c_rows`, ``scale`` fused
+    (``ifft_last_c2r``).  Counterpart: ``ifft_last_c2r_stockham(packed=True)``."""
+    lead, m = xr.shape[:-1], xr.shape[-1]
+    y = _sk.ifft_last_c2r(xr.contiguous().reshape(-1, m),
+                          xi.contiguous().reshape(-1, m), n, packed=True,
+                          scale=scale)
+    return y.view(lead + (n,))
 
 
 def _pipeline(xr, xi, axis: int, slices, start, finish):
@@ -513,32 +634,35 @@ def make_plan_shards(shape, kind=Kind.C2C, direction=Direction.FORWARD,
                 f"mesh={mesh_desc} independent local rfftn of each "
                 f"{local_shape} slab -> local half {local_half}, "
                 f"no collectives)")
-        return _ShardsR2C(desc, mesh, dev, real_l, half_l,
-                          lambda x: _apply_scale(*core(x), scale),
-                          half_global, dtype, flops, donate, [core])
+        return _R2CPlan(desc, mesh, dev, real_l, half_l,
+                        lambda x: _apply_scale(*core(x), scale),
+                        half_global, dtype, flops, donate, [core])
 
     def c2r_fn(xr, xi):
-        y = core(xr, xi)
-        if scale != 1.0:
-            y = y * float(torch.tensor(scale, dtype=y.dtype))
-        return y
+        return _scaled(core(xr, xi), scale)
 
     desc = (f"(plan-distrib-shards-c2r real-shape={shape} mesh={mesh_desc} "
             f"independent local irfftn of each {local_half} half slab, "
             f"no collectives)")
-    return _ShardsC2R(desc, mesh, dev, half_l, real_l, c2r_fn, shape, dtype,
-                      flops, donate, [core])
+    return _C2RPlan(desc, mesh, dev, half_l, real_l, c2r_fn, shape, dtype,
+                    flops, donate, [core])
 
 
-class _ShardsR2C(DistributedFFTPlan):
-    """Real local block in (f32), half-spectrum block out (complex64)."""
+class _R2CPlan(DistributedFFTPlan):
+    """Real local block in (f32, whatever the plan dtype, as the JAX
+    ``_R2CPlan``), half-spectrum block out (complex64); ``fn(x)`` maps the
+    padded real block to the padded output planes."""
 
     def plane_dtype(self):
         return torch.float32
 
     def execute_real(self, x: torch.Tensor):
+        """The local real plane (``local_in_shape``, f32, on the plan's
+        device) -> the local output planes."""
         self._check()
-        return self._fn(x)
+        yr, yi = self._fn(self._in.pad(x))
+        return (self._out.crop(yr, self.local_out_shape),
+                self._out.crop(yi, self.local_out_shape))
 
     def execute_split(self, xr, xi):
         raise TypeError("an R2C plan takes one real plane: execute_real")
@@ -554,21 +678,30 @@ class _ShardsR2C(DistributedFFTPlan):
     execute = __call__
 
 
-class _ShardsC2R(DistributedFFTPlan):
-    """Half-spectrum local block in (f32 planes), real block out (f32)."""
+class _C2RPlan(DistributedFFTPlan):
+    """Half-spectrum local block in (f32 planes), real block out (f32);
+    ``fn(xr, xi)`` maps the padded planes to the padded real block."""
 
     def plane_dtype(self):
         return torch.float32
 
     def execute_split(self, xr, xi):
         self._check()
-        return self._fn(xr, xi)
+        y = self._fn(self._in.pad(xr), self._in.pad(xi))
+        return self._out.crop(y, self.local_out_shape)
 
     def __call__(self, x):
         sx = self._input(x)
         return self.execute_split(sx.re, sx.im)
 
     execute = __call__
+
+
+def _scaled(y, scale: float):
+    """A real block times the norm scale rounded to its dtype."""
+    if scale != 1.0:
+        y = y * float(torch.tensor(scale, dtype=y.dtype))
+    return y
 
 
 def make_plan_slab(shape, direction=Direction.FORWARD, norm=Norm.BACKWARD,
@@ -686,39 +819,194 @@ def make_plan_slab(shape, direction=Direction.FORWARD, norm=Norm.BACKWARD,
                               bshape, dtype, flops, donate, cores)
 
 
-def make_plan_slab_r2c(*args, **kwargs):
-    """Counterpart: ``distributed.py:647``."""
-    _unported("make_plan_slab_r2c")
+def make_plan_slab_r2c(shape, norm=Norm.BACKWARD, dtype="complex64",
+                       mesh=None, axis_name: str = "fft",
+                       transposed_out: bool = False,
+                       precision: str = "highest", use_3m: bool = False,
+                       max_radix: int = 128, backend: str = "auto",
+                       donate: bool = False, device="cuda") -> _R2CPlan:
+    """One global real-input N-D FFT (rank >= 3), slab-decomposed over the
+    first axis.
+
+    The last axis is halved locally, and the exchange trades axis 0 for
+    axis 1, so the halved axis (n/2+1 values) never crosses it.  Where
+    ``r2c_packed_supported(X)`` and no block is uneven the spectrum moves
+    Nyquist-packed at X/2: ``fft_last_r2c(packed=True)``, the mid axes,
+    the exchange, axis 0, the exchange back (unless ``transposed_out``),
+    then the packed bin 0 untangled with the reversal over the split axis.
+    Else: the local R2C core, the mid axes, the exchange on padded
+    blocks, axis 0 at its true length, a crop.  The output is the half
+    spectrum split over axis 1 with ``transposed_out``, else over axis 0.
+    The input is real (f32 whatever ``dtype``; complex input raises
+    ``TypeError``); ``donate`` is accepted and writes into nothing.
+    Counterpart: ``distributed.py:647``."""
+    norm = Norm(norm)
+    mesh, dev = _setup(mesh, device, lambda t: make_fft_mesh(
+        axis_name=axis_name, device_type=t))
+    name = mesh.mesh_dim_names[0]
+    ax = _mesh_axis(mesh, name)
+    p = ax.size
+    shape = tuple(int(s) for s in shape)
+    nd_ = len(shape)
+    if nd_ < 3:
+        raise ValueError("slab r2c needs rank >= 3 (use single-chip rfftn "
+                         "below that)")
+    n0, n1 = shape[0], shape[1]
+    b0, b1 = _blk(n0, p), _blk(n1, p)
+    n0p, n1p = p * b0, p * b1
+    uneven0, uneven1 = n0p != n0, n1p != n1
+    uneven = uneven0 or uneven1
+    n_total = int(np.prod(shape))
+    scale = _norm_scale(n_total, Direction.FORWARD, norm)
+    core_kw = dict(precision=precision, use_3m=use_3m, max_radix=max_radix,
+                   backend=backend, device=dev)
+    local_real = (b0,) + shape[1:]
+    xh = shape[-1] // 2 + 1
+    mid_axes = tuple(range(1, nd_ - 1))
+    packed = _sk.r2c_packed_supported(shape[-1]) and not uneven
+    if packed:
+        m = shape[-1] // 2
+        core_mid = _LocalCore(local_real[:-1] + (m,), mid_axes,
+                              Direction.FORWARD, **core_kw)
+        core_z = _LocalCore((n0, n1 // p) + shape[2:-1] + (m,), (0,),
+                            Direction.FORWARD, **core_kw)
+        cores = [core_mid, core_z]
+        if transposed_out:                                  # (Z, Y/P, m)
+            sh_axis, loc_axes = 1, [0] + list(range(2, nd_ - 1))
+        else:                                               # (Z/P, Y, m)
+            sh_axis, loc_axes = 0, list(range(1, nd_ - 1))
+
+        def local_fn(x):
+            yr, yi = core_mid(*_r2c_rows(x, scale))
+            yr, yi = core_z(*_a2a(yr, yi, ax, 1, 0))
+            if not transposed_out:
+                yr, yi = _a2a(yr, yi, ax, 0, 1)
+            return _untangle_packed(yr, yi, loc_axes, sh_axis, ax)
+    else:
+        core_r2c = _LocalCore(local_real, (nd_ - 1,), kind=Kind.R2C,
+                              **core_kw)
+        core_mid = _LocalCore(local_real[:-1] + (xh,), mid_axes,
+                              Direction.FORWARD, **core_kw)
+        core_z = _LocalCore((n0, b1) + shape[2:-1] + (xh,), (0,),
+                            Direction.FORWARD, **core_kw)
+        cores = [core_r2c, core_mid, core_z]
+
+        def local_fn(x):
+            xr, xi = core_mid(*core_r2c(x))                 # halve X, mids
+            if uneven1:   # axis 1 transformed: placeholder lanes
+                xr, xi = _pad_axis(xr, 1, n1p), _pad_axis(xi, 1, n1p)
+            xr, xi = _a2a(xr, xi, ax, 1, 0)
+            if uneven0:   # axis 0 whole: its true length
+                xr, xi = _slice_axis(xr, 0, n0), _slice_axis(xi, 0, n0)
+            xr, xi = core_z(xr, xi)
+            if not transposed_out:
+                if uneven0:
+                    xr, xi = _pad_axis(xr, 0, n0p), _pad_axis(xi, 0, n0p)
+                xr, xi = _a2a(xr, xi, ax, 0, 1)
+            return _apply_scale(xr, xi, scale)
+
+    half = shape[:-1] + (xh,)
+    out_l = (_layout(half, {1: (name, b1)}) if transposed_out
+             else _layout(half, {0: (name, b0)}))
+    desc = (f"(plan-distrib-slab-r2c real-shape={shape} half={half} P={p} "
+            f"r2c(X)+fft(mid) -> a2a(Y<->Z) -> fft(Z)"
+            f"{' [transposed output]' if transposed_out else ' -> a2a back'}"
+            f"{f' [uneven blocks {n0}->{n0p}|{n1}->{n1p}]' if uneven else ''})")
+    flops = 2.5 * n_total * math.log2(max(n_total, 2))
+    return _R2CPlan(desc, mesh, dev, _layout(shape, {0: (name, b0)}), out_l,
+                    local_fn, half, dtype, flops, donate, cores)
 
 
-def make_plan_slab_c2r(*args, **kwargs):
-    """Counterpart: ``distributed.py:781``."""
-    _unported("make_plan_slab_c2r")
+def make_plan_slab_c2r(shape, norm=Norm.BACKWARD, dtype="complex64",
+                       mesh=None, axis_name: str = "fft",
+                       transposed_in: bool = False,
+                       precision: str = "highest", use_3m: bool = False,
+                       max_radix: int = 128, backend: str = "auto",
+                       donate: bool = False, device="cuda") -> _C2RPlan:
+    """The inverse of :func:`make_plan_slab_r2c`: half spectrum -> real
+    field; ``shape`` is the real output shape.  ``transposed_in`` takes
+    the R2C plan's ``transposed_out`` layout (axis 1 split) and skips one
+    exchange.  On the packed route the bin-0 and Nyquist slabs are
+    projected onto their conjugate-even parts (over the split axis too)
+    before they are packed into lane 0, so any spectrum gives
+    ``numpy.irfftn``'s answer; ``ifft_last_c2r(packed=True)`` ends it.
+    Counterpart: ``distributed.py:781``."""
+    norm = Norm(norm)
+    mesh, dev = _setup(mesh, device, lambda t: make_fft_mesh(
+        axis_name=axis_name, device_type=t))
+    name = mesh.mesh_dim_names[0]
+    ax = _mesh_axis(mesh, name)
+    p = ax.size
+    shape = tuple(int(s) for s in shape)
+    nd_ = len(shape)
+    if nd_ < 3:
+        raise ValueError("slab c2r needs rank >= 3")
+    n0, n1 = shape[0], shape[1]
+    b0, b1 = _blk(n0, p), _blk(n1, p)
+    n0p, n1p = p * b0, p * b1
+    uneven0, uneven1 = n0p != n0, n1p != n1
+    uneven = uneven0 or uneven1
+    n_total = int(np.prod(shape))
+    scale = _norm_scale(n_total, Direction.BACKWARD, norm)
+    core_kw = dict(precision=precision, use_3m=use_3m, max_radix=max_radix,
+                   backend=backend, device=dev)
+    local_real = (b0,) + shape[1:]
+    xh = shape[-1] // 2 + 1
+    mid_axes = tuple(range(1, nd_ - 1))
+    packed = _sk.r2c_packed_supported(shape[-1]) and not uneven
+    if packed:
+        m = shape[-1] // 2
+        core_mid = _LocalCore(local_real[:-1] + (m,), mid_axes,
+                              Direction.BACKWARD, **core_kw)
+        core_z = _LocalCore((n0, n1 // p) + shape[2:-1] + (m,), (0,),
+                            Direction.BACKWARD, **core_kw)
+        cores = [core_mid, core_z]
+        if transposed_in:                                   # (Z, Y/P, Xh)
+            sh_axis, loc_axes = 1, [0] + list(range(2, nd_ - 1))
+        else:                                               # (Z/P, Y, Xh)
+            sh_axis, loc_axes = 0, list(range(1, nd_ - 1))
 
+        def local_fn(xr, xi):
+            xr, xi = _tangle_packed(xr, xi, loc_axes, sh_axis, ax)
+            if not transposed_in:
+                xr, xi = _a2a(xr, xi, ax, 1, 0)             # (Z, Y/P, m)
+            xr, xi = _a2a(*core_z(xr, xi), ax, 0, 1)        # (Z/P, Y, m)
+            return _c2r_rows(*core_mid(xr, xi), shape[-1], scale)
+    else:
+        core_c2r = _LocalCore(local_real, (nd_ - 1,), kind=Kind.C2R,
+                              **core_kw)
+        core_mid = _LocalCore(local_real[:-1] + (xh,), mid_axes,
+                              Direction.BACKWARD, **core_kw)
+        core_z = _LocalCore((n0, b1) + shape[2:-1] + (xh,), (0,),
+                            Direction.BACKWARD, **core_kw)
+        cores = [core_c2r, core_mid, core_z]
 
-def make_plan_pencil_r2c(*args, **kwargs):
-    """Counterpart: ``distributed.py:1419``."""
-    _unported("make_plan_pencil_r2c")
+        def local_fn(xr, xi):
+            if not transposed_in:
+                if uneven1:   # placeholder lanes even the axis-1 split
+                    xr, xi = _pad_axis(xr, 1, n1p), _pad_axis(xi, 1, n1p)
+                xr, xi = _a2a(xr, xi, ax, 1, 0)
+            if uneven0:       # axis 0 whole: drop the padded bins
+                xr, xi = _slice_axis(xr, 0, n0), _slice_axis(xi, 0, n0)
+            xr, xi = core_z(xr, xi)
+            if uneven0:
+                xr, xi = _pad_axis(xr, 0, n0p), _pad_axis(xi, 0, n0p)
+            xr, xi = _a2a(xr, xi, ax, 0, 1)
+            if uneven1:       # axis 1 whole: drop the padded bins
+                xr, xi = _slice_axis(xr, 1, n1), _slice_axis(xi, 1, n1)
+            return _scaled(core_c2r(*core_mid(xr, xi)), scale)
 
-
-def make_plan_pencil_c2r(*args, **kwargs):
-    """Counterpart: ``distributed.py:1559``."""
-    _unported("make_plan_pencil_c2r")
-
-
-def unpack_halfcomplex_rank1(y):
-    """Counterpart: ``distributed.py:1078``."""
-    _unported("unpack_halfcomplex_rank1 (the real rank-1 plans)")
-
-
-def pack_halfcomplex_rank1(h):
-    """Counterpart: ``distributed.py:1090``."""
-    _unported("pack_halfcomplex_rank1 (the real rank-1 plans)")
-
-
-def make_plan_slab_r2r(*args, **kwargs):
-    """Counterpart: ``regent_fft_tpu/parallel/distributed_r2r.py``."""
-    _unported("make_plan_slab_r2r (distributed r2r)")
+    half = shape[:-1] + (xh,)
+    in_l = (_layout(half, {1: (name, b1)}) if transposed_in
+            else _layout(half, {0: (name, b0)}))
+    desc = (f"(plan-distrib-slab-c2r real-shape={shape} P={p} "
+            f"{'[transposed input] ' if transposed_in else 'a2a -> '}"
+            f"ifft(Z) -> a2a -> ifft(mid) -> c2r(X)"
+            f"{' [nyquist-packed transport]' if packed else ''}"
+            f"{f' [uneven blocks {n0}->{n0p}|{n1}->{n1p}]' if uneven else ''})")
+    flops = 2.5 * n_total * math.log2(max(n_total, 2))
+    return _C2RPlan(desc, mesh, dev, in_l, _layout(shape, {0: (name, b0)}),
+                    local_fn, shape, dtype, flops, donate, cores)
 
 
 def _slab1d_factors(n: int, p: int) -> Tuple[int, int]:
@@ -754,14 +1042,32 @@ def make_plan_slab_1d(n, direction=Direction.FORWARD, norm=Norm.BACKWARD,
     (k1, k2) of the (R, C) grid holds X[k1 + R*k2]); ``scrambled_in``
     takes that order; 2 exchanges instead of 3.  The (R, C) twiddle is
     computed on the host in float64, each rank holding its columns.
-    The real kinds are ROADMAP Queue 1 #12b.
+
+    ``kind=R2C``/``C2R``: the rank-1 real transform
+    (``mpi/rdft-rank1-bigvec.c``): the real vector packs as z[j] = x[2j] +
+    i x[2j+1] where it lies, the natural-order four-step runs at m = n/2,
+    and the Hermitian untangle X[k] = E[k] + W^k O[k] reverses over the
+    mesh (:func:`_rev_freq_sharded`).  R2C returns the packed halfcomplex
+    (m,) vector, bin m's real value in bin 0's imaginary slot
+    (:func:`unpack_halfcomplex_rank1` gives numpy's (m+1,)); C2R takes it
+    and returns n times the inverse (with ``norm=NONE``).  Real kinds need
+    even n and natural order, and compute in f32.
     Counterpart: ``distributed.py:935``."""
     direction, norm = Direction(direction), Norm(norm)
     if scrambled_in and scrambled_out:
         raise ValueError("scrambled_in and scrambled_out are exclusive "
                          "(use one natural boundary per plan)")
-    if Kind(kind) != Kind.C2C:
-        _unported(f"the rank-1 {Kind(kind).value} plan")
+    kind = Kind(kind)
+    if kind != Kind.C2C:
+        if scrambled_in or scrambled_out:
+            raise ValueError("rank-1 real transforms need natural order "
+                             "(the Hermitian untangle is index-based)")
+        if int(n) % 2:
+            raise ValueError(f"rank-1 {kind} needs even n, got {n}")
+        return _make_plan_slab_1d_real(
+            n, kind, norm, dtype, mesh, axis_name, factors,
+            precision=precision, use_3m=use_3m, max_radix=max_radix,
+            backend=backend, donate=donate, device=device)
     mesh, dev = _setup(mesh, device, lambda t: make_fft_mesh(
         axis_name=axis_name, device_type=t))
     name = mesh.mesh_dim_names[0]
@@ -826,6 +1132,147 @@ def make_plan_slab_1d(n, direction=Direction.FORWARD, norm=Norm.BACKWARD,
                               dtype, flops, donate, [core_R, core_C])
 
 
+def unpack_halfcomplex_rank1(y):
+    """Packed rank-1 halfcomplex (m,) -> numpy's (m+1,) half spectrum:
+    bin m's real value rides bin 0's imaginary slot (FFTW's R2HC packing,
+    ``rdft/rdft.h``).  Counterpart: ``distributed.py:1078``."""
+    y = np.asarray(y.cpu() if isinstance(y, torch.Tensor) else y)
+    out = np.empty(y.shape[0] + 1, np.complex128)
+    out[0] = y[0].real
+    out[1:-1] = y[1:]
+    out[-1] = y[0].imag
+    return out
+
+
+def pack_halfcomplex_rank1(h):
+    """numpy's (m+1,) half spectrum -> the packed (m,) halfcomplex vector,
+    the inverse of :func:`unpack_halfcomplex_rank1` (the endpoints'
+    imaginary parts are dropped, as ``numpy.irfft`` does).
+    Counterpart: ``distributed.py:1090``."""
+    h = np.asarray(h.cpu() if isinstance(h, torch.Tensor) else h)
+    out = np.array(h[:-1], np.complex64)
+    out[0] = complex(h[0].real, h[-1].real)
+    return out
+
+
+def _make_plan_slab_1d_real(n, kind: Kind, norm, dtype, mesh,
+                            axis_name: str, factors,
+                            precision: str = "highest", use_3m: bool = False,
+                            max_radix: int = 128, backend: str = "auto",
+                            donate: bool = False, device="cuda"):
+    """The rank-1 real plans of :func:`make_plan_slab_1d`.
+    Counterpart: ``distributed.py:1100``."""
+    mesh, dev = _setup(mesh, device, lambda t: make_fft_mesh(
+        axis_name=axis_name, device_type=t))
+    name = mesh.mesh_dim_names[0]
+    ax = _mesh_axis(mesh, name)
+    p = ax.size
+    n = int(n)
+    m = n // 2
+    if m % p:
+        raise ValueError(f"n/2={m} not divisible by mesh size {p}")
+    R, C = factors if factors is not None else _slab1d_factors(m, p)
+    R, C = int(R), int(C)
+    if R * C != m or R % p or C % p:
+        raise ValueError(f"factors {(R, C)} invalid: need R*C={m}, "
+                         f"{p} | R, {p} | C")
+    direction = (Direction.FORWARD if kind == Kind.R2C
+                 else Direction.BACKWARD)
+    scale = _norm_scale(n, direction, norm)
+    core_kw = dict(precision=precision, use_3m=use_3m, max_radix=max_radix,
+                   backend=backend, device=dev)
+    core_R = _LocalCore((R, C // p), (0,), direction, **core_kw)
+    core_C = _LocalCore((R // p, C), (1,), direction, **core_kw)
+    sign = float(int(direction))
+    mloc = m // p
+
+    def host_table(theta):          # float64 on the host, rounded once
+        return (torch.from_numpy(np.cos(theta)).to(dev, torch.float32),
+                torch.from_numpy(np.sin(theta)).to(dev, torch.float32))
+    # the four-step twiddle's columns of this rank, and the Hermitian
+    # twiddle W^k = exp(sign 2 pi i k / n) at this rank's global k
+    cols = np.arange(ax.coord * (C // p), (ax.coord + 1) * (C // p),
+                     dtype=np.float64)[None, :]
+    tw_r, tw_i = host_table(sign * 2.0 * np.pi
+                            * (np.arange(R, dtype=np.float64)[:, None]
+                               * cols) / m)
+    kk = np.arange(ax.coord * mloc, (ax.coord + 1) * mloc, dtype=np.float64)
+    hw_r, hw_i = host_table(sign * 2.0 * np.pi * kk / n)
+    first = ax.coord == 0           # this rank holds global bin 0
+
+    def fourstep(xr, xi):
+        """The natural-order mesh four-step of make_plan_slab_1d at m."""
+        xr, xi = xr.reshape(R // p, C), xi.reshape(R // p, C)
+        xr, xi = core_R(*_a2a(xr, xi, ax, 1, 0))            # (R, C/P)
+        xr, xi = xr * tw_r - xi * tw_i, xr * tw_i + xi * tw_r
+        xr, xi = core_C(*_a2a(xr, xi, ax, 0, 1))            # (R/P, C)
+        xr, xi = _a2a(xr, xi, ax, 1, 0)                     # (R, C/P)
+        return (xr.transpose(0, 1).reshape(-1),
+                xi.transpose(0, 1).reshape(-1))
+
+    vec_l = _layout((n,), {0: (name, n // p)})
+    half_l = _layout((m,), {0: (name, mloc)})
+    flops = 2.5 * n * math.log2(max(n, 2))
+    cores = [core_R, core_C]
+    if kind == Kind.R2C:
+        def local_fn(x):
+            x2 = x.reshape(-1, 2)               # z[j] = x[2j] + i x[2j+1]
+            zr, zi = fourstep(x2[:, 0], x2[:, 1])
+            # E = (Z + conj Zrev) / 2, O = (Z - conj Zrev) / 2i
+            rr = _rev_freq_sharded(zr, 0, ax)
+            ri = _rev_freq_sharded(zi, 0, ax)
+            er, ei = 0.5 * (zr + rr), 0.5 * (zi - ri)
+            o_r, o_i = 0.5 * (zi + ri), -0.5 * (zr - rr)
+            # X[k] = E[k] + W^k O[k], k < m; X[m] = E[0] - O[0]
+            twr, twi = o_r * hw_r - o_i * hw_i, o_r * hw_i + o_i * hw_r
+            yr, yi = er + twr, ei + twi
+            if first:       # bin 0's imaginary slot carries the real X[m]
+                yi[0] = er[0] - twr[0]
+            return _apply_scale(yr, yi, scale)
+
+        desc = (f"(plan-distrib-1d-r2c n={n} pack->four-step(m={m}={R}x{C})"
+                f" P={p} -> distributed Hermitian untangle; packed"
+                f" halfcomplex (m,) out, 5 collectives)")
+        plan = _R2CPlan(desc, mesh, dev, vec_l, half_l, local_fn, (m,),
+                        dtype, flops, donate, cores)
+        plan.packed_layout = True
+        return plan
+
+    def local_fn(yr, yi):
+        # the packed (m,) half spectrum -> real (n,), times n unnormalized
+        xi = yi.clone()
+        if first:
+            xi[0] = 0.0                         # X[0] is real
+        rr, ri = _rev_freq_sharded(yr, 0, ax), _rev_freq_sharded(xi, 0, ax)
+        if first:
+            rr[0], ri[0] = yi[0], 0.0           # X[m - 0] = X[m] = im(y0)
+        # E' = X + conj Xrev; O' = conj(W)^k (X - conj Xrev): the halves
+        # cancel against the unnormalized times-n inverse
+        er, ei = yr + rr, xi - ri
+        dr, di = yr - rr, xi + ri
+        o_r, o_i = dr * hw_r - di * hw_i, dr * hw_i + di * hw_r
+        zr, zi = fourstep(er - o_i, ei + o_r)               # z' = E' + i O'
+        zr, zi = _apply_scale(zr, zi, scale)
+        return torch.stack([zr, zi], -1).reshape(-1)        # un-interleave
+
+    desc = (f"(plan-distrib-1d-c2r n={n} distributed Hermitian tangle ->"
+            f" inverse four-step(m={m}={R}x{C}) P={p} -> unpack; packed"
+            f" halfcomplex (m,) in, 5 collectives)")
+    return _C2RPlan(desc, mesh, dev, half_l, vec_l, local_fn, (n,), dtype,
+                    flops, donate, cores)
+
+
+def _pencil_setup(mesh, mesh_shape, axis_names, device):
+    """A pencil plan's mesh (``make_pencil_mesh`` of ``mesh_shape``, the
+    near-square split of the world when None) and device."""
+    def default(dev_type):
+        ms = mesh_shape
+        if ms is None:
+            ms = _default_pencil_shape(_world())
+        return make_pencil_mesh(ms, axis_names, device_type=dev_type)
+    return _setup(mesh, device, default)
+
+
 def make_plan_pencil(shape, direction=Direction.FORWARD, norm=Norm.BACKWARD,
                      dtype="complex64", mesh=None,
                      mesh_shape: Optional[Tuple[int, int]] = None,
@@ -856,13 +1303,7 @@ def make_plan_pencil(shape, direction=Direction.FORWARD, norm=Norm.BACKWARD,
     shape = tuple(int(s) for s in shape)
     if len(shape) != 3:
         raise ValueError("pencil decomposition is for rank-3 transforms")
-
-    def default(dev_type):
-        ms = mesh_shape
-        if ms is None:
-            ms = _default_pencil_shape(_world())
-        return make_pencil_mesh(ms, axis_names, device_type=dev_type)
-    mesh, dev = _setup(mesh, device, default)
+    mesh, dev = _pencil_setup(mesh, mesh_shape, axis_names, device)
     a1, a2 = mesh.mesh_dim_names
     ax1, ax2 = _mesh_axis(mesh, a1), _mesh_axis(mesh, a2)
     p1, p2 = ax1.size, ax2.size
@@ -939,6 +1380,175 @@ def make_plan_pencil(shape, direction=Direction.FORWARD, norm=Norm.BACKWARD,
     flops = max(howmany, 1) * 5.0 * n_total * math.log2(max(n_total, 2))
     return DistributedFFTPlan(desc, mesh, dev, in_l, out_l, local_fn, bshape,
                               dtype, flops, donate, [core_x, core_y, core_z])
+
+
+def make_plan_pencil_r2c(shape, norm=Norm.BACKWARD, dtype="complex64",
+                         mesh=None,
+                         mesh_shape: Optional[Tuple[int, int]] = None,
+                         axis_names: Tuple[str, str] = ("fy", "fz"),
+                         precision: str = "highest", use_3m: bool = False,
+                         max_radix: int = 128, backend: str = "auto",
+                         donate: bool = False, device="cuda") -> _R2CPlan:
+    """One global real-input 3-D FFT over a 2-D (P1, P2) mesh.  The input
+    (Z, Y, X) is split (Z/P1, Y/P2, X); the halved X axis never crosses an
+    exchange, all three trade Z pieces for Y pieces:
+
+      r2c(X): (Z/P1, Y/P2, Xh)
+      exchange[a1] Y->Z: (Z, Y/(P1 P2), Xh)   fft Z
+      exchange[a1] Z->Y: (Z/P1, Y/P2, Xh)
+      exchange[a2] Z->Y: (Z/(P1 P2), Y, Xh)   fft Y
+
+    The output is the half spectrum with Z split over both mesh axes
+    jointly, ``((a1, a2), None, None)``: rank (c1, c2) holds Z block
+    c1 * P2 + c2.  Nyquist-packed at X/2 where ``r2c_packed_supported(X)``
+    and Z, Y divide by P1 P2 (the untangle reverses Z over the joint
+    axis), else Z and Y padded to P1 P2 blocks.
+    Counterpart: ``distributed.py:1419``."""
+    norm = Norm(norm)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3:
+        raise ValueError("pencil r2c is for rank-3 transforms")
+    mesh, dev = _pencil_setup(mesh, mesh_shape, axis_names, device)
+    a1, a2 = mesh.mesh_dim_names
+    ax1, ax2 = _mesh_axis(mesh, a1), _mesh_axis(mesh, a2)
+    p1, p2 = ax1.size, ax2.size
+    z, y, x = shape
+    pp = p1 * p2
+    zp, yp = pp * _blk(z, pp), pp * _blk(y, pp)
+    uneven = (zp, yp) != (z, y)
+    n_total = z * y * x
+    scale = _norm_scale(n_total, Direction.FORWARD, norm)
+    xh = x // 2 + 1
+    core_kw = dict(precision=precision, use_3m=use_3m, max_radix=max_radix,
+                   backend=backend, device=dev)
+    packed = _sk.r2c_packed_supported(x) and not uneven
+    if packed:
+        m = x // 2
+        joint = _joint_axis(mesh)
+        core_z = _LocalCore((z, y // pp, m), (0,), Direction.FORWARD,
+                            **core_kw)
+        core_y = _LocalCore((z // pp, y, m), (1,), Direction.FORWARD,
+                            **core_kw)
+        cores = [core_z, core_y]
+
+        def local_fn(v):
+            yr, yi = _a2a(*_r2c_rows(v, scale), ax1, 1, 0)  # (Z, Y/PP, m)
+            yr, yi = _a2a(*core_z(yr, yi), ax1, 0, 1)       # (Z/P1, Y/P2, m)
+            yr, yi = core_y(*_a2a(yr, yi, ax2, 0, 1))       # (Z/PP, Y, m)
+            return _untangle_packed(yr, yi, [1], 0, joint)
+    else:
+        core_r2c = _LocalCore((zp // p1, yp // p2, x), (2,), kind=Kind.R2C,
+                              **core_kw)
+        core_z = _LocalCore((z, yp // pp, xh), (0,), Direction.FORWARD,
+                            **core_kw)
+        core_y = _LocalCore((zp // pp, y, xh), (1,), Direction.FORWARD,
+                            **core_kw)
+        cores = [core_r2c, core_z, core_y]
+
+        def local_fn(v):
+            xr, xi = _a2a(*core_r2c(v), ax1, 1, 0)          # (Z, Y/PP, Xh)
+            if uneven:    # Z whole: its true length
+                xr, xi = _slice_axis(xr, 0, z), _slice_axis(xi, 0, z)
+            xr, xi = core_z(xr, xi)
+            if uneven:
+                xr, xi = _pad_axis(xr, 0, zp), _pad_axis(xi, 0, zp)
+            xr, xi = _a2a(xr, xi, ax1, 0, 1)                # (Z/P1, Y/P2, Xh)
+            xr, xi = _a2a(xr, xi, ax2, 0, 1)                # (Z/PP, Y, Xh)
+            if uneven:    # Y whole: its true length
+                xr, xi = _slice_axis(xr, 1, y), _slice_axis(xi, 1, y)
+            return _apply_scale(*core_y(xr, xi), scale)
+
+    half = (z, y, xh)
+    in_l = _layout(shape, {0: (a1, zp // p1), 1: (a2, yp // p2)})
+    out_l = _layout(half, {0: ((a1, a2), zp // pp)})
+    desc = (f"(plan-distrib-pencil-r2c real-shape={shape} mesh=({p1}x{p2}) "
+            f"r2c(X) -> a2a[{a1}] -> fft(Z) -> a2a[{a1}],a2a[{a2}] -> fft(Y); "
+            f"halved axis never crosses a collective"
+            f"{'; nyquist-packed transport' if packed else ''}"
+            f"{f'; uneven blocks {z}->{zp}|{y}->{yp}' if uneven else ''})")
+    flops = 2.5 * n_total * math.log2(max(n_total, 2))
+    return _R2CPlan(desc, mesh, dev, in_l, out_l, local_fn, half, dtype,
+                    flops, donate, cores)
+
+
+def make_plan_pencil_c2r(shape, norm=Norm.BACKWARD, dtype="complex64",
+                         mesh=None,
+                         mesh_shape: Optional[Tuple[int, int]] = None,
+                         axis_names: Tuple[str, str] = ("fy", "fz"),
+                         precision: str = "highest", use_3m: bool = False,
+                         max_radix: int = 128, backend: str = "auto",
+                         donate: bool = False, device="cuda") -> _C2RPlan:
+    """The inverse of :func:`make_plan_pencil_r2c`: its output layout (Z
+    split over both mesh axes) in, the real (Z/P1, Y/P2, X) blocks out;
+    ``shape`` is the real shape.  The packed route tangles bin 0 first,
+    projecting the endpoint slabs onto their conjugate-even parts over the
+    joint axis and Y.  Counterpart: ``distributed.py:1553``."""
+    norm = Norm(norm)
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3:
+        raise ValueError("pencil c2r is for rank-3 transforms")
+    mesh, dev = _pencil_setup(mesh, mesh_shape, axis_names, device)
+    a1, a2 = mesh.mesh_dim_names
+    ax1, ax2 = _mesh_axis(mesh, a1), _mesh_axis(mesh, a2)
+    p1, p2 = ax1.size, ax2.size
+    z, y, x = shape
+    pp = p1 * p2
+    zp, yp = pp * _blk(z, pp), pp * _blk(y, pp)
+    uneven = (zp, yp) != (z, y)
+    n_total = z * y * x
+    scale = _norm_scale(n_total, Direction.BACKWARD, norm)
+    xh = x // 2 + 1
+    core_kw = dict(precision=precision, use_3m=use_3m, max_radix=max_radix,
+                   backend=backend, device=dev)
+    packed = _sk.r2c_packed_supported(x) and not uneven
+    if packed:
+        m = x // 2
+        joint = _joint_axis(mesh)
+        core_y = _LocalCore((z // pp, y, m), (1,), Direction.BACKWARD,
+                            **core_kw)
+        core_z = _LocalCore((z, y // pp, m), (0,), Direction.BACKWARD,
+                            **core_kw)
+        cores = [core_y, core_z]
+
+        def local_fn(xr, xi):
+            xr, xi = core_y(*_tangle_packed(xr, xi, [1], 0, joint))
+            xr, xi = _a2a(xr, xi, ax2, 1, 0)                # (Z/P1, Y/P2, m)
+            xr, xi = core_z(*_a2a(xr, xi, ax1, 1, 0))       # (Z, Y/PP, m)
+            xr, xi = _a2a(xr, xi, ax1, 0, 1)                # (Z/P1, Y/P2, m)
+            return _c2r_rows(xr, xi, x, scale)
+    else:
+        core_c2r = _LocalCore((zp // p1, yp // p2, x), (2,), kind=Kind.C2R,
+                              **core_kw)
+        core_y = _LocalCore((zp // pp, y, xh), (1,), Direction.BACKWARD,
+                            **core_kw)
+        core_z = _LocalCore((z, yp // pp, xh), (0,), Direction.BACKWARD,
+                            **core_kw)
+        cores = [core_c2r, core_y, core_z]
+
+        def local_fn(xr, xi):
+            xr, xi = core_y(xr, xi)                         # (Z/PP, Y, Xh)
+            if uneven:    # even the a2 split of Y
+                xr, xi = _pad_axis(xr, 1, yp), _pad_axis(xi, 1, yp)
+            xr, xi = _a2a(xr, xi, ax2, 1, 0)                # (Z/P1, Y/P2, Xh)
+            xr, xi = _a2a(xr, xi, ax1, 1, 0)                # (Z, Y/PP, Xh)
+            if uneven:    # Z whole: its true length
+                xr, xi = _slice_axis(xr, 0, z), _slice_axis(xi, 0, z)
+            xr, xi = core_z(xr, xi)
+            if uneven:
+                xr, xi = _pad_axis(xr, 0, zp), _pad_axis(xi, 0, zp)
+            xr, xi = _a2a(xr, xi, ax1, 0, 1)                # (Z/P1, Y/P2, Xh)
+            return _scaled(core_c2r(xr, xi), scale)
+
+    half = (z, y, xh)
+    in_l = _layout(half, {0: ((a1, a2), zp // pp)})
+    out_l = _layout(shape, {0: (a1, zp // p1), 1: (a2, yp // p2)})
+    desc = (f"(plan-distrib-pencil-c2r real-shape={shape} mesh=({p1}x{p2}) "
+            f"ifft(Y) -> a2a[{a2}],a2a[{a1}] -> ifft(Z) -> a2a[{a1}] -> c2r(X)"
+            f"{' [nyquist-packed transport]' if packed else ''}"
+            f"{f' [uneven blocks {z}->{zp}|{y}->{yp}]' if uneven else ''})")
+    flops = 2.5 * n_total * math.log2(max(n_total, 2))
+    return _C2RPlan(desc, mesh, dev, in_l, out_l, local_fn, shape, dtype,
+                    flops, donate, cores)
 
 
 def destroy_plan_distrib(plan: DistributedFFTPlan):
@@ -1042,23 +1652,39 @@ def candidate_strategies(shape, n_devices: int,
 def build_strategy(strategy: dict, shape, direction=Direction.FORWARD,
                    norm=Norm.BACKWARD, n_devices: Optional[int] = None,
                    **kw) -> DistributedFFTPlan:
-    """Build the distributed C2C plan a strategy dict describes (collective:
+    """Build the distributed plan a strategy dict describes (collective:
     every rank calls it alike); the plan's ``strategy`` is that dict.
-    ``n_devices``, if given, must be the world size.  The real kinds are
-    ROADMAP Queue 1 #12b, but for the shards mode.
-    Counterpart: ``distributed.py:1776``."""
+    ``n_devices``, if given, must be the world size.  ``kind=R2C``/``C2R``
+    build the real slab, pencil or rank-1 plans (``direction`` is the
+    kind's; the chunk counts are C2C knobs and are dropped).
+    Counterpart: ``distributed.py:1786``."""
     s = dict(strategy)
     mode = s.pop("mode")
     kind = Kind(kw.pop("kind", Kind.C2C))
     if n_devices is not None and int(n_devices) != _world():
         raise ValueError(f"n_devices={n_devices}: a distributed plan spans "
                          f"the world of {_world()} ranks")
+    real = kind in (Kind.R2C, Kind.C2R)
     if mode == "shards":
         s.pop("pipeline_chunks", None)
         plan = make_plan_shards(shape, kind=kind, direction=direction,
                                 norm=norm, **kw)
-    elif kind in (Kind.R2C, Kind.C2R):
-        _unported(f"the distributed {kind.value} {mode} plan")
+    elif real and mode == "slab1d":
+        plan = make_plan_slab_1d(shape[0], norm=norm, kind=kind, **s, **kw)
+    elif real:
+        s.pop("pipeline_chunks", None)
+        s.pop("pipeline_chunks2", None)
+        ctor = {("slab", Kind.R2C): make_plan_slab_r2c,
+                ("slab", Kind.C2R): make_plan_slab_c2r,
+                ("pencil", Kind.R2C): make_plan_pencil_r2c,
+                ("pencil", Kind.C2R): make_plan_pencil_c2r}.get((mode, kind))
+        if ctor is None:
+            raise ValueError(f"no {kind} constructor for mode {mode!r}")
+        if mode == "pencil":
+            ms = s.pop("mesh_shape", None)
+            kw = dict(kw, mesh_shape=None if ms is None else tuple(ms))
+            kw.pop("mesh", None)
+        plan = ctor(shape, norm=norm, **s, **kw)
     elif mode == "slab1d":
         plan = make_plan_slab_1d(shape[0], direction=direction, norm=norm,
                                  **s, **kw)
@@ -1094,12 +1720,12 @@ def make_plan_distributed(shape, direction=Direction.FORWARD,
     on the mesh (``utils.measure.measure_distributed``: every rank takes
     the slowest rank's time, so all pick one winner), record it in
     distributed wisdom, and return the raced plan, the race's winner and
-    {name: seconds} in its ``measurements``.  The real kinds are
-    ROADMAP Queue 1 #12b.  Counterpart: ``distributed.py:1835``."""
+    {name: seconds} in its ``measurements``.  ``kind=R2C``/``C2R`` choose
+    among the real slab and pencil plans (rank 3) or the rank-1 real plan;
+    their padded volume counts axes 0 and 1 (the axes they exchange).
+    Counterpart: ``distributed.py:1841``."""
     kind, direction, norm = Kind(kind), Direction(direction), Norm(norm)
     shape = tuple(shape)
-    if kind != Kind.C2C:
-        _unported(f"make_plan_distributed of kind {kind.value}")
     p = int(n_devices or _world())
     key = _distrib_key(shape, p, direction, norm, kind)
     if planner == "measure":
@@ -1125,16 +1751,23 @@ def make_plan_distributed(shape, direction=Direction.FORWARD,
             f"divisibility rules)")
 
     def pad_overhead(c):
+        # the padded share of the volume the exchanges move: slab over
+        # axes 0 and -1 (0 and 1 for the real kinds), pencil over Z, Y, X
+        # (Z and Y, in P1 P2 blocks, for the real kinds)
         if c["mode"] == "slab":
-            n0p = p * _blk(shape[0], p)
-            nlp = p * _blk(shape[-1], p)
-            return n0p * nlp / (shape[0] * shape[-1]) - 1.0
+            a = shape[-1] if kind == Kind.C2C else shape[1]
+            return (p * _blk(shape[0], p) * p * _blk(a, p)
+                    / (shape[0] * a) - 1.0)
         if c["mode"] == "pencil":
             q1, q2 = c["mesh_shape"]
-            z, y, x = shape
-            lcm12 = q1 * q2 // math.gcd(q1, q2)
-            return (q1 * _blk(z, q1) * lcm12 * _blk(y, lcm12)
-                    * q2 * _blk(x, q2)) / (z * y * x) - 1.0
+            if kind == Kind.C2C:
+                z, y, x = shape
+                lcm12 = q1 * q2 // math.gcd(q1, q2)
+                return (q1 * _blk(z, q1) * lcm12 * _blk(y, lcm12)
+                        * q2 * _blk(x, q2)) / (z * y * x) - 1.0
+            pp = q1 * q2
+            return (pp * _blk(shape[0], pp) * pp * _blk(shape[1], pp)
+                    / (shape[0] * shape[1]) - 1.0)
         return 0.0
 
     def rank_key(c):

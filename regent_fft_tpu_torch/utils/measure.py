@@ -358,26 +358,33 @@ def measure_plan_sizes(spec, batch: int = 1024, k: int = 10,
 
 
 def time_distributed(plan, reps: int = 3, seed: int = 0) -> float:
-    """Seconds per call of a distributed plan's ``execute_split`` on this
-    rank's seeded local planes (``timing.time_ms``: CUDA events with the
-    L2 flushed on the card, the host clock on the CPU)."""
+    """Seconds per call of a distributed plan on this rank's seeded local
+    input: ``execute_real`` of a real block for an R2C plan, else
+    ``execute_split`` of its planes (a C2R plan's half-spectrum block)
+    (``timing.time_ms``: CUDA events with the L2 flushed on the card, the
+    host clock on the CPU)."""
     from . import timing as _timing
     g = torch.Generator(device=plan.device).manual_seed(seed)
-    shape = plan.local_in_shape
-    xr = torch.randn(shape, generator=g, device=plan.device).to(
-        plan.plane_dtype())
-    xi = torch.randn(shape, generator=g, device=plan.device).to(
-        plan.plane_dtype())
-    return 1e-3 * _timing.time_ms(lambda: plan.execute_split(xr, xi), reps,
-                                  plan.device)
+
+    def block():
+        return torch.randn(plan.local_in_shape, generator=g,
+                           device=plan.device).to(plan.plane_dtype())
+    if hasattr(plan, "execute_real"):
+        x = block()
+        fn = lambda: plan.execute_real(x)           # noqa: E731
+    else:
+        xr, xi = block(), block()
+        fn = lambda: plan.execute_split(xr, xi)     # noqa: E731
+    return 1e-3 * _timing.time_ms(fn, reps, plan.device)
 
 
 def measure_distributed(shape, direction=None, norm=None, n_devices=None,
                         kind=None, chunk_candidates=(1, 2, 4),
                         iters: int = 3, reps: int = 2, install: bool = True,
                         plans_out=None, **build_kw):
-    """Race the feasible distributed C2C strategies of ``shape`` on the
-    world's ranks (collective: every rank calls it alike).
+    """Race the feasible distributed strategies of ``shape`` (of ``kind``:
+    C2C, or the real slab, pencil and rank-1 plans) on the world's ranks
+    (collective: every rank calls it alike).
 
     Every candidate is built by ``distributed.build_strategy`` after a
     barrier and timed on every rank by :func:`time_distributed` (the median
@@ -387,17 +394,17 @@ def measure_distributed(shape, direction=None, norm=None, n_devices=None,
     build different plans on different ranks and hang the next
     exchange).  A build refused by its route (``REFUSED``) records ``inf``;
     the time limit is agreed the same way (``MAX`` of the ranks' verdicts).
-    The winner goes to distributed wisdom with ``install``.  Returns
-    ``(winner, {name: seconds})``.  The R2C/C2R carries are ROADMAP
-    Queue 1 #12b.  Counterpart: ``measure.py:318``."""
+    The winner goes to distributed wisdom with ``install``, keyed with
+    the kind.  Returns ``(winner, {name: seconds})``.  An R2C candidate
+    is timed on a real local block, a C2R one on its local half-spectrum
+    block (the JAX scan-chaining adapters exist for its timer only).
+    Counterpart: ``measure.py:318``."""
     import torch.distributed as dist
     from ..dtypes import Direction, Kind, Norm
     from ..parallel import distributed as _dist
     direction = Direction.FORWARD if direction is None else direction
     norm = Norm.BACKWARD if norm is None else norm
     kind = Kind.C2C if kind is None else Kind(kind)
-    if kind != Kind.C2C:
-        _dist._unported(f"measure_distributed of kind {kind.value}")
     n_devices = int(n_devices or dist.get_world_size())
     shape = tuple(shape)
     cands = _dist.candidate_strategies(shape, n_devices, chunk_candidates,

@@ -6,7 +6,10 @@ C2R one, a single-device plan), ``tests/test_distributed_extra.py``
 (rank-1, transpose, howmany) and the per-shard real tests of
 ``tests/test_distributed_real.py``; the 2 x 4 pencils, the fuzz and
 ``dryrun_multichip`` are in ``test_torch_port_distributed_p8.py``, the
-prime and uneven slabs in ``test_torch_port_distributed_uneven.py``.  Each
+prime and uneven slabs in ``test_torch_port_distributed_uneven.py``, the
+real global plans in ``test_torch_port_distributed_real.py`` and the
+rank-1 real, r2r and real-race tests in
+``test_torch_port_distributed_r2r.py``.  Each
 test makes its input from a numpy seed, runs the JAX plan on it, sends it
 to the ranks (each takes its ``in_block``), assembles the port's output
 from the ``out_block``s and holds it to the JAX output and to numpy within
@@ -173,8 +176,10 @@ def test_pencil_pipelined_chunks_matches(pool):
 
 
 def test_collective_logging_level2(pool):
-    msgs = pool.run("log_records", (8, 4, 16))
-    for m in msgs:
+    x = np.ones((8, 4, 16), np.complex64)
+    out = pool.run("logged_chain", [("make_plan_slab", ((8, 4, 16),),
+                                     dict(norm=Norm.NONE))], x)
+    for m in (o["records"] for o in out):
         a2a = [s for s in m if s.startswith("collective all_to_all")]
         # two exchanges a call, each with its axis and local shape
         assert len(a2a) == 2, m
@@ -188,11 +193,11 @@ def test_distributed_donate(pool):
     jy = jax_np(jdist.make_plan_slab((16, 8, 16), mesh=M1(P),
                                      donate=True)(x))
     agree(y, jy, np.fft.fftn(x.astype(np.complex128)), x.size)
-    # the JAX test's R2C half is ROADMAP Queue 1 #12b in the port
-    err = pool.run("plan_error", "make_plan_slab_r2c", ((16, 8, 16),),
-                   dict(donate=True))
-    assert all(e[0] == "NotImplementedError" and "#12b" in e[1]
-               for e in err), err
+    xr = rng(14).standard_normal((16, 8, 16)).astype(np.float32)
+    y, f = run(pool, "make_plan_slab_r2c", xr, (16, 8, 16), donate=True)
+    assert y.shape == (16, 8, 9) and y.dtype == np.complex64
+    jr = jdist.make_plan_slab_r2c((16, 8, 16), mesh=M1(P), donate=True)
+    agree(y, jax_np(jr(xr)), np.fft.rfftn(xr.astype(np.float64)), xr.size)
 
 
 def test_donate_reuses_the_input_planes(pool):
@@ -775,7 +780,12 @@ def test_cuda_plan_on_gloo_group_raises(pool):
                        ("make_plan_shards", ((8, 8, 8),)),
                        ("make_plan_pencil", ((8, 8, 8),)),
                        ("make_plan_slab_1d", (4096,)),
-                       ("make_plan_transpose", (8, 8))):
+                       ("make_plan_transpose", (8, 8)),
+                       ("make_plan_slab_r2c", ((8, 8, 8),)),
+                       ("make_plan_slab_c2r", ((8, 8, 8),)),
+                       ("make_plan_pencil_r2c", ((8, 8, 8),)),
+                       ("make_plan_pencil_c2r", ((8, 8, 8),)),
+                       ("make_plan_slab_r2r", ((8, 8, 8), 5))):
         err = pool.run("plan_error", name, args, dict(device="cuda"))
         assert all(e[0] == "RuntimeError" and "NCCL" in e[1] for e in err), \
             (name, err)
@@ -806,23 +816,6 @@ def test_parallel_loads_on_first_use():
     r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-
-
-def test_real_global_plans_name_12b(pool):
-    for name, args, kw in (
-            ("make_plan_slab_r2c", ((8, 8, 8),), {}),
-            ("make_plan_slab_c2r", ((8, 8, 8),), {}),
-            ("make_plan_pencil_r2c", ((8, 8, 8),), {}),
-            ("make_plan_pencil_c2r", ((8, 8, 8),), {}),
-            ("make_plan_slab_1d", (64,), dict(kind=Kind.R2C)),
-            ("make_plan_distributed", ((8, 8, 8),), dict(kind=Kind.R2C)),
-            ("build_strategy", ({"mode": "slab"}, (8, 8, 8)),
-             dict(kind=Kind.C2R))):
-        err = pool.run("plan_error", name, args, kw)
-        assert all(e[0] == "NotImplementedError" and "#12b" in e[1]
-                   for e in err), (name, err)
-    with pytest.raises(NotImplementedError, match="#12b"):
-        rt.unpack_halfcomplex_rank1(np.zeros(4))
 
 
 # the layout test: every plan kind's blocks against the JAX shardings

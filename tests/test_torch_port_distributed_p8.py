@@ -1,7 +1,8 @@
 """The port's distributed plans (``regent_fft_tpu_torch.parallel``) on 8
 gloo ranks where the JAX tests' device count decides the case: the 2 x 4
 and 4 x 2 pencils (uneven ones included), the clamped chunk counts, the
-2 x 4 multislice pencil, the fuzz over the strategies of 8 devices and
+2 x 4 multislice pencil, the fuzz over the strategies of 8 devices (C2C,
+R2C and C2R) and
 ``dryrun_multichip(8)``'s C2C checks; against the JAX package's plans on
 its 8 virtual CPU devices and numpy in float64 (``tests/test_distributed.py``, ``test_distributed_uneven.py``,
 ``__graft_entry__.py``)."""
@@ -154,34 +155,39 @@ def test_pencil_y_blocks_follow_the_lcm_padding(pool, transposed_out):
 
 
 def test_random_distributed_problem_fuzz(pool):
-    """The JAX fuzz's draws (seed 777, shapes and strategies over 8
-    devices); its R2C/C2R draws are ROADMAP Queue 1 #12b and are skipped
-    here after consuming the generator as the JAX test does, so the C2C
-    problems are the JAX test's.  Its 8 trials draw one C2C problem, so
-    the same generator goes on until 5 C2C problems are checked."""
+    """The JAX fuzz's draws (seed 777, kinds, shapes and strategies over 8
+    devices, its real inputs from the same generator), every one checked:
+    the port's plan of the drawn strategy against the JAX plan and numpy,
+    with the JAX plan's description."""
     g = np.random.default_rng(777)
     kinds = [Kind.C2C, Kind.R2C, Kind.C2R]
     checked = 0
-    for trial in range(64):
-        if trial >= 8 and checked >= 5:
-            break
+    for trial in range(8):
         kind = kinds[int(g.integers(len(kinds)))]
         shape = tuple(int(8 * g.integers(1, 4)) for _ in range(3))
         cands = jdist.candidate_strategies(shape, P, (1, 2), kind=kind)
         if not cands:
             continue
         strat = cands[int(g.integers(len(cands)))]
-        if kind != Kind.C2C:
-            g.standard_normal(shape)
-            continue
-        x = crand(rng(100 + trial), shape)
-        j = jdist.build_strategy(strat, shape, norm=Norm.NONE, n_devices=P)
-        y, f = run(pool, "build_strategy", x, strat, shape, norm=Norm.NONE,
-                   n_devices=P)
+        norm = Norm.BACKWARD if kind == Kind.C2R else Norm.NONE
+        if kind == Kind.C2C:
+            x = crand(rng(100 + trial), shape)
+            ref = np.fft.fftn(x.astype(np.complex128))
+        elif kind == Kind.R2C:
+            x = g.standard_normal(shape).astype(np.float32)
+            ref = np.fft.rfftn(x.astype(np.float64))
+        else:
+            ref = g.standard_normal(shape).astype(np.float32)
+            x = np.fft.rfftn(ref.astype(np.float64)).astype(np.complex64)
+        j = jdist.build_strategy(strat, shape, norm=norm, n_devices=P,
+                                 kind=kind)
+        y, f = run(pool, "build_strategy", x, strat, shape, norm=norm,
+                   n_devices=P, kind=kind)
         assert f["description"] == j.description
-        agree(y, jax_np(j(x)), np.fft.fftn(x.astype(np.complex128)), x.size)
+        jy = np.asarray(j(x)) if kind == Kind.C2R else jax_np(j(x))
+        agree(y, jy, ref, int(np.prod(shape)))
         checked += 1
-    assert checked >= 5, f"only {checked} C2C problems drawn"
+    assert checked >= 5, f"only {checked} feasible problems drawn"
 
 
 def test_dryrun_multichip_c2c_checks(pool):
@@ -223,3 +229,40 @@ def test_dryrun_multichip_c2c_checks(pool):
                mesh=("multislice", p1, p2), transposed_out=True,
                pipeline_chunks2=2)
     agree(y, jax_np(j(xc)), ref, xc.size)
+
+
+def test_dryrun_multichip_real_checks(pool):
+    """``dryrun_multichip(8)``'s real checks: the slab R2C and its C2R back,
+    the rank-1 R2C at n = 16 * 8 * 8 and the 3-D DCT-II over the mesh,
+    each within 1e-4 of numpy/scipy and agreeing with the JAX plans."""
+    import scipy.fft as sfft
+    from regent_fft_tpu.ops.r2r import R2RKind
+    from regent_fft_tpu.parallel.distributed_r2r import make_plan_slab_r2r
+    g = np.random.default_rng(0)
+    rs = (2 * P, 2 * P, 6)
+    xr = g.standard_normal(rs).astype(np.float32)
+    res = chain(pool, [("make_plan_slab_r2c", (rs,), dict(norm=Norm.NONE)),
+                       ("make_plan_slab_c2r", (rs,),
+                        dict(norm=Norm.BACKWARD))], xr)
+    jr = jdist.make_plan_slab_r2c(rs, mesh=fft_mesh(P), norm=Norm.NONE)
+    agree(assemble(res, 0), jax_np(jr(xr)),
+          np.fft.rfftn(xr.astype(np.float64)), xr.size)
+    back = assemble(res, 1)
+    assert np.linalg.norm(back - xr) / np.linalg.norm(xr) < 1e-4
+    n1d = 16 * P * P
+    x1 = g.standard_normal(n1d).astype(np.float32)
+    j1 = jdist.make_plan_slab_1d(n1d, kind=Kind.R2C, mesh=fft_mesh(P),
+                                 norm=Norm.NONE)
+    y1, f = run(pool, "make_plan_slab_1d", x1, n1d, kind=Kind.R2C,
+                norm=Norm.NONE)
+    assert f["description"] == j1.description
+    agree(jdist.unpack_halfcomplex_rank1(y1),
+          jdist.unpack_halfcomplex_rank1(np.asarray(j1(x1))),
+          np.fft.rfft(x1.astype(np.float64)), n1d)
+    rs2 = (2 * P, 4, 2 * P)
+    x2 = g.standard_normal(rs2).astype(np.float32)
+    j2 = make_plan_slab_r2r(rs2, R2RKind.REDFT10, mesh=fft_mesh(P))
+    y2, f = run(pool, "make_plan_slab_r2r", x2, rs2, int(R2RKind.REDFT10))
+    assert f["description"] == j2.description
+    agree(y2, np.asarray(j2(x2)), sfft.dctn(x2.astype(np.float64), type=2),
+          x2.size)

@@ -5,8 +5,9 @@ devices and numpy in float64.
 Mirrors the C2C tests of ``tests/test_distributed_uneven.py``: FFTW's
 default block ceil(n/P) with short or empty last blocks
 (``mpi/block.c:39``), padded inside the plan; the pencil ones need a 2-D
-mesh and are in ``test_torch_port_distributed_p8.py``.  The real uneven
-plans are ROADMAP Queue 1 #12b.
+mesh and are in ``test_torch_port_distributed_p8.py``; the real uneven
+plans in ``test_torch_port_distributed_real.py`` (8 ranks) and
+``test_torch_port_distributed_r2r.py`` (5 ranks).
 """
 import numpy as np
 import pytest

@@ -33,6 +33,7 @@ import regent_fft_tpu_torch.torch_fft, regent_fft_tpu_torch.scipy_backend
 import regent_fft_tpu_torch.parallel.mesh
 import regent_fft_tpu_torch.parallel.distributed
 import regent_fft_tpu_torch.parallel.transpose
+import regent_fft_tpu_torch.parallel.distributed_r2r
 import chip_smoke
 sys.path.insert(0, "tests")
 import torch_dist_pool
@@ -62,7 +63,8 @@ PORT_MODULES = {
     "utils/calibrate.py", "utils/flopcount.py", "utils/measure.py",
     "utils/timing.py", "utils/wisdom.py", "signal.py", "spectral.py",
     "torch_fft.py", "scipy_backend.py", "parallel/__init__.py",
-    "parallel/mesh.py", "parallel/distributed.py", "parallel/transpose.py"}
+    "parallel/mesh.py", "parallel/distributed.py", "parallel/transpose.py",
+    "parallel/distributed_r2r.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
     "test_torch_port_hygiene.py", "test_torch_port_tables.py",
@@ -84,7 +86,9 @@ PORT_TESTS = {
     "test_torch_port_signal.py", "test_torch_port_spectral.py",
     "test_torch_port_torch_fft.py", "test_torch_port_scipy_backend.py",
     "test_torch_port_distributed.py", "test_torch_port_distributed_uneven.py",
-    "test_torch_port_distributed_p8.py"}
+    "test_torch_port_distributed_p8.py",
+    "test_torch_port_distributed_real.py",
+    "test_torch_port_distributed_r2r.py"}
 # The rank pool of the distributed tests: every rank imports it, so it
 # stands alone like the port.
 POOL = "tests/torch_dist_pool.py"

@@ -144,10 +144,17 @@ def _np(y):
 
 
 def _mesh(spec):
+    """A mesh from its spec: ("fft" | "pencil" | "multislice", args...),
+    or ("ranks", nested rank lists, axis names) for any order of ranks."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
     from regent_fft_tpu_torch.parallel import mesh as M
     if spec is None:
         return None
     kind, *args = spec
+    if kind == "ranks":
+        return DeviceMesh("cpu", torch.as_tensor(args[0]),
+                          mesh_dim_names=tuple(args[1]))
     fn = {"fft": M.make_fft_mesh, "pencil": M.make_pencil_mesh,
           "multislice": M.make_multislice_mesh}[kind]
     return fn(*args, device_type="cpu")
@@ -164,6 +171,9 @@ def _ctor(name):
         return make
     if name == "build_strategy":
         return D.build_strategy
+    if name == "make_plan_slab_r2r":
+        from regent_fft_tpu_torch.parallel import distributed_r2r as DR
+        return DR.make_plan_slab_r2r
     return getattr(D, name, None) or getattr(T, name)
 
 
@@ -288,12 +298,10 @@ def exchange_dtypes(shape, dtype):
             str(plan.plane_dtype())}
 
 
-def log_records(shape):
-    """The port's log records at level 2 while a slab plan is built and
-    run."""
+def logged_chain(stages, x):
+    """``plan_chain`` with the port's log records kept at level 2: the
+    per-rank results and the records."""
     import logging
-    import torch.distributed as dist
-    from regent_fft_tpu_torch.parallel import distributed as D
     from regent_fft_tpu_torch.utils import plog
     records = []
 
@@ -304,20 +312,70 @@ def log_records(shape):
     plog.logger.addHandler(h)
     plog.set_log_level(2)
     try:
-        plan = D.make_plan_slab(shape, norm=D.Norm.NONE, device="cpu")
-        x = np.ones(shape, np.complex64)
-        plan(x[plan.in_block(dist.get_rank())])
+        out = plan_chain(stages, x)
     finally:
         plog.set_log_level(0)
         plog.logger.removeHandler(h)
-    return records
+    return {"results": out, "records": records}
 
 
-def race(shape, times, chunk_candidates=(1, 2, 4)):
-    """``measure_distributed`` with each rank's time of a strategy
-    ``times[name][rank]`` (seconds); returns the winner, the timings, the
-    plan ``make_plan_distributed`` then gives in estimate mode (the
-    installed winner), and the exported "distrib" wisdom."""
+def a2a_buffers(stages, x):
+    """``plan_chain`` with the (dtype, shape) of every buffer a collective
+    sends recorded: the buffers and the results."""
+    import torch.distributed as dist
+    seen = []
+    real = dist.all_to_all_single
+
+    def spy(out, inp, *a, **k):
+        seen.append((str(inp.dtype), list(inp.shape)))
+        return real(out, inp, *a, **k)
+    dist.all_to_all_single = spy
+    try:
+        out = plan_chain(stages, x)
+    finally:
+        dist.all_to_all_single = real
+    return {"buffers": seen, "results": out}
+
+
+def c2r_input_kept(shape, y):
+    """A packed slab C2R plan run on planes of this rank's block: whether
+    the planes are unchanged after the call, and the output."""
+    import torch
+    import torch.distributed as dist
+    from regent_fft_tpu_torch.parallel import distributed as D
+    plan = D.make_plan_slab_c2r(shape, norm=D.Norm.NONE, device="cpu")
+    blk = y[plan.in_block(dist.get_rank())]
+    re = torch.from_numpy(np.ascontiguousarray(blk.real, np.float32))
+    im = torch.from_numpy(np.ascontiguousarray(blk.imag, np.float32))
+    keep = (re.clone(), im.clone())
+    out = plan.execute_split(re, im)
+    return {"kept": torch.equal(re, keep[0]) and torch.equal(im, keep[1]),
+            "y": out.numpy(), "out_block": plan.out_block(dist.get_rank())}
+
+
+def joint_reversal(ranks, names, block):
+    """The modular frequency reversal over the joint axis of a mesh (rank
+    lists in any order): each rank holds ``block`` values of a global
+    vector indexed by its row-major mesh position; returns its position
+    and the reversed block."""
+    import torch
+    import torch.distributed as dist
+    from regent_fft_tpu_torch.parallel import distributed as D
+    mesh = _mesh(("ranks", ranks, names))
+    ax = D._joint_axis(mesh)
+    q = D._coords(mesh, dist.get_rank())[tuple(names)]
+    x = torch.arange(q * block, (q + 1) * block, dtype=torch.float64)
+    y = D._rev_freq_sharded(x.reshape(block, 1).repeat(1, 3), 0, ax)
+    return {"coord": q, "ax_coord": ax.coord, "perm": ax.perm,
+            "y": y[:, 0].numpy(), "cols_equal": bool((y == y[:, :1]).all())}
+
+
+def race(shape, times, chunk_candidates=(1, 2, 4), kind=None):
+    """``measure_distributed`` of ``kind`` (C2C by default) with each
+    rank's time of a strategy ``times[name][rank]`` (seconds); returns the
+    winner, the timings, the plan ``make_plan_distributed`` then gives in
+    estimate mode (the installed winner), and the exported "distrib"
+    wisdom."""
     import json
     import torch.distributed as dist
     from regent_fft_tpu_torch.parallel import distributed as D
@@ -326,14 +384,16 @@ def race(shape, times, chunk_candidates=(1, 2, 4)):
     real = measure.time_distributed
     measure.time_distributed = lambda plan, reps=3, seed=0: \
         times[D.strategy_name(plan.strategy)][rank]
+    kind = D.Kind.C2C if kind is None else kind
     D._DISTRIB_WISDOM.clear()
     try:
         winner, timings = measure.measure_distributed(
             shape, norm=D.Norm.NONE, chunk_candidates=chunk_candidates,
-            device="cpu")
+            kind=kind, device="cpu")
     finally:
         measure.time_distributed = real
-    plan = D.make_plan_distributed(shape, norm=D.Norm.NONE, device="cpu")
+    plan = D.make_plan_distributed(shape, norm=D.Norm.NONE, kind=kind,
+                                   device="cpu")
     exported = json.loads(wisdom.export_wisdom_to_string())["distrib"]
     D._DISTRIB_WISDOM.clear()
     return {"winner": winner, "timings": timings,
@@ -341,14 +401,16 @@ def race(shape, times, chunk_candidates=(1, 2, 4)):
             "distrib": exported}
 
 
-def measured_plan(shape, x):
-    """``make_plan_distributed(planner="measure")`` on the real timer:
-    the winner must agree on every rank; returns it and the output."""
+def measured_plan(shape, x, kind=None):
+    """``make_plan_distributed(planner="measure")`` of ``kind`` (C2C by
+    default) on the real timer: the winner must agree on every rank;
+    returns it and the output."""
     import torch.distributed as dist
     from regent_fft_tpu_torch.parallel import distributed as D
     D._DISTRIB_WISDOM.clear()
     plan = D.make_plan_distributed(shape, norm=D.Norm.NONE, planner="measure",
-                                   chunk_candidates=(1, 2), device="cpu")
+                                   chunk_candidates=(1, 2), device="cpu",
+                                   kind=D.Kind.C2C if kind is None else kind)
     y = plan(x[plan.in_block(dist.get_rank())])
     D._DISTRIB_WISDOM.clear()
     return {"strategy": plan.strategy, "y": _np(y),

@@ -105,15 +105,18 @@ def agree(port, jax_y, ref, n, dtype="complex64"):
 
 def _padded(desc, shape, spec, off):
     """The padded global extents of the JAX plan's split axes, read from
-    its "[uneven blocks a->b|...]" note (slab: axes 0 and -1; pencil: Z,
-    Y, X)."""
-    m = re.search(r"\[uneven blocks ([^\]]+)\]", desc)
+    its "uneven blocks a->b|..." note (slab: axes 0 and -1; pencil: Z, Y,
+    X; the real slab and pencil plans: axes 0 and 1)."""
+    m = re.search(r"uneven blocks ([0-9>|-]+)", desc)
     pads = {}
     if m:
         pairs = [tuple(int(v) for v in s.split("->"))
                  for s in m.group(1).split("|")]
-        axes = ([off, len(shape) - 1] if len(pairs) == 2
-                else [off, off + 1, off + 2])
+        if "-r2c" in desc or "-c2r" in desc:
+            axes = [0, 1]
+        else:
+            axes = ([off, len(shape) - 1] if len(pairs) == 2
+                    else [off, off + 1, off + 2])
         pads = {a: b for a, (_, b) in zip(axes, pairs)}
     return tuple(pads.get(i, n) if spec[i] is not None else n
                  for i, n in enumerate(shape))
