@@ -253,7 +253,24 @@ Phases (any failure raises and the script exits non-zero):
    Makhoul DCT-II; the round trips against their input) within
    tolerance(n), timed beside the single-device plan, traced, with its
    peak memory; one ``{"distributed_real": [...]}`` line and the phase's
-   time.  Phase 3b holds every (kernel, planes) shape phase 16 feeds.
+   time.  Phase 3b holds every (kernel, planes) shape phase 16 feeds;
+17. the JAX plan's user switches (``plan.Switches``), each variable set
+   for its group only, one counted group each: the complex32 512^3 and
+   4096 x 1024 plans under every ``REGENT_FFT_MXU_IMPL`` (unset, direct,
+   fourstep, fs4m, fstw: the same launches and the same output under each,
+   within tolerance(n, "complex32") of torch.fft in float64), with
+   fft_fused2_bf16, fft_cols_bf16 and fft_last_bf16 held at those planes
+   against their plain runners on the body ``tile_impl`` names
+   (``PLAIN_LIMIT``); the complex64 512^3 plan under
+   ``REGENT_FFT_AXIS0_IMPL`` fourstep, dma, grid and ``REGENT_FFT_F2_IMPL``
+   ring, off, grid (``ROUTE_SWITCHES``: step lines and launches, within
+   tolerance(n) of torch.fft); the 1-D R2C of 4096 x 1024 under
+   ``REGENT_FFT_R2C_1D=half`` (fft_last, not fft_last_r2c); the
+   lane-padded r2c/c2r round trip at 4096 x 1024 and 16 x 512^2 (equal to
+   the narrow one, zeros above n/2, the kernels held against their plain
+   versions at those planes, padded and narrow timed); and a child process
+   under ``REGENT_FFT_LOG=2`` that must print the make_plan and schedule
+   lines; one ``{"switches": [...]}`` line and the phase's time.
 
 Prints how long each phase took, one ``{"plans": [...]}`` line,
 one ``{"planners": [...]}`` line (phase 13),
@@ -414,6 +431,39 @@ GAP_PLANS = [
     ("gap_complex32", CUBE, (0, 1, 2), "complex32", {}, GAP_STEPS,
      {"fft_gap_bf16": 1, "fft_cols_bf16": 1}),
 ]
+
+# Phase 17: the JAX plan's user switches (plan.Switches), each set for its
+# group only.  The complex32 plans under every REGENT_FFT_MXU_IMPL (None:
+# unset) launch the same bf16 kernels, whose FFMA tile stands in for every
+# body; the kernels are held against the plain runners on each body.
+MXU_IMPLS = [None, "direct", "fourstep", "fs4m", "fstw"]
+MXU_PLANS = [("cube", CUBE, (0, 1, 2),
+              {"fft_fused2_bf16": 1, "fft_cols_bf16": 1}),
+             ("rows", (4096, 1024), (1,), {"fft_last_bf16": 1})]
+GRID_STEPS = ["(axis 1: kernel-fused2(512, 512))",
+              "(axis 0: kernel-butterfly(n=512))"]
+# (variable, value, the c64 512^3 plan's step lines, its launches); the JAX
+# plan reads REGENT_FFT_F2_IMPL at the fused pair's dispatch only, so "off"
+# keeps the pair fused on the grid pass
+ROUTE_SWITCHES = [
+    ("REGENT_FFT_AXIS0_IMPL", "fourstep",
+     ["(axis 1: kernel-fused2(512, 512))",
+      "(axis 0: kernel-fourstep-ring(n=512))"],
+     {"fft_fused2": 1, "a0fs_a": 1, "a0fs_b": 1}),
+    ("REGENT_FFT_AXIS0_IMPL", "dma",
+     ["(axis 1: kernel-fused2(512, 512))", "(axis 0: kernel-dma-ring(n=512))"],
+     {"fft_fused2": 1, "fft_axis_ring": 1}),
+    ("REGENT_FFT_AXIS0_IMPL", "grid", GRID_STEPS,
+     {"fft_fused2": 1, "fft_cols": 1}),
+    ("REGENT_FFT_F2_IMPL", "ring",
+     ["(axis 1: kernel-fused2-ring(512, 512))",
+      "(axis 0: kernel-butterfly(n=512))"],
+     {"fft_axes2_ring": 1, "fft_cols": 1}),
+    ("REGENT_FFT_F2_IMPL", "off", GRID_STEPS, {"fft_fused2": 1, "fft_cols": 1}),
+    ("REGENT_FFT_F2_IMPL", "grid", GRID_STEPS,
+     {"fft_fused2": 1, "fft_cols": 1}),
+]
+PADDED_SHAPES = [(4096, 1024), (16, 512, 512)]
 
 
 # Phase 11: full-width shapes of the general 1-D pipeline, one group each:
@@ -4227,6 +4277,231 @@ def main() -> int:
     print(json.dumps({"distributed_real": dist_rows[n15:]}))
     print(f"phase 16 took {time.perf_counter() - t16:.1f} s")
     phase("16 (real distributed plans, r2r, one-rank NCCL group)")
+
+    # 17. the JAX plan's user switches (plan.Switches), read as a plan is
+    # made: each variable set for its group only, the plan cache cleared
+    # around it; every group counted
+    t17 = time.perf_counter()
+    switch_rows = []
+
+    @contextlib.contextmanager
+    def switched(var, value):
+        old = os.environ.pop(var, None)
+        if value is not None:
+            os.environ[var] = value
+        rt.clear_plan_cache()
+        try:
+            yield
+        finally:
+            os.environ.pop(var, None)
+            if old is not None:
+                os.environ[var] = old
+            rt.clear_plan_cache()
+
+    def switch_group(label, fn, want):
+        (y,), launches = run_counted(label, [lambda _: fn()], [None], want)
+        for kname, row in rows.items():
+            row["launches_by_path"][label] = launches[kname]
+            row["launches"] += launches[kname]
+        return y
+
+    def step_lines(p):
+        return [ln.strip() for ln in p.describe().splitlines()[1:-1]]
+
+    # the complex32 plans under each REGENT_FFT_MXU_IMPL: the same launches
+    # and the same output under every value; each bf16 kernel held against
+    # its plain runner on the body tile_impl names, at the plan's planes
+    g = torch.Generator(device=dev).manual_seed(17)
+    mxu_in = {label: tuple(torch.randn(shape, device=dev, generator=g)
+                           .to(torch.bfloat16) for _ in range(2))
+              for label, shape, _, _ in MXU_PLANS}
+    first_out = {}
+    for impl in MXU_IMPLS:
+        with switched("REGENT_FFT_MXU_IMPL", impl):
+            for label, shape, axes, want in MXU_PLANS:
+                xr, xi = mxu_in[label]
+                x = rt.SplitComplex(xr, xi)
+                p = rt.make_plan(shape, axes=axes, dtype="complex32")
+                if p.switches.mxu_impl != (impl or "direct"):
+                    raise AssertionError(f"mxu {impl}: {p.switches}")
+                tag = f"mxu_{impl or 'unset'}_{label}"
+                y = switch_group(tag, lambda: p(x), want)
+                n = p.spec.logical_n
+                err = dev_rel(cplx(y.re, y.im),
+                              torch.fft.fftn(cplx(xr, xi), dim=axes))
+                same = first_out.setdefault(label, (y.re, y.im))
+                if not (err <= tolerance(n, "complex32")
+                        and torch.equal(y.re, same[0])
+                        and torch.equal(y.im, same[1])):
+                    raise AssertionError(f"{tag}: rel_l2 {err} (tolerance "
+                                         f"{tolerance(n, 'complex32')}), "
+                                         f"output differs from "
+                                         f"{MXU_IMPLS[0]}'s")
+                del y
+                switch_rows.append({
+                    "group": tag, "mxu_impl": impl, "shape": list(shape),
+                    "steps": step_lines(p), "launches": want,
+                    "rel_err_vs_torch_fft_f64": err,
+                    "tolerance": tolerance(n, "complex32"),
+                    "ms": timed(lambda: p(x))})
+            held = []
+            for kname, planes_, fn, plain in (
+                    ("fft_fused2_bf16", mxu_in["cube"], sk.fft_fused2,
+                     sk.fft_fused2_plain),
+                    ("fft_cols_bf16", tuple(t.reshape(1, 512, 512 * 512)
+                                            for t in mxu_in["cube"]),
+                     sk.fft_cols, sk.fft_cols_plain),
+                    ("fft_last_bf16", mxu_in["rows"], sk.fft_last,
+                     sk.fft_last_plain)):
+                xr, xi = planes_
+                n = xr.shape[-2 if kname == "fft_cols_bf16" else -1]
+                body = sk.tile_impl("bf16", n)
+                worst = 0.0
+                for sign in (-1, 1):
+                    k = fn(xr, xi, sign, 1.0 / n)
+                    q = plain(xr, xi, sign, 1.0 / n)
+                    rel = dev_rel(cplx(*k), cplx(*q))
+                    worst = max(worst, rel)
+                    del k, q
+                if not worst <= PLAIN_LIMIT[kname]:
+                    raise AssertionError(f"{kname} under {impl}: rel_l2 vs "
+                                         f"{body} plain {worst}")
+                held.append({"kernel": kname, "planes": list(xr.shape),
+                             "body": body, "rel_err_vs_plain": worst,
+                             "ms": timed(lambda: fn(xr, xi, -1, 1.0)),
+                             "plain_ms": timed(lambda: plain(xr, xi, -1,
+                                                             1.0))})
+                torch.cuda.empty_cache()
+            switch_rows.append({"group": f"mxu_{impl or 'unset'}_held",
+                                "mxu_impl": impl, "held": held})
+            print(f"REGENT_FFT_MXU_IMPL={impl}: " + "; ".join(
+                f"{h['kernel']} {tuple(h['planes'])} vs {h['body']} plain "
+                f"{h['rel_err_vs_plain']:.3e} ({h['ms']:.4f} ms, plain "
+                f"{h['plain_ms']:.4f})" for h in held) + "; plans " + ", ".join(
+                f"{r['group']} {r['ms']:.4f} ms" for r in switch_rows[-3:-1]),
+                flush=True)
+    del mxu_in, first_out
+
+    # the c64 512^3 plan under each route switch
+    g = torch.Generator(device=dev).manual_seed(171)
+    x = torch.complex(torch.randn(CUBE, device=dev, generator=g),
+                      torch.randn(CUBE, device=dev, generator=g))
+    ref = torch.fft.fftn(x)
+    for var, value, want_steps, want in ROUTE_SWITCHES:
+        with switched(var, value):
+            p = rt.make_plan(CUBE, axes=(0, 1, 2))
+            tag = f"{var[len('REGENT_FFT_'):].lower()}_{value}"
+            if step_lines(p) != want_steps:
+                raise AssertionError(f"{tag} steps: {step_lines(p)}")
+            y = switch_group(tag, lambda: p(x), want)
+            err = dev_rel(y, ref)
+            del y
+            if not err <= tolerance(math.prod(CUBE)):
+                raise AssertionError(f"{tag}: rel_l2 {err}")
+            switch_rows.append({
+                "group": tag, "shape": list(CUBE), "steps": step_lines(p),
+                "launches": want, "rel_err_vs_torch_fft": err,
+                "tolerance": tolerance(math.prod(CUBE)),
+                "ms": timed(lambda: p(x))})
+            print(f"{var}={value}: {step_lines(p)} {want} rel_l2 {err:.3e}, "
+                  f"{switch_rows[-1]['ms']:.4f} ms", flush=True)
+    del x, ref
+    torch.cuda.empty_cache()
+
+    # a 1-D R2C under REGENT_FFT_R2C_1D=half: the half-length route on
+    # fft_last, beside the default route's row-pair kernel
+    g = torch.Generator(device=dev).manual_seed(172)
+    xr_ = torch.randn((4096, 1024), device=dev, generator=g)
+    ref = torch.fft.rfft(xr_)
+    base = rt.make_plan((4096, 1024), axes=(1,), kind=rt.Kind.R2C,
+                        direction=rt.FORWARD)
+    with switched("REGENT_FFT_R2C_1D", "half"):
+        p = rt.make_plan((4096, 1024), axes=(1,), kind=rt.Kind.R2C,
+                         direction=rt.FORWARD)
+        want_steps = ["(real axis 1: n=1024 half-length conjugate-even "
+                      "kernel r2c)"]
+        if step_lines(p) != want_steps:
+            raise AssertionError(f"r2c half steps: {step_lines(p)}")
+        y = switch_group("r2c_1d_half", lambda: p(xr_), {"fft_last": 1})
+        err = dev_rel(y, ref)
+        if not err <= tolerance(1024):
+            raise AssertionError(f"r2c half: rel_l2 {err}")
+        switch_rows.append({
+            "group": "r2c_1d_half", "shape": [4096, 1024],
+            "steps": step_lines(p), "launches": {"fft_last": 1},
+            "rel_err_vs_torch_fft": err, "tolerance": tolerance(1024),
+            "ms": timed(lambda: p(xr_)),
+            "row_pair_route_ms": timed(lambda: base(xr_))})
+    print(f"REGENT_FFT_R2C_1D=half: {switch_rows[-1]}", flush=True)
+    del xr_, ref, y
+
+    # the lane-padded real layout: the padded round trip equals the narrow
+    # one, zeros above n/2; the kernels held against their plain versions
+    # at these planes; the padding copy priced as padded minus narrow ms
+    for shape in PADDED_SHAPES:
+        n = shape[-1]
+        h = n // 2 + 1
+        xr_ = randn(shape)
+        tag = "padded_" + "x".join(map(str, shape))
+        yr, yi = switch_group(
+            tag, lambda: sk.fft_last_r2c_stockham(xr_, padded=True),
+            {"fft_last_r2c": 1})
+        back = switch_group(
+            tag + "_c2r",
+            lambda: sk.ifft_last_c2r_stockham(yr, yi, n, scale=1.0 / n),
+            {"ifft_last_c2r": 1})
+        nr, ni = sk.fft_last_r2c_stockham(xr_)
+        nback = sk.ifft_last_c2r_stockham(nr, ni, n, scale=1.0 / n)
+        if (tuple(yr.shape) != shape or yr[..., h:].any() or yi[..., h:].any()
+                or not torch.equal(yr[..., :h], nr)
+                or not torch.equal(yi[..., :h], ni)
+                or not torch.equal(back, nback)):
+            raise AssertionError(f"{tag}: padded layout differs from narrow")
+        rows2 = xr_.reshape(-1, n)
+        e_r2c = dev_rel(torch.complex(nr, ni).reshape(-1, h), torch.complex(
+            *sk.fft_last_r2c_plain(rows2)))
+        e_c2r = dev_rel(nback.reshape(-1, n), sk.ifft_last_c2r_plain(
+            nr.reshape(-1, h), ni.reshape(-1, h), n, False, 1.0 / n))
+        e_ref = dev_rel(torch.complex(nr, ni), torch.fft.rfft(xr_))
+        e_back = dev_rel(back, xr_)
+        if not max(e_r2c, e_c2r, e_ref, e_back) <= tolerance(n):
+            raise AssertionError(f"{tag}: vs plain {e_r2c} {e_c2r}, vs "
+                                 f"rfft {e_ref}, round trip {e_back}")
+        switch_rows.append({
+            "group": tag, "shape": list(shape), "r2c_vs_plain": e_r2c,
+            "c2r_vs_plain": e_c2r, "rel_err_vs_torch_fft": e_ref,
+            "roundtrip_err": e_back, "tolerance": tolerance(n),
+            "r2c_padded_ms": timed(
+                lambda: sk.fft_last_r2c_stockham(xr_, padded=True)),
+            "r2c_narrow_ms": timed(lambda: sk.fft_last_r2c_stockham(xr_)),
+            "c2r_padded_ms": timed(
+                lambda: sk.ifft_last_c2r_stockham(yr, yi, n)),
+            "c2r_narrow_ms": timed(
+                lambda: sk.ifft_last_c2r_stockham(nr, ni, n))})
+        print(f"{tag}: {switch_rows[-1]}", flush=True)
+        del xr_, yr, yi, back, nr, ni, nback, rows2
+        torch.cuda.empty_cache()
+
+    # the plan log in a child process under REGENT_FFT_LOG=2
+    code = ("import regent_fft_tpu_torch as rt\n"
+            "rt.make_plan((512, 512, 512))\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=dict(os.environ, REGENT_FFT_LOG="2"),
+                       capture_output=True, text=True, timeout=300)
+    want_log = ["[regent_fft_tpu_torch INFO] make_plan: Plan(c2c, "
+                "shape=(512, 512, 512)", "[regent_fft_tpu_torch DEBUG] "
+                "schedule:", "(axis 1: kernel-fused2(512, 512))"]
+    if r.returncode or not all(w in r.stderr for w in want_log):
+        raise AssertionError(f"REGENT_FFT_LOG=2 child: rc {r.returncode}, "
+                             f"stderr {r.stderr[-3000:]}")
+    print(f"REGENT_FFT_LOG=2 child ({time.perf_counter() - t0:.2f} s): "
+          + " | ".join(ln for ln in r.stderr.splitlines()
+                       if "regent_fft_tpu_torch" in ln))
+    print(json.dumps({"switches": switch_rows}))
+    print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
+    phase("17 (the JAX plan's user switches)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

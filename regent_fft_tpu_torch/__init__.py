@@ -12,7 +12,12 @@ middle axes, the fused trailing pair, the axis-0 pass, the gap-fused pass
 behind ``REGENT_FFT_GAP_FUSED``), the real row-pair kernels, the four-step
 last axis (n = 4096..2M), the leading-axis four-step and slab-ring routes
 (``axis0_impl``/``f2_impl``), and under ``backend="pallas"`` the
-matmul-form kernels.  Around the plans: the reference's typed interface
+matmul-form kernels.  A plan reads the JAX plan's environment switches
+once as it is made (``plan.Switches``: ``REGENT_FFT_GAP_FUSED``,
+``REGENT_FFT_AXIS0_IMPL``, ``REGENT_FFT_F2_IMPL``,
+``REGENT_FFT_DMA_MIN_POST``, ``REGENT_FFT_R2C_1D``,
+``REGENT_FFT_MXU_IMPL``); ``REGENT_FFT_LOG`` sets the plan log's level and
+``REGENT_FFT_NATIVE=0`` turns the native planner off.  Around the plans: the reference's typed interface
 (``generate_fft_interface``), guru and ``plan_many`` plans over flat
 buffers, the shift and frequency helpers.  On the plans and kernels: the
 eleven FFTW real-to-real kinds (DCT/DST types 1-4, DHT, halfcomplex;

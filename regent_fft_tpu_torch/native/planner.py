@@ -5,9 +5,9 @@ one, built with ``$CXX`` (default ``g++``) at first use into
 ``build/regent_fft_tpu_torch/libplanner-<platform>-<hash>.so``, the hash
 covering the source and the flags, as ``ops/_build.py`` builds the CUDA
 kernels; nothing builds at import.  Where no compiler is found or the
-build fails, :func:`load` returns None and every entry returns None (the
-callers in ``ops/factor.py``, ``utils/measure.py`` and ``Plan.cost`` fall
-back as the JAX package's do).
+build fails, or under ``REGENT_FFT_NATIVE=0``, :func:`load` returns None
+and every entry returns None (the callers in ``ops/factor.py``,
+``utils/measure.py`` and ``Plan.cost`` fall back as the JAX package's do).
 """
 from __future__ import annotations
 
@@ -55,8 +55,12 @@ def _build(so: Path) -> Optional[str]:
 
 def load() -> Optional[ctypes.CDLL]:
     """The bound library, building it first if its hash is new; None when
-    it cannot be built.  Counterpart: ``native/planner.py:53``."""
+    it cannot be built or ``REGENT_FFT_NATIVE=0`` is set (read at each
+    call), where the callers take the Python fallback.
+    Counterpart: ``native/planner.py:53``."""
     global _lib, _build_err
+    if os.environ.get("REGENT_FFT_NATIVE", "1") == "0":
+        return None
     with _lib_lock:
         if _lib is not None:
             return _lib

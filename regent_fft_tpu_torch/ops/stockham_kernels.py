@@ -54,17 +54,22 @@ no ``REGENT_FFT_TAIL_PREC``/``REGENT_FFT_A0FS_PREC`` switch: that meets the
 bound of every scheme the JAX kernel offers.
 
 The plain versions follow the JAX tile bodies that ``_tile_impl`` (:643)
-picks by block I/O.  f32 blocks take ``_stockham_tile`` (:709): radix-4
-head stages with the ``_packed_tables`` twiddles, then one dense mt-point
-DFT product.  bf16 blocks (complex32) take ``_direct_tile`` (:614, one dense
-DFT_n product) for n <= 512, ``_mxu_tile_tw`` (:566, the twiddle-folded
-four-step) for n = 1024 and 2048, and ``_stockham_tile`` for every other
-length; the plain versions run them on the bf16 input cast to f32 and
-round the scaled output to bf16 once.  The gap-fused pass runs
+picks by block I/O and by ``REGENT_FFT_MXU_IMPL`` (:632; :func:`tile_impl`).
+f32 blocks take ``_stockham_tile`` (:709): radix-4 head stages with the
+``_packed_tables`` twiddles, then one dense mt-point DFT product.  bf16
+blocks (complex32) at a length ``mxu_tile_supported`` admits take
+``_direct_tile`` (:614, one dense DFT_n product) for n <= 512 under
+``direct`` (the default), ``_mxu_tile`` (:452, the four-step in 3M
+products) under ``fourstep``, ``_mxu_tile_fs4m`` (:497, the same with the
+4M shared-rhs fold) under ``fs4m``, and ``_mxu_tile_tw`` (:566, the
+twiddle-folded four-step) otherwise; every other bf16 length takes
+``_stockham_tile``.  The plain versions run them on the bf16 input cast
+to f32 and round the scaled output to bf16 once.  The gap-fused pass runs
 ``_stockham_tile`` on both block types.  Every product is ``torch.matmul``
 at full f32.  The kernels compute the same DFT with FFMA butterflies all
-the way down, for both block types (see the source notes in
-``csrc/stockham.cu``), from their own float64-generated tables
+the way down, for both block types and every ``REGENT_FFT_MXU_IMPL`` (see
+the source notes in ``csrc/stockham.cu``), from their own
+float64-generated tables
 (:func:`_stage_tables`) of their stage lists: :func:`fused2_stages` for
 the cluster kernel of ``fft_fused2``, :func:`last_stages` for the
 register-resident rows of ``fft_last`` and of the real pair kernels
@@ -80,9 +85,12 @@ a plan's step list is the same in both packages.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -353,6 +361,29 @@ def mxu_tile_supported(n: int) -> bool:
     return (n & (n - 1)) == 0 and n1 >= 8 and n2 >= 8 and n >= 64
 
 
+@functools.lru_cache(maxsize=256)
+def _mxu_tables(n: int, sign: int):
+    """Packed DFT_n1 / DFT_n2 / inter-factor twiddle planes of the
+    four-step tiles: rows [0, n1) = W1, [n1, n1+n2) = W2,
+    [n1+n2, 2*n1+n2) = twiddle(k1, j2); width max(n1, n2).
+    Counterpart: ``pallas_stockham.py:431`` (bit-identical)."""
+    n1, n2 = _mxu_split(n)
+    w = max(n1, n2)
+    k1 = np.arange(n1)
+    k2 = np.arange(n2)
+    th1 = 2.0 * np.pi * float(sign) * np.outer(k1, k1) / n1
+    th2 = 2.0 * np.pi * float(sign) * np.outer(k2, k2) / n2
+    tht = 2.0 * np.pi * float(sign) * np.outer(k1, k2) / n
+
+    def pad(a):
+        return np.pad(a, ((0, 0), (0, w - a.shape[1])))
+    wr = np.concatenate([pad(np.cos(th1)), pad(np.cos(th2)),
+                         pad(np.cos(tht))]).astype(np.float32)
+    wi = np.concatenate([pad(np.sin(th1)), pad(np.sin(th2)),
+                         pad(np.sin(tht))]).astype(np.float32)
+    return wr, wi
+
+
 @functools.lru_cache(maxsize=64)
 def _mxu_tw_tables(n: int, sign: int):
     """Packed planes of the twiddle-folded four-step tile: rows [0, n1) =
@@ -390,14 +421,48 @@ def _direct_tables(n: int, sign: int):
     return np.cos(th).astype(np.float32), np.sin(th).astype(np.float32)
 
 
+# The bf16 tile body a plan names (``Plan.switches.mxu_impl``) while its
+# steps run; unset, :func:`mxu_impl` reads the environment.
+_MXU_IMPL: contextvars.ContextVar = contextvars.ContextVar("mxu_impl",
+                                                          default=None)
+
+
+def mxu_impl() -> str:
+    """The ``REGENT_FFT_MXU_IMPL`` in force: the value of the innermost
+    :func:`mxu_impl_scope`, else the environment's, default "direct".
+    Counterpart: ``pallas_stockham.py:632`` (``_mxu_impl``)."""
+    impl = _MXU_IMPL.get()
+    return impl if impl is not None else os.environ.get(
+        "REGENT_FFT_MXU_IMPL", "direct")
+
+
+@contextlib.contextmanager
+def mxu_impl_scope(impl: Optional[str]):
+    """Run the plain bf16 bodies under ``impl`` (None: the environment's)
+    within the block, in this thread only."""
+    token = _MXU_IMPL.set(impl)
+    try:
+        yield
+    finally:
+        _MXU_IMPL.reset(token)
+
+
 def tile_impl(io: str, n: int) -> str:
     """The JAX tile body for block I/O ``io`` ("f32" or "bf16") and length
-    n, by name: "direct_tile" (bf16, n <= 512), "mxu_tile_tw" (bf16 above)
-    or "stockham_tile".  Counterpart: ``pallas_stockham.py:643`` with
-    ``REGENT_FFT_MXU_IMPL`` at its default; the port does not read that
-    knob."""
+    n, by name: for bf16 blocks where ``mxu_tile_supported(n)``,
+    "direct_tile" (:func:`mxu_impl` "direct" and n <= 512), "mxu_tile_fs4m"
+    ("fs4m"), "mxu_tile" ("fourstep") or "mxu_tile_tw" (any other value);
+    "stockham_tile" for every other case.
+    Counterpart: ``pallas_stockham.py:643`` (``_tile_impl``)."""
     if io == "bf16" and mxu_tile_supported(n):
-        return "direct_tile" if n <= 512 else "mxu_tile_tw"
+        impl = mxu_impl()
+        if impl == "direct" and n <= 512:
+            return "direct_tile"
+        if impl == "fs4m":
+            return "mxu_tile_fs4m"
+        if impl == "fourstep":
+            return "mxu_tile"
+        return "mxu_tile_tw"
     return "stockham_tile"
 
 
@@ -495,7 +560,66 @@ def _mxu_tile_tw_plain(xr, xi, n: int, sign: int) -> Pair:
     return dr.reshape(n, v), di.reshape(n, v)
 
 
+def _mxu_tile_plain(xr, xi, n: int, sign: int) -> Pair:
+    """The four-step over axis 0 of (n, V) f32 planes in 3M products: a
+    DFT_n1 product along j1, the inter-factor twiddle, a DFT_n2 product
+    along j2 (the middle axis), then the (k1, k2) -> (k2, k1) order.
+    Counterpart: ``pallas_stockham.py:452`` (``_mxu_tile``)."""
+    n1, n2 = _mxu_split(n)
+    v = xr.shape[-1]
+    wr_all, wi_all = (torch.from_numpy(t).to(xr.device)
+                      for t in _mxu_tables(n, sign))
+    w1r, w1i = wr_all[:n1, :n1], wi_all[:n1, :n1]
+    w2r, w2i = wr_all[n1:n1 + n2, :n2], wi_all[n1:n1 + n2, :n2]
+    twr = wr_all[n1 + n2:, :n2, None]
+    twi = wi_all[n1 + n2:, :n2, None]
+
+    def cdot(mr, mi, ar, ai):
+        t1 = mr @ ar
+        t2 = mi @ ai
+        t3 = (mr + mi) @ (ar + ai)
+        return t1 - t2, t3 - t1 - t2
+
+    br, bi = cdot(w1r, w1i, xr.reshape(n1, n2 * v), xi.reshape(n1, n2 * v))
+    br, bi = br.reshape(n1, n2, v), bi.reshape(n1, n2, v)   # (k1, j2, v)
+    cr = br * twr - bi * twi
+    ci = br * twi + bi * twr
+    dr, di = cdot(w2r, w2i, cr, ci)                         # (k1, k2, v)
+    return (dr.transpose(0, 1).reshape(n, v),
+            di.transpose(0, 1).reshape(n, v))
+
+
+def _mxu_tile_fs4m_plain(xr, xi, n: int, sign: int) -> Pair:
+    """:func:`_mxu_tile_plain` with each complex product in the 4M
+    shared-rhs fold: lhs ``[M_r | -M_i]`` and ``[M_i | M_r]`` against one
+    rhs ``[v_r; v_i]`` stacked along the contracted axis.
+    Counterpart: ``pallas_stockham.py:497`` (``_mxu_tile_fs4m``)."""
+    n1, n2 = _mxu_split(n)
+    v = xr.shape[-1]
+    wr_all, wi_all = (torch.from_numpy(t).to(xr.device)
+                      for t in _mxu_tables(n, sign))
+    w1r, w1i = wr_all[:n1, :n1], wi_all[:n1, :n1]
+    w2r, w2i = wr_all[n1:n1 + n2, :n2], wi_all[n1:n1 + n2, :n2]
+    twr = wr_all[n1 + n2:, :n2, None]
+    twi = wi_all[n1 + n2:, :n2, None]
+    l1r = torch.cat([w1r, -w1i], 1)                   # (n1, 2 n1)
+    l1i = torch.cat([w1i, w1r], 1)
+    l2r = torch.cat([w2r, -w2i], 1)                   # (n2, 2 n2)
+    l2i = torch.cat([w2i, w2r], 1)
+    acat = torch.cat([xr.reshape(n1, n2 * v), xi.reshape(n1, n2 * v)], 0)
+    br = (l1r @ acat).reshape(n1, n2, v)              # (k1, j2, v)
+    bi = (l1i @ acat).reshape(n1, n2, v)
+    cr = br * twr - bi * twi
+    ci = br * twi + bi * twr
+    ccat = torch.cat([cr, ci], 1)                     # (k1, 2 n2, v)
+    dr = (l2r @ ccat).transpose(0, 1)                 # (k2, k1, v)
+    di = (l2i @ ccat).transpose(0, 1)
+    return dr.reshape(n, v), di.reshape(n, v)
+
+
 _TILES = {"direct_tile": _direct_tile_plain,
+          "mxu_tile": _mxu_tile_plain,
+          "mxu_tile_fs4m": _mxu_tile_fs4m_plain,
           "mxu_tile_tw": _mxu_tile_tw_plain,
           "stockham_tile": _stockham_tile_plain}
 
@@ -1300,11 +1424,12 @@ def fft_last_r2c_stockham(x, padded: bool = False, packed: bool = False,
                           scale: float = 1.0) -> Pair:
     """R2C along the last axis of an N-D real f32 array in one kernel pass.
 
-    Returns the split (..., n/2+1) half spectrum, or with ``packed`` the
-    (..., n/2) layout whose bin 0 carries the real bin n/2 in its
-    imaginary slot.  The JAX package's lane-padded (..., n) layout
-    (``padded``) only keeps later TPU passes lane-aligned; the port's steps
-    take the narrow planes, so it raises here.
+    Returns the split (..., n/2+1) half spectrum; with ``padded`` the
+    lane-padded (..., n) planes, bins 0..n/2 and exact zeros above (the
+    wrapper copies the kernel's narrow planes into zeroed ones); or with
+    ``packed``
+    (which wins over ``padded``, as in the JAX package) the (..., n/2)
+    layout whose bin 0 carries the real bin n/2 in its imaginary slot.
     Counterpart: ``pallas_stockham.py:2638``.
     """
     shape = tuple(x.shape)
@@ -1312,11 +1437,12 @@ def fft_last_r2c_stockham(x, padded: bool = False, packed: bool = False,
     if not r2c_last_supported(n):
         raise ValueError(f"kernel r2c path needs even power-of-two n <= "
                          f"{MAX_REAL_N}, got {n}")
-    if padded:
-        raise NotImplementedError(
-            "the lane-padded r2c layout is a TPU layout the PyTorch port "
-            "leaves out (ROADMAP); use the narrow or packed layout")
     yr, yi = fft_last_r2c(x.reshape(-1, n), packed, float(scale))
+    if padded and not packed:
+        planes = yr.new_zeros((2,) + yr.shape[:-1] + (n,))
+        planes[0, :, :yr.shape[-1]] = yr
+        planes[1, :, :yi.shape[-1]] = yi
+        yr, yi = planes
     out = shape[:-1] + (yr.shape[-1],)
     return yr.reshape(out), yi.reshape(out)
 
@@ -1324,17 +1450,22 @@ def fft_last_r2c_stockham(x, padded: bool = False, packed: bool = False,
 def ifft_last_c2r_stockham(xr, xi, n: int, packed: bool = False,
                            scale: float = 1.0) -> torch.Tensor:
     """n times the inverse of :func:`fft_last_r2c_stockham`: split
-    (..., n/2+1) or packed (..., n/2) planes -> (..., n) real, in one
-    kernel pass.  Counterpart: ``pallas_stockham.py:2690``.
+    (..., n/2+1) planes, lane-padded (..., n) planes (the bins above n/2
+    are ignored; the wrapper copies out the n/2+1 it reads) or, with
+    ``packed``, (..., n/2) planes -> (..., n) real, in one kernel pass.
+    Counterpart: ``pallas_stockham.py:2690``.
     """
     if not r2c_last_supported(n):
         raise ValueError(f"kernel c2r path needs even power-of-two n <= "
                          f"{MAX_REAL_N}, got {n}")
     shape = tuple(xr.shape)
     w = n // 2 if packed else n // 2 + 1
-    if shape[-1] != w:
+    if shape[-1] != w and (packed or shape[-1] != n):
         raise ValueError(f"c2r of n={n} takes {w} bins "
-                         f"({'packed' if packed else 'narrow'}), got {shape}")
+                         f"{'(packed)' if packed else f'or {n} (padded)'}, "
+                         f"got {shape}")
+    if shape[-1] != w:
+        xr, xi = xr[..., :w].contiguous(), xi[..., :w].contiguous()
     y = ifft_last_c2r(xr.reshape(-1, w), xi.reshape(-1, w), n, packed,
                       float(scale))
     return y.reshape(shape[:-1] + (n,))

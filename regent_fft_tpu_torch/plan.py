@@ -17,9 +17,8 @@ plan's device:
   over whole planes (``fused2_ring``, ``fft_axes2_ring``);
 * ``stockham_gap`` one kernel pass over axes -3 and -1
   (``fft_axes_gap_stockham``), taken as in the JAX package only when
-  ``REGENT_FFT_GAP_FUSED=1`` is set as the plan is made (the plan cache
-  keys on it, and ``inverse()`` keeps its forward plan's route); the mid
-  axis follows as a ``stockham`` step;
+  ``REGENT_FFT_GAP_FUSED=1`` is set as the plan is made (:class:`Switches`);
+  the mid axis follows as a ``stockham`` step;
 * ``stockham4`` the four-step last axis, n = 4096..2M
   (``fft_last_four_step``: the twiddle column pass, the last-axis pass,
   the sub-axis swap);
@@ -74,9 +73,11 @@ in ``_BACKEND_WISDOM``/``_PATIENT_WISDOM``/``_EXHAUSTIVE_WISDOM``, keyed
 with the plan's device type as the schedule overrides of
 ``ops/factor.py`` are (``utils/wisdom.py`` exports them).
 
-``REGENT_FFT_GAP_FUSED`` is the one environment switch the plans read (in
-:func:`make_plan`): it is the JAX package's only way to the gap-fused
-pass.
+A plan reads the JAX plan's user switches once, as it is made
+(:class:`Switches`): ``REGENT_FFT_GAP_FUSED``, ``REGENT_FFT_AXIS0_IMPL``,
+``REGENT_FFT_F2_IMPL``, ``REGENT_FFT_DMA_MIN_POST``, ``REGENT_FFT_R2C_1D``
+and ``REGENT_FFT_MXU_IMPL``.  The plan cache keys on them and
+``inverse()`` keeps them.
 """
 from __future__ import annotations
 
@@ -97,6 +98,9 @@ from .ops import pallas_fft as _pf
 from .ops import real as _real
 from .ops import stockham as _stockham
 from .ops import stockham_kernels as _sk
+
+AXIS0_IMPLS = ("auto", "fourstep", "dma", "grid")
+F2_IMPLS = ("auto", "grid", "ring", "off")    # off = unfused pair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,11 +159,11 @@ class PlanSpec:
         if self.planner not in ("estimate", "model", "measure", "patient",
                                 "exhaustive"):
             raise ValueError(f"unknown planner {self.planner!r}")
-        if self.axis0_impl not in ("auto", "fourstep", "dma", "grid"):
-            raise ValueError(f"axis0_impl must be auto|fourstep|dma|grid, "
+        if self.axis0_impl not in AXIS0_IMPLS:
+            raise ValueError(f"axis0_impl must be {'|'.join(AXIS0_IMPLS)}, "
                              f"got {self.axis0_impl!r}")
-        if self.f2_impl not in ("auto", "grid", "ring", "off"):
-            raise ValueError(f"f2_impl must be auto|grid|ring|off, "
+        if self.f2_impl not in F2_IMPLS:
+            raise ValueError(f"f2_impl must be {'|'.join(F2_IMPLS)}, "
                              f"got {self.f2_impl!r}")
         if self.max_radix < 2:
             raise ValueError(f"max_radix must be >= 2, got {self.max_radix}")
@@ -195,10 +199,6 @@ def spec_from_jax(obj, device: str = "cuda") -> PlanSpec:
         donate=obj.donate, planner=obj.planner, axis0_impl=obj.axis0_impl,
         f2_impl=obj.f2_impl, xla_direct_max=obj.xla_direct_max,
         packed_layout=obj.packed_layout, device=device)
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is {item} of the PyTorch port")
 
 
 # Measured winners, each keyed by _backend_key(spec): the backend
@@ -364,39 +364,93 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
     return steps
 
 
-# The JAX package's REGENT_FFT_DMA_MIN_POST default (plan.py:467); the port
-# reads no environment knob but REGENT_FFT_GAP_FUSED (make_plan).
+# The default of REGENT_FFT_DMA_MIN_POST (plan.py:467): the least trailing
+# extent of a leading axis that takes the four-step or slab-ring route.
 DMA_MIN_POST = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class Switches:
+    """The JAX plan's user switches, read from the environment once as a
+    plan is made (:meth:`from_env`); the plan cache keys on them and
+    ``inverse()`` keeps them.  The defaults are those of unset variables.
+
+    * ``gap_fused``: ``REGENT_FFT_GAP_FUSED=1``, the gap-fused pass
+      (plan.py:344);
+    * ``axis0_impl``, ``f2_impl``: ``REGENT_FFT_AXIS0_IMPL`` and
+      ``REGENT_FFT_F2_IMPL``, which stand in for the spec's field where
+      it is "auto" (plan.py:470-473, 516-518); read as the JAX plan reads
+      them, at the step's route only, so ``f2_impl="off"`` here keeps the
+      pair fused on the grid route (the spec's "off" unfuses it);
+    * ``dma_min_post``: ``REGENT_FFT_DMA_MIN_POST`` (plan.py:467);
+    * ``r2c_half``: ``REGENT_FFT_R2C_1D=half``, the half-length route for
+      an R2C last axis (plan.py:652-655);
+    * ``mxu_impl``: ``REGENT_FFT_MXU_IMPL``, the plain bf16 tile body
+      (``stockham_kernels.tile_impl``); on the card the bf16 kernels'
+      FFMA tile stands in for every body.
+    """
+
+    gap_fused: bool = False
+    axis0_impl: str = "auto"
+    f2_impl: str = "auto"
+    dma_min_post: int = DMA_MIN_POST
+    r2c_half: bool = False
+    mxu_impl: str = "direct"
+
+    def __post_init__(self):
+        if self.axis0_impl not in AXIS0_IMPLS:
+            raise ValueError(f"REGENT_FFT_AXIS0_IMPL must be "
+                             f"{'|'.join(AXIS0_IMPLS)}, got "
+                             f"{self.axis0_impl!r}")
+        if self.f2_impl not in F2_IMPLS:
+            raise ValueError(f"REGENT_FFT_F2_IMPL must be "
+                             f"{'|'.join(F2_IMPLS)}, got {self.f2_impl!r}")
+
+    @classmethod
+    def from_env(cls) -> "Switches":
+        env = os.environ.get
+        return cls(gap_fused=env("REGENT_FFT_GAP_FUSED") == "1",
+                   axis0_impl=env("REGENT_FFT_AXIS0_IMPL", "auto"),
+                   f2_impl=env("REGENT_FFT_F2_IMPL", "auto"),
+                   dma_min_post=int(env("REGENT_FFT_DMA_MIN_POST",
+                                        DMA_MIN_POST)),
+                   r2c_half=env("REGENT_FFT_R2C_1D") == "half",
+                   mxu_impl=env("REGENT_FFT_MXU_IMPL", "direct"))
+
 
 # Step kinds that end in a kernel write, so the norm scale can ride it.
 KERNEL_STEPS = ("stockham", "stockham2", "stockham4", "fourstep_ring",
                 "dma_ring", "fused2_ring", "stockham_gap")
 
 
-def route_steps(spec: PlanSpec, steps, shape):
+def route_steps(spec: PlanSpec, steps, shape, switches: Switches):
     """The kernel route of each butterfly step, on the planes of ``shape``
     the steps transform.  Counterpart: the route choice inside
-    ``regent_fft_tpu/plan.py:459-532`` for an explicit impl: a non-last
-    ``stockham`` axis becomes ``fourstep_ring`` when
-    ``axis0_impl="fourstep"`` and ``dma_ring`` when ``axis0_impl="dma"``
-    (each when post >= DMA_MIN_POST and its gate holds), a ``stockham2``
-    pair becomes ``fused2_ring`` when ``f2_impl="ring"`` and
-    ``fused2_ring_supported``.  The JAX package takes these routes only on
-    the TPU and also under "auto"; the port takes them wherever they are
-    asked for (the plain versions on the CPU, the kernels on the card) and
-    keeps the butterfly and grid routes under "auto"."""
+    ``regent_fft_tpu/plan.py:459-532`` for an explicit impl, the spec's
+    or, where the spec says "auto", the switch's: a non-last ``stockham``
+    axis becomes ``fourstep_ring`` when the impl is "fourstep" and
+    ``dma_ring`` when it is "dma" (each when post >= the switches'
+    ``dma_min_post`` and its gate holds), a ``stockham2`` pair becomes
+    ``fused2_ring`` when the impl is "ring" and ``fused2_ring_supported``.
+    The JAX package takes these routes only on the TPU and also under
+    "auto"; the port takes them wherever they are asked for (the plain
+    versions on the CPU, the kernels on the card) and keeps the butterfly
+    and grid routes under "auto"."""
+    a0 = (spec.axis0_impl if spec.axis0_impl != "auto"
+          else switches.axis0_impl)
+    f2 = spec.f2_impl if spec.f2_impl != "auto" else switches.f2_impl
     out = []
     for kind_, a, arg in steps:
         if kind_ == "stockham" and a != len(shape) - 1:
             post = int(np.prod(shape[a + 1:]))
-            big = post >= DMA_MIN_POST
-            if (spec.axis0_impl == "fourstep" and big
+            big = post >= switches.dma_min_post
+            if (a0 == "fourstep" and big
                     and _sk.axis0_fourstep_supported(arg, post, shape[-1])):
                 kind_ = "fourstep_ring"
-            elif (spec.axis0_impl == "dma" and big
+            elif (a0 == "dma" and big
                     and _sk.axis0_dma_supported(arg, post)):
                 kind_ = "dma_ring"
-        elif (kind_ == "stockham2" and spec.f2_impl == "ring"
+        elif (kind_ == "stockham2" and f2 == "ring"
                 and _sk.fused2_ring_supported(*arg)):
             kind_ = "fused2_ring"
         out.append((kind_, a, arg))
@@ -577,20 +631,22 @@ class RealRoute(NamedTuple):
     note: str              # describe()'s real-axis note
 
 
-def _real_route(spec: PlanSpec, backend: str, steps,
-                device=None) -> RealRoute:
+def _real_route(spec: PlanSpec, backend: str, steps, device=None,
+                r2c_half: bool = False) -> RealRoute:
     """The JAX package's choice for the real axis (plan.py:619-739): the
     row-pair kernels where ``r2c_last_supported``, except that a 1-D C2R
     plan prefers the half-length reduction on the last-axis kernel (as
-    does a 1-D R2C plan the row-pair kernel cannot take); else the
-    reduction on the dense pipeline, built for the plan's ``device``."""
+    does a 1-D R2C plan the row-pair kernel cannot take, and every R2C
+    plan under ``r2c_half``, ``REGENT_FFT_R2C_1D=half``, which leaves a
+    multi-axis R2C plan the dense reduction, as in the JAX package); else
+    the reduction on the dense pipeline, built for the plan's ``device``."""
     r2c = spec.kind == Kind.R2C
     axis = spec.axes[-1]
     n = spec.shape[axis]
     other = [a for a in spec.axes if a != axis]
     last = (backend in ("stockham", "hybrid") and spec.dtype != "complex128"
             and axis == len(spec.shape) - 1)
-    kernel = last and _sk.r2c_last_supported(n)
+    kernel = last and _sk.r2c_last_supported(n) and not (r2c and r2c_half)
     half = (not other and last and _sk.r2c_half_supported(n)
             and not (r2c and kernel))
     kernel = kernel and not half
@@ -670,8 +726,8 @@ class Plan:
     complex32 or complex128.
 
     Create with :func:`make_plan`.  Reusable for any input of the planned
-    shape.  ``gap_fused`` is the ``REGENT_FFT_GAP_FUSED`` switch as
-    :func:`make_plan` read it.  With ``race`` (the default) a
+    shape.  ``switches`` are the environment switches as :func:`make_plan`
+    read them (read here when None).  With ``race`` (the default) a
     "measure", "patient" or "exhaustive" planner races its candidates on
     the plan's device first (:meth:`_race`; the results in
     ``measurements``); ``race=False`` builds the steps of ``spec`` as it
@@ -679,11 +735,11 @@ class Plan:
     Counterpart: ``regent_fft_tpu/plan.py:790``.
     """
 
-    def __init__(self, spec: PlanSpec, gap_fused: bool = False,
+    def __init__(self, spec: PlanSpec, switches: Optional[Switches] = None,
                  race: bool = True):
         check_dtype(spec.dtype)
         self.spec = spec
-        self.gap_fused = gap_fused
+        self.switches = Switches.from_env() if switches is None else switches
         self.device = resolve_device(spec.device)
         self.measurements = {}
         self.knobs = {}
@@ -694,14 +750,16 @@ class Plan:
         self.backend = backend
         axes = spec.axes if spec.kind == Kind.C2C else spec.axes[:-1]
         steps = axis_steps(exec_spec, backend, sorted(axes, reverse=True),
-                           gap_fused, self.device)
+                           self.gap_fused, self.device)
         self.real = (None if spec.kind == Kind.C2C
-                     else _real_route(exec_spec, backend, steps, self.device))
+                     else _real_route(exec_spec, backend, steps, self.device,
+                                      self.switches.r2c_half))
         step_shape = list(spec.shape)      # the planes the steps transform
         if self.real is not None:
             r = self.real
             step_shape[r.axis] = r.n // 2 if r.packed else r.n // 2 + 1
-        self.steps = route_steps(exec_spec, steps, step_shape)
+        self.steps = route_steps(exec_spec, steps, step_shape,
+                                 self.switches)
         self.cdtype = _compute_dtype(spec)
         self.trace_log = {i: _step_name(exec_spec, k, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
@@ -715,6 +773,11 @@ class Plan:
         self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
         self._destroyed = False
 
+    @property
+    def gap_fused(self) -> bool:
+        """The ``REGENT_FFT_GAP_FUSED`` switch the plan was made under."""
+        return self.switches.gap_fused
+
     def _race(self, spec: PlanSpec) -> PlanSpec:
         """The spec the plan runs, after the races of its planner tier on
         the plan's device (plan.py:802-872 there): "measure" and up race
@@ -727,7 +790,7 @@ class Plan:
         from .utils import measure as _measure
 
         def build(s):
-            return _build_core(s, self.gap_fused)
+            return _build_core(s, self.switches)
         key = _backend_key(spec)
         self.measurements = _measure.measure_plan_sizes(
             spec, deep=spec.planner == "exhaustive")
@@ -910,9 +973,10 @@ class Plan:
 
     # -- execution -------------------------------------------------------
     def _steps(self, xr, xi):
-        return run_steps(self.steps, xr, xi, self.spec.direction,
-                         self.spec.use_3m,
-                         fuse_scale=self.scale if self.fused else 1.0)
+        with _sk.mxu_impl_scope(self.switches.mxu_impl):
+            return run_steps(self.steps, xr, xi, self.spec.direction,
+                             self.spec.use_3m,
+                             fuse_scale=self.scale if self.fused else 1.0)
 
     def execute_split(self, xr: torch.Tensor, xi: torch.Tensor):
         """Run a C2C or C2R plan on contiguous planes of the plan's compute
@@ -996,8 +1060,8 @@ class Plan:
     execute = __call__
 
     def inverse(self) -> "Plan":
-        """Plan for the mathematical inverse of this transform, on the
-        same gap-fused switch as this plan.
+        """Plan for the mathematical inverse of this transform, under the
+        same switches as this plan.
 
         Counterpart: ``regent_fft_tpu/plan.py:1080``.
         """
@@ -1017,20 +1081,20 @@ class Plan:
             d = (Direction.BACKWARD if s.direction == Direction.FORWARD
                  else Direction.FORWARD)
             inv = dataclasses.replace(s, direction=d, norm=inv_norm)
-        return _cached_plan(inv, self.gap_fused)
+        return _cached_plan(inv, self.switches)
 
 
 # ---------------------------------------------------------------------------
 # Plan cache + lifecycle API
 # ---------------------------------------------------------------------------
-_PLAN_CACHE: dict = {}     # (spec, gap_fused) -> Plan
+_PLAN_CACHE: dict = {}     # (spec, switches) -> Plan
 
 
-def _cached_plan(spec: PlanSpec, gap_fused: bool) -> Plan:
-    plan = _PLAN_CACHE.get((spec, gap_fused))
+def _cached_plan(spec: PlanSpec, switches: Switches) -> Plan:
+    plan = _PLAN_CACHE.get((spec, switches))
     if plan is None or plan._destroyed:
-        plan = Plan(spec, gap_fused)
-        _PLAN_CACHE[(spec, gap_fused)] = plan
+        plan = Plan(spec, switches)
+        _PLAN_CACHE[(spec, switches)] = plan
         from .utils.plog import log_plan
         log_plan(plan)
     return plan
@@ -1041,8 +1105,8 @@ def make_plan(spec_or_shape, **kwargs) -> Plan:
 
     ``make_plan(PlanSpec(...))`` or ``make_plan(shape, **fields)``; a shape
     defaults to a forward C2C transform over all axes on ``"cuda"``.  Reads
-    ``REGENT_FFT_GAP_FUSED`` (``"1"`` turns the gap-fused route on), and
-    the cache keys on it.
+    the environment switches (:class:`Switches`), and the cache keys on
+    them.
     Counterpart: ``regent_fft_tpu/plan.py:1125``.
     """
     if isinstance(spec_or_shape, PlanSpec):
@@ -1053,7 +1117,7 @@ def make_plan(spec_or_shape, **kwargs) -> Plan:
         kwargs.setdefault("kind", Kind.C2C)
         kwargs.setdefault("direction", Direction.FORWARD)
         spec = PlanSpec(shape=shape, **kwargs)
-    return _cached_plan(spec, os.environ.get("REGENT_FFT_GAP_FUSED") == "1")
+    return _cached_plan(spec, Switches.from_env())
 
 
 def execute_plan(plan: Plan, x):
@@ -1066,7 +1130,7 @@ def destroy_plan(plan: Plan):
 
     Counterpart: ``regent_fft_tpu/plan.py:1153``.
     """
-    _PLAN_CACHE.pop((plan.spec, plan.gap_fused), None)
+    _PLAN_CACHE.pop((plan.spec, plan.switches), None)
     plan._destroyed = True
 
 
@@ -1080,11 +1144,12 @@ def cached_plans():
     return list(_PLAN_CACHE.values())
 
 
-def _build_core(spec: PlanSpec, gap_fused: bool = False) -> Plan:
-    """The unraced, uncached plan of ``spec`` as it stands: a race's
-    candidate (``utils/measure.py`` times its ``core_fn``).
+def _build_core(spec: PlanSpec, switches: Optional[Switches] = None) -> Plan:
+    """The unraced, uncached plan of ``spec`` as it stands, under
+    ``switches`` (the environment's when None): a race's candidate
+    (``utils/measure.py`` times its ``core_fn``).
     Counterpart: ``regent_fft_tpu/plan.py:296``."""
-    return Plan(spec, gap_fused, race=False)
+    return Plan(spec, switches, race=False)
 
 
 def cleanup():

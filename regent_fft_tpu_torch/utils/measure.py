@@ -48,8 +48,8 @@ REFUSED = (NotImplementedError, ValueError)
 #   take their stage lists from last_stages/cols_stages/fused2_stages,
 #   and the plain tile's TAIL_MT is a constant;
 # * REGENT_FFT_MXU_IMPL: the bf16 tile body; on the card the f32 tile of
-#   the bf16 instances stands in for both bodies, and the plain
-#   versions run the default body;
+#   the bf16 instances stands in for every body (the plain versions run
+#   the body a plan's switch names: plan.Switches);
 # * REGENT_FFT_F2_STRIPS: the strip depth of the grid fused2 body
 #   (pallas_stockham.py:897); fft_fused2 is a cluster kernel with no
 #   strips, and the ring's sub-slab count S is the TPU's

@@ -1,15 +1,33 @@
 """Plan logging (stdlib only).
 
 Counterpart: ``regent_fft_tpu/utils/plog.py``.  Enable with
-``set_log_level(1)`` (plan events) or ``2`` (plus the step list and each
-collective a distributed plan issues).  The port reads no environment
-variable.
+``REGENT_FFT_LOG=1`` (plan events) or ``2`` (plus the step list and each
+collective a distributed plan issues), read once at import, or with
+``set_log_level``.  Records go to stderr as ``[regent_fft_tpu_torch INFO]
+make_plan: ...`` through the logger's own handler; they do not propagate
+to the root logger.
 """
 from __future__ import annotations
 
 import logging
+import os
+import sys
+
 
 logger = logging.getLogger("regent_fft_tpu_torch")
+_handler = logging.StreamHandler(sys.stderr)
+_handler.setFormatter(logging.Formatter("[%(name)s %(levelname)s] %(message)s"))
+logger.addHandler(_handler)
+logger.propagate = False
+
+
+def _init_level():
+    """``REGENT_FFT_LOG`` as the level; a malformed value means 0.
+    Counterpart: ``regent_fft_tpu/utils/plog.py:26``."""
+    try:
+        set_log_level(int(os.environ.get("REGENT_FFT_LOG", "0")))
+    except ValueError:
+        set_log_level(0)
 
 
 def set_log_level(level: int):
@@ -60,3 +78,6 @@ def dump_machine_model() -> str:
     msg = "\n".join(lines)
     logger.info("machine model:\n%s", msg)
     return msg
+
+
+_init_level()

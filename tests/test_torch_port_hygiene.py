@@ -88,7 +88,7 @@ PORT_TESTS = {
     "test_torch_port_distributed.py", "test_torch_port_distributed_uneven.py",
     "test_torch_port_distributed_p8.py",
     "test_torch_port_distributed_real.py",
-    "test_torch_port_distributed_r2r.py"}
+    "test_torch_port_distributed_r2r.py", "test_torch_port_switches.py"}
 # The rank pool of the distributed tests: every rank imports it, so it
 # stands alone like the port.
 POOL = "tests/torch_dist_pool.py"

@@ -278,7 +278,7 @@ def test_measure_race_on_the_card_keeps_the_estimate_route(monkeypatch):
     times = {"xla": 13.75e-3, "hybrid": 2.78e-3}
     built = []
 
-    def fake_core(s, gap_fused=False):
+    def fake_core(s, switches=None):
         built.append(s.backend)
         return types.SimpleNamespace(spec=s)
     monkeypatch.setattr(measure, "measure_plan_sizes",
@@ -287,7 +287,8 @@ def test_measure_race_on_the_card_keeps_the_estimate_route(monkeypatch):
     monkeypatch.setattr(tplan, "_build_core", fake_core)
     monkeypatch.setattr(timing, "time_plan",
                         lambda plan, reps=10, seed=0: times[plan.spec.backend])
-    plan = types.SimpleNamespace(gap_fused=False, measurements={}, knobs={})
+    plan = types.SimpleNamespace(switches=tplan.Switches(), measurements={},
+                                 knobs={})
     raced = tplan.Plan._race(plan, spec)
     assert built == ["xla", "hybrid"]
     assert plan.measurements["backend"] == {"winner": "hybrid",

@@ -243,12 +243,14 @@ def test_reference_dft_and_plan_log(caplog):
     assert rel_l2(reference_dft(x, axes=(1,), sign=+1),
                   np.fft.ifft(x.astype(np.complex128), axis=1) * 32) <= 1e-12
     plog.set_log_level(2)
+    plog.logger.addHandler(caplog.handler)    # the logger does not propagate
     try:
         with caplog.at_level(logging.DEBUG, logger="regent_fft_tpu_torch"):
             rt.clear_plan_cache()
             rt.make_plan((4, 32), device="cpu")
         assert "direct-einsum(n=32)" in caplog.text
     finally:
+        plog.logger.removeHandler(caplog.handler)
         plog.set_log_level(0)
 
 

@@ -128,10 +128,13 @@ def test_real_kernel_wrappers_reject():
         sk.fft_last_r2c_stockham(torch.zeros(4, 2048))    # above MAX_REAL_N
     with pytest.raises(ValueError):
         sk.fft_last_r2c_stockham(torch.zeros(4, 96))      # not a power of two
-    with pytest.raises(NotImplementedError, match="lane-padded"):
-        sk.fft_last_r2c_stockham(torch.zeros(4, 64), padded=True)
     with pytest.raises(ValueError):
-        sk.ifft_last_c2r_stockham(torch.zeros(4, 64), torch.zeros(4, 64), 64)
+        sk.fft_last_r2c_stockham(torch.zeros(4, 2048), padded=True)
+    with pytest.raises(ValueError):     # neither n/2+1 nor n (padded) bins
+        sk.ifft_last_c2r_stockham(torch.zeros(4, 48), torch.zeros(4, 48), 64)
+    with pytest.raises(ValueError):     # the packed layout is n/2 wide
+        sk.ifft_last_c2r_stockham(torch.zeros(4, 64), torch.zeros(4, 64), 64,
+                                  packed=True)
 
 
 @pytest.mark.parametrize("n", [1, 31, 64, 30])
