@@ -1,0 +1,11 @@
+"""kernel_ms: device ms per step of the port's own kernels (the class
+rule of ``kernel_class``), from the traced window, the mean over ranks."""
+from fftbench import kernel_class, records
+
+
+def read(recs):
+    if not records.traced(recs):
+        return None
+    v = records.mean(records.class_ms_per_step(r, (kernel_class.PORT,))
+                     for r in recs)
+    return v if v > 0 else None
