@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import trace as _trace
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "regent_fft_tpu_torch"
@@ -135,13 +137,14 @@ def load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = library_path()
-    if not so.exists():
-        _compile(so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with _trace.span("rft.build"):
+        so = library_path()
+        if not so.exists():
+            _compile(so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     _LIB = lib
     return lib

@@ -211,7 +211,8 @@ def fft_cols_tw(xr, xi, sign: int) -> Pair:
     tw, rad, k = _sk.device_tables(n1, sign, xr.device, _sk.cols_stages)
     _sk._launch("fft_cols_tw", _build.load().fft_cols_tw, xr.device,
                 xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                b, n1, n2, sign, tw.data_ptr(), k, rad)
+                b, n1, n2, sign, tw.data_ptr(), k, rad,
+                nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -235,11 +236,12 @@ def a0fs_stage(stage: str, xr, xi, sign: int, scale: float = 1.0) -> Pair:
     if stage == "a":
         tw, rad, k = _sk.device_tables(r1, sign, xr.device, _sk.cols_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
-                    post, sign, tw.data_ptr(), k, rad)
+                    post, sign, tw.data_ptr(), k, rad, nbytes=4 * xr.nbytes)
     else:
         tw, rad, k = _sk.device_tables(r2, sign, xr.device, _sk.cols_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
-                    post, sign, float(scale), tw.data_ptr(), k, rad)
+                    post, sign, float(scale), tw.data_ptr(), k, rad,
+                    nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -277,11 +279,12 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
                                           _sk.fused2_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n,
                     post, c, sign, float(scale), tw1.data_ptr(), k1, rad1,
-                    tw2.data_ptr(), k2, rad2)
+                    tw2.data_ptr(), k2, rad2, nbytes=4 * xr.nbytes)
     else:
         tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device, _sk.cols_stages)
         _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
-                    sign, float(scale), tw1.data_ptr(), k1, rad1)
+                    sign, float(scale), tw1.data_ptr(), k1, rad1,
+                    nbytes=4 * xr.nbytes)
     return yr, yi
 
 

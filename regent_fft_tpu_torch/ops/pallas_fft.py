@@ -266,7 +266,7 @@ def fft_mm1(xr, xi, n: int, sign: int) -> Pair:
     _sk._launch("fft_mm1", _build.load().fft_mm1, xr.device,
                 xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
                 b, n, geo.rows, geo.buffers, geo.ctas, geo.smem,
-                roots.data_ptr())
+                roots.data_ptr(), nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -293,7 +293,7 @@ def fft_mm2(xr, xi, n1: int, n2: int, sign: int) -> Pair:
     _sk._launch("fft_mm2", _build.load().fft_mm2, xr.device,
                 xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
                 b, n1, n2, geo.rows, geo.buffers, geo.ctas, geo.smem,
-                tables.data_ptr())
+                tables.data_ptr(), nbytes=4 * xr.nbytes)
     return yr, yi
 
 

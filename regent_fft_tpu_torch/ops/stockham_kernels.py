@@ -96,6 +96,7 @@ import numpy as np
 import torch
 
 from ..dtypes import Direction
+from ..utils import trace as _trace
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -998,7 +999,8 @@ def device_tables(n: int, sign: int, device: torch.device, stages):
     key = (n, sign, device, rad)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
-        tw = torch.from_numpy(_stage_tables(rad, sign)).to(device)
+        with _trace.span("rft.build"):
+            tw = torch.from_numpy(_stage_tables(rad, sign)).to(device)
         hit = (tw, (ctypes.c_int * len(rad))(*rad), len(rad))
         _DEVICE_TABLES[key] = hit
     return hit
@@ -1022,6 +1024,9 @@ LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
             # the axis-0 pass, and the matmul-form kernels of
             # ops/pallas_fft.py
             "fft_axis0": 0, "fft_mm1": 0, "fft_mm2": 0}
+# Bytes by launch name, the same keys: the planes each launch reads once
+# plus those it writes once, tables not counted.
+LAUNCH_BYTES = dict.fromkeys(LAUNCHES, 0)
 
 # Plane dtypes of the butterfly kernels that take both (all but the real
 # pair and fft_cols_tw), and the suffix of the C entry point (and launch
@@ -1032,6 +1037,7 @@ C2C_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_BYTES[k] = 0
 
 
 def _on_cuda(name: str, *planes, dtypes=(torch.float32,)) -> bool:
@@ -1057,13 +1063,16 @@ def _on_cuda(name: str, *planes, dtypes=(torch.float32,)) -> bool:
     return True
 
 
-def _launch(name: str, fn, device, *args):
+def _launch(name: str, fn, device, *args, nbytes: int):
+    """Launch C entry ``fn`` on ``device``'s current stream and count
+    the launch and its ``nbytes`` (the planes it reads and writes)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
+    LAUNCH_BYTES[name] += nbytes
 
 
 def _c2c_entry(name: str, xr):
@@ -1205,7 +1214,8 @@ def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     tw, rad, k = device_tables(n, sign, xr.device, last_stages)
     _launch(*_c2c_entry("fft_last", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            b, n, sign, scale, tw.data_ptr(), k, rad)
+            b, n, sign, scale, tw.data_ptr(), k, rad,
+            nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -1228,7 +1238,8 @@ def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     tw, rad, k = device_tables(n, sign, xr.device, cols_stages)
     _launch(*_c2c_entry("fft_cols", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            p, n, v, sign, scale, tw.data_ptr(), k, rad)
+            p, n, v, sign, scale, tw.data_ptr(), k, rad,
+            nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -1255,7 +1266,8 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n1, n2, c, sign, scale,
-            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2)
+            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2,
+            nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -1282,7 +1294,8 @@ def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     _launch(*_c2c_entry("fft_gap", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             b, z, y, x, c, sign, scale,
-            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2)
+            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2,
+            nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -1303,7 +1316,8 @@ def fft_axis0(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     tw, rad, k = device_tables(n, sign, xr.device, cols_stages)
     _launch("fft_axis0", _build.load().fft_axis0, xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            n, v, sign, scale, tw.data_ptr(), k, rad)
+            n, v, sign, scale, tw.data_ptr(), k, rad,
+            nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -1325,7 +1339,7 @@ def fft_last_r2c(x, packed: bool = False, scale: float = 1.0) -> Pair:
     tw, rad, k = device_tables(n, -1, x.device, last_stages)
     _launch("fft_last_r2c", _build.load().fft_last_r2c, x.device,
             x.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n, int(packed),
-            scale, tw.data_ptr(), k, rad)
+            scale, tw.data_ptr(), k, rad, nbytes=x.nbytes + 2 * yr.nbytes)
     return yr, yi
 
 
@@ -1346,7 +1360,7 @@ def ifft_last_c2r(xr, xi, n: int, packed: bool = False,
     tw, rad, k = device_tables(n, 1, xr.device, last_stages)
     _launch("ifft_last_c2r", _build.load().ifft_last_c2r, xr.device,
             xr.data_ptr(), xi.data_ptr(), y.data_ptr(), b, n, int(packed),
-            scale, tw.data_ptr(), k, rad)
+            scale, tw.data_ptr(), k, rad, nbytes=2 * xr.nbytes + y.nbytes)
     return y
 
 

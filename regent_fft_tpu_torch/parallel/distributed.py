@@ -47,6 +47,7 @@ host.  The distributed r2r plans are in ``distributed_r2r.py``.
 """
 from __future__ import annotations
 
+import logging
 import math
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
@@ -57,6 +58,8 @@ import torch.distributed as dist
 from ..dtypes import (PLANE_DTYPES, Direction, Kind, Norm, SplitComplex,
                       as_real, as_split, check_dtype, from_split)
 from ..ops import stockham_kernels as _sk
+from ..utils import trace as _trace
+from ..utils.plog import log_collective, logger as _log
 from .mesh import check_backend, make_fft_mesh, make_pencil_mesh, _world
 
 
@@ -98,7 +101,8 @@ class _LocalCore:
         if p is None:
             spec = PlanSpec(shape=shape, axes=self.axes, kind=self.kind,
                             norm=Norm.NONE, **self.fields)
-            p = _build_core(spec)
+            with _trace.span("rft.build"):
+                p = _build_core(spec)
             key = _half_shape(spec) if self.kind == Kind.C2R else shape
             self._plans[key] = p
         return p
@@ -128,11 +132,12 @@ def _norm_scale(n: int, direction: Direction, norm: Norm) -> float:
 
 
 def _apply_scale(xr, xi, scale):
-    """Both planes times the scale rounded to their dtype.
-    Counterpart: ``distributed.py:103``."""
+    """Both planes times the scale rounded to their dtype, in an
+    ``rft.scale`` span.  Counterpart: ``distributed.py:103``."""
     if scale != 1.0:
-        s = float(torch.tensor(scale, dtype=xr.dtype))
-        xr, xi = xr * s, xi * s
+        with _trace.span("rft.scale"):
+            s = float(torch.tensor(scale, dtype=xr.dtype))
+            xr, xi = xr * s, xi * s
     return xr, xi
 
 
@@ -240,7 +245,8 @@ class _Pending:
     def wait(self):
         self.work.wait()
         self.buf = None
-        return self.finish(self.out)
+        with _trace.span("rft.exchange.unpack"):
+            return self.finish(self.out)
 
 
 def _exchange_start(planes, ax: _MeshAxis, split: int, concat: int,
@@ -255,8 +261,11 @@ def _exchange_start(planes, ax: _MeshAxis, split: int, concat: int,
     packing is one straight copy), and so does every received block.  The
     collective is called at every world size, one included.  ``into``:
     planes of this dtype whose storage may hold the result (``donate``).
+    The send-buffer copies run in an ``rft.exchange.pack`` span, the
+    collective in ``rft.exchange.a2a``, the copies out in
+    ``rft.exchange.unpack`` (:meth:`_Pending.wait`); the (p-1)/p of the
+    buffer that leaves the rank is counted in ``exchange_bytes``.
     Counterpart: ``distributed.py:109`` (``_a2a``)."""
-    from ..utils.plog import log_collective
     x0 = planes[0]
     p, n = ax.size, x0.shape[split]
     if n % p:
@@ -264,15 +273,20 @@ def _exchange_start(planes, ax: _MeshAxis, split: int, concat: int,
     m = n // p
     chunk = list(x0.shape)
     chunk[split] = m
-    log_collective(f"all_to_all(split={split}, concat={concat})", ax.name,
-                   x0.shape)
-    buf = x0.new_empty([p, len(planes)] + chunk)
-    for k, t in enumerate(planes):
-        buf[:, k].copy_(t.unflatten(split, (p, m)).movedim(split, 0))
-    if ax.perm is not None:
-        buf = buf[list(ax.perm)]
+    if _log.isEnabledFor(logging.DEBUG):
+        log_collective(f"all_to_all(split={split}, concat={concat})",
+                       ax.name, x0.shape)
+    with _trace.span("rft.exchange.pack"):
+        buf = x0.new_empty([p, len(planes)] + chunk)
+        for k, t in enumerate(planes):
+            buf[:, k].copy_(t.unflatten(split, (p, m)).movedim(split, 0))
+        if ax.perm is not None:
+            buf = buf[list(ax.perm)]
+    _trace.COUNTS["exchange_bytes"] += buf.nbytes * (p - 1) // p
     out = torch.empty_like(buf)
-    work = dist.all_to_all_single(out, buf, group=ax.group, async_op=True)
+    with _trace.span("rft.exchange.a2a"):
+        work = dist.all_to_all_single(out, buf, group=ax.group,
+                                      async_op=True)
     shape = list(chunk)
     shape[concat] *= p
     blocks = shape[:concat] + [p, chunk[concat]] + shape[concat + 1:]
@@ -308,9 +322,11 @@ def _ppermute(x, ax: _MeshAxis, what: str, dest: int, src: int):
     rank holds the same shape).  ``torch.distributed``'s ``send``/``recv``
     refuse the caller's own rank, which the permutation of a one-rank
     world or the middle of an odd one sends to, so it is one
-    ``all_to_all_single`` whose split sizes are zero but for the peer."""
-    from ..utils.plog import log_collective
-    log_collective(f"ppermute({what})", ax.name, x.shape)
+    ``all_to_all_single`` whose split sizes are zero but for the peer;
+    what leaves the rank (nothing where the peer is the rank itself) is
+    counted in ``exchange_bytes``."""
+    if _log.isEnabledFor(logging.DEBUG):
+        log_collective(f"ppermute({what})", ax.name, x.shape)
 
     def grank(pos):
         return pos if ax.perm is None else ax.perm.index(pos)
@@ -318,6 +334,8 @@ def _ppermute(x, ax: _MeshAxis, what: str, dest: int, src: int):
     out = torch.empty_like(flat)
     sizes_in, sizes_out = [0] * ax.size, [0] * ax.size
     sizes_in[grank(dest)] = sizes_out[grank(src)] = flat.numel()
+    if dest != ax.coord:
+        _trace.COUNTS["exchange_bytes"] += flat.nbytes
     dist.all_to_all_single(out, flat, sizes_out, sizes_in, group=ax.group)
     return out.view(x.shape)
 
@@ -344,13 +362,14 @@ def _untangle_packed(yr, yi, loc_axes, sh_axis: int, ax: _MeshAxis):
     along the split axis by :func:`_rev_freq_sharded` (lane 0 only).
     Counterpart: ``distributed.py:152``."""
     from ..plan import _rev_freq
-    zr, zi = yr[..., 0], yi[..., 0]
-    rr = _rev_freq_sharded(_rev_freq(zr, loc_axes), sh_axis, ax)
-    ri = _rev_freq_sharded(_rev_freq(zi, loc_axes), sh_axis, ax)
-    x0r, x0i = 0.5 * (zr + rr), 0.5 * (zi - ri)
-    nqr, nqi = 0.5 * (zi + ri), -0.5 * (zr - rr)
-    return (torch.cat([x0r[..., None], yr[..., 1:], nqr[..., None]], -1),
-            torch.cat([x0i[..., None], yi[..., 1:], nqi[..., None]], -1))
+    with _trace.span("rft.layout.nyquist"):
+        zr, zi = yr[..., 0], yi[..., 0]
+        rr = _rev_freq_sharded(_rev_freq(zr, loc_axes), sh_axis, ax)
+        ri = _rev_freq_sharded(_rev_freq(zi, loc_axes), sh_axis, ax)
+        x0r, x0i = 0.5 * (zr + rr), 0.5 * (zi - ri)
+        nqr, nqi = 0.5 * (zi + ri), -0.5 * (zr - rr)
+        return (torch.cat([x0r[..., None], yr[..., 1:], nqr[..., None]], -1),
+                torch.cat([x0i[..., None], yi[..., 1:], nqi[..., None]], -1))
 
 
 def _tangle_packed(xr, xi, loc_axes, sh_axis: int, ax: _MeshAxis):
@@ -367,11 +386,12 @@ def _tangle_packed(xr, xi, loc_axes, sh_axis: int, ax: _MeshAxis):
         ri = _rev_freq_sharded(_rev_freq(i, loc_axes), sh_axis, ax)
         return 0.5 * (r + rr), 0.5 * (i - ri)
 
-    x0r, x0i = herm(xr[..., 0], xi[..., 0])
-    nqr, nqi = herm(xr[..., m], xi[..., m])
-    pr, pi = xr[..., :m].clone(), xi[..., :m].clone()
-    pr[..., 0] = x0r - nqi
-    pi[..., 0] = x0i + nqr
+    with _trace.span("rft.layout.nyquist"):
+        x0r, x0i = herm(xr[..., 0], xi[..., 0])
+        nqr, nqi = herm(xr[..., m], xi[..., m])
+        pr, pi = xr[..., :m].clone(), xi[..., :m].clone()
+        pr[..., 0] = x0r - nqi
+        pi[..., 0] = x0i + nqr
     return pr, pi
 
 
@@ -381,8 +401,9 @@ def _r2c_rows(x, scale: float = 1.0):
     (``fft_last_r2c``; its plain version on the host).
     Counterpart: ``fft_last_r2c_stockham(packed=True)``."""
     lead, n = x.shape[:-1], x.shape[-1]
-    yr, yi = _sk.fft_last_r2c(x.contiguous().reshape(-1, n), packed=True,
-                              scale=scale)
+    with _trace.span("rft.step.r2c"):
+        yr, yi = _sk.fft_last_r2c(x.contiguous().reshape(-1, n), packed=True,
+                                  scale=scale)
     return yr.view(lead + (n // 2,)), yi.view(lead + (n // 2,))
 
 
@@ -390,9 +411,10 @@ def _c2r_rows(xr, xi, n: int, scale: float = 1.0):
     """n times the inverse of :func:`_r2c_rows`, ``scale`` fused
     (``ifft_last_c2r``).  Counterpart: ``ifft_last_c2r_stockham(packed=True)``."""
     lead, m = xr.shape[:-1], xr.shape[-1]
-    y = _sk.ifft_last_c2r(xr.contiguous().reshape(-1, m),
-                          xi.contiguous().reshape(-1, m), n, packed=True,
-                          scale=scale)
+    with _trace.span("rft.step.c2r"):
+        y = _sk.ifft_last_c2r(xr.contiguous().reshape(-1, m),
+                              xi.contiguous().reshape(-1, m), n, packed=True,
+                              scale=scale)
     return y.view(lead + (n,))
 
 
@@ -535,6 +557,10 @@ class DistributedFFTPlan:
         """Local input planes (``local_in_shape``, :meth:`plane_dtype`, on
         the plan's device) -> local output planes.  With ``donate`` the
         plan may write into the storage of ``xr``/``xi``."""
+        with _trace.span("rft.plan"):
+            return self._split(xr, xi)
+
+    def _split(self, xr, xi):
         self._check()
         yr, yi = self._fn(self._in.pad(xr), self._in.pad(xi), xr, xi)
         return (self._out.crop(yr, self.local_out_shape),
@@ -542,16 +568,19 @@ class DistributedFFTPlan:
 
     def _input(self, x) -> SplitComplex:
         self._check()
-        sx = as_split(x, self.device, self.plane_dtype())
+        with _trace.span("rft.layout.split"):
+            sx = as_split(x, self.device, self.plane_dtype())
         if sx.shape != self.local_in_shape:
             raise ValueError(f"local input shape {sx.shape} != planned "
                              f"{self.local_in_shape}")
         return sx
 
     def __call__(self, x):
-        sx = self._input(x)
-        return from_split(SplitComplex(*self.execute_split(sx.re, sx.im)),
-                          self.dtype)
+        with _trace.span("rft.plan"):
+            sx = self._input(x)
+            y = self._split(sx.re, sx.im)
+            with _trace.span("rft.layout.combine"):
+                return from_split(SplitComplex(*y), self.dtype)
 
     execute = __call__
 
@@ -659,6 +688,10 @@ class _R2CPlan(DistributedFFTPlan):
     def execute_real(self, x: torch.Tensor):
         """The local real plane (``local_in_shape``, f32, on the plan's
         device) -> the local output planes."""
+        with _trace.span("rft.plan"):
+            return self._real(x)
+
+    def _real(self, x):
         self._check()
         yr, yi = self._fn(self._in.pad(x))
         return (self._out.crop(yr, self.local_out_shape),
@@ -669,11 +702,15 @@ class _R2CPlan(DistributedFFTPlan):
 
     def __call__(self, x):
         self._check()
-        x = as_real(x, self.device, torch.float32)
-        if tuple(x.shape) != self.local_in_shape:
-            raise ValueError(f"local input shape {tuple(x.shape)} != planned "
-                             f"{self.local_in_shape}")
-        return from_split(SplitComplex(*self.execute_real(x)), "complex64")
+        with _trace.span("rft.plan"):
+            with _trace.span("rft.layout.split"):
+                x = as_real(x, self.device, torch.float32)
+            if tuple(x.shape) != self.local_in_shape:
+                raise ValueError(f"local input shape {tuple(x.shape)} != "
+                                 f"planned {self.local_in_shape}")
+            y = self._real(x)
+            with _trace.span("rft.layout.combine"):
+                return from_split(SplitComplex(*y), "complex64")
 
     execute = __call__
 
@@ -685,22 +722,25 @@ class _C2RPlan(DistributedFFTPlan):
     def plane_dtype(self):
         return torch.float32
 
-    def execute_split(self, xr, xi):
+    def _split(self, xr, xi):
         self._check()
         y = self._fn(self._in.pad(xr), self._in.pad(xi))
         return self._out.crop(y, self.local_out_shape)
 
     def __call__(self, x):
-        sx = self._input(x)
-        return self.execute_split(sx.re, sx.im)
+        with _trace.span("rft.plan"):
+            sx = self._input(x)
+            return self._split(sx.re, sx.im)
 
     execute = __call__
 
 
 def _scaled(y, scale: float):
-    """A real block times the norm scale rounded to its dtype."""
+    """A real block times the norm scale rounded to its dtype, in an
+    ``rft.scale`` span."""
     if scale != 1.0:
-        y = y * float(torch.tensor(scale, dtype=y.dtype))
+        with _trace.span("rft.scale"):
+            y = y * float(torch.tensor(scale, dtype=y.dtype))
     return y
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..dtypes import as_real
+from ..utils import trace as _trace
 from ..ops import factor as _factor
 from ..ops import r2r as _r2r
 from .distributed import (DistributedFFTPlan, _exchange_start, _layout,
@@ -58,6 +59,10 @@ class DistributedR2RPlan(DistributedFFTPlan):
     def execute_real(self, x: torch.Tensor):
         """The local real plane (``local_in_shape``, f32, on the plan's
         device) -> the local output plane."""
+        with _trace.span("rft.plan"):
+            return self._real(x)
+
+    def _real(self, x):
         self._check()
         return self._out.crop(self._fn(x), self.local_out_shape)
 
@@ -66,14 +71,16 @@ class DistributedR2RPlan(DistributedFFTPlan):
 
     def __call__(self, x):
         self._check()
-        try:
-            x = as_real(x, self.device, torch.float32)
-        except TypeError:
-            raise TypeError("r2r plans take real input") from None
-        if tuple(x.shape) != self.local_in_shape:
-            raise ValueError(f"local input shape {tuple(x.shape)} != planned "
-                             f"{self.local_in_shape}")
-        return self.execute_real(x)
+        with _trace.span("rft.plan"):
+            try:
+                with _trace.span("rft.layout.split"):
+                    x = as_real(x, self.device, torch.float32)
+            except TypeError:
+                raise TypeError("r2r plans take real input") from None
+            if tuple(x.shape) != self.local_in_shape:
+                raise ValueError(f"local input shape {tuple(x.shape)} != "
+                                 f"planned {self.local_in_shape}")
+            return self._real(x)
 
     execute = __call__
 

@@ -98,6 +98,7 @@ from .ops import pallas_fft as _pf
 from .ops import real as _real
 from .ops import stockham as _stockham
 from .ops import stockham_kernels as _sk
+from .utils import trace as _trace
 
 AXIS0_IMPLS = ("auto", "fourstep", "dma", "grid")
 F2_IMPLS = ("auto", "grid", "ring", "off")    # off = unfused pair
@@ -509,11 +510,18 @@ def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
     return f"einsum-mixed2({n}={n1}x{n // n1})"
 
 
+# The span of each step kind (``utils/trace.py``).
+_STEP_SPANS = {k: "rft.step." + k for k in (
+    "direct", "stockham", "stockham2", "stockham4", "fourstep_ring",
+    "dma_ring", "fused2_ring", "stockham_gap", "general", "mixed2")}
+
+
 def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
               fuse_scale: float = 1.0):
-    """Execute the steps; ``fuse_scale`` rides the last step's write when
-    that step is a kernel.  bf16 planes go through the contraction steps
-    as f32 and come back bf16 (plan.py:450-455, 554-555).
+    """Execute the steps, each inside its ``rft.step.<kind>`` span;
+    ``fuse_scale`` rides the last step's write when that step is a kernel.
+    bf16 planes go through the contraction steps as f32 and come back bf16
+    (plan.py:450-455, 554-555).
     Counterpart: ``regent_fft_tpu/plan.py:439``."""
     s = int(direction)
     last_fusable = (len(steps) - 1 if steps
@@ -522,39 +530,44 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
         ksc = fuse_scale if idx == last_fusable else 1.0
         bf = (xr.dtype == torch.bfloat16
               and kind_ in ("direct", "mixed2", "general"))
-        if bf:
-            xr, xi = xr.float(), xi.float()
-        if kind_ == "direct":
-            xr, xi = _stockham.direct_dft_axis(xr, xi, a, arg, s, use_3m)
-        elif kind_ == "stockham":
-            xr, xi = _sk.fft_axis_stockham(xr, xi, a, direction, scale=ksc)
-        elif kind_ == "stockham2":
-            xr, xi = _sk.fft_axes2_stockham(xr, xi, direction, scale=ksc)
-        elif kind_ == "stockham4":
-            xr, xi = _fs.fft_last_four_step(xr, xi, direction, scale=ksc)
-        elif kind_ == "fourstep_ring":
-            xr, xi = _fs.fft_axis0_fourstep(xr, xi, a, direction, scale=ksc)
-        elif kind_ == "dma_ring":
-            xr, xi = _fs.fft_axis_dma(xr, xi, a, direction, scale=ksc)
-        elif kind_ == "fused2_ring":
-            xr, xi = _fs.fft_axes2_ring(xr, xi, direction, scale=ksc)
-        elif kind_ == "stockham_gap":
-            xr, xi = _sk.fft_axes_gap_stockham(xr, xi, direction, scale=ksc)
-        elif kind_ == "general":
-            xr, xi = _nd.apply_along_axis(arg, a, xr, xi)
-        else:
-            n, n1 = arg
-            xr, xi = _stockham.mixed_radix_fft_axis(xr, xi, a, n, n1, s,
-                                                    use_3m)
-        if bf:
-            xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
+        with _trace.span(_STEP_SPANS[kind_]):
+            if bf:
+                xr, xi = xr.float(), xi.float()
+            if kind_ == "direct":
+                xr, xi = _stockham.direct_dft_axis(xr, xi, a, arg, s, use_3m)
+            elif kind_ == "stockham":
+                xr, xi = _sk.fft_axis_stockham(xr, xi, a, direction,
+                                               scale=ksc)
+            elif kind_ == "stockham2":
+                xr, xi = _sk.fft_axes2_stockham(xr, xi, direction, scale=ksc)
+            elif kind_ == "stockham4":
+                xr, xi = _fs.fft_last_four_step(xr, xi, direction, scale=ksc)
+            elif kind_ == "fourstep_ring":
+                xr, xi = _fs.fft_axis0_fourstep(xr, xi, a, direction,
+                                                scale=ksc)
+            elif kind_ == "dma_ring":
+                xr, xi = _fs.fft_axis_dma(xr, xi, a, direction, scale=ksc)
+            elif kind_ == "fused2_ring":
+                xr, xi = _fs.fft_axes2_ring(xr, xi, direction, scale=ksc)
+            elif kind_ == "stockham_gap":
+                xr, xi = _sk.fft_axes_gap_stockham(xr, xi, direction,
+                                                   scale=ksc)
+            elif kind_ == "general":
+                xr, xi = _nd.apply_along_axis(arg, a, xr, xi)
+            else:
+                n, n1 = arg
+                xr, xi = _stockham.mixed_radix_fft_axis(xr, xi, a, n, n1, s,
+                                                        use_3m)
+            if bf:
+                xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
     return xr, xi
 
 
 def _apply_scale(y, scale: float):
     """``y`` times the norm scale rounded to its dtype, as the JAX plan's
-    ``y * jnp.asarray(scale, y.dtype)``."""
-    return y * float(torch.tensor(scale, dtype=y.dtype))
+    ``y * jnp.asarray(scale, y.dtype)``, in an ``rft.scale`` span."""
+    with _trace.span("rft.scale"):
+        return y * float(torch.tensor(scale, dtype=y.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -580,12 +593,13 @@ def _unpack_nyquist(yr, yi, axes):
     the reversal along every transformed axis.
     Counterpart: ``regent_fft_tpu/plan.py:218``.
     """
-    zr, zi = yr[..., 0], yi[..., 0]
-    rr, ri = _rev_freq(zr, axes), _rev_freq(zi, axes)
-    x0r, x0i = 0.5 * (zr + rr), 0.5 * (zi - ri)
-    nqr, nqi = 0.5 * (zi + ri), -0.5 * (zr - rr)
-    return (torch.cat([x0r[..., None], yr[..., 1:], nqr[..., None]], -1),
-            torch.cat([x0i[..., None], yi[..., 1:], nqi[..., None]], -1))
+    with _trace.span("rft.layout.nyquist"):
+        zr, zi = yr[..., 0], yi[..., 0]
+        rr, ri = _rev_freq(zr, axes), _rev_freq(zi, axes)
+        x0r, x0i = 0.5 * (zr + rr), 0.5 * (zi - ri)
+        nqr, nqi = 0.5 * (zi + ri), -0.5 * (zr - rr)
+        return (torch.cat([x0r[..., None], yr[..., 1:], nqr[..., None]], -1),
+                torch.cat([x0i[..., None], yi[..., 1:], nqi[..., None]], -1))
 
 
 def _pack_nyquist(xr, xi, axes):
@@ -602,11 +616,12 @@ def _pack_nyquist(xr, xi, axes):
     def herm(r, i):
         return 0.5 * (r + _rev_freq(r, axes)), 0.5 * (i - _rev_freq(i, axes))
 
-    x0r, x0i = herm(xr[..., 0], xi[..., 0])
-    nqr, nqi = herm(xr[..., m], xi[..., m])
-    pr, pi = xr[..., :m].clone(), xi[..., :m].clone()
-    pr[..., 0] = x0r - nqi
-    pi[..., 0] = x0i + nqr
+    with _trace.span("rft.layout.nyquist"):
+        x0r, x0i = herm(xr[..., 0], xi[..., 0])
+        nqr, nqi = herm(xr[..., m], xi[..., m])
+        pr, pi = xr[..., :m].clone(), xi[..., :m].clone()
+        pr[..., 0] = x0r - nqi
+        pi[..., 0] = x0i + nqr
     return pr, pi
 
 
@@ -984,6 +999,10 @@ class Plan:
         planes (C2C) or the real output (C2R) in that dtype.
         Counterpart: the JAX plan's core (plan.py:606,741).
         """
+        with _trace.span("rft.plan"):
+            return self._split(xr, xi)
+
+    def _split(self, xr, xi):
         if self.spec.kind == Kind.R2C:
             raise TypeError("an R2C plan takes one real plane: execute_real")
         r = self.real
@@ -997,11 +1016,13 @@ class Plan:
             if r.packed and not self.spec.packed_layout:
                 xr, xi = _pack_nyquist(xr, xi, r.other)
             xr, xi = self._steps(xr, xi)
-            return _sk.ifft_last_c2r_stockham(
-                xr, xi, r.n, packed=r.packed,
-                scale=1.0 if self.fused else self.scale)
+            with _trace.span("rft.step.c2r"):
+                return _sk.ifft_last_c2r_stockham(
+                    xr, xi, r.n, packed=r.packed,
+                    scale=1.0 if self.fused else self.scale)
         xr, xi = self._steps(xr, xi)
-        y = _nd.apply_along_axis_real_out(r.fn, r.axis, xr, xi)
+        with _trace.span("rft.step.c2r"):
+            y = _nd.apply_along_axis_real_out(r.fn, r.axis, xr, xi)
         return (y if self.fused or self.scale == 1.0
                 else _apply_scale(y, self.scale))
 
@@ -1011,17 +1032,25 @@ class Plan:
         half-spectrum planes.
         Counterpart: the JAX plan's R2C core (plan.py:674).
         """
+        with _trace.span("rft.plan"):
+            return self._real(x)
+
+    def _real(self, x):
         if self.spec.kind != Kind.R2C:
             raise TypeError("only an R2C plan takes a real plane")
         r = self.real
         if r.route == "kernel":
-            yr, yi = _sk.fft_last_r2c_stockham(
-                x, packed=r.packed, scale=1.0 if self.fused else self.scale)
+            with _trace.span("rft.step.r2c"):
+                yr, yi = _sk.fft_last_r2c_stockham(
+                    x, packed=r.packed,
+                    scale=1.0 if self.fused else self.scale)
             yr, yi = self._steps(yr, yi)
             if r.packed and not self.spec.packed_layout:
                 yr, yi = _unpack_nyquist(yr, yi, r.other)
             return yr, yi
-        yr, yi = self._steps(*_nd.apply_along_axis_real_in(r.fn, r.axis, x))
+        with _trace.span("rft.step.r2c"):
+            zr, zi = _nd.apply_along_axis_real_in(r.fn, r.axis, x)
+        yr, yi = self._steps(zr, zi)
         if self.scale != 1.0 and not self.fused:
             yr = _apply_scale(yr, self.scale)
             yi = _apply_scale(yi, self.scale)
@@ -1041,21 +1070,28 @@ class Plan:
         if self._destroyed:
             raise RuntimeError("plan was destroyed (destroy_plan); re-plan first")
         s = self.spec
-        if s.kind == Kind.R2C:
-            x = as_real(x, self.device, self.cdtype)
-            if tuple(x.shape) != s.shape:
-                raise ValueError(f"input shape {tuple(x.shape)} != planned "
-                                 f"{s.shape}")
-            return from_split(SplitComplex(*self.execute_real(x)), s.dtype)
-        sx = as_split(x, self.device, self.cdtype)
-        expect = s.shape if s.kind == Kind.C2C else _half_shape(s)
-        if sx.shape != expect:
-            raise ValueError(f"input shape {sx.shape} != planned {expect}")
-        if s.kind == Kind.C2R:
-            y = self.execute_split(sx.re, sx.im)
-            return y.to(torch.bfloat16) if s.dtype == "complex32" else y
-        return from_split(SplitComplex(*self.execute_split(sx.re, sx.im)),
-                          s.dtype)
+        with _trace.span("rft.plan"):
+            if s.kind == Kind.R2C:
+                with _trace.span("rft.layout.split"):
+                    x = as_real(x, self.device, self.cdtype)
+                if tuple(x.shape) != s.shape:
+                    raise ValueError(f"input shape {tuple(x.shape)} != "
+                                     f"planned {s.shape}")
+                y = self._real(x)
+                with _trace.span("rft.layout.combine"):
+                    return from_split(SplitComplex(*y), s.dtype)
+            with _trace.span("rft.layout.split"):
+                sx = as_split(x, self.device, self.cdtype)
+            expect = s.shape if s.kind == Kind.C2C else _half_shape(s)
+            if sx.shape != expect:
+                raise ValueError(f"input shape {sx.shape} != planned "
+                                 f"{expect}")
+            y = self._split(sx.re, sx.im)
+            with _trace.span("rft.layout.combine"):
+                if s.kind == Kind.C2R:
+                    return (y.to(torch.bfloat16) if s.dtype == "complex32"
+                            else y)
+                return from_split(SplitComplex(*y), s.dtype)
 
     execute = __call__
 
@@ -1093,7 +1129,8 @@ _PLAN_CACHE: dict = {}     # (spec, switches) -> Plan
 def _cached_plan(spec: PlanSpec, switches: Switches) -> Plan:
     plan = _PLAN_CACHE.get((spec, switches))
     if plan is None or plan._destroyed:
-        plan = Plan(spec, switches)
+        with _trace.span("rft.build"):
+            plan = Plan(spec, switches)
         _PLAN_CACHE[(spec, switches)] = plan
         from .utils.plog import log_plan
         log_plan(plan)

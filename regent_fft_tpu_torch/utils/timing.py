@@ -26,6 +26,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from . import trace as _trace
+
 FLUSH_BYTES = 256 << 20
 
 
@@ -143,7 +145,8 @@ def trace(fn: Callable, device=None,
     """One call of ``fn()`` under ``torch.profiler``: (total ms, [(name,
     ms)] longest first), by ``self_device_time_total`` of the CUDA
     activity on a CUDA device (nothing counted twice), by
-    ``self_cpu_time_total`` of the CPU activity elsewhere.  With
+    ``self_cpu_time_total`` of the CPU activity elsewhere; the port's own
+    spans (``utils/trace.py``, when on) are left out of the rows.  With
     ``profile_dir`` the trace is also written there as a Chrome trace."""
     import os
     from torch.profiler import ProfilerActivity, profile
@@ -159,6 +162,7 @@ def trace(fn: Callable, device=None,
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     attr = "self_device_time_total" if cuda else "self_cpu_time_total"
     rows = sorted(((e.key, getattr(e, attr) / 1e3)
-                   for e in prof.key_averages() if getattr(e, attr) > 0),
+                   for e in prof.key_averages() if getattr(e, attr) > 0
+                   and not e.key.startswith(_trace.PREFIX)),
                   key=lambda t: -t[1])
     return sum(ms for _, ms in rows), rows

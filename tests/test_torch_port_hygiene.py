@@ -27,7 +27,7 @@ import regent_fft_tpu_torch.ops.fftlog, regent_fft_tpu_torch.ops.nufft
 import regent_fft_tpu_torch.native.planner, regent_fft_tpu_torch.bench_cli
 import regent_fft_tpu_torch.utils.flopcount, regent_fft_tpu_torch.utils.timing
 import regent_fft_tpu_torch.utils.calibrate, regent_fft_tpu_torch.utils.measure
-import regent_fft_tpu_torch.utils.wisdom
+import regent_fft_tpu_torch.utils.wisdom, regent_fft_tpu_torch.utils.trace
 import regent_fft_tpu_torch.signal, regent_fft_tpu_torch.spectral
 import regent_fft_tpu_torch.torch_fft, regent_fft_tpu_torch.scipy_backend
 import regent_fft_tpu_torch.parallel.mesh
@@ -64,7 +64,7 @@ PORT_MODULES = {
     "utils/timing.py", "utils/wisdom.py", "signal.py", "spectral.py",
     "torch_fft.py", "scipy_backend.py", "parallel/__init__.py",
     "parallel/mesh.py", "parallel/distributed.py", "parallel/transpose.py",
-    "parallel/distributed_r2r.py"}
+    "parallel/distributed_r2r.py", "utils/trace.py"}
 # The port's CPU test files, one or more per slice.
 PORT_TESTS = {
     "test_torch_port_hygiene.py", "test_torch_port_tables.py",
@@ -88,7 +88,8 @@ PORT_TESTS = {
     "test_torch_port_distributed.py", "test_torch_port_distributed_uneven.py",
     "test_torch_port_distributed_p8.py",
     "test_torch_port_distributed_real.py",
-    "test_torch_port_distributed_r2r.py", "test_torch_port_switches.py"}
+    "test_torch_port_distributed_r2r.py", "test_torch_port_switches.py",
+    "test_torch_port_trace.py"}
 # The rank pool of the distributed tests: every rank imports it, so it
 # stands alone like the port.
 POOL = "tests/torch_dist_pool.py"

@@ -335,8 +335,9 @@ def test_bf16_entries_take_no_scratch():
 @pytest.mark.parametrize("fuse", [False, True])
 def test_wrapper_allocates_only_the_output(monkeypatch, dtype, fuse):
     """With the CUDA launch stubbed, the wrapper hands each C entry the
-    arguments its signature names (the launch appends the stream) and
-    allocates nothing but its two output planes; the fuse_last call passes
+    arguments its signature names (the launch appends the stream), counts
+    the bytes of its four planes and allocates nothing but its two output
+    planes; the fuse_last call passes
     the cluster size and fused2_stages tables, the axis call cols_stages
     tables."""
     calls, allocs, tables = [], [], []
@@ -346,8 +347,8 @@ def test_wrapper_allocates_only_the_output(monkeypatch, dtype, fuse):
                         lambda name, xr: (name + sk.C2C_DTYPES[xr.dtype],
                                           None))
     monkeypatch.setattr(sk, "_launch",
-                        lambda name, fn, dev, *args: calls.append((name,
-                                                                   args)))
+                        lambda name, fn, dev, *args, nbytes: calls.append(
+                            (name, args, nbytes)))
 
     def fake_tables(n, sign, device, stages=None):
         tables.append((n, stages.__name__ if stages else None))
@@ -370,7 +371,8 @@ def test_wrapper_allocates_only_the_output(monkeypatch, dtype, fuse):
     yr, yi = fs.fft_axis_ring(xr, xi, -1, 0.5, fuse)
     assert yr.shape == shape and yr.dtype == dtype
     assert allocs == ["empty_like", "empty_like"]
-    (name, args), = calls
+    (name, args, nbytes), = calls
+    assert nbytes == 4 * xr.numel() * xr.element_size()   # 2 in, 2 out
     base = "fft_axes2_ring" if fuse else "fft_axis_ring"
     assert name == base + ("_bf16" if dtype == torch.bfloat16 else "")
     assert len(args) + 1 == len(_build._SIGNATURES[name])

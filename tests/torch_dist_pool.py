@@ -483,3 +483,63 @@ def donate_check(shape, donate):
     y = plan(SplitComplex(re, im))
     return {"overwritten": not torch.equal(re, keep), "y": _np(y),
             "out_block": plan.out_block(dist.get_rank())}
+
+
+def exchange_trace(shape):
+    """The slab pair (forward ``transposed_out``, backward
+    ``transposed_in``) on this rank's block under the CPU profiler with the
+    port's spans on: ``exchange_bytes`` after each plan, the bytes of
+    every buffer the pair's collectives send, the ``rft.`` spans in time
+    order, the collectives logged at level 0 and at level 2,
+    ``exchange_bytes`` of a ppermute to the next position and to this one,
+    and the round trip."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from regent_fft_tpu_torch.parallel import distributed as D
+    from regent_fft_tpu_torch.utils import plog, trace
+    rank = dist.get_rank()
+    fwd = D.make_plan_slab(shape, transposed_out=True, device="cpu")
+    bwd = D.make_plan_slab(shape, D.Direction.BACKWARD, transposed_in=True,
+                           device="cpu")
+    g = np.random.default_rng(0)
+    x = (g.standard_normal(shape)
+         + 1j * g.standard_normal(shape)).astype(np.complex64)
+    blk = np.ascontiguousarray(x[fwd.in_block(rank)])
+    sent, logged, counts = [], [], []
+    real_a2a, real_log = dist.all_to_all_single, D.log_collective
+
+    def spy(out, inp, *a, **k):
+        sent.append(inp.numel() * inp.element_size())
+        return real_a2a(out, inp, *a, **k)
+    dist.all_to_all_single = spy
+    D.log_collective = lambda name, *a: logged.append(name)
+    trace.set_tracing(True)
+    trace.reset_counts()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            y = fwd(blk)
+            counts.append(trace.COUNTS["exchange_bytes"])
+            z = bwd(y)
+            counts.append(trace.COUNTS["exchange_bytes"])
+        pair, quiet = list(sent), list(logged)
+        plog.set_log_level(2)
+        fwd(blk)
+        loud = logged[len(quiet):]
+        plog.set_log_level(0)
+        ax = D._mesh_axis(fwd.mesh, fwd.mesh.mesh_dim_names[0])
+        t = torch.ones(3, 5)
+        perm = []
+        for dest in ((ax.coord + 1) % ax.size, ax.coord):
+            trace.reset_counts()
+            D._ppermute(t, ax, "test", dest, (2 * ax.coord - dest) % ax.size)
+            perm.append(trace.COUNTS["exchange_bytes"])
+    finally:
+        dist.all_to_all_single, D.log_collective = real_a2a, real_log
+        trace.set_tracing(False)
+        plog.set_log_level(0)
+    spans = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.name.startswith(trace.PREFIX))
+    return {"counts": counts, "sent": pair, "spans": [n for _, n in spans],
+            "quiet": quiet, "loud": loud, "perm": perm,
+            "round_trip": float(np.abs(_np(z) - blk).max())}
