@@ -753,6 +753,7 @@ def main() -> int:
     from regent_fft_tpu_torch.ops import stockham_kernels as sk
     from regent_fft_tpu_torch.plan import _half_shape
     from regent_fft_tpu_torch.utils import timing
+    from regent_fft_tpu_torch.utils import trace
     from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
 
     # 1. environment
@@ -788,6 +789,16 @@ def main() -> int:
                 re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
                 for ln in lines):
             raise AssertionError(f"{kname} ptxas: {lines}")
+    # fft_fused2's register body: one instance per FUSED2_REGS geometry and
+    # plane type; none may spill
+    regs_ptxas = [ln for ln in _ptxas(_build.build_log)
+                  if "fft_fused2_regs_kernel" in ln.split(":")[0]]
+    for ln in regs_ptxas:
+        print("ptxas fft_fused2 (register body): " + ln)
+    if len(regs_ptxas) != 2 * len(sk.FUSED2_REGS) or not all(
+            re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in regs_ptxas):
+        raise AssertionError(f"fft_fused2_regs_kernel ptxas: {regs_ptxas}")
     # the matmul kernels: products on tensor cores (3xTF32 mma.sync), no
     # spills; fft_mm_kernel<false> is fft_mm1, <true> fft_mm2
     mm_ptxas = [ln for ln in _ptxas(_build.build_log) if "fft_mm_kernel" in ln]
@@ -879,11 +890,15 @@ def main() -> int:
         c = sk.fused2_cluster(n1, n2, p_, sms)
         act = [sk.fused2_active_clusters(n1, n2, c, dt)
                for dt in (torch.float32, torch.bfloat16)]
-        print(f"fft_fused2 {(p_, n1, n2)}: cluster {c} CTAs of "
-              f"{sk.FUSED2_THREADS} threads, "
-              f"{sk.fused2_smem_bytes(n1, n2, c)} B shared memory each; "
+        g = sk.fused2_regs_geometry(n1, n2, c)
+        body = ("the register body, persistent" if g
+                else "the stage walk, one plane a cluster")
+        print(f"fft_fused2 {(p_, n1, n2)}: {body}: cluster {c} CTAs of "
+              f"{g['threads'] if g else sk.FUSED2_THREADS} threads, "
+              f"{sk.fused2_cta_smem(n1, n2, c)} B shared memory each; "
               f"cudaOccupancyMaxActiveClusters f32 {act[0]}, bf16 {act[1]} "
-              f"({sms} SMs)")
+              f"({sms} SMs; the register body's grid covers "
+              f"{act[0] * c} of them)")
         if min(act) < 1:
             raise AssertionError(f"fft_fused2 {(n1, n2)}: no cluster fits")
     # the same for the gap pass's strided instance: 512^3 and 4 x 256^3 as
@@ -2044,6 +2059,49 @@ def main() -> int:
             f"{tuple(c['shape'])} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f}, "
             f"plain {c['plain_ms']:.4f}, library {c['library_ms']}), rel_l2 vs "
             f"plain {c['max_rel_err']:.3e}" for c in done), flush=True)
+    # fft_fused2's register body (persistent clusters, a static round robin)
+    # at plane counts that leave a ragged last wave: the fewest planes that
+    # take its cluster size, the clusters the card holds at once (Q) +- 1
+    # (2Q +- 1 where fewer planes take another cluster size) and 512, f32
+    # and bf16, both signs, against the plain version (tolerance(n) in f32,
+    # PLAIN_LIMIT in bf16); each call's planes counted in
+    # trace.COUNTS["fused2_planes"]
+    regs_worst = {}
+    for (n1, n2, c_) in sorted(sk.FUSED2_REGS):
+        least = next(p_ for p_ in range(1, 4096)
+                     if sk.fused2_cluster(n1, n2, p_, sms) == c_)
+        for dt in (torch.float32, torch.bfloat16):
+            q_ = sk.fused2_active_clusters(n1, n2, c_, dt)
+            counts = sorted({p_ for p_ in (least, q_ - 1, q_ + 1, 2 * q_ - 1,
+                                           2 * q_ + 1, 512)
+                             if p_ >= least})
+            for p_ in counts:
+                xr, xi = (t.to(dt) for t in planes((p_, n1, n2)))
+                for sign in (-1, 1):
+                    trace.reset_counts()
+                    yr, yi = sk.fft_fused2(xr, xi, sign, 0.5)
+                    if trace.COUNTS["fused2_planes"] != p_:
+                        raise AssertionError(f"fused2_planes {trace.COUNTS}")
+                    e = dev_rel(torch.complex(yr.float(), yi.float()),
+                                torch.complex(*(t.float() for t in
+                                                sk.fft_fused2_plain(
+                                                    xr, xi, sign, 0.5))))
+                    lim = (tolerance(n1 * n2) if dt == torch.float32
+                           else PLAIN_LIMIT["fft_fused2_bf16"])
+                    if not e <= lim:
+                        raise AssertionError(
+                            f"fft_fused2 register body {(p_, n1, n2)} "
+                            f"{dt} sign {sign}: rel_l2 vs plain {e} > {lim}")
+                    key = f"{n1}x{n2} {str(dt)[6:]}"
+                    regs_worst[key] = max(regs_worst.get(key, 0.0), e)
+                    del yr, yi
+                del xr, xi
+                torch.cuda.empty_cache()
+            print(f"fft_fused2 register body {(n1, n2)} C {c_} "
+                  f"{str(dt)[6:]}: {q_} clusters at once, planes {counts}, "
+                  f"both signs: worst rel_l2 vs plain "
+                  f"{regs_worst[f'{n1}x{n2} {str(dt)[6:]}']:.3e}")
+    trace.reset_counts()
     phase("3b (kernels at the main-path shapes)")
 
     def run_counted(label, plans, inputs, want):

@@ -1,23 +1,33 @@
-// The thread-block cluster body of the two-axis kernels for Hopper
-// (sm_90a): fft_fused2_kernel (stockham.cu: fft_fused2 and the gap pass)
-// and fft_axes2_ring_kernel (ring.cu: the slab ring's fuse_last mode).  One
-// (n1, n2) plane per cluster of C CTAs; CTA c holds the stripe of columns
-// [c*w, (c+1)*w), w = n2/C, in its shared memory, and takes rows
-// [c*h, (c+1)*h), h = n1/C, for the row pass, gathered through distributed
-// shared memory.  Here: the geometry constants, the in-register butterfly
-// stage over the stripe or the rows (f2_stage, dispatched on the radix by
-// f2_stage_of), the stage list copied to shared memory (F2Stages), the
-// distributed-shared-memory load, and the host's shared-memory size and
-// cluster-occupancy query.  stockham.cu's note says how fft_fused2_kernel
-// uses them.  Included after stockham_tile.cuh and radix.cuh; internal
-// linkage, as they.
+// The thread-block cluster bodies of the two-axis kernels for Hopper
+// (sm_90a).  One (n1, n2) plane per cluster of C CTAs; CTA c transforms the
+// stripe of columns [c*w, (c+1)*w), w = n2/C, and then the rows
+// [c*h, (c+1)*h), h = n1/C, which reach it through distributed shared
+// memory.  Two bodies:
+//   - the stage walk (fft_fused2_kernel in stockham.cu: fft_fused2 at the
+//     geometries the register body has no instance for, and the gap pass;
+//     fft_axes2_ring_kernel in ring.cu: the slab ring's fuse_last mode): the
+//     geometry constants, the in-register butterfly stage over a stripe or
+//     rows held in shared memory (f2_stage, dispatched on the radix by
+//     f2_stage_of), the stage list copied to shared memory (F2Stages), the
+//     distributed-shared-memory load, the shared-memory size;
+//   - the register body (fft_fused2_regs_kernel in stockham.cu: fft_fused2):
+//     cols.cuh's column recursion with one buffer on both axes
+//     (f2_regs_stage), the column pass's last stage storing into the owning
+//     CTA's row buffer (F2ColIO), the row pass reading it (F2RowIO); its
+//     geometry (F2Geo) and instance table (with_f2_geo).
+// Both share the host's cluster-occupancy query.  stockham.cu's notes say
+// how the kernels use them.  Included after stockham_tile.cuh and
+// radix.cuh; internal linkage, as they.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <mutex>
 
 #include "stockham_tile.cuh"
 #include "radix.cuh"
+#include "last.cuh"
 
 namespace {
 
@@ -175,12 +185,268 @@ size_t fused2_smem(int n1, int n2, int C) {
   return bytes + 2 * sizeof(F2Stages) <= F2_MAX_SMEM ? bytes : 0;
 }
 
+// --------------------------------------------------------------------------
+// The register body (fft_fused2_regs_kernel).
+
+// The column pass: W neighbouring columns of N points, E values a thread,
+// thread t on lane t / W of column t % W (cols.cuh's layout: a warp reads
+// 32 neighbouring columns of a row), element x of column `col` of the
+// exchange at x*W + col (W >= 32: a warp's accesses on 32 banks).
+template <int N_, int E, int W>
+struct F2ColGeo {
+  static constexpr int N = N_;
+  static constexpr int TPC = N / E;              // threads a column
+  static constexpr int THREADS = TPC * W;
+  static_assert(TPC * E == N && W >= 32 && W % 32 == 0, "column geometry");
+  __device__ __forceinline__ static int at(int x, int col) {
+    return x * W + col;
+  }
+};
+
+// The row pass: H rows of N points, E values a thread, thread t on lane
+// t % TPC of row t / TPC (last.cuh's layout: neighbouring lanes on
+// neighbouring elements), so the last stage's stores are coalesced along
+// the row.  Element x of row `row` lies at row*PITCH + x + x/32, one pad
+// word every 32, PITCH = N + N/32: with the instances' lists (32, N/32)
+// the radix-32 writes (stride 32, 33 words apart), the unit-stride reads
+// and the column pass's stores (32 consecutive x of one row a warp) fall
+// on distinct banks, the RW rows a warp spans PITCH = 32/RW (mod 32)
+// apart (tests/test_torch_port_fused2_cluster.py counts).  For x = j + c
+// with c a multiple of 32 the word is j's plus a constant, so a stage's
+// accesses differ by immediate offsets.
+template <int N_, int E, int H>
+struct F2RowGeo {
+  static constexpr int N = N_;
+  static constexpr int TPC = N / E;              // threads a row
+  static constexpr int THREADS = TPC * H;
+  static constexpr int RW = TPC >= 32 ? 1 : 32 / TPC;   // rows a warp
+  static constexpr int PITCH = N + N / 32;
+  static_assert(TPC * E == N && N % 32 == 0 && PITCH % 32 == 32 / RW % 32,
+                "row geometry");
+  __device__ __forceinline__ static int at(int x, int row) {
+    return row * PITCH + x + (x >> 5);
+  }
+};
+
+// A 32-bit shared address of this CTA mapped to CTA `rank` of the cluster,
+// and a 4-byte store there (distributed shared memory).  The mapping is
+// volatile so that it is made where the store needs it: hoisted out of the
+// plane loop, the 32 addresses a thread stores to stay live across it and
+// spill.
+__device__ __forceinline__ unsigned f2_mapa(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void f2_st_remote(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// The thread's index, read anew where it is asked for: the persistent
+// loop's addresses depend on it and are then made in each plane, not
+// hoisted out of the loop and spilled (a few integer instructions a plane
+// against the local-memory traffic of ~40 live addresses).
+__device__ __forceinline__ int f2_tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// Stage ST of the list (radix R, Ns = NS, its twiddles at TWOFF), then the
+// stages REST, over the lines (columns or rows) of geometry G: thread
+// (io.line, io.lane) takes butterflies j = lane + b*TPC, b < N/R/TPC (whole
+// butterflies: every instance's radices divide E).  Butterfly j reads
+// element j + r*M (M = N/R; stage 0 from io.load, later stages from the
+// CTA's one exchange buffer io.sr/io.si in G's layout), twiddles by table
+// entry TWOFF + (r-1)*NS + j%NS, runs an R-point DFT and writes
+// (j - j%NS)*R + j%NS + r*NS to the buffer, between two block barriers (the
+// first: every thread has read the buffer, at stage 0 the previous user's
+// reads), or at the last stage, where that is j + r*NS, hands it to
+// io.store after io.begin_store().  The body is cols.cuh's cols_stage with
+// one buffer and both passes' IO.
+template <class IO, class G, int ST, int NS, int TWOFF, int R, int... REST>
+__device__ __forceinline__ void f2_regs_stage(const IO& io) {
+  constexpr int M = G::N / R;
+  constexpr int NB = M / G::TPC;                 // butterflies a thread
+  static_assert(NB * G::TPC == M, "whole butterflies a thread");
+  float vr[NB][R], vi[NB][R];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int j = io.lane + b * G::TPC;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (ST == 0) {
+        io.load(j + r * M, vr[b][r], vi[b][r]);
+      } else {
+        const int a = G::at(j + r * M, io.line);
+        vr[b][r] = io.sr[a];
+        vi[b][r] = io.si[a];
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if constexpr (NS > 1) {
+      const int k = (io.lane + b * G::TPC) & (NS - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        const float2 w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
+        const float xr = vr[b][r], xi = vi[b][r];
+        vr[b][r] = fmaf(xr, w.x, -xi * w.y);
+        vi[b][r] = fmaf(xr, w.y, xi * w.x);
+      }
+    }
+    Dft<R>::run(vr[b], vi[b], io.s);
+  }
+  if constexpr (sizeof...(REST) == 0) {
+    static_assert(NS * R == G::N, "the stage list must multiply to N");
+    io.begin_store();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        io.store(io.lane + b * G::TPC + r * NS, vr[b][r], vi[b][r]);
+    }
+  } else {
+    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int j = io.lane + b * G::TPC, k = j & (NS - 1);
+      const int base = (j - k) * R + k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int a = G::at(base + r * NS, io.line);
+        io.sr[a] = vr[b][r];
+        io.si[a] = vi[b][r];
+      }
+    }
+    __syncthreads();
+    f2_regs_stage<IO, G, ST + 1, NS * R, TWOFF + (R - 1) * NS, REST...>(io);
+  }
+}
+
+// What a thread of either pass works on: its line and lane, the CTA's
+// buffer (re and im parts), the stage list's twiddles, the sign.
+struct F2IO {
+  int line;
+  int lane;
+  float* sr;
+  float* si;
+  const float2* tw;
+  float s;
+};
+
+// The column pass's IO: stage 0 reads element x of the thread's column of
+// the plane from device memory (rows LD elements apart); the last stage
+// sends element k to row k % H of CTA k / H of the cluster (GR's layout, at
+// column c*w + the thread's column), after the cluster barrier of
+// begin_store(): every CTA has then read its column exchange, whose buffer
+// its rows reuse.
+template <typename T, class GR, int LD, int H>
+struct F2ColIO : F2IO {
+  const T* xr;
+  const T* xi;
+  size_t off;       // element 0 of the thread's column
+  unsigned rows;    // shared address of this CTA's buffer (re part)
+  unsigned imoff;   // bytes from the re part to the im part
+  int x;            // the thread's column in the plane
+  __device__ __forceinline__ void load(int k, float& re, float& im) const {
+    const size_t o = off + (size_t)k * LD;
+    re = to_f32(__ldg(xr + o));
+    im = to_f32(__ldg(xi + o));
+  }
+  __device__ __forceinline__ void begin_store() const {
+    cooperative_groups::this_cluster().sync();
+  }
+  __device__ __forceinline__ void store(int k, float re, float im) const {
+    const unsigned a = f2_mapa(rows + 4u * GR::at(x, k % H), k / H);
+    f2_st_remote(a, re);
+    f2_st_remote(a + imoff, im);
+  }
+};
+
+// The row pass's IO: stage 0 reads element x of the thread's row from the
+// buffer; the last stage writes element k to device memory with the
+// scale (the row's first element at `off`).
+template <typename T, class G>
+struct F2RowIO : F2IO {
+  T* yr;
+  T* yi;
+  size_t off;
+  float scale;
+  __device__ __forceinline__ void load(int k, float& re, float& im) const {
+    const int a = G::at(k, line);
+    re = sr[a];
+    im = si[a];
+  }
+  __device__ __forceinline__ void begin_store() const {}
+  __device__ __forceinline__ void store(int k, float re, float im) const {
+    yr[off + k] = from_f32<T>(re * scale);
+    yi[off + k] = from_f32<T>(im * scale);
+  }
+};
+
+// An instance of the register body: cluster size C, E values a thread on
+// both axes, the stage lists L1 = LastList<n1, R1...> of the columns and
+// L2 = LastList<n2, R2...> of the rows (fused2_regs_stages').
+template <int C_, int E_, class L1, class L2>
+struct F2Geo;
+template <int C_, int E_, int N1_, int... R1, int N2_, int... R2>
+struct F2Geo<C_, E_, LastList<N1_, R1...>, LastList<N2_, R2...>> {
+  static constexpr int C = C_, E = E_, N1 = N1_, N2 = N2_;
+  static constexpr int W = N2 / C, H = N1 / C;
+  using G1 = F2ColGeo<N1, E, W>;
+  using G2 = F2RowGeo<N2, E, H>;
+  static constexpr int THREADS = G1::THREADS;
+  // one f32 (re, im) buffer: the column exchange (n1*w words a part),
+  // then the rows (h padded rows)
+  static constexpr int PART = H * G2::PITCH;
+  static_assert(PART >= N1 * W, "the rows cover the column exchange");
+  static constexpr size_t SMEM = 2 * sizeof(float) * PART;
+  static_assert(N1 % C == 0 && N2 % C == 0 && G2::THREADS == THREADS
+                && THREADS <= 1024 && SMEM <= F2_MAX_SMEM, "F2Geo");
+  template <typename T>
+  using ColIO = F2ColIO<T, G2, N2, H>;
+  template <typename T>
+  using RowIO = F2RowIO<T, G2>;
+  template <class IO>
+  __device__ __forceinline__ static void cols(const IO& io) {
+    f2_regs_stage<IO, G1, 0, 1, 0, R1...>(io);
+  }
+  template <class IO>
+  __device__ __forceinline__ static void rows(const IO& io) {
+    f2_regs_stage<IO, G2, 0, 1, 0, R2...>(io);
+  }
+  // are the host's stage lists the instance's?
+  static bool lists_ok(int ns1, const int* r1, int ns2, const int* r2) {
+    return last_list_ok(LastList<N1, R1...>{}, ns1, r1)
+           && last_list_ok(LastList<N2, R2...>{}, ns2, r2);
+  }
+};
+
+// Calls f(F2Geo<...>{}) for the register body's instance at (n1, n2, C);
+// cudaErrorInvalidValue where it has none (the stage walk runs there).
+// ops/stockham_kernels.py:FUSED2_REGS mirrors this table, and
+// fused2_regs_stages the lists.
+template <class F>
+cudaError_t with_f2_geo(int n1, int n2, int C, F&& f) {
+  using L256 = LastList<256, 32, 8>;
+  using L512 = LastList<512, 32, 16>;
+  //                             n1   n2   C         C   E
+  if (n1 == 512 && n2 == 512 && C == 16) return f(F2Geo<16, 32, L512, L512>{});
+  if (n1 == 256 && n2 == 256 && C == 4) return f(F2Geo<4, 32, L256, L256>{});
+  return cudaErrorInvalidValue;
+}
+
 // Set the kernel's shared-memory and cluster attributes; then how many
 // clusters of C CTAs with `smem` bytes each the card holds at once
 // (cudaOccupancyMaxActiveClusters), asked once per (kernel, C, smem) and
 // kept.
 
-cudaError_t fused2_clusters(const void* fn, int C, size_t smem, int* count) {
+cudaError_t fused2_clusters(const void* fn, int C, size_t smem, int* count,
+                            int threads = F2_THREADS) {
   static std::mutex mu;
   static struct { const void* fn; int C; size_t smem; int count; } seen[64];
   static int nseen = 0;
@@ -203,7 +469,7 @@ cudaError_t fused2_clusters(const void* fn, int C, size_t smem, int* count) {
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(C);
-  cfg.blockDim = dim3(F2_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;

@@ -1,8 +1,9 @@
 // The straight-line butterflies of the register-resident kernels: the
-// radix-8 and radix-16 DFTs and their twiddle rotations (cos/sin of pi/4
-// and pi/8 from float64).  Included by stockham.cu (fft_fused2_kernel,
-// fft_last_kernel) and cols.cu (fft_cols_kernel), after stockham_tile.cuh,
-// whose Dft<R> template they specialise; internal linkage, as there.
+// radix-8, radix-16 and radix-32 DFTs and their twiddle rotations (cos/sin
+// of multiples of pi/16 from float64).  Included by stockham.cu
+// (fft_fused2_kernel, fft_fused2_regs_kernel, fft_last_kernel) and cols.cu
+// (fft_cols_kernel), after stockham_tile.cuh, whose Dft<R> template they
+// specialise; internal linkage, as there.
 
 #pragma once
 
@@ -121,6 +122,79 @@ struct Dft<16> {
       for (int k2 = 0; k2 < 4; ++k2) {
         vr[k1 + 4 * k2] = ur[k1][k2];
         vi[k1 + 4 * k2] = ui[k1][k2];
+      }
+    }
+  }
+};
+
+// cos(2*pi*e/32) from float64 (the first quadrant's nine values, then
+// their symmetries, so the quarter turns are exact).
+__host__ __device__ constexpr float cos32(int e) {
+  constexpr float q[9] = {1.0f, 0.9807852804032304f, 0.9238795325112867f,
+                          0.8314696123025452f, 0.7071067811865476f,
+                          0.5555702330196022f, 0.3826834323650898f,
+                          0.19509032201612825f, 0.0f};
+  e &= 31;
+  return e <= 8 ? q[e] : e <= 16 ? -q[16 - e] : e <= 24 ? -q[e - 16]
+                                                        : q[32 - e];
+}
+
+// v *= exp(s * 2*pi*i * E/32).
+template <int E>
+__device__ __forceinline__ void rot32(float& re, float& im, float s) {
+  constexpr int e = E & 31;
+  if constexpr (e % 2 == 0) {
+    rot16<e / 2>(re, im, s);
+  } else {
+    constexpr float c = cos32(e), sn = cos32(e - 8);
+    const float ss = s * sn, t = re;
+    re = fmaf(t, c, -im * ss);
+    im = fmaf(t, ss, im * c);
+  }
+}
+
+// The rotations W32^(b*k1) of Dft<32>'s middle step, b = 1..3, k1 = 1..7.
+template <int B, int K1>
+__device__ __forceinline__ void rot32_grid(float (&ur)[8][4],
+                                           float (&ui)[8][4], float s) {
+  rot32<B * K1>(ur[K1][B], ui[K1][B], s);
+  if constexpr (K1 < 7) {
+    rot32_grid<B, K1 + 1>(ur, ui, s);
+  } else if constexpr (B < 3) {
+    rot32_grid<B + 1, 1>(ur, ui, s);
+  }
+}
+
+// In-register 32-point DFT, y[k] = sum_r v[r] exp(s*2*pi*i*r*k/32): with
+// r = 4a + b and k = k1 + 8*k2, an 8-point DFT over a for each b, the
+// rotation W32^(b*k1), then a 4-point DFT over b for each k1.
+template <>
+struct Dft<32> {
+  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
+    float ur[8][4], ui[8][4];   // [k1][b]
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      float tr[8], ti[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        tr[a] = vr[4 * a + b];
+        ti[a] = vi[4 * a + b];
+      }
+      Dft<8>::run(tr, ti, s);
+#pragma unroll
+      for (int k1 = 0; k1 < 8; ++k1) {
+        ur[k1][b] = tr[k1];
+        ui[k1][b] = ti[k1];
+      }
+    }
+    rot32_grid<1, 1>(ur, ui, s);
+#pragma unroll
+    for (int k1 = 0; k1 < 8; ++k1) {
+      Dft<4>::run(ur[k1], ui[k1], s);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) {
+        vr[k1 + 8 * k2] = ur[k1][k2];
+        vi[k1 + 8 * k2] = ui[k1][k2];
       }
     }
   }

@@ -1,11 +1,15 @@
 // Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
-// planes: f32 (complex64) or bf16 (complex32).  fft_fused2_kernel runs a
-// thread-block cluster a plane (also the gap pass's strided plane, below;
-// its body is fused2.cuh) and fft_last_kernel holds rows in registers (the
-// row body of last.cuh, which real.cu's pair kernels share):
+// planes: f32 (complex64) or bf16 (complex32).  fft_fused2_regs_kernel runs
+// persistent thread-block clusters over the planes with both passes in
+// registers, fft_fused2_kernel a cluster a plane by a walk of stages through
+// shared memory (also the gap pass's strided plane, below; both bodies are
+// in fused2.cuh), and fft_last_kernel holds rows in registers (the row body
+// of last.cuh, which real.cu's pair kernels share):
 //
 //   fft_last_kernel<T,n,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_last
-//   fft_fused2_kernel<T,false> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
+//   fft_fused2_regs_kernel<T,F> and fft_fused2_kernel<T,false> (the
+//     geometries the first has no instance for) replace
+//     regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2
 //   fft_fused2_kernel<T,true>  replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_fused2_gap
 //
 // Each computes one DFT along an axis (two for fused2 and gap) with the norm
@@ -31,11 +35,11 @@
 // Bound on H100 for them: bytes, 8 B per complex element per pass (half the
 // f32 kernels' 16 B).  The two-axis kernels keep the plane between their
 // column and row passes in f32, as the TPU kernels do in VMEM.
-// fft_fused2_kernel holds it on chip: one plane per thread-block cluster,
-// each CTA a stripe of it in shared memory, the row pass gathering its rows
-// through distributed shared memory, so each element crosses device memory
-// once each way (16 B in f32, 8 B in bf16: the function's own bound) and
-// the wrapper allocates nothing but the output.  The gap pass (C entries
+// The fft_fused2 kernels hold it on chip: a plane on a thread-block
+// cluster, each CTA a stripe of it, its rows reaching the CTA that
+// transforms them through distributed shared memory, so each element
+// crosses device memory once each way (16 B in f32, 8 B in bf16: the
+// function's own bound) and the wrapper allocates nothing but the output.  The gap pass (C entries
 // fft_gap, fft_gap_bf16; its TPU body is _stockham_tile on either block
 // type) is the same kernel on the strided (z, x) planes of (B, z, Y, x)
 // data: its GAP instance only places a plane and spaces its rows Y*x
@@ -373,6 +377,167 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
   return cudaGetLastError();
 }
 
+// --------------------------------------------------------------------------
+// fft_fused2_regs_kernel — replaces pallas_stockham.py:_runner_fused2 at the
+// geometries of fused2.cuh's table (with_f2_geo: (n1, n2, C) = (512, 512,
+// 16) and (256, 256, 4), the main path's 512^3, 16 x 512^2, 256^3 and
+// 1024 x 256^2); fft_fused2_kernel<T, false> above runs the others.
+// Bound on H100: bytes, as fft_fused2_kernel: each element read once and
+// written once (0.641 ms in f32, 0.3205 in bf16 at 512^3).  Against it the
+// stage walk moves ~7 bytes of shared memory for each byte of device memory
+// and keeps device memory idle while a plane is on chip (24 % of the bound
+// at 512^3).  This body keeps the data in registers between exchanges and
+// the plane's intermediate in one shared buffer a CTA:
+//   1. Column pass in registers.  CTA c's stripe (n1 x w) runs the column
+//      recursion (f2_regs_stage: cols.cuh's body with one buffer; thread t
+//      on column t % w, E = 32 values a thread, fused2_regs_stages' lists
+//      (32, n/32): one radix-32 butterfly, one exchange, whole butterflies
+//      of n/32): stage 0 reads device memory straight into registers, every
+//      load issued before the first use, a warp on 32 neighbouring columns.
+//   2. One exchange of the plane.  The column pass's last stage writes
+//      element (j, i) (row j of column i = c*w + t % w) straight into row
+//      j % h of CTA j / h's row buffer (mapa + st.shared::cluster, 32
+//      consecutive words a warp), butterfly by butterfly.  The row buffer
+//      reuses the column exchange buffer: a cluster barrier before the
+//      stores says every CTA has read its own, a second after them says
+//      every row is complete.  Shared memory: one f32 buffer of h padded
+//      rows, 132 KiB a CTA at 512^2 and 256^2 (the stage walk: 200 KiB).
+//   3. Row pass in registers.  The same recursion on the CTA's h rows
+//      (F2RowGeo: last.cuh's row layout, neighbouring lanes on neighbouring
+//      elements): stage 0 reads the row buffer, the exchange reuses it, the
+//      last stage writes device memory with the scale, coalesced along the
+//      row, in natural order.
+//   4. Persistent clusters.  The grid is the clusters the card holds at
+//      once (fused2_clusters' occupancy query: 7 of 16 CTAs at 512^2, 30 of
+//      4 at 256^2) times C, or fewer where P is smaller; cluster q takes
+//      planes q, q + Q, ... (Q clusters; a static round robin, the last
+//      wave ragged).  A plane's loads go out as soon as the previous
+//      plane's stores have; its column pass waits at a block barrier before
+//      it writes the buffer the previous row pass read.  No L2 prefetch of
+//      the next plane: asked at the start of a plane or after its column
+//      pass, it made 512^3 slower (1.97 / 1.86 against 1.63 ms), as did
+//      copying the next stripe's rows into the free shared memory (1.79)
+//      and handing the finished rows to the TMA as bulk stores (1.95
+//      against 1.65).
+//   5. 512 threads a CTA at 128 registers, no spills: the thread index is
+//      read anew in each plane and mapa is volatile, so the ~40 addresses a
+//      thread uses are made in the plane loop, not hoisted out of it and
+//      spilled.
+// Where the time goes at 512^3 (knocking parts out on the card): compute and
+// shared memory ~0.65 ms, the DSMEM stores and cluster barriers ~0.4, the
+// device-memory loads and stores ~0.45: a plane's phases run one after the
+// other on its SM, so the kernel stays below half of its bound.
+// --------------------------------------------------------------------------
+template <typename T, class F>
+__global__ void __launch_bounds__(F::THREADS, 1)
+fft_fused2_regs_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
+                       T* __restrict__ yr, T* __restrict__ yi, long long P,
+                       const float2* __restrict__ tw1,
+                       const float2* __restrict__ tw2, float s, float scale) {
+  extern __shared__ float smem[];   // the buffer: re part, then im part
+  constexpr size_t PLANE = (size_t)F::N1 * F::N2;
+  constexpr int TPC2 = F::G2::TPC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank();
+  const long long Q = gridDim.x / F::C;
+  // the IO of each pass is made anew for each plane from the kernel's
+  // arguments and the thread's index, so that nothing of it stays live
+  // across the loop
+  for (long long q = blockIdx.x / F::C; q < P; q += Q) {
+    const int t = f2_tid();
+    typename F::template ColIO<T> ci;
+    ci.line = t % F::W;
+    ci.lane = t / F::W;
+    ci.sr = smem;
+    ci.si = smem + F::PART;
+    ci.tw = tw1;
+    ci.s = s;
+    ci.xr = xr;
+    ci.xi = xi;
+    ci.x = c * F::W + ci.line;
+    ci.off = (size_t)q * PLANE + ci.x;
+    ci.rows = (unsigned)__cvta_generic_to_shared(smem);
+    ci.imoff = 4u * F::PART;
+    F::cols(ci);       // ends with the stores into the cluster's rows
+    cluster.sync();    // every row buffer complete and visible
+    typename F::template RowIO<T> ri;
+    ri.line = t / TPC2;
+    ri.lane = t % TPC2;
+    ri.sr = smem;
+    ri.si = smem + F::PART;
+    ri.tw = tw2;
+    ri.s = s;
+    ri.yr = yr;
+    ri.yi = yi;
+    ri.scale = scale;
+    ri.off = (size_t)q * PLANE + (size_t)(c * F::H + ri.line) * F::N2;
+    F::rows(ri);     // the next plane's column pass waits before it writes
+                     // the buffer these reads come from
+  }
+}
+
+// The register body over P (n1, n2) planes at instance F.
+template <typename T, class F>
+cudaError_t launch_fused2_regs(F, const T* xr, const T* xi, T* yr, T* yi,
+                               long long P, int sign, float scale,
+                               const float2* tw1, int nstages1,
+                               const int* radices1, const float2* tw2,
+                               int nstages2, const int* radices2,
+                               void* stream) {
+  if (!F::lists_ok(nstages1, radices1, nstages2, radices2))
+    return cudaErrorInvalidValue;
+  if (P <= 0) return cudaSuccess;
+  const void* fn = (const void*)fft_fused2_regs_kernel<T, F>;
+  int active = 0;
+  cudaError_t e = fused2_clusters(fn, F::C, F::SMEM, &active, F::THREADS);
+  if (e != cudaSuccess) return e;
+  if (active < 1) return cudaErrorLaunchOutOfResources;
+  const long long clusters = P < active ? P : active;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = F::C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(clusters * F::C));
+  cfg.blockDim = dim3(F::THREADS);
+  cfg.dynamicSmemBytes = F::SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  float fsign = (float)sign;
+  void* args[] = {&xr, &xi, &yr, &yi, &P, &tw1, &tw2, &fsign, &scale};
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// Does the register body have an instance at (n1, n2, C)?
+bool fused2_regs(int n1, int n2, int C) {
+  return with_f2_geo(n1, n2, C, [](auto) { return cudaSuccess; })
+         == cudaSuccess;
+}
+
+// fft_fused2: the register body where it has an instance, else the stage
+// walk.
+template <typename T>
+cudaError_t launch_fused2_any(const T* xr, const T* xi, T* yr, T* yi,
+                              long long P, int n1, int n2, int C, int sign,
+                              float scale, const float2* tw1, int nstages1,
+                              const int* radices1, const float2* tw2,
+                              int nstages2, const int* radices2,
+                              void* stream) {
+  if (fused2_regs(n1, n2, C))
+    return with_f2_geo(n1, n2, C, [&](auto f) {
+      return launch_fused2_regs(f, xr, xi, yr, yi, P, sign, scale, tw1,
+                                nstages1, radices1, tw2, nstages2, radices2,
+                                stream);
+    });
+  return launch_fused2<T, false>(xr, xi, yr, yi, P, 1, n1, n2, C, sign,
+                                 scale, tw1, nstages1, radices1, tw2,
+                                 nstages2, radices2, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -405,16 +570,17 @@ int fft_last_residency(int n, int bf16, int* out) {
   });
 }
 
-// FFT along both trailing axes of (P, n1, n2) f32 planes, one plane per
-// cluster of C CTAs; radices from fused2_stages (8 allowed).
+// FFT along both trailing axes of (P, n1, n2) f32 planes on clusters of C
+// CTAs: the register body at its instances (persistent clusters), else one
+// plane a cluster; radices from fused2_stages (8 allowed).
 int fft_fused2(const float* xr, const float* xi, float* yr, float* yi,
                long long P, int n1, int n2, int C, int sign, float scale,
                const float2* tw1, int nstages1, const int* radices1,
                const float2* tw2, int nstages2, const int* radices2,
                void* stream) {
-  return launch_fused2<float, false>(xr, xi, yr, yi, P, 1, n1, n2, C, sign,
-                                     scale, tw1, nstages1, radices1, tw2,
-                                     nstages2, radices2, stream);
+  return launch_fused2_any(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
+                           nstages1, radices1, tw2, nstages2, radices2,
+                           stream);
 }
 
 // The same on bf16 planes (f32 compute, f32 intermediate).
@@ -423,16 +589,28 @@ int fft_fused2_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                     int n2, int C, int sign, float scale, const float2* tw1,
                     int nstages1, const int* radices1, const float2* tw2,
                     int nstages2, const int* radices2, void* stream) {
-  return launch_fused2<__nv_bfloat16, false>(
-      xr, xi, yr, yi, P, 1, n1, n2, C, sign, scale, tw1, nstages1, radices1,
-      tw2, nstages2, radices2, stream);
+  return launch_fused2_any(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
+                           nstages1, radices1, tw2, nstages2, radices2,
+                           stream);
 }
 
-// cudaOccupancyMaxActiveClusters of the cluster kernel (bf16 != 0: its
-// bf16 instance; gap != 0: the gap pass's strided instance) for (n1, n2)
-// planes in clusters of C; minus the CUDA error code if the geometry is
-// refused or the query fails.
+// cudaOccupancyMaxActiveClusters of the cluster kernel fft_fused2 launches
+// for (n1, n2) planes in clusters of C (bf16 != 0: its bf16 instance; gap
+// != 0: the gap pass's strided instance of the stage walk); minus the CUDA
+// error code if the geometry is refused or the query fails.
 int fft_fused2_clusters(int n1, int n2, int C, int bf16, int gap) {
+  int count = 0;
+  cudaError_t e;
+  if (!gap && fused2_regs(n1, n2, C)) {
+    e = with_f2_geo(n1, n2, C, [&](auto f) {
+      using F = decltype(f);
+      const void* fn = bf16
+          ? (const void*)fft_fused2_regs_kernel<__nv_bfloat16, F>
+          : (const void*)fft_fused2_regs_kernel<float, F>;
+      return fused2_clusters(fn, F::C, F::SMEM, &count, F::THREADS);
+    });
+    return e == cudaSuccess ? count : -(int)e;
+  }
   const size_t smem = fused2_smem(n1, n2, C);
   if (!smem) return -(int)cudaErrorInvalidValue;
   const void* fns[2][2] = {
@@ -440,9 +618,7 @@ int fft_fused2_clusters(int n1, int n2, int C, int bf16, int gap) {
        (const void*)fft_fused2_kernel<float, true>},
       {(const void*)fft_fused2_kernel<__nv_bfloat16, false>,
        (const void*)fft_fused2_kernel<__nv_bfloat16, true>}};
-  int count = 0;
-  const cudaError_t e =
-      fused2_clusters(fns[bf16 != 0][gap != 0], C, smem, &count);
+  e = fused2_clusters(fns[bf16 != 0][gap != 0], C, smem, &count);
   return e == cudaSuccess ? count : -(int)e;
 }
 

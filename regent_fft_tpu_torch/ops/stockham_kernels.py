@@ -70,8 +70,11 @@ at full f32.  The kernels compute the same DFT with FFMA butterflies all
 the way down, for both block types and every ``REGENT_FFT_MXU_IMPL`` (see
 the source notes in ``csrc/stockham.cu``), from their own
 float64-generated tables
-(:func:`_stage_tables`) of their stage lists: :func:`fused2_stages` for
-the cluster kernel of ``fft_fused2``, :func:`last_stages` for the
+(:func:`_stage_tables`) of their stage lists: :func:`fused2_regs_stages`
+for the register body of ``fft_fused2`` (persistent clusters, both passes
+in registers, at the geometries of ``FUSED2_REGS``) and
+:func:`fused2_stages` for its stage walk (every other geometry, the gap
+pass and the fuse_last ring), :func:`last_stages` for the
 register-resident rows of ``fft_last`` and of the real pair kernels
 ``fft_last_r2c`` and ``ifft_last_c2r`` (one row body, ``csrc/last.cuh``),
 :func:`cols_stages` for the register-resident columns of ``fft_cols``,
@@ -219,6 +222,59 @@ def fused2_smem_bytes(n1: int, n2: int, c: int) -> int:
     overlap."""
     hn = (n1 // c) * n2
     return 2 * 4 * (hn // 2 + hn + hn // 32)
+
+
+# The register body of ``fft_fused2`` (csrc/stockham.cu,
+# fft_fused2_regs_kernel; csrc/fused2.cuh, with_f2_geo): (n1, n2, C) -> E,
+# the values a thread holds on both axes.  Persistent clusters of C CTAs,
+# the column pass and the row pass in registers, one exchange of the plane
+# through distributed shared memory, the stage lists of
+# :func:`fused2_regs_stages`; every other geometry runs the stage walk
+# (fft_fused2_kernel, :func:`fused2_stages`).
+FUSED2_REGS = {(512, 512, 16): 32, (256, 256, 4): 32}
+
+
+def fused2_regs_stages(n: int) -> Tuple[int, ...]:
+    """Butterfly radices of ``fft_fused2``'s register body along an axis of
+    n = 256 or 512 points: (32, n / 32), two stages and one exchange of
+    shared memory, each thread's 32 values one radix-32 butterfly, then
+    whole butterflies of radix n / 32; csrc/fused2.cuh compiles its
+    instances with these lists and refuses any other."""
+    if n not in (256, 512):
+        raise ValueError(f"no register-body schedule for n={n}")
+    return (32, n // 32)
+
+
+def fused2_regs_pair(n1: int, n2: int) -> bool:
+    """Does the register body have an instance at (n1, n2) planes, for some
+    cluster size?"""
+    return any(k[:2] == (n1, n2) for k in FUSED2_REGS)
+
+
+def fused2_regs_geometry(n1: int, n2: int, c: int) -> Optional[dict]:
+    """The register body's instance at (n1, n2) planes on clusters of c
+    CTAs, or None where ``fft_fused2`` runs the stage walk: E values a
+    thread, ``threads`` a CTA (n1 * w / E, w = n2 / c columns a stripe and
+    h = n1 / c rows), ``tpc_cols``/``tpc_rows`` threads a column of the
+    stripe and a row, the rows' ``pitch`` (n2 + n2 / 32 words: one pad
+    word every 32) and ``smem_bytes``: one f32 (re, im) buffer of h padded
+    rows, which also holds the column exchange (n1 * w words a part)."""
+    e = FUSED2_REGS.get((n1, n2, c))
+    if e is None:
+        return None
+    w, h = n2 // c, n1 // c
+    pitch = n2 + n2 // 32
+    return dict(E=e, w=w, h=h, threads=n1 * w // e, tpc_cols=n1 // e,
+                tpc_rows=n2 // e, pitch=pitch, smem_bytes=8 * h * pitch)
+
+
+def fused2_cta_smem(n1: int, n2: int, c: int) -> int:
+    """Shared memory of one CTA of the body ``fft_fused2`` runs at (n1, n2)
+    planes on clusters of c CTAs: the register body's where it has an
+    instance (:func:`fused2_regs_geometry`), else the stage walk's
+    (:func:`fused2_smem_bytes`)."""
+    g = fused2_regs_geometry(n1, n2, c)
+    return fused2_smem_bytes(n1, n2, c) if g is None else g["smem_bytes"]
 
 
 def fused_gap_supported(n1: int, n2: int) -> bool:
@@ -993,8 +1049,8 @@ def device_tables(n: int, sign: int, device: torch.device, stages):
     """(twiddle tensor on ``device``, ctypes radix array, stage count) for
     the kernels, uploaded once per (n, sign, device, stage list); plans
     fetch theirs when they are made.  ``stages`` (:func:`cols_stages`,
-    :func:`last_stages` or :func:`fused2_stages`) makes the radix list from
-    n."""
+    :func:`last_stages`, :func:`fused2_stages` or
+    :func:`fused2_regs_stages`) makes the radix list from n."""
     rad = stages(n)
     key = (n, sign, device, rad)
     hit = _DEVICE_TABLES.get(key)
@@ -1090,10 +1146,12 @@ def _sm_count(device: torch.device) -> int:
 
 def fused2_active_clusters(n1: int, n2: int, c: int, dtype=torch.float32,
                            gap: bool = False):
-    """``cudaOccupancyMaxActiveClusters`` of the ``fft_fused2`` kernel (with
-    ``gap``, its strided instance that ``fft_gap`` launches) for (n1, n2)
-    planes of ``dtype`` in clusters of c CTAs: how many such clusters the
-    card holds at once (0: none fits, and the kernel refuses to launch)."""
+    """``cudaOccupancyMaxActiveClusters`` of the kernel ``fft_fused2``
+    launches (the register body where :func:`fused2_regs_geometry` has an
+    instance: its persistent grid's clusters; with ``gap``, the stage walk's
+    strided instance that ``fft_gap`` launches) for (n1, n2) planes of
+    ``dtype`` in clusters of c CTAs: how many such clusters the card holds
+    at once (0: none fits, and the kernel refuses to launch)."""
     from . import _build
     got = _build.load().fft_fused2_clusters(n1, n2, c,
                                             int(dtype == torch.bfloat16),
@@ -1247,27 +1305,34 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along both trailing axes of (P, n1, n2) f32 or bf16 planes,
     scale fused, output in the input's dtype.
 
-    CUDA planes launch ``fft_fused2_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_fused2_bf16``): one plane per cluster of
-    :func:`fused2_cluster` CTAs, the f32 intermediate in the cluster's
-    shared memory, so each element crosses device memory once each way and
-    nothing is allocated beside the output.  The C entry refuses a cluster
-    size the card cannot hold (:func:`fused2_active_clusters` 0) and this
-    raises.  CPU planes run :func:`fft_fused2_plain`.  Counterpart:
-    ``pallas_stockham.py:875``.
+    CUDA planes launch the cluster kernel (f32, or its bf16 instance,
+    counted as ``fft_fused2_bf16``) on clusters of :func:`fused2_cluster`
+    CTAs, the f32 intermediate in the cluster's shared memory, so each
+    element crosses device memory once each way and nothing is allocated
+    beside the output: the register body (``fft_fused2_regs_kernel``,
+    persistent clusters; its planes counted in
+    ``trace.COUNTS["fused2_planes"]``) where :func:`fused2_regs_geometry`
+    has an instance, else the stage walk (``fft_fused2_kernel``, one plane a
+    cluster).  The C entry refuses a cluster size the card cannot hold
+    (:func:`fused2_active_clusters` 0) and this raises.  CPU planes run
+    :func:`fft_fused2_plain`.  Counterpart: ``pallas_stockham.py:875``.
     """
     if not _on_cuda("fft_fused2", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_fused2_plain(xr, xi, sign, scale)
     p, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     c = fused2_cluster(n1, n2, p, _sm_count(xr.device))
-    tw1, rad1, k1 = device_tables(n1, sign, xr.device, fused2_stages)
-    tw2, rad2, k2 = device_tables(n2, sign, xr.device, fused2_stages)
+    regs = fused2_regs_geometry(n1, n2, c) is not None
+    stages = fused2_regs_stages if regs else fused2_stages
+    tw1, rad1, k1 = device_tables(n1, sign, xr.device, stages)
+    tw2, rad2, k2 = device_tables(n2, sign, xr.device, stages)
     _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n1, n2, c, sign, scale,
             tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2,
             nbytes=4 * xr.nbytes)
+    if regs:
+        _trace.COUNTS["fused2_planes"] += p
     return yr, yi
 
 

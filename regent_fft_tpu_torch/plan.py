@@ -699,8 +699,10 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     """The (length, stage-list function) pair of every twiddle table the
     kernels of a plan read, in step order, the real axis's last: a
     ``stockham2``, ``stockham_gap`` or ``fused2_ring`` step's two axes take
-    ``fused2_stages`` (all run the cluster body); ``fft_last`` (a
-    ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
+    ``fused2_stages`` (all run the cluster body), a ``stockham2`` step's
+    also ``fused2_regs_stages`` where ``fft_fused2``'s register body has an
+    instance for the pair (its cluster size follows the batch); ``fft_last``
+    (a ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
     ``stockham4`` step, the half-length core of the real ``half`` route)
     and the real row-pair kernels of the ``kernel`` route take
     ``last_stages``; the column kernels ``cols_stages``: ``fft_cols`` and
@@ -716,6 +718,9 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     for kind_, a, arg in steps:
         if kind_ in ("stockham2", "stockham_gap", "fused2_ring"):
             out += [(arg[0], fs2), (arg[1], fs2)]
+            if kind_ == "stockham2" and _sk.fused2_regs_pair(*arg):
+                rs = _sk.fused2_regs_stages
+                out += [(arg[0], rs), (arg[1], rs)]
         elif kind_ == "stockham4":
             n1, n2 = _sk._four_step_split(arg)
             out += [(n1, cs), (n2, ls)]

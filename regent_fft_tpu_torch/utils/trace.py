@@ -29,8 +29,10 @@ Every span name starts with ``rft.``:
   library loaded or compiled).
 
 Counters (always on): ``COUNTS["exchange_bytes"]``, the bytes this rank
-sends to other ranks through the distributed plans' collectives; the
-launch counters ``LAUNCHES``/``LAUNCH_BYTES`` live beside the launches in
+sends to other ranks through the distributed plans' collectives;
+``COUNTS["fused2_planes"]``, the planes ``fft_fused2`` ran through its
+register body (``ops/stockham_kernels.py``); the launch counters
+``LAUNCHES``/``LAUNCH_BYTES`` live beside the launches in
 ``ops/stockham_kernels.py``.
 
 :func:`device_us_by_span` reads an exported Chrome trace back: device
@@ -48,7 +50,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 ON = False
-COUNTS = {"exchange_bytes": 0}
+COUNTS = {"exchange_bytes": 0, "fused2_planes": 0}
 
 
 class _Off:

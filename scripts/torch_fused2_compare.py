@@ -6,12 +6,17 @@ the ``regent_fft_tpu_torch`` package of the directory it is run from.
 
 Run it from the root of two checkouts (say a commit and its parent) in one
 run on one GPU to compare them.  Prints the card's name and power
-limit, then one JSON line: ``fft_fused2`` ms (f32 and bf16 planes, median
-of 10 CUDA-event runs, L2 flushed before each) at 512^3, 1024 x 256^2 and
-16 x 512^2, and for the default complex64 and complex32 512^3 C2C plans
-the plan ms and the peak device memory of one call (max_memory_allocated
-after reset_peak_memory_stats, and its rise over what was allocated
-before the call).
+limit, then one JSON line: the clusters of ``fft_fused2``'s kernel the card
+holds at once at 512^2 and 256^2 (``fused2_active_clusters``) and the SMs
+they cover; ``fft_fused2`` ms (f32 and bf16 planes, median of 10
+CUDA-event runs, L2 flushed before each) at 512^3, 1024 x 256^2 and
+16 x 512^2, and at plane counts that leave a ragged last wave of clusters
+(9, 100 and 129 planes of 512^2, 37 and 1000 of 256^2); the unfused pair
+at 512^3 (``fft_last`` on 262144 x 512, then ``fft_cols`` along axis 1),
+the line the fused kernel has to beat; and for the default complex64 and
+complex32 512^3 C2C plans the plan ms and the peak device memory of one
+call (max_memory_allocated after reset_peak_memory_stats, and its rise
+over what was allocated before the call).
 """
 import json
 import os
@@ -54,14 +59,34 @@ def main() -> int:
         return float(np.median(out))
 
     res = {"label": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
-           "fft_fused2_ms": {}, "plans": {}}
-    for shape in ((512, 512, 512), (1024, 256, 256), (16, 512, 512)):
+           "active_clusters": {}, "fft_fused2_ms": {}, "unfused_ms": {},
+           "plans": {}}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for p_, n1, n2 in ((512, 512, 512), (1024, 256, 256)):
+        c = sk.fused2_cluster(n1, n2, p_, sms)
+        for dt in (torch.float32, torch.bfloat16):
+            act = sk.fused2_active_clusters(n1, n2, c, dt)
+            res["active_clusters"][f"{n1}x{n2} {str(dt)[6:]}"] = {
+                "C": c, "clusters": act, "sms": act * c, "of": sms}
+    for shape in ((512, 512, 512), (1024, 256, 256), (16, 512, 512),
+                  (9, 512, 512), (100, 512, 512), (129, 512, 512),
+                  (37, 256, 256), (1000, 256, 256)):
         for dt in (torch.float32, torch.bfloat16):
             xr = torch.randn(shape, device=dev, generator=gen).to(dt)
             xi = torch.randn(shape, device=dev, generator=gen).to(dt)
             key = f"{'x'.join(map(str, shape))} {str(dt)[6:]}"
             res["fft_fused2_ms"][key] = timed(lambda: sk.fft_fused2(xr, xi, -1))
             del xr, xi
+    for dt in (torch.float32, torch.bfloat16):
+        xr = torch.randn((512,) * 3, device=dev, generator=gen).to(dt)
+        xi = torch.randn((512,) * 3, device=dev, generator=gen).to(dt)
+
+        def unfused():
+            yr, yi = sk.fft_last(xr.view(-1, 512), xi.view(-1, 512), -1)
+            return sk.fft_cols(yr.view(512, 512, 512),
+                               yi.view(512, 512, 512), -1)
+        res["unfused_ms"][f"512x512x512 {str(dt)[6:]}"] = timed(unfused)
+        del xr, xi
     for dtype in ("complex64", "complex32"):
         p = rt.make_plan((512, 512, 512), dtype=dtype)
         xr = torch.randn((512,) * 3, device=dev, generator=gen)

@@ -29,6 +29,8 @@ figures the spans and counters read, a mean over ranks:
   step (``nccl_ms``);
 * ``kernel_gbps``: ``LAUNCH_BYTES`` a step over the port's kernels' device
   time a step (``kernel_ms``), and ``launch_gib_per_step``;
+* ``fused2_planes_per_step``: the planes ``fft_fused2``'s register body
+  took a step (``trace.COUNTS["fused2_planes"]``);
 * ``attributed_pct``: the share of device µs under some ``rft.`` span;
   ``port_records`` against ``launches``: the port-class kernel records
   in the trace against the launches counted (the profiler's dropped
@@ -149,6 +151,8 @@ def figures(recs) -> dict:
             else None,
             "launch_gib_per_step": lb / 2 ** 30,
             "exchange_gib_per_step": xb / 2 ** 30,
+            "fused2_planes_per_step": tr["counts"].get("fused2_planes", 0)
+            / steps,
             "attributed_pct": 100.0 * (1 - by.get("unattributed", 0.0)
                                        / total) if total else None,
             "port_records": tr["port_records"],

@@ -33,7 +33,8 @@ against ``last_stages`` and ``LAST_BLOCK``; and the plans' table prefetch
 ``fft_last`` or the real row-pair kernels, ``cols_stages`` for the column
 kernels (the mid-axis ``stockham`` steps' ``fft_cols`` and ``fft_axis0``,
 the axis ring, ``fft_cols_tw`` and both four-step stages), and
-``fused2_stages`` for both axes of the two-axis ring.
+``fused2_stages`` for both axes of the two-axis ring (and of the fused
+pair, with ``fused2_regs_stages`` where its register body runs).
 """
 import re
 from pathlib import Path
@@ -324,8 +325,11 @@ def _tables(shape, axes, kind="c2c", **kw):
     ((64, 1 << 20), (1,), "c2c", [(512, "cols_stages"),
                                   (2048, "last_stages")]),
     # 3-D: the fused pair, then the leading axis on fft_cols
+    # (and the register body's lists, which it runs at 512^2 planes)
     ((512, 512, 512), (0, 1, 2), "c2c", [(512, "fused2_stages"),
                                          (512, "fused2_stages"),
+                                         (512, "fused2_regs_stages"),
+                                         (512, "fused2_regs_stages"),
                                          (512, "cols_stages")]),
     # a 3-D grid whose last axis is too short to fuse: fft_last, then the
     # mid and leading axes on fft_cols
@@ -354,10 +358,12 @@ def _tables(shape, axes, kind="c2c", **kw):
     # fft_cols)
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "dma"}),
      [(512, "fused2_stages"), (512, "fused2_stages"),
+      (512, "fused2_regs_stages"), (512, "fused2_regs_stages"),
       (512, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "fourstep"}),
-     [(512, "fused2_stages"), (512, "fused2_stages"), (16, "cols_stages"),
-      (32, "cols_stages")]),
+     [(512, "fused2_stages"), (512, "fused2_stages"),
+      (512, "fused2_regs_stages"), (512, "fused2_regs_stages"),
+      (16, "cols_stages"), (32, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"f2_impl": "ring"}),
      [(512, "fused2_stages"), (512, "fused2_stages"),
       (512, "cols_stages")]),
