@@ -36,7 +36,8 @@ A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device, and a plane dtype the kernel does not take,
 raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
-``LAUNCHES`` (all twenty-two).  Every two-axis kernel keeps the plane
+``LAUNCHES`` (all twenty-two, beside ``contract_gemm``, the dense DFT
+products of ``ops/stockham.py``).  Every two-axis kernel keeps the plane
 between its passes in f32, as the TPU kernels keep it in VMEM and the
 plain versions keep it: ``fft_fused2``, the gap pass and the fuse_last
 ring (both types) in the distributed shared memory of a thread-block
@@ -1079,10 +1080,16 @@ LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
             "fft_axes2_ring_bf16": 0,
             # the axis-0 pass, and the matmul-form kernels of
             # ops/pallas_fft.py
-            "fft_axis0": 0, "fft_mm1": 0, "fft_mm2": 0}
+            "fft_axis0": 0, "fft_mm1": 0, "fft_mm2": 0,
+            # the dense DFT products of ops/stockham.py (torch.matmul, so
+            # cuBLAS's on a card, counted on every device)
+            "contract_gemm": 0}
 # Bytes by launch name, the same keys: the planes each launch reads once
-# plus those it writes once, tables not counted.
+# plus those it writes once, tables not counted ("contract_gemm": both
+# operands and the product).
 LAUNCH_BYTES = dict.fromkeys(LAUNCHES, 0)
+# The LAUNCHES keys that count a library's products, no kernel of the port's.
+LIBRARY_LAUNCHES = ("contract_gemm",)
 
 # Plane dtypes of the butterfly kernels that take both (all but the real
 # pair and fft_cols_tw), and the suffix of the C entry point (and launch

@@ -789,6 +789,11 @@ class Plan:
             _sk.device_tables(n, sign, self.device, stages)
             for n, stages in _kernel_lengths(self.steps, self.real,
                                              len(step_shape))]
+        # and the contraction steps' operands, on any device
+        self.contract_tables = [
+            t for k, _, arg in self.steps
+            for t in _stockham.step_tables(k, arg, sign, _general_dtype(spec),
+                                           self.device, spec.use_3m)]
         self.scale = _norm_scale(spec)
         self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
         self._destroyed = False
@@ -1134,7 +1139,7 @@ _PLAN_CACHE: dict = {}     # (spec, switches) -> Plan
 def _cached_plan(spec: PlanSpec, switches: Switches) -> Plan:
     plan = _PLAN_CACHE.get((spec, switches))
     if plan is None or plan._destroyed:
-        with _trace.span("rft.build"):
+        with _trace.outer_span("rft.build"):
             plan = Plan(spec, switches)
         _PLAN_CACHE[(spec, switches)] = plan
         from .utils.plog import log_plan
@@ -1174,11 +1179,15 @@ def destroy_plan(plan: Plan):
     """
     _PLAN_CACHE.pop((plan.spec, plan.switches), None)
     plan._destroyed = True
+    plan.tables, plan.contract_tables = [], []
 
 
 def clear_plan_cache():
-    """Counterpart: ``regent_fft_tpu/plan.py:1165``."""
+    """Drop every cached plan and the contraction steps' device operands
+    (a plan a caller still holds makes its own again on its next call).
+    Counterpart: ``regent_fft_tpu/plan.py:1165``."""
     _PLAN_CACHE.clear()
+    _stockham.clear_tables()
 
 
 def cached_plans():

@@ -22,24 +22,32 @@ Every span name starts with ``rft.``:
   applied as a pass of its own;
 * ``rft.step.<kind>``: one step of ``plan.run_steps``, and
   ``rft.step.r2c``/``rft.step.c2r`` the real axis;
+* ``rft.contract.pack``/``.gemm``/``.twiddle``/``.unpack``: inside a
+  ``direct`` or ``mixed2`` step (``ops/stockham.py``), the moved axis's
+  ``[xr | xi]`` operand, the dense DFT products, ``mixed2``'s twiddle
+  multiply, and the copies of the product back to the planes' layout;
 * ``rft.exchange.pack``/``rft.exchange.a2a``/``rft.exchange.unpack``: a
   distributed plan's all-to-all, its send-buffer copies and the copies
   out of the received buffer;
-* ``rft.build``: cold paths (a plan or a kernel table made, the kernel
-  library loaded or compiled).
+* ``rft.build``: cold paths (a plan, a kernel table or a contraction
+  operand made, the kernel library loaded or compiled); a contraction
+  operand made while a plan is built opens none of its own
+  (:func:`outer_span`).
 
 Counters (always on): ``COUNTS["exchange_bytes"]``, the bytes this rank
 sends to other ranks through the distributed plans' collectives;
 ``COUNTS["fused2_planes"]``, the planes ``fft_fused2`` ran through its
 register body (``ops/stockham_kernels.py``); the launch counters
 ``LAUNCHES``/``LAUNCH_BYTES`` live beside the launches in
-``ops/stockham_kernels.py``.
+``ops/stockham_kernels.py``, and count the contraction steps' products
+under ``contract_gemm``.
 
 :func:`device_us_by_span` reads an exported Chrome trace back: device
 time by the innermost span that holds each operation's launch.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -91,6 +99,28 @@ def span(name: str):
     if not ON:
         return _OFF
     return torch.profiler.record_function(name)
+
+
+_OUTER_OPEN = set()
+
+
+@contextlib.contextmanager
+def _outer(name: str):
+    _OUTER_OPEN.add(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        _OUTER_OPEN.discard(name)
+
+
+def outer_span(name: str):
+    """A span named ``name``, or nothing inside another ``outer_span`` of
+    that name: a cold path inside a cold path (a contraction table made
+    while a plan is built) is one ``rft.build``."""
+    if not ON or name in _OUTER_OPEN:
+        return _OFF
+    return _outer(name)
 
 
 def reset_counts():

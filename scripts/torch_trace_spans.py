@@ -28,13 +28,14 @@ figures the spans and counters read, a mean over ranks:
 * ``exchange_gbps``: ``exchange_bytes`` a step over NCCL's device time a
   step (``nccl_ms``);
 * ``kernel_gbps``: ``LAUNCH_BYTES`` a step over the port's kernels' device
-  time a step (``kernel_ms``), and ``launch_gib_per_step``;
+  time a step (``kernel_ms``), and ``launch_gib_per_step``, both without
+  ``contract_gemm`` (the contraction steps' products, cuBLAS's kernels);
 * ``fused2_planes_per_step``: the planes ``fft_fused2``'s register body
   took a step (``trace.COUNTS["fused2_planes"]``);
 * ``attributed_pct``: the share of device µs under some ``rft.`` span;
   ``port_records`` against ``launches``: the port-class kernel records
-  in the trace against the launches counted (the profiler's dropped
-  records);
+  in the trace against the launches counted, ``contract_gemm`` left out
+  (the profiler's dropped records);
 * ``idle_gaps``: the ten longest idle gaps, named by the benchmark's span
   and the innermost ``rft.`` span at their midpoint, with the CUDA calls
   of 100 µs or more that overlap them.
@@ -126,6 +127,7 @@ def _innermost(spans, t):
 def figures(recs) -> dict:
     """The spans' and counters' readings of one traced run's records."""
     from fftbench import kernel_class as kc, records, yardstick
+    from regent_fft_tpu_torch.ops import stockham_kernels as sk
     if not records.traced(recs) or "span_device_us" not in recs[0]["trace"]:
         return {}
     out, per = {}, []
@@ -138,7 +140,8 @@ def figures(recs) -> dict:
             return sum(v for k, v in by.items() if pred(k)) * 1e-3 / steps
         kernel_ms = records.class_ms_per_step(r, (kc.PORT,))
         nccl_ms = records.class_ms_per_step(r, (kc.NCCL,))
-        lb = sum(tr["launch_bytes"].values()) / steps
+        lb = sum(v for k, v in tr["launch_bytes"].items()
+                 if k not in sk.LIBRARY_LAUNCHES) / steps
         xb = tr["counts"].get("exchange_bytes", 0) / steps
         per.append({
             "layout_ms": ms(lambda k: k.startswith("rft.layout.")),
@@ -156,7 +159,8 @@ def figures(recs) -> dict:
             "attributed_pct": 100.0 * (1 - by.get("unattributed", 0.0)
                                        / total) if total else None,
             "port_records": tr["port_records"],
-            "launches": sum(tr["launches"].values()),
+            "launches": sum(v for k, v in tr["launches"].items()
+                            if k not in sk.LIBRARY_LAUNCHES),
             "span_ms_per_step": {k: v * 1e-3 / steps
                                  for k, v in sorted(by.items())}})
     for k in per[0]:
