@@ -10,8 +10,11 @@ Phases (any failure raises and the script exits non-zero):
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
    kernel's four instances, fft_fused2's and the gap pass's in f32 and
-   bf16, the matmul kernel, the 32 instances of fft_last's row kernel, the
-   48 of fft_cols's column kernel, the 10 each of the real pair kernels
+   bf16, the matmul kernel, the 42 instances of fft_last's row kernel, the
+   58 of fft_cols's column kernel (each with its 10 f64 instances, whose
+   registers are printed; the f32 and bf16 instances' registers must equal
+   the parent build's, ``PARENT_REGISTERS``), the 10 each of the real pair
+   kernels
    fft_last_r2c and ifft_last_c2r, on the same row body, the slab ring's
    48 axis-mode and 6 fuse_last instances, and the 21 of the four-step
    column kernel, on fft_cols' column body, must spill nothing), the
@@ -23,7 +26,8 @@ Phases (any failure raises and the script exits non-zero):
    fft_cols's and the axis ring's instances at every admitted length
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, rows or columns and
    threads a block, registers, shared bytes; the ring's depth, held
-   against ring_geometry), f32 and bf16, of the real pair kernels' (row
+   against ring_geometry), f32 and bf16, of fft_last's and fft_cols's
+   f64 instances at every power of two 2..1024, of the real pair kernels' (row
    pairs a block) and of every four-step column instance (fft_cols_tw and
    stage a's with the twiddle, stage b's);
 3. kernels: every length the C2C kernel gates admit (ragged batches and
@@ -65,7 +69,10 @@ Phases (any failure raises and the script exits non-zero):
    against fft_mm2_plain on the card, every 16th of those lengths and the
    main path's also against torch.fft in float64 on the host;
    then each kernel at every shape the main path gives it (fft_last also
-   at Bluestein's 16384 x 2048 inner planes), held against
+   at Bluestein's 16384 x 2048 inner planes; the f64 instances at every
+   axis of 512^3, 256^3, 16 x 128^3, 64 x 1024 and 4096 x 1024, each also
+   against torch.fft in complex128 within tolerance(n, "complex128"),
+   bound 32 B an element), held against
    its plain PyTorch version on the card (rel_l2 <= tolerance(n), or
    ``PLAIN_LIMIT`` = 1e-3 for the bf16 kernels) and timed
    (median of CUDA-event runs with the L2 flushed before each) beside its
@@ -115,8 +122,8 @@ Phases (any failure raises and the script exits non-zero):
    4 x 256^3 (axes 1-3) with ``axis0_impl="fourstep"``, 4096 x 1024 and
    16 x 512^2, and complex128 C2C plans of 256^3 and 4096 x 1024, with the
    default device and backend.  One group per plan as in phase 6: the
-   complex32 plans launch only the bf16 kernels, the complex128 plans
-   none.  Each is held against torch.fft in float64 (of the bf16-rounded
+   complex32 plans launch only the bf16 kernels, the complex128 plans only
+   the f64 instances of fft_cols and fft_last.  Each is held against torch.fft in float64 (of the bf16-rounded
    input for complex32) within tolerance(logical_n, dtype) and must
    round-trip through ``plan.inverse()``; then its peak device memory
    is read, and it is timed beside its bytes bound, torch.fft on
@@ -270,11 +277,18 @@ Phases (any failure raises and the script exits non-zero):
    the narrow one, zeros above n/2, the kernels held against their plain
    versions at those planes, padded and narrow timed); and a child process
    under ``REGENT_FFT_LOG=2`` that must print the make_plan and schedule
-   lines; one ``{"switches": [...]}`` line and the phase's time.
+   lines; one ``{"switches": [...]}`` line and the phase's time;
+18. complex128 on the f64 instances: ``torch_fft.fftn`` of a complex128
+   256^3 tensor, ``scipy.fft.fftn`` of complex128 64 x 1024 through the
+   card's backend and an R2C complex128 plan of 64 x 256^2, each counted
+   (only f64 instances launch) and within tolerance(n, "complex128") of
+   torch.fft in float64; NPB FT class C through the port
+   (``examples/npb_ft.py --check``): its 20 checksums within 1e-12
+   relative of the plain torch.fft iteration of ``fftbench/npb_ft.py``.
 
 Prints how long each phase took, one ``{"plans": [...]}`` line,
 one ``{"planners": [...]}`` line (phase 13),
-one ``{"kernels": [...]}`` line (22 kernels; ``launches`` sums every
+one ``{"kernels": [...]}`` line (24 kernels; ``launches`` sums every
 main-path run, ``launches_by_path`` splits them, and every kernel must
 have launched), the nvidia-smi line, and last the device line.  Exits
 non-zero, with no result, when no CUDA device is present.
@@ -335,6 +349,42 @@ KERNELS = {   # name: (replaces, source)
     "fft_axis0": (f"{PS}:739 (_runner_axis0)", COLS_CU),
     "fft_mm1": (f"{PF}:129 (_runner_1stage)", MATMUL_CU),
     "fft_mm2": (f"{PF}:157 (_runner_2stage)", MATMUL_CU),
+    "fft_cols_f64": ("none (the JAX package runs a complex128 axis as a "
+                     "dense contraction, regent_fft_tpu/plan.py:331)",
+                     COLS_CU),
+    "fft_last_f64": ("none (the JAX package runs a complex128 axis as a "
+                     "dense contraction, regent_fft_tpu/plan.py:331)",
+                     STOCKHAM_CU),
+}
+# The registers ptxas gave the f32 and bf16 instances of the row and column
+# kernels (sm_90a) before their bodies took the arithmetic type as a
+# template parameter: the f64 instances share those bodies, whose f32 and
+# bf16 code must not move.
+PARENT_REGISTERS = {
+    "fft_last_kernel": {
+        "f32 2": 16, "f32 4": 24, "f32 8": 32, "f32 16": 48, "f32 32": 72,
+        "f32 64": 79, "f32 128": 79, "f32 256": 80, "f32 384": 116,
+        "f32 512": 128, "f32 640": 128, "f32 768": 128, "f32 896": 128,
+        "f32 1024": 127, "f32 1536": 128, "f32 2048": 126,
+        "bf16 2": 15, "bf16 4": 20, "bf16 8": 27, "bf16 16": 47,
+        "bf16 32": 64, "bf16 64": 71, "bf16 128": 80, "bf16 256": 79,
+        "bf16 384": 116, "bf16 512": 127, "bf16 640": 128, "bf16 768": 128,
+        "bf16 896": 128, "bf16 1024": 127, "bf16 1536": 128, "bf16 2048": 128,
+    },
+    "fft_cols_kernel": {
+        "f32 2": 19, "f32 4": 26, "f32 8": 32, "f32 16": 48, "f32 24": 56,
+        "f32 32": 72, "f32 40": 56, "f32 48": 95, "f32 56": 64, "f32 64": 94,
+        "f32 96": 110, "f32 128": 80, "f32 160": 123, "f32 192": 119,
+        "f32 224": 126, "f32 256": 96, "f32 384": 114, "f32 512": 128,
+        "f32 640": 168, "f32 768": 168, "f32 896": 128, "f32 1024": 128,
+        "f32 1536": 168, "f32 2048": 128,
+        "bf16 2": 19, "bf16 4": 24, "bf16 8": 32, "bf16 16": 48,
+        "bf16 24": 56, "bf16 32": 71, "bf16 40": 56, "bf16 48": 96,
+        "bf16 56": 64, "bf16 64": 92, "bf16 96": 109, "bf16 128": 80,
+        "bf16 160": 127, "bf16 192": 119, "bf16 224": 119, "bf16 256": 96,
+        "bf16 384": 168, "bf16 512": 128, "bf16 640": 168, "bf16 768": 168,
+        "bf16 896": 128, "bf16 1024": 128, "bf16 1536": 168, "bf16 2048": 128,
+    },
 }
 # Kernel-vs-plain limit (rel_l2) of the bf16 kernels, set from what a
 # correct kernel reads (H100 runs): the kernels and their plain versions
@@ -417,10 +467,11 @@ DTYPE_PLANS = [
     ("complex32_2d", (16, 512, 512), (1, 2), "complex32", {},
      ["(axis 1: kernel-fused2(512, 512))"], {"fft_fused2_bf16": 1}),
     ("complex128_cube", (256, 256, 256), (0, 1, 2), "complex128", {},
-     ["(axis 2: direct-einsum(n=256))", "(axis 1: direct-einsum(n=256))",
-      "(axis 0: direct-einsum(n=256))"], {}),
+     ["(axis 2: kernel-butterfly(n=256))", "(axis 1: kernel-butterfly(n=256))",
+      "(axis 0: kernel-butterfly(n=256))"],
+     {"fft_last_f64": 1, "fft_cols_f64": 2}),
     ("complex128_1d", (4096, 1024), (1,), "complex128", {},
-     ["(axis 1: einsum-mixed2(1024=32x32))"], {}),
+     ["(axis 1: kernel-butterfly(n=1024))"], {"fft_last_f64": 1}),
 ]
 # The gap-fused plans, built under REGENT_FFT_GAP_FUSED=1 (same fields).
 GAP_STEPS = ["(axis 0: kernel-gap-fused(512, 512))",
@@ -636,13 +687,15 @@ SIGNAL_GROUPS = [
     ("scipy_fft_rfftn", {"fft_last_r2c": 1, "fft_cols": 2}),
     ("scipy_fft_dctn", {"fft_last": 3}),
     ("scipy_fft_fht", {"fft_last_r2c": 1, "fft_last": 1}),
-    ("scipy_fft_fft_f64", {}),                   # complex128: dense f64
+    ("scipy_fft_fft_f64", {"fft_last_f64": 1}),  # complex128: f64 rows
 ]
 # Phase 15: each distributed mode's counted run and the launches its local
 # stages make at world size 1 (the slab: fft_fused2 on the local trailing
 # pair, fft_cols on the former slab axis, once a chunk; the pencil:
 # fft_last, then fft_cols twice; the rank-1 plan: fft_axis0 on the R
-# columns, fft_last on the C rows; the transposes exchange only).  The
+# columns, fft_last on the C rows; the complex128 slab: the f64 instances,
+# fft_last_f64 and fft_cols_f64 on the local pair, fft_cols_f64 on the
+# former slab axis; the transposes exchange only).  The
 # measure race's group is set from its winner's chunk count.
 DIST_GROUPS = [
     ("dist_shards_512cubed", {"fft_fused2": 1, "fft_cols": 1}),
@@ -654,7 +707,7 @@ DIST_GROUPS = [
     ("dist_pencil_transposed_out", {"fft_last": 1, "fft_cols": 2}),
     ("dist_slab_howmany2_256cubed", {"fft_fused2": 1, "fft_cols": 1}),
     ("dist_slab_c32_512cubed", {"fft_fused2_bf16": 1, "fft_cols_bf16": 1}),
-    ("dist_slab_c128_256cubed", {}),             # complex128: dense f64
+    ("dist_slab_c128_256cubed", {"fft_last_f64": 1, "fft_cols_f64": 2}),
     ("dist_slab1d_2p22", {"fft_axis0": 1, "fft_last": 1}),
     ("dist_slab1d_2p22_scrambled", {"fft_axis0": 1, "fft_last": 1}),
     ("dist_transpose_8192sq", {}),
@@ -703,6 +756,27 @@ def _ptxas(log: str):
         elif fn and ("spill" in ln or "registers" in ln):
             props[fn].append(ln.replace("ptxas info    :", "").strip())
     return [f"{fn}: {'; '.join(lines)}" for fn, lines in props.items()]
+
+
+def ptxas_registers(lines, kname: str) -> dict:
+    """Registers by "<type> <n>" of the f32 and bf16 instances of a kernel
+    template (``fft_last_kernel``, ``fft_cols_kernel``) in ``_ptxas`` lines:
+    the plane type after the template's name, n its first integer
+    argument (fft_cols_kernel's ColsGeo<n, ...>)."""
+    out = {}
+    for ln in lines:
+        name = ln.split(":")[0]
+        tail = name.split(kname, 1)[1]
+        if tail.startswith("If"):
+            typ = "f32"
+        elif "__nv_bfloat16" in tail[:24]:
+            typ = "bf16"
+        else:
+            continue
+        n = int(re.search(r"Li(\d+)E", tail).group(1))
+        out[f"{typ} {n}"] = int(re.search(r"Used (\d+) registers",
+                                          ln).group(1))
+    return dict(sorted(out.items()))
 
 
 def _tensor_ops(lib: str):
@@ -818,24 +892,40 @@ def main() -> int:
                   if "fft_last_kernel" in ln]
     n_last = sum(1 for n in range(2, sk.MAX_LAST_N + 1)
                  if sk.kernel_len_ok(n, True))
-    if len(last_ptxas) != 2 * n_last or not all(
+    f64_lengths = [n for n in range(2, sk.MAX_F64_N + 1) if sk.f64_len_ok(n)]
+    if len(last_ptxas) != 2 * n_last + len(f64_lengths) or not all(
             re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
             for ln in last_ptxas):
         raise AssertionError(f"fft_last ptxas: {last_ptxas}")
-    print(f"ptxas fft_last_kernel: {len(last_ptxas)} instances, 0 spill "
-          f"bytes in each")
+    print(f"ptxas fft_last_kernel: {len(last_ptxas)} instances (f32, bf16 "
+          f"and f64), 0 spill bytes in each")
     # the column kernel of fft_cols/fft_axis0: one instance per length the
     # mid-axis gate admits and plane type, none may spill
     cols_ptxas = [ln for ln in _ptxas(_build.build_log)
                   if "fft_cols_kernel" in ln]
     cols_lengths = [n for n in range(2, sk.MAX_STOCKHAM_N + 1)
                     if sk.kernel_len_ok(n, False)]
-    if len(cols_ptxas) != 2 * len(cols_lengths) or not all(
+    if len(cols_ptxas) != 2 * len(cols_lengths) + len(f64_lengths) or not all(
             re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
             for ln in cols_ptxas):
         raise AssertionError(f"fft_cols ptxas: {cols_ptxas}")
-    print(f"ptxas fft_cols_kernel: {len(cols_ptxas)} instances, 0 spill "
-          f"bytes in each")
+    print(f"ptxas fft_cols_kernel: {len(cols_ptxas)} instances (f32, bf16 "
+          f"and f64), 0 spill bytes in each")
+    # the f64 instances' registers and spills, and the f32 and bf16
+    # instances' registers held to the parent's build (the f64 instances
+    # share their templated bodies, which must compile to the same code)
+    for kname, lines in (("fft_last_kernel", last_ptxas),
+                         ("fft_cols_kernel", cols_ptxas)):
+        for ln in lines:
+            if f"{kname}Id" in ln.split(":")[0]:
+                print(f"ptxas {kname} f64: {ln}")
+        got = ptxas_registers(lines, kname)
+        want = PARENT_REGISTERS[kname]
+        print(f"ptxas {kname} f32/bf16 registers by (type, n), this build "
+              f"against the parent build's: {got} / {want}")
+        if got != want:
+            raise AssertionError(f"{kname} f32/bf16 registers moved: {got} "
+                                 f"against {want}")
     # the real pair kernels, on fft_last's row body: one instance per
     # length the real-kernel gate admits, none may spill
     real_lengths = [n for n in range(2, sk.MAX_REAL_N + 1)
@@ -981,6 +1071,19 @@ def main() -> int:
                           f"shared" for k, r in res.items()))
         if min(r["blocks_per_sm"] for r in res.values()) < 1:
             raise AssertionError(f"fft_cols n={n}: no block fits an SM")
+    # and the f64 instances' of both, at every power of two they take
+    for n in f64_lengths:
+        rl, rc = (sk.last_residency(n, torch.float64),
+                  sk.cols_residency(n, torch.float64))
+        print(f"f64 residency n={n}: fft_last {rl['blocks_per_sm']} "
+              f"blocks/SM x {rl['rows_per_block']} rows "
+              f"({rl['threads_per_block']} threads), {rl['registers']} "
+              f"registers, {rl['smem_bytes']} B shared; fft_cols "
+              f"{rc['blocks_per_sm']} blocks/SM x {rc['columns_per_block']} "
+              f"columns ({rc['threads_per_block']} threads), "
+              f"{rc['registers']} registers, {rc['smem_bytes']} B shared")
+        if min(rl["blocks_per_sm"], rc["blocks_per_sm"]) < 1:
+            raise AssertionError(f"f64 n={n}: no block fits an SM")
     # and the four-step column kernel's: resident blocks an SM, columns and
     # threads a block, registers a thread, shared bytes a block
     for n in sorted({n for n, _, _ in fs_inst}):
@@ -1894,6 +1997,44 @@ def main() -> int:
         del xc
         return case
 
+    def f64_case(kname, shape):
+        """An f64 instance (``fft_cols_f64`` on (P, n, V) planes,
+        ``fft_last_f64`` on (B, n)) against its plain version and one
+        torch.fft call in complex128, each within tolerance(n,
+        "complex128"); bound: 32 B a complex element (5 n log2 n flops a
+        row over the FP32 rate, or the FP64 one, is far smaller);
+        library: that torch.fft call."""
+        base = kname[:-len("_f64")]
+        kern, plain = getattr(sk, base), getattr(sk, base + "_plain")
+        dim = 1 if base == "fft_cols" else -1
+        n = shape[dim]
+        xr, xi = (t.double() for t in planes(shape))
+        limit = tolerance(n, "complex128")
+        scale = 1.0 / math.sqrt(n)
+        xc = torch.complex(xr, xi)
+        ref = torch.fft.fft(xc, dim=dim) * scale
+        err = dev_rel(torch.complex(*kern(xr, xi, -1, scale)), ref)
+        del ref
+        if not err <= limit:
+            raise AssertionError(f"{kname} {shape}: rel_l2 vs torch.fft "
+                                 f"complex128 {err} > {limit}")
+        pairs = [(lambda s=s: torch.complex(*kern(xr, xi, s, scale)),
+                  lambda s=s: torch.complex(*plain(xr, xi, s, scale)))
+                 for s in (-1, 1)]
+        case = kernel_case(shape, n, pairs, lambda: kern(xr, xi, -1, 1.0),
+                           lambda: plain(xr, xi, -1, 1.0),
+                           lambda: torch.fft.fft(xc, dim=dim),
+                           32 * xr.numel(), 5 * xr.numel() * math.log2(n),
+                           limit)
+        case["err_vs_torch_fft_c128"] = err
+        print(f"{kname} {shape}: {case['ms']:.4f} ms (bound "
+              f"{case['bound_ms']:.4f}, plain {case['plain_ms']:.4f}, "
+              f"torch.fft complex128 {case['library_ms']:.4f}); rel_l2 vs "
+              f"plain {case['max_rel_err']:.3e}, vs torch.fft {err:.3e} "
+              f"(tolerance {limit:.3e})", flush=True)
+        del xr, xi, xc
+        return case
+
     mid4 = (4, 256, 256, 256)
     gap = {"kern": sk.fft_axes_gap, "plain": sk.fft_axes_gap_plain}
     cases = {
@@ -2035,6 +2176,23 @@ def main() -> int:
                     lambda: mm_case("fft_mm2", (4096, 640)),
                     lambda: mm_case("fft_mm2", (262144, 256)),
                     lambda: mm_case("fft_mm2", (262144, 512))],
+        # the f64 instances on the planes each complex128 plan gives them:
+        # 512^3 (NPB FT class C: axis 2; axis 1 and axis 0), 4096 x 1024
+        # (phase 7, phase 14's scipy.fft row), 256^3 (phase 7, phase 15's
+        # complex128 slab), 16 x 128^3 and 64 x 1024
+        "fft_last_f64": [lambda: f64_case("fft_last_f64", (262144, 512)),
+                         lambda: f64_case("fft_last_f64", (4096, 1024)),
+                         lambda: f64_case("fft_last_f64", (65536, 256)),
+                         lambda: f64_case("fft_last_f64", (262144, 128)),
+                         lambda: f64_case("fft_last_f64", (64, 1024))],
+        "fft_cols_f64": [lambda: f64_case("fft_cols_f64", CUBE),
+                         lambda: f64_case("fft_cols_f64", (1, 512, 262144)),
+                         lambda: f64_case("fft_cols_f64", (256, 256, 256)),
+                         lambda: f64_case("fft_cols_f64", (1, 256, 65536)),
+                         lambda: f64_case("fft_cols_f64", (2048, 128, 128)),
+                         lambda: f64_case("fft_cols_f64", (16, 128, 16384)),
+                         lambda: f64_case("fft_cols_f64", (1, 16, 2097152)),
+                         lambda: f64_case("fft_cols_f64", (1, 64, 1024))],
     }
     rows = {}
     for kname, makers in cases.items():
@@ -2057,7 +2215,8 @@ def main() -> int:
         if "entry" in first:
             rows[kname]["entry"] = first["entry"]
         for key in ("library_call", "library_c32_ms", "library_c64_ms",
-                    "err_vs_f64", "plain_err_vs_f64", "kernel_flops",
+                    "err_vs_f64", "plain_err_vs_f64", "err_vs_torch_fft_c128",
+                    "kernel_flops",
                     "kernel_flops_ms", "kernel_tc_ms", "hmma"):
             if key in first:
                 rows[kname][key] = first[key]
@@ -4566,6 +4725,68 @@ def main() -> int:
     print(json.dumps({"switches": switch_rows}))
     print(f"phase 17 took {time.perf_counter() - t17:.1f} s")
     phase("17 (the JAX plan's user switches)")
+
+    # 18. complex128 on the f64 instances: plans through the adapters and
+    # one real plan, each counted and held within tolerance(n,
+    # "complex128"); NPB FT class C through the port against the plain
+    # torch.fft iteration of fftbench/npb_ft.py (20 checksums within 1e-12
+    # relative).  The kernels themselves are held in phase 3b and the
+    # complex128 slab in phase 15.
+    t18 = time.perf_counter()
+    rt.clear_plan_cache()
+
+    def f64_group(label, call, ref, n_logical, want):
+        before = kernel_launches()
+        y = call()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in kernel_launches().items()
+               if v != before[k]}
+        tol = tolerance(n_logical, "complex128")
+        err = dev_rel(torch.as_tensor(y, device=dev), ref)
+        print(f"{label}: launches {got}, rel_l2 vs torch.fft float64 "
+              f"{err:.3e} (tolerance {tol:.3e}); {timed(call):.4f} ms")
+        if got != want or not err <= tol:
+            raise AssertionError(f"{label}: launches {got} (want {want}), "
+                                 f"rel_l2 {err}")
+        for k, v in got.items():
+            rows[k]["launches_by_path"][label] = v
+            rows[k]["launches"] += v
+
+    x3 = torch.complex(*(t.double() for t in planes((256, 256, 256))))
+    f64_group("torch_fft_fftn_c128", lambda: tf.fftn(x3),
+              torch.fft.fftn(x3), 256 ** 3,
+              {"fft_last_f64": 1, "fft_cols_f64": 2})
+    del x3
+    h2 = torch.complex(*(t.double() for t in planes((64, 1024)))).cpu()
+    f64_group("scipy_fft_fftn_f64",
+              via_backend(lambda: sfft.fftn(h2.numpy())),
+              torch.fft.fftn(h2.to(dev)), 64 * 1024,
+              {"fft_last_f64": 1, "fft_cols_f64": 1})
+    del h2
+    xr3 = randn((64, 256, 256)).double()
+    r128 = rt.make_plan((64, 256, 256), kind=rt.Kind.R2C, dtype="complex128")
+    print(r128.describe())
+    f64_group("r2c_c128_64x256x256", lambda: torch.complex(
+                  *r128.execute_real(xr3)), torch.fft.rfftn(xr3),
+              64 * 256 * 256, {"fft_cols_f64": 2})
+    del xr3, r128
+    torch.cuda.empty_cache()
+    r = subprocess.run([sys.executable, "examples/npb_ft.py", "--class", "C",
+                        "--check"], capture_output=True, text=True,
+                       timeout=900)
+    if r.returncode:
+        raise AssertionError(f"examples/npb_ft.py: rc {r.returncode}, "
+                             f"{r.stderr[-3000:]}")
+    npb = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"NPB FT class C through the port: {npb['iters']} checksums, "
+          f"largest relative difference from fftbench/npb_ft.py "
+          f"{npb['checksum_rel_max']:.3e}, last field rel_l2 "
+          f"{npb['rel_l2']:.3e}, max_gap {npb['max_gap']:.3e}; port "
+          f"{npb['port_s']:.3f} s, torch.fft {npb['reference_s']:.3f} s")
+    if not npb["checksum_rel_max"] <= 1e-12:
+        raise AssertionError(f"NPB FT class C checksums: {npb}")
+    print(f"phase 18 took {time.perf_counter() - t18:.1f} s")
+    phase("18 (complex128 on the f64 instances)")
     idle = [k for k, row in rows.items() if row["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels no main-path run launched: {idle}")

@@ -6,9 +6,11 @@ spectrum by exp(-4 alpha pi^2 |kbar|^2) once more (the evolve, a multiply
 of the re and im planes), runs the backward transform and sums 1024
 sampled elements, u[j mod n0, 3j mod n1, 5j mod n2] for j = 1..1024, into
 a checksum.  Both transforms are one ``make_plan(..., dtype="complex128")``
-pair on float64 planes through ``execute_split``: every axis a dense f64
-DFT contraction.  The backward plan is normalised (1/N), which is NPB's
-unscaled inverse with its checksum divided by N.
+pair on float64 planes through ``execute_split``: on the card every axis
+one pass of the f64 butterfly kernels (``fft_cols``/``fft_last`` in
+double), on the CPU a dense f64 DFT contraction.  The backward plan is
+normalised (1/N), which is NPB's unscaled inverse with its checksum divided
+by N.
 
 The initial field is seeded standard normal values, not NPB's ``randlc``
 sequence, so the checksums are not NPB's published verification values.

@@ -4,7 +4,8 @@ C2C, R2C and C2R plans at any rank and every length (Rader and Bluestein
 where no kernel, direct DFT or two-factor split takes one), forward and
 inverse, with all four norms and the three precision tiers, in complex64
 (f32 planes), complex32 (bf16 planes, f32 compute) and complex128 (f64
-contraction steps), run on an NVIDIA H100 through twenty-two hand-written
+planes: the f64 column and row kernels, contraction steps where they take
+no length), run on an NVIDIA H100 through twenty-four hand-written
 CUDA entry points (``csrc/stockham.cu``, ``csrc/real.cu``,
 ``csrc/fourstep.cu``, ``csrc/ring.cu`` and ``csrc/matmul.cu``, built with
 ``nvcc`` at first use).  The routes: the butterfly passes (last axis,

@@ -1,5 +1,6 @@
 // The mid-axis FFT kernel for Hopper (sm_90a) on split re/im planes, f32
-// (complex64) or bf16 (complex32):
+// (complex64) or bf16 (complex32), and f64 (complex128; see the f64 note
+// below):
 //
 //   fft_cols_kernel<T,G,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
 //                             (C entries fft_cols, fft_cols_bf16)
@@ -79,6 +80,41 @@
 // Twiddles: the float64-generated table of the stage list (_stage_tables),
 // as every kernel reads it; no sincospif.
 //
+// The f64 instances (C entry fft_cols_f64; the COLS64_CASE table in
+// cols.cuh: every power of two from 2 to 1024):
+//
+//   fft_cols_kernel<double,G,R...> replaces no TPU kernel.  The JAX package
+//                         runs a complex128 axis as a dense contraction,
+//                         since the TPU has no f64 unit; this card has FP64
+//                         FMA units (34 TFLOP/s without tensor cores), so a
+//                         complex128 plan on the card runs its power-of-two
+//                         axes here and not as a DGEMM DFT (O(n^2) flops
+//                         and a pack and unpack copy around each product).
+//
+// They are the same body with the plane, arithmetic, butterfly-constant and
+// twiddle type double: f64 planes, the float64 table of _stage_tables
+// unrounded, radix.cuh's constants as the float64 values; no float value
+// and no sincospif on the path.
+// Bound on H100: bytes.  A pass moves 32 B a complex element and does
+// ~5*log2(n) = 45 flops an element at n = 512 (1.4 flop/B), far below the
+// FP64 ridge (34 TFLOP/s / 3.35 TB/s = 10 flop/B).  A complex f64 value is
+// four registers, so the f32 tile (E = 32 values, 32 columns, 512 threads,
+// 128 registers) does not fit: the f64 tile holds E = 16 values a thread
+// (64 registers; the first radix is 16, so stage 0 is one butterfly a
+// thread) and C columns, 16 up to n = 512 (128 B runs along the contiguous
+// axis, as the f32 tiles' 32 columns of 4 B) and 8 at 1024 (64 B).  At
+// n = 512 a block is 16 columns x 32 lanes = 512 threads, one SM each, with
+// one 128 KiB exchange buffer (two do not fit) and a second barrier an
+// exchange; all 256 B a thread loads are in flight before the first is
+// used.  Shared words are 8 bytes, so an access is served a half warp at a
+// time: the exchange layout's rows are 16 words (ColsGeo::ROW), and every
+// exchange is free of bank conflicts (tests/test_torch_port_f64_bodies.py
+// counts them).  scripts/torch_f64_widths.py measured the widths on an
+// H100: at n = 512 this tile (1.59 / 1.45 ms on 1 x 512 x 262144 and
+// 512^3 planes) beat 8 and 4 columns (1.52-2.22) and matched or beat
+// E = 32 (1.59-1.81 / 1.53-1.54); at 1024 8 columns beat 4 (0.86 against
+// 1.04 ms); at 256 16 and 32 columns read within 3 %.
+//
 // The body (ColsGeo, cols_stage, the COLS_CASE table) is in cols.cuh, which
 // the slab ring's axis mode (ring.cu) shares with stage 0 reading a slab
 // in shared memory.
@@ -97,9 +133,10 @@ template <typename T, class G, int... R>
 __global__ void __launch_bounds__(G::THREADS, G::MINB)
 fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 T* __restrict__ yr, T* __restrict__ yi, long long V,
-                int ntiles, const float2* __restrict__ tw, float s,
-                float scale) {
-  extern __shared__ float smem[];
+                int ntiles, const pair_t<calc_t<T>>* __restrict__ tw,
+                calc_t<T> s, calc_t<T> scale) {
+  extern __shared__ float smem_words[];
+  calc_t<T>* smem = reinterpret_cast<calc_t<T>*>(smem_words);
   const int c = threadIdx.x & (G::C - 1);
   const unsigned pre = blockIdx.x / (unsigned)ntiles;
   const long long col =
@@ -128,9 +165,9 @@ fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 template <typename T, int N, int E, int CF, int CB, int... R>
 cudaError_t launch_cols_list(ColsList<N, E, CF, CB, R...> list,
                              const T* xr, const T* xi, T* yr, T* yi,
-                             long long P, long long V, int sign, float scale,
-                             const float2* tw, int nstages,
-                             const int* radices, void* stream) {
+                             long long P, long long V, int sign,
+                             calc_t<T> scale, const pair_t<calc_t<T>>* tw,
+                             int nstages, const int* radices, void* stream) {
   if (!cols_list_ok(list, nstages, radices)) return cudaErrorInvalidValue;
   if (P <= 0 || V <= 0) return cudaSuccess;
   using G = ColsGeoOf<T, N, E, CF, CB, R...>;
@@ -141,16 +178,16 @@ cudaError_t launch_cols_list(ColsList<N, E, CF, CB, R...> list,
   if (e != cudaSuccess) return e;
   fft_cols_kernel<T, G, R...><<<(unsigned)(P * ntiles), G::THREADS, G::SMEM,
                                 (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, V, (int)ntiles, tw, (float)sign, scale);
+      xr, xi, yr, yi, V, (int)ntiles, tw, (calc_t<T>)sign, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
-                        int n, long long V, int sign, float scale,
-                        const float2* tw, int nstages, const int* radices,
-                        void* stream) {
-  return with_cols_list(n, [&](auto list) {
+                        int n, long long V, int sign, calc_t<T> scale,
+                        const pair_t<calc_t<T>>* tw, int nstages,
+                        const int* radices, void* stream) {
+  return with_cols_list_of<T>(n, [&](auto list) {
     return launch_cols_list(list, xr, xi, yr, yi, P, V, sign, scale, tw,
                             nstages, radices, stream);
   });
@@ -196,13 +233,28 @@ int fft_axis0(const float* xr, const float* xi, float* yr, float* yi, int n,
                      radices, stream);
 }
 
-// The residency of the fft_cols instance for length n (bf16 != 0: its bf16
-// instance): out[5] = {resident blocks an SM, columns a block, threads a
-// block, registers a thread, shared bytes a block}.  Returns the CUDA error
-// code (cudaErrorInvalidValue for a length with no instance).
-int fft_cols_residency(int n, int bf16, int* out) {
+// FFT along the middle axis of (P, n, V) f64 planes (f64 compute, float64
+// twiddles), n a power of two from 2 to 1024; radices from cols_stages.
+int fft_cols_f64(const double* xr, const double* xi, double* yr, double* yi,
+                 long long P, int n, int V, int sign, double scale,
+                 const double2* tw, int nstages, const int* radices,
+                 void* stream) {
+  return launch_cols(xr, xi, yr, yi, P, n, (long long)V, sign, scale, tw,
+                     nstages, radices, stream);
+}
+
+// The residency of the fft_cols instance for length n on planes of type
+// `type` (0 f32, 1 bf16, 2 f64): out[5] = {resident blocks an SM, columns a
+// block, threads a block, registers a thread, shared bytes a block}.
+// Returns the CUDA error code (cudaErrorInvalidValue for a length with no
+// instance).
+int fft_cols_residency(int n, int type, int* out) {
+  if (type == 2)
+    return with_cols64_list(n, [&](auto list) {
+      return cols_residency_list<double>(list, out);
+    });
   return with_cols_list(n, [&](auto list) {
-    return bf16 ? cols_residency_list<__nv_bfloat16>(list, out)
+    return type ? cols_residency_list<__nv_bfloat16>(list, out)
                 : cols_residency_list<float>(list, out);
   });
 }

@@ -34,8 +34,11 @@ __host__ __device__ constexpr int clog2(int x) {
 }
 
 // Compile-time geometry of an instance: length N, E values a thread, C
-// columns a block (a power of two), S stages.
-template <int N_, int E, int C_, int S>
+// columns a block (a power of two), S stages, arithmetic (and shared word)
+// type V.  A row of the exchange layout is 128 bytes, the 32 banks once:
+// ROW = 32 f32 words, or 16 f64 words (an f64 access is served a half warp
+// at a time, 16 threads on the 32 banks).
+template <int N_, int E, int C_, int S, typename V = float>
 struct ColsGeo {
   static constexpr int N = N_;
   static constexpr int C = C_;
@@ -43,10 +46,12 @@ struct ColsGeo {
   static constexpr int TPC = N / E;             // threads a column
   static constexpr int THREADS = TPC * C;
   static constexpr int MINB = THREADS >= 512 ? 1 : 512 / THREADS;
-  static constexpr int G = C >= 32 ? 1 : 32 / C;   // x values a 32-word row
+  static constexpr int ROW = 128 / (int)sizeof(V);
+  static constexpr int LROW = clog2(ROW);
+  static constexpr int G = C >= ROW ? 1 : ROW / C;   // x values a row
   static constexpr int LG = clog2(G);
   static constexpr int WORDS = N * C;           // one buffer's re (or im) part
-  static constexpr size_t BUF = 2 * sizeof(float) * WORDS;
+  static constexpr size_t BUF = 2 * sizeof(V) * WORDS;
   static constexpr int BUFS = S < 2 ? 0
       : (S > 2 && 2 * BUF * MINB <= COLS_SMEM_MAX) ? 2 : 1;
   static constexpr size_t SMEM = BUFS * BUF;
@@ -58,17 +63,19 @@ struct ColsGeo {
     if constexpr (G == 1) {
       return x * C + c;
     } else {
-      return ((x >> LG) << 5) + ((x ^ (x >> 4)) & (G - 1)) * C + c;
+      return ((x >> LG) << LROW) + ((x ^ (x >> 4)) & (G - 1)) * C + c;
     }
   }
 };
 
 // What a thread works on: its column (`off`, element 0 of the column it
 // reads; stores only when `valid`), the row stride ld, its lane and column
-// in the block, the shared buffers.
+// in the block, the shared buffers, the twiddles, sign and scale in the
+// arithmetic type.
 template <typename T>
 struct ColsIO {
   using Elem = T;
+  using V = calc_t<T>;
   static constexpr bool RING = false;   // stage 0 reads device memory
   static constexpr bool STORE = false;  // element k goes to off + k*ld
   const T* xr;
@@ -80,11 +87,11 @@ struct ColsIO {
   bool valid;
   int lane;
   int c;
-  float* sr[2];
-  float* si[2];
-  const float2* tw;
-  float s;
-  float scale;
+  V* sr[2];
+  V* si[2];
+  const pair_t<V>* tw;
+  V s;
+  V scale;
 };
 
 // The store policy of the four-step kernels (fourstep.cu): the last stage
@@ -114,8 +121,8 @@ struct FsIO : ColsIO<T> {
       im *= this->scale;
     }
     const size_t o = ooff + (size_t)k * old;
-    this->yr[o] = from_f32<T>(re);
-    this->yi[o] = from_f32<T>(im);
+    this->yr[o] = from_calc<T>(re);
+    this->yi[o] = from_calc<T>(im);
   }
 };
 
@@ -135,11 +142,12 @@ struct FsIO : ColsIO<T> {
 template <class IO, class G, int ST, int NS, int TWOFF, int R, int... REST>
 __device__ __forceinline__ void cols_stage(const IO& io) {
   using T = typename IO::Elem;
+  using V = calc_t<T>;
   constexpr int M = G::N / R;
   constexpr int NB = (M + G::TPC - 1) / G::TPC;   // butterflies a thread
   constexpr bool EXACT = NB * G::TPC == M;
   if constexpr (ST == 1 && IO::RING) io.refill();
-  float vr[NB][R], vi[NB][R];
+  V vr[NB][R], vi[NB][R];
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     const int j = EXACT ? io.lane + b * G::TPC
@@ -148,12 +156,12 @@ __device__ __forceinline__ void cols_stage(const IO& io) {
     for (int r = 0; r < R; ++r) {
       if constexpr (ST == 0 && IO::RING) {
         const int a = (j + r * M) * G::C + io.c;
-        vr[b][r] = to_f32(io.lr[a]);
-        vi[b][r] = to_f32(io.li[a]);
+        vr[b][r] = to_calc(io.lr[a]);
+        vi[b][r] = to_calc(io.li[a]);
       } else if constexpr (ST == 0) {
         const size_t o = io.off + (size_t)(j + r * M) * io.ld;
-        vr[b][r] = to_f32(__ldg(io.xr + o));
-        vi[b][r] = to_f32(__ldg(io.xi + o));
+        vr[b][r] = to_calc(__ldg(io.xr + o));
+        vi[b][r] = to_calc(__ldg(io.xi + o));
       } else {
         const int a = G::at(j + r * M, io.c);
         vr[b][r] = io.sr[(ST - 1) % G::BUFS][a];
@@ -173,10 +181,10 @@ __device__ __forceinline__ void cols_stage(const IO& io) {
       const int k = j & (NS - 1);
 #pragma unroll
       for (int r = 1; r < R; ++r) {
-        const float2 w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
-        const float xr = vr[b][r], xi = vi[b][r];
-        vr[b][r] = fmaf(xr, w.x, -xi * w.y);
-        vi[b][r] = fmaf(xr, w.y, xi * w.x);
+        const pair_t<V> w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
+        const V xr = vr[b][r], xi = vi[b][r];
+        vr[b][r] = fmac(xr, w.x, -xi * w.y);
+        vi[b][r] = fmac(xr, w.y, xi * w.x);
       }
     }
     Dft<R>::run(vr[b], vi[b], io.s);
@@ -194,8 +202,8 @@ __device__ __forceinline__ void cols_stage(const IO& io) {
               io.store(j + r * NS, vr[b][r], vi[b][r]);
             } else {
               const size_t o = io.off + (size_t)(j + r * NS) * io.ld;
-              io.yr[o] = from_f32<T>(vr[b][r] * io.scale);
-              io.yi[o] = from_f32<T>(vi[b][r] * io.scale);
+              io.yr[o] = from_calc<T>(vr[b][r] * io.scale);
+              io.yi[o] = from_calc<T>(vi[b][r] * io.scale);
             }
           }
         }
@@ -224,12 +232,14 @@ __device__ __forceinline__ void cols_stage(const IO& io) {
 }
 
 // One row of the instance table: length N, E values a thread, CF columns a
-// block on f32 planes and CB on bf16 planes, stage list R...
+// block on f32 planes and CB on bf16 planes (on f64 planes, whose table
+// has one width, CF = CB), stage list R...
 template <int N, int E, int CF, int CB, int... R>
 struct ColsList {};
 
 template <typename T, int N, int E, int CF, int CB, int... R>
-using ColsGeoOf = ColsGeo<N, E, sizeof(T) == 4 ? CF : CB, sizeof...(R)>;
+using ColsGeoOf = ColsGeo<N, E, sizeof(T) == 4 ? CF : CB, sizeof...(R),
+                          calc_t<T>>;
 
 template <class L>
 struct ColsLen;
@@ -309,6 +319,38 @@ cudaError_t with_cols_list(int n, F&& f) {
     default: return cudaErrorInvalidValue;
   }
 #undef COLS_CASE
+}
+
+// The same for the f64 instances (cols.cu's f64 note): every power of two
+// from 2 to 1024, E values and C columns a block, the cols_stages lists.
+template <class F>
+cudaError_t with_cols64_list(int n, F&& f) {
+#define COLS64_CASE(n_, e_, c_, ...) \
+  case n_: return f(ColsList<n_, e_, c_, c_, __VA_ARGS__>{});
+  switch (n) {
+    //          n    E    C  stages
+    COLS64_CASE(2, 2, 256, 2)
+    COLS64_CASE(4, 4, 256, 4)
+    COLS64_CASE(8, 8, 256, 8)
+    COLS64_CASE(16, 16, 256, 16)
+    COLS64_CASE(32, 16, 128, 16, 2)
+    COLS64_CASE(64, 16, 64, 16, 4)
+    COLS64_CASE(128, 16, 32, 16, 8)
+    COLS64_CASE(256, 16, 16, 16, 16)
+    COLS64_CASE(512, 16, 16, 16, 16, 2)
+    COLS64_CASE(1024, 16, 8, 16, 16, 4)
+    default: return cudaErrorInvalidValue;
+  }
+#undef COLS64_CASE
+}
+
+// The instance table of planes of type T.
+template <typename T, class F>
+cudaError_t with_cols_list_of(int n, F&& f) {
+  if constexpr (sizeof(T) == 8)
+    return with_cols64_list(n, static_cast<F&&>(f));
+  else
+    return with_cols_list(n, static_cast<F&&>(f));
 }
 
 }  // namespace

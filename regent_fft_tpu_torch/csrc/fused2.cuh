@@ -354,8 +354,8 @@ struct F2ColIO : F2IO {
   int x;            // the thread's column in the plane
   __device__ __forceinline__ void load(int k, float& re, float& im) const {
     const size_t o = off + (size_t)k * LD;
-    re = to_f32(__ldg(xr + o));
-    im = to_f32(__ldg(xi + o));
+    re = to_calc(__ldg(xr + o));
+    im = to_calc(__ldg(xi + o));
   }
   __device__ __forceinline__ void begin_store() const {
     cooperative_groups::this_cluster().sync();
@@ -383,8 +383,8 @@ struct F2RowIO : F2IO {
   }
   __device__ __forceinline__ void begin_store() const {}
   __device__ __forceinline__ void store(int k, float re, float im) const {
-    yr[off + k] = from_f32<T>(re * scale);
-    yi[off + k] = from_f32<T>(im * scale);
+    yr[off + k] = from_calc<T>(re * scale);
+    yi[off + k] = from_calc<T>(im * scale);
   }
 };
 

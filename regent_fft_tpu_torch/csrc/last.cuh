@@ -70,28 +70,51 @@ namespace {
 
 constexpr int LAST_BLOCK = 128;      // threads a block, at most
 constexpr int LAST_MIN_BLOCKS = 4;   // resident blocks an SM, at least
+constexpr size_t LAST_SMEM_MAX = 232448;   // shared bytes a block can use
+
+// The row tile of an arithmetic type V: at most BLOCK threads a block,
+// MINB resident blocks an SM asked of the launch bounds.  f64 holds twice
+// the registers a value, so its tile keeps more of them a thread (see the
+// f64 note in stockham.cu).
+template <typename V>
+struct LastTile {
+  static constexpr int BLOCK = LAST_BLOCK;
+  static constexpr int MINB = LAST_MIN_BLOCKS;
+};
+template <>
+struct LastTile<double> {
+  static constexpr int BLOCK = 128;
+  static constexpr int MINB = 2;
+};
 
 // Compile-time geometry of the instance for length N whose first radix is
-// R0: TPR threads a row, RPB rows a block, the shared row pitch and
-// where word x of a row lies in it.
-template <int N, int R0>
+// R0, arithmetic (and shared word) type V, row tile Tile: TPR threads a
+// row, RPB rows a block, the shared row pitch and where word x of a row
+// lies in it, and the shared buffers of a list of S stages: one (re, im)
+// buffer of RPB rows per exchange, two at most, one where two would keep
+// MINB blocks from an SM.
+template <int N, int R0, typename V = float, class Tile_ = LastTile<V>>
 struct LastGeo {
+  using Tile = Tile_;
   static constexpr int TPR = N / R0;
-  static constexpr int RPB = TPR >= LAST_BLOCK ? 1 : LAST_BLOCK / TPR;
+  static constexpr int RPB = TPR >= Tile::BLOCK ? 1 : Tile::BLOCK / TPR;
   static constexpr int THREADS = TPR * RPB;
   static constexpr bool SWIZZLE = N >= 512;
   static constexpr int PITCH = SWIZZLE ? N : N + N / 16;
+  static constexpr size_t BUF = 2 * sizeof(V) * RPB * PITCH;
   __device__ __forceinline__ static int at(int x) {
     return SWIZZLE ? x ^ ((x >> 4) & 31) : x + (x >> 4);
   }
+  __host__ __device__ static constexpr int bufs(int S) {
+    return S < 2 ? 0 : S < 3 || 2 * BUF * Tile::MINB > LAST_SMEM_MAX ? 1 : 2;
+  }
 };
 
-// Shared memory of an instance with S stages: one f32 (re, im) buffer of
-// RPB rows per exchange, two at most.
-template <int N, int R0, int S>
+// Shared memory of an instance with S stages.
+template <int N, int R0, int S, typename V = float>
 constexpr size_t last_smem() {
-  using G = LastGeo<N, R0>;
-  return S < 2 ? 0 : (S < 3 ? 1 : 2) * 2 * sizeof(float) * G::RPB * G::PITCH;
+  using G = LastGeo<N, R0, V>;
+  return G::bufs(S) * G::BUF;
 }
 
 // What stage 0 reads and the last stage writes (see the top of the file).
@@ -104,6 +127,7 @@ template <typename T>
 struct LastIO {
   static constexpr LastMode MODE = LastMode::C2C;
   using Elem = T;
+  using V = calc_t<T>;
   const T* xr;
   const T* xi;
   T* yr;
@@ -111,11 +135,11 @@ struct LastIO {
   size_t off;
   bool valid;
   int lane;
-  float* sr[2];
-  float* si[2];
-  const float2* tw;
-  float s;
-  float scale;
+  V* sr[2];
+  V* si[2];
+  const pair_t<V>* tw;
+  V s;
+  V scale;
 };
 
 // What a thread of a real pair kernel works on: its row of LastGeo is the
@@ -228,20 +252,23 @@ __device__ __forceinline__ void r2c_untangle_regs(
 
 // Stage ST of the list (radix R, Ns = NS, its twiddles at TWOFF), then the
 // stages REST.  Butterfly j < M = N/R reads j + r*M (device memory at stage
-// 0, as IO::MODE says; shared buffer (ST-1) % 2 after), twiddles by table
-// entry TWOFF + (r-1)*NS + j%NS, runs an R-point DFT and writes
-// (j - j%NS)*R + j%NS + r*NS (shared buffer ST % 2; at the last stage,
-// where that is j + r*NS, device memory with the scale, or for R2C shared
-// buffer ST % 2 and then the untangle).
+// 0, as IO::MODE says; shared buffer (ST-1) % BUFS after), twiddles by
+// table entry TWOFF + (r-1)*NS + j%NS, runs an R-point DFT and writes
+// (j - j%NS)*R + j%NS + r*NS (shared buffer ST % BUFS, after a block
+// barrier where one buffer is read and written by the same stage; at the
+// last stage, where that is j + r*NS, device memory with the scale, or for
+// R2C shared buffer ST % 2 and then the untangle).
 template <class IO, class G, int N, int ST, int NS, int TWOFF, int R,
           int... REST>
 __device__ __forceinline__ void last_stage(const IO& io) {
   using T = typename IO::Elem;
+  using V = calc_t<T>;
   constexpr LastMode MODE = IO::MODE;
   constexpr int M = N / R;
   constexpr int NB = (M + G::TPR - 1) / G::TPR;   // butterflies a thread
   constexpr bool EXACT = NB * G::TPR == M;
-  float vr[NB][R], vi[NB][R];
+  constexpr int BUFS = G::bufs(ST + 1 + (int)sizeof...(REST));
+  V vr[NB][R], vi[NB][R];
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     const int j = EXACT ? io.lane + b * G::TPR
@@ -249,8 +276,8 @@ __device__ __forceinline__ void last_stage(const IO& io) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if constexpr (ST == 0 && MODE == LastMode::C2C) {
-        vr[b][r] = to_f32(__ldg(io.xr + io.off + j + r * M));
-        vi[b][r] = to_f32(__ldg(io.xi + io.off + j + r * M));
+        vr[b][r] = to_calc(__ldg(io.xr + io.off + j + r * M));
+        vi[b][r] = to_calc(__ldg(io.xi + io.off + j + r * M));
       } else if constexpr (ST == 0 && MODE == LastMode::R2C) {
         vr[b][r] = __ldg(io.xr + io.off + j + r * M);
         const float im = __ldg(io.xr + io.off2 + j + r * M);
@@ -259,8 +286,8 @@ __device__ __forceinline__ void last_stage(const IO& io) {
         c2r_load<N, R>(io, r, j + r * M, vr[b][r], vi[b][r]);
       } else {
         const int a = G::at(j + r * M);
-        vr[b][r] = io.sr[(ST - 1) & 1][a];
-        vi[b][r] = io.si[(ST - 1) & 1][a];
+        vr[b][r] = io.sr[(ST - 1) % BUFS][a];
+        vi[b][r] = io.si[(ST - 1) % BUFS][a];
       }
     }
   }
@@ -272,10 +299,10 @@ __device__ __forceinline__ void last_stage(const IO& io) {
       const int k = j & (NS - 1);
 #pragma unroll
       for (int r = 1; r < R; ++r) {
-        const float2 w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
-        const float xr = vr[b][r], xi = vi[b][r];
-        vr[b][r] = fmaf(xr, w.x, -xi * w.y);
-        vi[b][r] = fmaf(xr, w.y, xi * w.x);
+        const pair_t<V> w = __ldg(&io.tw[TWOFF + (r - 1) * NS + k]);
+        const V xr = vr[b][r], xi = vi[b][r];
+        vr[b][r] = fmac(xr, w.x, -xi * w.y);
+        vi[b][r] = fmac(xr, w.y, xi * w.x);
       }
     }
     Dft<R>::run(vr[b], vi[b], io.s);
@@ -309,8 +336,8 @@ __device__ __forceinline__ void last_stage(const IO& io) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if constexpr (MODE == LastMode::C2C) {
-              io.yr[io.off + j + r * NS] = from_f32<T>(vr[b][r] * io.scale);
-              io.yi[io.off + j + r * NS] = from_f32<T>(vi[b][r] * io.scale);
+              io.yr[io.off + j + r * NS] = from_calc<T>(vr[b][r] * io.scale);
+              io.yi[io.off + j + r * NS] = from_calc<T>(vi[b][r] * io.scale);
             } else {
               io.yr[io.out + j + r * NS] = vr[b][r] * io.scale;
               if (io.valid2)
@@ -321,6 +348,8 @@ __device__ __forceinline__ void last_stage(const IO& io) {
       }
     }
   } else {
+    // one buffer: every thread has read it before any overwrites it
+    if constexpr (ST > 0 && BUFS == 1) __syncthreads();
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       const int j = io.lane + b * G::TPR;
@@ -330,8 +359,8 @@ __device__ __forceinline__ void last_stage(const IO& io) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int a = G::at(base + r * NS);
-          io.sr[ST & 1][a] = vr[b][r];
-          io.si[ST & 1][a] = vi[b][r];
+          io.sr[ST % BUFS][a] = vr[b][r];
+          io.si[ST % BUFS][a] = vi[b][r];
         }
       }
     }
@@ -347,8 +376,8 @@ __host__ __device__ constexpr int first_radix() {
 
 // Points the thread's row at its part of the shared buffers: RPB rows of
 // PITCH words a buffer, re part then im part, buffer 1 after buffer 0.
-template <class G, class IO>
-__device__ __forceinline__ void last_smem_rows(IO& io, float* smem, int rl) {
+template <class G, class IO, typename V>
+__device__ __forceinline__ void last_smem_rows(IO& io, V* smem, int rl) {
   constexpr int PART = G::RPB * G::PITCH;   // words of one buffer's re part
   io.sr[0] = smem + rl * G::PITCH;
   io.si[0] = io.sr[0] + PART;
@@ -387,6 +416,37 @@ cudaError_t with_last_list(int n, F&& f) {
     default: return cudaErrorInvalidValue;
   }
 #undef LAST_CASE
+}
+
+// The same for the f64 instances (stockham.cu's f64 note): every power of
+// two from 2 to 1024, with the last_stages lists.
+template <class F>
+cudaError_t with_last64_list(int n, F&& f) {
+#define LAST64_CASE(n_, ...) \
+  case n_: return f(LastList<n_, __VA_ARGS__>{});
+  switch (n) {
+    LAST64_CASE(2, 2)
+    LAST64_CASE(4, 4)
+    LAST64_CASE(8, 8)
+    LAST64_CASE(16, 16)
+    LAST64_CASE(32, 16, 2)
+    LAST64_CASE(64, 16, 4)
+    LAST64_CASE(128, 16, 8)
+    LAST64_CASE(256, 16, 16)
+    LAST64_CASE(512, 16, 16, 2)
+    LAST64_CASE(1024, 16, 16, 4)
+    default: return cudaErrorInvalidValue;
+  }
+#undef LAST64_CASE
+}
+
+// The instance table of planes of type T.
+template <typename T, class F>
+cudaError_t with_last_list_of(int n, F&& f) {
+  if constexpr (sizeof(T) == 8)
+    return with_last64_list(n, static_cast<F&&>(f));
+  else
+    return with_last_list(n, static_cast<F&&>(f));
 }
 
 // Whether the host's stage list is the instance's (the C-side check of

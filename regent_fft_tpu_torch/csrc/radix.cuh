@@ -1,6 +1,9 @@
 // The straight-line butterflies of the register-resident kernels: the
 // radix-8, radix-16 and radix-32 DFTs and their twiddle rotations (cos/sin
-// of multiples of pi/16 from float64).  Included by stockham.cu
+// of multiples of pi/16 from float64), in the arithmetic type F of the
+// instance: float, or double for the f64 instances, whose constants are
+// then the float64 values themselves (F(x) of a double literal rounds to
+// the same float as the f32 literal did).  Included by stockham.cu
 // (fft_fused2_kernel, fft_fused2_regs_kernel, fft_last_kernel) and cols.cu
 // (fft_cols_kernel), after stockham_tile.cuh, whose Dft<R> template they
 // specialise; internal linkage, as there.
@@ -12,8 +15,8 @@
 namespace {
 
 // v *= exp(s * 2*pi*i * E/8).
-template <int E>
-__device__ __forceinline__ void rot8(float& re, float& im, float s) {
+template <int E, typename F>
+__device__ __forceinline__ void rot8(F& re, F& im, F s) {
   constexpr int e = E & 7;
   if constexpr (e == 0) {
     return;
@@ -21,17 +24,17 @@ __device__ __forceinline__ void rot8(float& re, float& im, float s) {
     re = -re;
     im = -im;
   } else if constexpr (e == 2 || e == 6) {
-    const float q = e == 2 ? s : -s;   // times q*i
-    const float t = re;
+    const F q = e == 2 ? s : -s;   // times q*i
+    const F t = re;
     re = -q * im;
     im = q * t;
   } else {
-    constexpr float h = 0.7071067811865476f;   // cos(pi/4), from float64
-    constexpr float c = (e == 1 || e == 7) ? h : -h;
-    constexpr float sn = (e == 1 || e == 3) ? h : -h;
-    const float ss = s * sn, t = re;
-    re = fmaf(t, c, -im * ss);
-    im = fmaf(t, ss, im * c);
+    constexpr F h = F(0.7071067811865476);   // cos(pi/4), float64
+    constexpr F c = (e == 1 || e == 7) ? h : -h;
+    constexpr F sn = (e == 1 || e == 3) ? h : -h;
+    const F ss = s * sn, t = re;
+    re = fmac(t, c, -im * ss);
+    im = fmac(t, ss, im * c);
   }
 }
 
@@ -39,8 +42,9 @@ __device__ __forceinline__ void rot8(float& re, float& im, float s) {
 // 4-point DFTs of the even and odd inputs joined by W_8^k.
 template <>
 struct Dft<8> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    float er[4], ei[4], orr[4], oi[4];
+  template <typename F>
+  __device__ __forceinline__ static void run(F* vr, F* vi, F s) {
+    F er[4], ei[4], orr[4], oi[4];
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       er[b] = vr[2 * b];
@@ -64,23 +68,23 @@ struct Dft<8> {
 };
 
 // v *= exp(s * 2*pi*i * E/16).
-template <int E>
-__device__ __forceinline__ void rot16(float& re, float& im, float s) {
+template <int E, typename F>
+__device__ __forceinline__ void rot16(F& re, F& im, F s) {
   constexpr int e = E & 15;
   if constexpr (e % 2 == 0) {
     rot8<e / 2>(re, im, s);
   } else {
-    constexpr float c1 = 0.9238795325112867f;   // cos(pi/8), from float64
-    constexpr float s1 = 0.3826834323650898f;   // sin(pi/8)
-    constexpr float c = (e == 1 || e == 15) ? c1
+    constexpr F c1 = F(0.9238795325112867);   // cos(pi/8), float64
+    constexpr F s1 = F(0.3826834323650898);   // sin(pi/8)
+    constexpr F c = (e == 1 || e == 15) ? c1
                         : (e == 3 || e == 13) ? s1
                         : (e == 5 || e == 11) ? -s1 : -c1;
-    constexpr float sn = (e == 1 || e == 7) ? s1
-                         : (e == 3 || e == 5) ? c1
-                         : (e == 9 || e == 15) ? -s1 : -c1;
-    const float ss = s * sn, t = re;
-    re = fmaf(t, c, -im * ss);
-    im = fmaf(t, ss, im * c);
+    constexpr F sn = (e == 1 || e == 7) ? s1
+                     : (e == 3 || e == 5) ? c1
+                     : (e == 9 || e == 15) ? -s1 : -c1;
+    const F ss = s * sn, t = re;
+    re = fmac(t, c, -im * ss);
+    im = fmac(t, ss, im * c);
   }
 }
 
@@ -89,11 +93,12 @@ __device__ __forceinline__ void rot16(float& re, float& im, float s) {
 // rotation W16^(b*k1), then a 4-point DFT over b for each k1.
 template <>
 struct Dft<16> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    float ur[4][4], ui[4][4];   // [k1][b]
+  template <typename F>
+  __device__ __forceinline__ static void run(F* vr, F* vi, F s) {
+    F ur[4][4], ui[4][4];   // [k1][b]
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      float tr[4], ti[4];
+      F tr[4], ti[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         tr[a] = vr[4 * a + b];
@@ -127,36 +132,36 @@ struct Dft<16> {
   }
 };
 
-// cos(2*pi*e/32) from float64 (the first quadrant's nine values, then
-// their symmetries, so the quarter turns are exact).
-__host__ __device__ constexpr float cos32(int e) {
-  constexpr float q[9] = {1.0f, 0.9807852804032304f, 0.9238795325112867f,
-                          0.8314696123025452f, 0.7071067811865476f,
-                          0.5555702330196022f, 0.3826834323650898f,
-                          0.19509032201612825f, 0.0f};
+// cos(2*pi*e/32) in float64, correctly rounded (the first quadrant's nine
+// values, then their symmetries, so the quarter turns are exact).
+__host__ __device__ constexpr double cos32(int e) {
+  constexpr double q[9] = {1.0, 0.9807852804032304, 0.9238795325112867,
+                           0.8314696123025452, 0.7071067811865476,
+                           0.5555702330196022, 0.3826834323650898,
+                           0.19509032201612828, 0.0};
   e &= 31;
   return e <= 8 ? q[e] : e <= 16 ? -q[16 - e] : e <= 24 ? -q[e - 16]
                                                         : q[32 - e];
 }
 
 // v *= exp(s * 2*pi*i * E/32).
-template <int E>
-__device__ __forceinline__ void rot32(float& re, float& im, float s) {
+template <int E, typename F>
+__device__ __forceinline__ void rot32(F& re, F& im, F s) {
   constexpr int e = E & 31;
   if constexpr (e % 2 == 0) {
     rot16<e / 2>(re, im, s);
   } else {
-    constexpr float c = cos32(e), sn = cos32(e - 8);
-    const float ss = s * sn, t = re;
-    re = fmaf(t, c, -im * ss);
-    im = fmaf(t, ss, im * c);
+    constexpr F c = F(cos32(e)), sn = F(cos32(e - 8));
+    const F ss = s * sn, t = re;
+    re = fmac(t, c, -im * ss);
+    im = fmac(t, ss, im * c);
   }
 }
 
 // The rotations W32^(b*k1) of Dft<32>'s middle step, b = 1..3, k1 = 1..7.
-template <int B, int K1>
-__device__ __forceinline__ void rot32_grid(float (&ur)[8][4],
-                                           float (&ui)[8][4], float s) {
+template <int B, int K1, typename F>
+__device__ __forceinline__ void rot32_grid(F (&ur)[8][4], F (&ui)[8][4],
+                                           F s) {
   rot32<B * K1>(ur[K1][B], ui[K1][B], s);
   if constexpr (K1 < 7) {
     rot32_grid<B, K1 + 1>(ur, ui, s);
@@ -170,11 +175,12 @@ __device__ __forceinline__ void rot32_grid(float (&ur)[8][4],
 // rotation W32^(b*k1), then a 4-point DFT over b for each k1.
 template <>
 struct Dft<32> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    float ur[8][4], ui[8][4];   // [k1][b]
+  template <typename F>
+  __device__ __forceinline__ static void run(F* vr, F* vi, F s) {
+    F ur[8][4], ui[8][4];   // [k1][b]
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      float tr[8], ti[8];
+      F tr[8], ti[8];
 #pragma unroll
       for (int a = 0; a < 8; ++a) {
         tr[a] = vr[4 * a + b];

@@ -708,8 +708,8 @@ fft_axes2_ring_kernel(const __grid_constant__ CUtensorMap mr,
     T* const gyr = yr + (size_t)pl * n1 * n2 + (size_t)c * h * n2;
     T* const gyi = yi + (size_t)pl * n1 * n2 + (size_t)c * h * n2;
     auto out_st = [=](int x, float re, float im) {
-      gyr[x] = from_f32<T>(re * scale);
-      gyi[x] = from_f32<T>(im * scale);
+      gyr[x] = from_calc<T>(re * scale);
+      gyi[x] = from_calc<T>(im * scale);
     };
     for (int st = 0; st + 1 < ns2; ++st) {
       f2_stage_of<false>(plan[1], st, rr, ri, n2, h, tw2, s, rows_st, true);

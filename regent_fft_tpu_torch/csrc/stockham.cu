@@ -1,5 +1,6 @@
 // Self-sorting Stockham C2C FFT kernels for Hopper (sm_90a) on split re/im
-// planes: f32 (complex64) or bf16 (complex32).  fft_fused2_regs_kernel runs
+// planes: f32 (complex64) or bf16 (complex32), and for fft_last_kernel also
+// f64 (complex128; its f64 note below).  fft_fused2_regs_kernel runs
 // persistent thread-block clusters over the planes with both passes in
 // registers, fft_fused2_kernel a cluster a plane by a walk of stages through
 // shared memory (also the gap pass's strided plane, below; both bodies are
@@ -249,8 +250,8 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   auto out_st = [=](int x, float re, float im) {
     size_t o = x;
     if constexpr (GAP) o += (size_t)__umulhi((unsigned)x, mag) * skip;
-    gyr[o] = from_f32<T>(re * scale);
-    gyi[o] = from_f32<T>(im * scale);
+    gyr[o] = from_calc<T>(re * scale);
+    gyi[o] = from_calc<T>(im * scale);
   };
   for (int st = 0; st + 1 < ns2; ++st) {
     f2_stage_of<false>(plan[1], st, rr, ri, n2, h, tw2, s, rows_st, true);
@@ -267,14 +268,33 @@ fft_fused2_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // Design: the register-resident row body of last.cuh in its C2C mode, one
 // instance per admitted length (LAST_CASE there), blocks of at most
 // LAST_BLOCK threads.
+// The f64 instances (C entry fft_last_f64, every power of two from 2 to
+// 1024: LAST64_CASE) replace no TPU kernel: the JAX package runs a
+// complex128 axis as a dense contraction (the TPU has no f64 unit), and
+// this card's FP64 FMA units run the butterflies instead.  The same body
+// with double planes, arithmetic, constants and the float64 twiddle table
+// unrounded (no float value, no sincospif).  Bound on H100: bytes, 32 B a
+// complex element a pass against ~5*log2(n) flops (1.4 flop/B at 512,
+// below the FP64 ridge of 10).  A thread holds 16 values, 64 registers in
+// f64; LastTile<double> gives blocks of 128 threads (4 rows of 512) and
+// launch bounds of 2 blocks an SM, so ptxas keeps a radix-16 stage's
+// values and twiddles without spilling (166 registers at n = 512: three
+// blocks resident), and last.cuh keeps one exchange buffer where two
+// would keep those blocks off an SM.
+// scripts/torch_f64_widths.py measured row tiles of 32-256 threads and 2-8
+// blocks an SM on an H100: all within 4 % at 262144 x 512 (1.42-1.48 ms
+// against a bound of 1.28), so the tile keeps fft_last's block size.
 // --------------------------------------------------------------------------
 template <typename T, int N, int... R>
-__global__ void __launch_bounds__(LAST_BLOCK, LAST_MIN_BLOCKS)
+__global__ void __launch_bounds__(LastTile<calc_t<T>>::BLOCK,
+                                  LastTile<calc_t<T>>::MINB)
 fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 T* __restrict__ yr, T* __restrict__ yi, long long B,
-                const float2* __restrict__ tw, float s, float scale) {
-  using G = LastGeo<N, first_radix<R...>()>;
-  extern __shared__ float smem[];
+                const pair_t<calc_t<T>>* __restrict__ tw, calc_t<T> s,
+                calc_t<T> scale) {
+  using G = LastGeo<N, first_radix<R...>(), calc_t<T>>;
+  extern __shared__ float smem_words[];
+  calc_t<T>* smem = reinterpret_cast<calc_t<T>*>(smem_words);
   const int rl = threadIdx.x / G::TPR;
   const long long row = (long long)blockIdx.x * G::RPB + rl;
   LastIO<T> io;
@@ -297,28 +317,29 @@ fft_last_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 template <typename T, int N, int... R>
 cudaError_t launch_last_list(LastList<N, R...> list, const T* xr,
                              const T* xi, T* yr, T* yi, long long B, int sign,
-                             float scale, const float2* tw, int nstages,
-                             const int* radices, void* stream) {
+                             calc_t<T> scale, const pair_t<calc_t<T>>* tw,
+                             int nstages, const int* radices, void* stream) {
   if (!last_list_ok(list, nstages, radices)) return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   constexpr int R0 = first_radix<R...>();
-  using G = LastGeo<N, R0>;
+  using G = LastGeo<N, R0, calc_t<T>>;
   const long long grid = (B + G::RPB - 1) / G::RPB;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  constexpr size_t smem = last_smem<N, R0, sizeof...(R)>();
+  constexpr size_t smem = last_smem<N, R0, sizeof...(R), calc_t<T>>();
   cudaError_t e = set_smem((const void*)fft_last_kernel<T, N, R...>, smem);
   if (e != cudaSuccess) return e;
   fft_last_kernel<T, N, R...><<<(unsigned)grid, G::THREADS, smem,
                                  (cudaStream_t)stream>>>(
-      xr, xi, yr, yi, B, tw, (float)sign, scale);
+      xr, xi, yr, yi, B, tw, (calc_t<T>)sign, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_last(const T* xr, const T* xi, T* yr, T* yi, long long B,
-                        int n, int sign, float scale, const float2* tw,
-                        int nstages, const int* radices, void* stream) {
-  return with_last_list(n, [&](auto list) {
+                        int n, int sign, calc_t<T> scale,
+                        const pair_t<calc_t<T>>* tw, int nstages,
+                        const int* radices, void* stream) {
+  return with_last_list_of<T>(n, [&](auto list) {
     return launch_last_list(list, xr, xi, yr, yi, B, sign, scale, tw, nstages,
                             radices, stream);
   });
@@ -328,10 +349,10 @@ cudaError_t launch_last(const T* xr, const T* xi, T* yr, T* yi, long long B,
 template <typename T, int N, int... R>
 cudaError_t last_residency_list(LastList<N, R...>, int* out) {
   constexpr int R0 = first_radix<R...>();
-  using G = LastGeo<N, R0>;
+  using G = LastGeo<N, R0, calc_t<T>>;
   return last_residency_of((const void*)fft_last_kernel<T, N, R...>,
                            G::THREADS, G::RPB,
-                           last_smem<N, R0, sizeof...(R)>(), out);
+                           last_smem<N, R0, sizeof...(R), calc_t<T>>(), out);
 }
 
 
@@ -559,13 +580,28 @@ int fft_last_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                      stream);
 }
 
-// The residency of the fft_last instance for length n (bf16 != 0: its bf16
-// instance): out[5] = {resident blocks an SM, rows a block, threads a block,
-// registers a thread, shared bytes a block}.  Returns the CUDA error code
-// (cudaErrorInvalidValue for a length with no instance).
-int fft_last_residency(int n, int bf16, int* out) {
+// FFT along the last axis of (B, n) f64 planes (f64 compute, float64
+// twiddles), n a power of two from 2 to 1024; radices from last_stages.
+int fft_last_f64(const double* xr, const double* xi, double* yr, double* yi,
+                 long long B, int n, int sign, double scale,
+                 const double2* tw, int nstages, const int* radices,
+                 void* stream) {
+  return launch_last(xr, xi, yr, yi, B, n, sign, scale, tw, nstages, radices,
+                     stream);
+}
+
+// The residency of the fft_last instance for length n on planes of type
+// `type` (0 f32, 1 bf16, 2 f64): out[5] = {resident blocks an SM, rows a
+// block, threads a block, registers a thread, shared bytes a block}.
+// Returns the CUDA error code (cudaErrorInvalidValue for a length with no
+// instance).
+int fft_last_residency(int n, int type, int* out) {
+  if (type == 2)
+    return with_last64_list(n, [&](auto list) {
+      return last_residency_list<double>(list, out);
+    });
   return with_last_list(n, [&](auto list) {
-    return bf16 ? last_residency_list<__nv_bfloat16>(list, out)
+    return type ? last_residency_list<__nv_bfloat16>(list, out)
                 : last_residency_list<float>(list, out);
   });
 }

@@ -1,18 +1,23 @@
 // What every butterfly kernel for Hopper (sm_90a) shares: the stage plan
 // of the cluster kernels (StagePlan, make_plan: fft_fused2 and the gap pass
 // in stockham.cu, the fuse_last ring in ring.cu), the in-register R-point
-// DFTs of radix 2, 3, 4, 5 and 7 (radix.cuh adds 8 and 16), the element
-// conversions between the plane types and f32, and the dynamic shared
-// memory opt-in.  The register-resident bodies that run them are in
-// last.cuh (rows), cols.cuh (columns) and fused2.cuh (a cluster-resident
-// plane).  Everything here has internal linkage, so each translation unit
+// DFTs of radix 2, 3, 4, 5 and 7 (radix.cuh adds 8, 16 and 32), the
+// arithmetic type of each plane type and the element conversions to and
+// from it, and the dynamic shared memory opt-in.  The register-resident
+// bodies that run them are in last.cuh (rows), cols.cuh (columns) and
+// fused2.cuh (a cluster-resident plane).  Everything here has internal linkage, so each translation unit
 // carries its own copy and the library needs no -rdc.
 //
-// Arithmetic is exact f32 (no TF32, no fast-math intrinsics).  Twiddles come
-// from host tables generated in float64 and rounded once to f32
+// Arithmetic is exact f32 on f32 and bf16 planes, exact f64 on f64 planes
+// (no TF32, no fast-math intrinsics).  Twiddles come from host tables
+// generated in float64, rounded once to f32 for the f32 arithmetic and
+// kept in float64 for the f64 one
 // (regent_fft_tpu_torch/ops/stockham_kernels.py:_stage_tables, from the
 // stage lists of the same module), so Python is the single source of truth
-// for the schedule and the kernels only validate it.
+// for the schedule and the kernels only validate it.  Radices 2, 4, 8, 16
+// and 32 take the arithmetic type as a template parameter; the odd radices
+// run in f32 only (their constants are f32), and the f64 instances have
+// none.
 //
 // Stage (radix R, Ns = product of the radices before it, m = n/R), for each
 // butterfly j in [0, m):
@@ -100,8 +105,9 @@ struct Dft {
 
 template <>
 struct Dft<2> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float) {
-    const float ar = vr[0] + vr[1], ai = vi[0] + vi[1];
+  template <typename F>
+  __device__ __forceinline__ static void run(F* vr, F* vi, F) {
+    const F ar = vr[0] + vr[1], ai = vi[0] + vi[1];
     vr[1] = vr[0] - vr[1];
     vi[1] = vi[0] - vi[1];
     vr[0] = ar;
@@ -112,12 +118,13 @@ struct Dft<2> {
 // The radix-4 butterfly of pallas_stockham.py:_bfly_core.
 template <>
 struct Dft<4> {
-  __device__ __forceinline__ static void run(float* vr, float* vi, float s) {
-    const float t0r = vr[0] + vr[2], t0i = vi[0] + vi[2];
-    const float t1r = vr[0] - vr[2], t1i = vi[0] - vi[2];
-    const float t2r = vr[1] + vr[3], t2i = vi[1] + vi[3];
-    const float t3r = vr[1] - vr[3], t3i = vi[1] - vi[3];
-    const float it3r = -s * t3i, it3i = s * t3r;
+  template <typename F>
+  __device__ __forceinline__ static void run(F* vr, F* vi, F s) {
+    const F t0r = vr[0] + vr[2], t0i = vi[0] + vi[2];
+    const F t1r = vr[0] - vr[2], t1i = vi[0] - vi[2];
+    const F t2r = vr[1] + vr[3], t2i = vi[1] + vi[3];
+    const F t3r = vr[1] - vr[3], t3i = vi[1] - vi[3];
+    const F it3r = -s * t3i, it3i = s * t3r;
     vr[0] = t0r + t2r;
     vi[0] = t0i + t2i;
     vr[1] = t1r + it3r;
@@ -129,19 +136,39 @@ struct Dft<4> {
   }
 };
 
-// Element conversions between the plane types and f32 (a bf16 output is
-// rounded to nearest even).
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+// The arithmetic type of each plane type: f32 for f32 and bf16 planes, f64
+// for f64 planes; the (re, im) pair of its twiddle tables; the element
+// conversions between the plane types and it (a bf16 output is rounded to
+// nearest even); fused multiply-add in it.
+template <typename T> struct CalcOf { using type = float; };
+template <> struct CalcOf<double> { using type = double; };
+template <typename T> using calc_t = typename CalcOf<T>::type;
+template <typename V> struct PairOf;
+template <> struct PairOf<float> { using type = float2; };
+template <> struct PairOf<double> { using type = double2; };
+template <typename V> using pair_t = typename PairOf<V>::type;
+
+__device__ __forceinline__ float to_calc(float v) { return v; }
+__device__ __forceinline__ double to_calc(double v) { return v; }
+__device__ __forceinline__ float to_calc(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
+template <typename T> __device__ __forceinline__ T from_calc(calc_t<T> v);
+template <> __device__ __forceinline__ float from_calc<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+template <> __device__ __forceinline__ double from_calc<double>(double v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_calc<__nv_bfloat16>(
     float v) {
   return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float fmac(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fmac(double a, double b, double c) {
+  return fma(a, b, c);
 }
 
 // Validate a stage list from the host and fill the plan of a cluster

@@ -31,6 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the csrc/*.cu entry points (all return cudaError_t).
@@ -65,6 +66,9 @@ _SIGNATURES.update({k + "_bf16": _SIGNATURES[k]
                     for k in ("fft_last", "fft_cols", "fft_fused2", "fft_gap",
                               "a0fs_a", "a0fs_b", "fft_axis_ring",
                               "fft_axes2_ring")})
+# the f64-plane (complex128) instances take the scale as a double
+_SIGNATURES.update({k + "_f64": [_D if t is _F else t for t in _SIGNATURES[k]]
+                    for k in ("fft_last", "fft_cols")})
 
 _LIB = None
 build_seconds = None   # wall time of this process's nvcc runs, if it ran them

@@ -227,7 +227,7 @@ def a0fs_stage(stage: str, xr, xi, sign: int, scale: float = 1.0) -> Pair:
     Counterpart: ``pallas_stockham.py:1843``.
     """
     name = _a0fs_launch_name(stage, scale)
-    if not _sk._on_cuda(name, xr, xi, dtypes=tuple(_sk.C2C_DTYPES)):
+    if not _sk._on_cuda(name, xr, xi, dtypes=_sk.F32_BF16):
         return a0fs_stage_plain(stage, xr, xi, sign, scale)
     pre, n, post = xr.shape
     r1, r2 = _sk._a0fs_split(n)
@@ -262,7 +262,7 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
     :func:`fft_axis_ring_plain`.  Counterpart: ``pallas_stockham.py:1324``.
     """
     name = "fft_axes2_ring" if fuse_last else "fft_axis_ring"
-    if not _sk._on_cuda(name, xr, xi, dtypes=tuple(_sk.C2C_DTYPES)):
+    if not _sk._on_cuda(name, xr, xi, dtypes=_sk.F32_BF16):
         return fft_axis_ring_plain(xr, xi, sign, scale, fuse_last)
     pre, n, post = xr.shape
     per = 16 // xr.element_size()      # elements per 16-byte row

@@ -1,21 +1,24 @@
 """Stockham butterfly kernels: schedule gates, wrappers and plain versions.
 
-Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Twenty-two
+Counterpart: ``regent_fft_tpu/ops/pallas_stockham.py``.  Twenty-four
 hand-written CUDA entry points carry the plan paths.  This module holds
-the eleven of the butterfly passes: the three C2C kernels and the
+the thirteen of the butterfly passes: the three C2C kernels and the
 gap-fused pass on f32 planes (complex64) and on bf16 planes (complex32),
-and the axis-0 pass, in ``csrc/stockham.cu`` and ``csrc/cols.cu`` (the
-mid-axis pass ``fft_cols`` and ``fft_axis0``), and the real-transform pair
-in ``csrc/real.cu``:
+the column and row kernels on f64 planes (complex128), and the axis-0
+pass, in ``csrc/stockham.cu`` and ``csrc/cols.cu`` (the mid-axis pass
+``fft_cols`` and ``fft_axis0``), and the real-transform pair in
+``csrc/real.cu``:
 
 =========================  ===================================  =======================
 wrapper (launch name)      replaces (pallas_stockham.py)        plain version
 =========================  ===================================  =======================
 ``fft_last``               ``_runner_last`` (:1267)             ``fft_last_plain``
 (``fft_last``, bf16:
-``fft_last_bf16``)
+``fft_last_bf16``, f64:
+``fft_last_f64``)
 ``fft_cols``               ``_runner_cols`` (:787)              ``fft_cols_plain``
-(``fft_cols``, ``fft_cols_bf16``)
+(``fft_cols``, ``fft_cols_bf16``,
+``fft_cols_f64``)
 ``fft_fused2``             ``_runner_fused2`` (:875)            ``fft_fused2_plain``
 (``fft_fused2``, ``fft_fused2_bf16``)
 ``fft_axes_gap``           ``_runner_fused2_gap`` (:1127)       ``fft_axes_gap_plain``
@@ -24,6 +27,14 @@ wrapper (launch name)      replaces (pallas_stockham.py)        plain version
 ``fft_last_r2c``           ``_runner_last_r2c`` (:2395)         ``fft_last_r2c_plain``
 ``ifft_last_c2r``          ``_runner_last_c2r`` (:2521)         ``ifft_last_c2r_plain``
 =========================  ===================================  =======================
+
+The column and row kernels also run f64 planes (complex128: the C entries
+``fft_cols_f64`` and ``fft_last_f64``, counted under those names), in f64
+arithmetic on the float64 twiddle tables, at every power of two from 2 to
+``MAX_F64_N`` (:func:`f64_len_ok`); they replace no TPU kernel: the JAX
+package runs a complex128 axis as a dense contraction (the TPU has no f64
+unit), and so does a complex128 plan on the CPU here.  Their plain
+version (:func:`_f64_tile_plain`) runs their stages in complex128.
 
 ``ops/fourstep.py`` holds nine more (the four-step twiddle pass
 ``fft_cols_tw``, and on f32 and bf16 planes the leading-axis four-step
@@ -36,7 +47,7 @@ A wrapper runs its kernel for CUDA tensors and its plain version for CPU
 tensors; any other device, and a plane dtype the kernel does not take,
 raises.  There is no fallback: a CUDA tensor never reaches a plain version
 through a wrapper.  Each wrapper counts its kernel launches in
-``LAUNCHES`` (all twenty-two, beside ``contract_gemm``, the dense DFT
+``LAUNCHES`` (all twenty-four, beside ``contract_gemm``, the dense DFT
 products of ``ops/stockham.py``).  Every two-axis kernel keeps the plane
 between its passes in f32, as the TPU kernels keep it in VMEM and the
 plain versions keep it: ``fft_fused2``, the gap pass and the fuse_last
@@ -110,6 +121,7 @@ MAX_BLOCK_ELEMS = 262144
 MAX_STOCKHAM_N = 2048
 MAX_LAST_N = 2048
 MAX_FUSED2_ELEMS = MAX_BLOCK_ELEMS
+MAX_F64_N = 1024      # the longest f64 instance of fft_cols and fft_last
 TAIL_MT = 64          # largest dense tail of the plain tile
 MAX_REAL_N = 1024     # pallas_stockham.py:2123
 
@@ -164,6 +176,13 @@ def kernel_len_ok(n: int, last: bool) -> bool:
             return False
         m //= 4
     return m >= 8 and m % 8 == 0
+
+
+def f64_len_ok(n: int) -> bool:
+    """Do ``fft_cols`` and ``fft_last`` have an f64 instance for length
+    n?  Every power of two from 2 to ``MAX_F64_N`` (``COLS64_CASE`` in
+    csrc/cols.cuh, ``LAST64_CASE`` in csrc/last.cuh)."""
+    return 2 <= n <= MAX_F64_N and (n & (n - 1)) == 0
 
 
 def _fusable_len(n: int, last: bool) -> bool:
@@ -525,7 +544,8 @@ def tile_impl(io: str, n: int) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Plain versions: the JAX tile bodies in torch ops (any device, full f32)
+# Plain versions: the JAX tile bodies in torch ops (any device, full f32;
+# f64 planes in full f64)
 # ---------------------------------------------------------------------------
 def _bfly4(q, s: float):
     """Radix-4 butterfly across four (re, im) slab pairs.
@@ -687,33 +707,73 @@ def _io(x) -> str:
     return "bf16" if x.dtype == torch.bfloat16 else "f32"
 
 
+def _f64_tile_plain(xr, xi, n: int, sign: int) -> Pair:
+    """FFT over axis 0 of (n, V) f64 planes as the f64 instances compute
+    it: the Stockham stages of :func:`last_stages` (the list of
+    :func:`cols_stages` too), each twiddled from the float64 table of
+    :func:`_stage_tables` and run as R-point DFTs, in complex128.  The JAX
+    package has no f64 tile (it runs a complex128 axis as a dense
+    contraction); this is the kernels' arithmetic."""
+    rad = last_stages(n)
+    tab = torch.from_numpy(_stage_tables(rad, sign, np.float64)).to(xr.device)
+    tw = torch.complex(tab[:, 0], tab[:, 1])
+    z = torch.complex(xr, xi)
+    v = z.shape[-1]
+    ns, off = 1, 0
+    for r in rad:
+        m = n // r
+        q = z.reshape(r, m, v)                      # element r*m + j
+        k = torch.arange(m, device=z.device) % ns
+        w = tw[off + (torch.arange(1, r, device=z.device)[:, None] - 1) * ns
+               + k]
+        q = torch.cat([q[:1], q[1:] * w[..., None]], 0)
+        e = torch.arange(r, device=z.device)
+        dft = torch.exp(sign * 2j * np.pi
+                        * (torch.outer(e, e) % r).double() / r)
+        y = torch.einsum("qr,rjv->qjv", dft.to(z.dtype), q)
+        # output (j - j%ns)*r + j%ns + q*ns: (a, q, k) with j = a*ns + k
+        z = y.reshape(r, m // ns, ns, v).transpose(0, 1).reshape(n, v)
+        off += (r - 1) * ns
+        ns *= r
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def _tile(io: str, xr, xi, n: int, sign: int) -> Pair:
+    """Unscaled DFT over axis 0 of (n, V) planes: f64 planes by the f64
+    instances' stages (:func:`_f64_tile_plain`), f32 and bf16 ones in f32
+    by the tile body ``tile_impl(io, n)`` picks."""
+    if xr.dtype == torch.float64:
+        return _f64_tile_plain(xr, xi, n, sign)
+    return _TILES[tile_impl(io, n)](xr.float(), xi.float(), n, sign)
+
+
 def _last_tile(io: str, xr, xi, sign: int) -> Pair:
-    """Unscaled f32 DFT along the last axis of (B, n) planes, by the tile
-    body ``tile_impl(io, n)`` picks."""
+    """Unscaled DFT along the last axis of (B, n) planes (:func:`_tile`)."""
     n = xr.shape[-1]
-    yr, yi = _TILES[tile_impl(io, n)](xr.float().T, xi.float().T, n, sign)
+    yr, yi = _tile(io, xr.T, xi.T, n, sign)
     return yr.T, yi.T
 
 
 def _cols_tile(io: str, xr, xi, sign: int) -> Pair:
-    """Unscaled f32 DFT along the middle axis of (P, n, V) planes."""
+    """Unscaled DFT along the middle axis of (P, n, V) planes
+    (:func:`_tile`)."""
     p, n, v = xr.shape
-    yr, yi = _TILES[tile_impl(io, n)](
-        xr.float().permute(1, 0, 2).reshape(n, p * v),
-        xi.float().permute(1, 0, 2).reshape(n, p * v), n, sign)
+    yr, yi = _tile(io, xr.permute(1, 0, 2).reshape(n, p * v),
+                   xi.permute(1, 0, 2).reshape(n, p * v), n, sign)
     return (yr.reshape(n, p, v).permute(1, 0, 2),
             yi.reshape(n, p, v).permute(1, 0, 2))
 
 
 def _scaled(yr, yi, scale: float, dtype) -> Pair:
-    """The scale in f32, then one rounding to the planes' dtype."""
+    """The scale in the arithmetic type, then one rounding to the planes'
+    dtype."""
     return ((yr * scale).to(dtype).contiguous(),
             (yi * scale).to(dtype).contiguous())
 
 
 def fft_last_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the last axis of (B, n) f32 or bf16 planes, scale applied,
-    output in the input's dtype.
+    """FFT along the last axis of (B, n) f32, bf16 or f64 planes, scale
+    applied, output in the input's dtype.
 
     Counterpart: ``pallas_stockham.py:1267`` (``_runner_last``).
     """
@@ -721,8 +781,8 @@ def fft_last_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
 
 
 def fft_cols_plain(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the middle axis of (P, n, V) f32 or bf16 planes, scale
-    applied, output in the input's dtype.
+    """FFT along the middle axis of (P, n, V) f32, bf16 or f64 planes,
+    scale applied, output in the input's dtype.
 
     Counterpart: ``pallas_stockham.py:787`` (``_runner_cols``).
     """
@@ -1024,13 +1084,15 @@ def last_geometry(n: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def _stage_tables(radices: Tuple[int, ...], sign: int) -> np.ndarray:
-    """Twiddles of the stages ``radices`` as a (T, 2) f32 (re, im) array.
+def _stage_tables(radices: Tuple[int, ...], sign: int,
+                  dtype=np.float32) -> np.ndarray:
+    """Twiddles of the stages ``radices`` as a (T, 2) (re, im) array of
+    ``dtype``: f32 for the f32 arithmetic, float64 for the f64 instances.
 
     Stage (R, Ns) holds exp(sign*2*pi*i*r*k/(Ns*R)) at offset
     (r-1)*Ns + k, r = 1..R-1, k = 0..Ns-1; stages follow each other.  The
     exponent is reduced mod Ns*R in integers and the trig runs in float64,
-    rounded once to f32.
+    rounded once to f32 (float64: not rounded).
     """
     parts = []
     ns = 1
@@ -1040,24 +1102,28 @@ def _stage_tables(radices: Tuple[int, ...], sign: int) -> np.ndarray:
         theta = (2.0 * np.pi / (ns * r)) * e.astype(np.float64) * float(sign)
         parts.append(np.stack([np.cos(theta), np.sin(theta)], -1))
         ns *= r
-    return np.ascontiguousarray(np.concatenate(parts).astype(np.float32))
+    return np.ascontiguousarray(np.concatenate(parts).astype(dtype))
 
 
 _DEVICE_TABLES: dict = {}
 
 
-def device_tables(n: int, sign: int, device: torch.device, stages):
+def device_tables(n: int, sign: int, device: torch.device, stages,
+                  dtype: torch.dtype = torch.float32):
     """(twiddle tensor on ``device``, ctypes radix array, stage count) for
-    the kernels, uploaded once per (n, sign, device, stage list); plans
-    fetch theirs when they are made.  ``stages`` (:func:`cols_stages`,
-    :func:`last_stages`, :func:`fused2_stages` or
-    :func:`fused2_regs_stages`) makes the radix list from n."""
+    the kernels, uploaded once per (n, sign, device, stage list, table
+    dtype); plans fetch theirs when they are made.  ``stages``
+    (:func:`cols_stages`, :func:`last_stages`, :func:`fused2_stages` or
+    :func:`fused2_regs_stages`) makes the radix list from n; ``dtype`` is
+    the table's: torch.float32 for the f32 arithmetic (f32 and bf16
+    planes), torch.float64 for the f64 instances."""
     rad = stages(n)
-    key = (n, sign, device, rad)
+    key = (n, sign, device, rad, dtype)
     hit = _DEVICE_TABLES.get(key)
     if hit is None:
         with _trace.span("rft.build"):
-            tw = torch.from_numpy(_stage_tables(rad, sign)).to(device)
+            npd = np.float64 if dtype == torch.float64 else np.float32
+            tw = torch.from_numpy(_stage_tables(rad, sign, npd)).to(device)
         hit = (tw, (ctypes.c_int * len(rad))(*rad), len(rad))
         _DEVICE_TABLES[key] = hit
     return hit
@@ -1081,6 +1147,8 @@ LAUNCHES = {"fft_last": 0, "fft_cols": 0, "fft_fused2": 0,
             # the axis-0 pass, and the matmul-form kernels of
             # ops/pallas_fft.py
             "fft_axis0": 0, "fft_mm1": 0, "fft_mm2": 0,
+            # the column and row kernels on f64 planes (complex128)
+            "fft_cols_f64": 0, "fft_last_f64": 0,
             # the dense DFT products of ops/stockham.py (torch.matmul, so
             # cuBLAS's on a card, counted on every device)
             "contract_gemm": 0}
@@ -1091,10 +1159,15 @@ LAUNCH_BYTES = dict.fromkeys(LAUNCHES, 0)
 # The LAUNCHES keys that count a library's products, no kernel of the port's.
 LIBRARY_LAUNCHES = ("contract_gemm",)
 
-# Plane dtypes of the butterfly kernels that take both (all but the real
-# pair and fft_cols_tw), and the suffix of the C entry point (and launch
-# name) that takes each.
-C2C_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+# Plane dtypes of the C2C butterfly kernels, and the suffix of the C entry
+# point (and launch name) that takes each: fft_cols and fft_last take all
+# three, the other C2C kernels (all but the real pair and fft_cols_tw)
+# F32_BF16.
+C2C_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16",
+              torch.float64: "_f64"}
+F32_BF16 = (torch.float32, torch.bfloat16)
+# The type codes of the residency queries.
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 
 def reset_launches():
@@ -1136,6 +1209,12 @@ def _launch(name: str, fn, device, *args, nbytes: int):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
     LAUNCH_BYTES[name] += nbytes
+
+
+def _table_dtype(xr) -> torch.dtype:
+    """The twiddle tables the kernel for these planes reads: float64 for
+    f64 planes, else f32."""
+    return torch.float64 if xr.dtype == torch.float64 else torch.float32
 
 
 def _c2c_entry(name: str, xr):
@@ -1207,8 +1286,7 @@ def last_residency(n: int, dtype=torch.float32) -> dict:
     block, registers a thread, shared bytes a block."""
     from . import _build
     out = (ctypes.c_int * 5)()
-    err = _build.load().fft_last_residency(n, int(dtype == torch.bfloat16),
-                                          out)
+    err = _build.load().fft_last_residency(n, _TYPE_CODES[dtype], out)
     if err:
         raise RuntimeError(f"fft_last_residency(n={n}): CUDA error {err}")
     return dict(zip(("blocks_per_sm", "rows_per_block", "threads_per_block",
@@ -1237,8 +1315,7 @@ def cols_residency(n: int, dtype=torch.float32) -> dict:
     threads a block, registers a thread, shared bytes a block."""
     from . import _build
     out = (ctypes.c_int * 5)()
-    err = _build.load().fft_cols_residency(n, int(dtype == torch.bfloat16),
-                                          out)
+    err = _build.load().fft_cols_residency(n, _TYPE_CODES[dtype], out)
     if err:
         raise RuntimeError(f"fft_cols_residency(n={n}): CUDA error {err}")
     return dict(zip(("blocks_per_sm", "columns_per_block",
@@ -1262,21 +1339,24 @@ def fourstep_residency(n: int, dtype=torch.float32, tw: bool = True) -> dict:
 
 
 def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the last axis of (B, n) f32 or bf16 planes, scale fused,
-    output in the input's dtype.
+    """FFT along the last axis of (B, n) f32, bf16 or f64 planes, scale
+    fused, output in the input's dtype.
 
-    CUDA planes launch ``fft_last_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_last_bf16``): rows held in registers, the stages of
-    :func:`last_stages`, one kernel instance per length ``kernel_len_ok(n,
-    True)`` admits (the C entry refuses any other).  Its accesses are
-    element-wise, so any contiguous planes will do.  CPU planes run
-    :func:`fft_last_plain`.  Counterpart: ``pallas_stockham.py:1267``.
+    CUDA planes launch ``fft_last_kernel`` (f32) or its bf16 or f64
+    instance (counted as ``fft_last_bf16``, ``fft_last_f64``): rows held in
+    registers, the stages of :func:`last_stages`, one kernel instance per
+    length ``kernel_len_ok(n, True)`` admits (``f64_len_ok`` for f64
+    planes, which read the float64 tables; the C entry refuses any other).
+    Its accesses are element-wise, so any contiguous planes will do.  CPU
+    planes run :func:`fft_last_plain`.  Counterpart:
+    ``pallas_stockham.py:1267`` (f32 and bf16).
     """
     if not _on_cuda("fft_last", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_last_plain(xr, xi, sign, scale)
     b, n = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device, last_stages)
+    tw, rad, k = device_tables(n, sign, xr.device, last_stages,
+                               _table_dtype(xr))
     _launch(*_c2c_entry("fft_last", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             b, n, sign, scale, tw.data_ptr(), k, rad,
@@ -1285,22 +1365,24 @@ def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
 
 
 def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
-    """FFT along the middle axis of (P, n, V) f32 or bf16 planes, scale
-    fused, output in the input's dtype.
+    """FFT along the middle axis of (P, n, V) f32, bf16 or f64 planes,
+    scale fused, output in the input's dtype.
 
-    CUDA planes launch ``fft_cols_kernel`` (f32) or its bf16 instance
-    (counted as ``fft_cols_bf16``): columns held in registers, the stages
-    of :func:`cols_stages`, one kernel instance per length
-    ``kernel_len_ok(n, False)`` admits up to ``MAX_STOCKHAM_N`` (the C
+    CUDA planes launch ``fft_cols_kernel`` (f32) or its bf16 or f64
+    instance (counted as ``fft_cols_bf16``, ``fft_cols_f64``): columns held
+    in registers, the stages of :func:`cols_stages`, one kernel instance
+    per length ``kernel_len_ok(n, False)`` admits up to ``MAX_STOCKHAM_N``
+    (``f64_len_ok`` for f64 planes, which read the float64 tables; the C
     entry refuses any other).  Its accesses are element-wise, so any
     contiguous planes will do.  CPU planes run :func:`fft_cols_plain`.
-    Counterpart: ``pallas_stockham.py:787``.
+    Counterpart: ``pallas_stockham.py:787`` (f32 and bf16).
     """
     if not _on_cuda("fft_cols", xr, xi, dtypes=tuple(C2C_DTYPES)):
         return fft_cols_plain(xr, xi, sign, scale)
     p, n, v = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device, cols_stages)
+    tw, rad, k = device_tables(n, sign, xr.device, cols_stages,
+                               _table_dtype(xr))
     _launch(*_c2c_entry("fft_cols", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             p, n, v, sign, scale, tw.data_ptr(), k, rad,
@@ -1324,7 +1406,7 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     (:func:`fused2_active_clusters` 0) and this raises.  CPU planes run
     :func:`fft_fused2_plain`.  Counterpart: ``pallas_stockham.py:875``.
     """
-    if not _on_cuda("fft_fused2", xr, xi, dtypes=tuple(C2C_DTYPES)):
+    if not _on_cuda("fft_fused2", xr, xi, dtypes=F32_BF16):
         return fft_fused2_plain(xr, xi, sign, scale)
     p, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
@@ -1356,7 +1438,7 @@ def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     this raises.  CPU planes run :func:`fft_axes_gap_plain`.  Counterpart:
     ``pallas_stockham.py:1127``.
     """
-    if not _on_cuda("fft_gap", xr, xi, dtypes=tuple(C2C_DTYPES)):
+    if not _on_cuda("fft_gap", xr, xi, dtypes=F32_BF16):
         return fft_axes_gap_plain(xr, xi, sign, scale)
     b, z, y, x = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
@@ -1445,7 +1527,8 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
 
     The last axis of a rank >= 2 array goes to :func:`fft_last` as (B, n);
     axis 0 of a rank-2 f32 array to :func:`fft_axis0`; any other axis (and
-    a rank-1 array) to :func:`fft_cols` as (pre, n, post).
+    a rank-1 array) to :func:`fft_cols` as (pre, n, post).  f64 planes take
+    the lengths :func:`f64_len_ok` admits.
     Counterpart: ``pallas_stockham.py:2735`` (whose axis 0 of a rank-2
     array takes ``_runner_cols``).
     """
@@ -1458,6 +1541,9 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
         raise ValueError(
             f"stockham path needs power-of-two or mt*4^s length <= {cap}, "
             f"got {n}")
+    if xr.dtype == torch.float64 and not f64_len_ok(n):
+        raise ValueError(f"the f64 kernels take powers of two 2..{MAX_F64_N}, "
+                         f"got {n}")
     sign = int(direction)
     shape = xr.shape
     if is_last:

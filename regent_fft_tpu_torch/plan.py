@@ -31,7 +31,8 @@ plan's device:
   ``fft_mm2`` for a two-factor n with both factors in 16..128), as in the
   JAX package (plan.py:318-326, 400-402): every transformed axis is a
   ``general`` step there, and a length with no such schedule, and every
-  complex128 axis (the kernels compute in f32), takes the dense pipeline.
+  complex128 axis (those kernels compute in f32), takes the dense
+  pipeline.
 
 A real plan (R2C/C2R) transforms its last listed axis as the real axis
 and the others with the steps above.  The real axis takes one of three
@@ -52,8 +53,10 @@ runs f32 planes; a complex32 C2C plan keeps bf16 planes between its steps
 contraction steps and the four-step last axis cast to f32 around
 themselves) and returns a SplitComplex of bf16 planes; a complex32 real
 plan computes in f32 and rounds its output to bf16; a complex128 plan runs
-f64 planes through the contraction steps only, since the kernels compute
-in f32.
+f64 planes: on the card through the f64 instances of the column and row
+kernels (one ``stockham`` step an axis, powers of two 2..1024, f64
+arithmetic on float64 tables) and the contraction steps elsewhere, on the
+CPU through the contraction steps only, as the JAX package does.
 
 The precision tiers ``"high"`` and ``"default"`` plan the same steps as
 ``"highest"`` in every dtype, and ``describe()`` prints the tier.  The JAX
@@ -297,14 +300,22 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
     ``general`` 1-D pipeline for lengths with no two-factor split.  Under
     ``backend="pallas"`` every axis without a kernel step is a ``general``
     step on :func:`_pallas_general` (plan.py:400-402).  A complex128 plan
-    takes no kernel step (plan.py:331): the kernels compute in f32.
-    ``device`` is the plan's: the ``general`` steps are built for it.
+    takes no kernel step in the JAX package (plan.py:331: the TPU has no
+    f64 unit), nor here on the CPU; on the card (``device`` a CUDA device)
+    each axis that the f64 instances of ``fft_cols``/``fft_last`` take
+    (``f64_len_ok``) is one ``stockham`` step under ``stockham`` and
+    ``hybrid``, and nothing is fused: the f64 route has no two-axis,
+    gap, ring or four-step kernel.  ``device`` is the plan's: the
+    ``general`` steps are built for it.
     """
     steps = []
     ndim = len(spec.shape)
     axes_list = list(axes_list)
-    kernels = (backend in ("stockham", "hybrid")
-               and spec.dtype != "complex128")
+    f64 = spec.dtype == "complex128"
+    kernels = backend in ("stockham", "hybrid") and not f64
+    f64_kernels = (backend in ("stockham", "hybrid") and f64
+                   and device is not None
+                   and torch.device(device).type == "cuda")
     if (gap_fused and kernels
             and len(axes_list) >= 3 and ndim >= 3
             and axes_list[:3] == [ndim - 1, ndim - 2, ndim - 3]):
@@ -326,6 +337,9 @@ def axis_steps(spec: PlanSpec, backend: str, axes_list,
         cap = _sk.MAX_LAST_N if is_last else _sk.MAX_STOCKHAM_N
         pow2 = n >= 2 and (n & (n - 1)) == 0
         kern = pow2 or (n >= 128 and _sk.kernel_len_ok(n, is_last))
+        if f64_kernels and _sk.f64_len_ok(n):
+            steps.append(("stockham", a, n))
+            continue
         if kernels and kern:
             if n <= cap:
                 steps.append(("stockham", a, n))
@@ -436,7 +450,11 @@ def route_steps(spec: PlanSpec, steps, shape, switches: Switches):
     The JAX package takes these routes only on the TPU and also under
     "auto"; the port takes them wherever they are asked for (the plain
     versions on the CPU, the kernels on the card) and keeps the butterfly
-    and grid routes under "auto"."""
+    and grid routes under "auto".  A complex128 plan's ``stockham`` steps
+    (the f64 instances) stay as they are: the rings and the four-step
+    stages have no f64 instance."""
+    if spec.dtype == "complex128":
+        return list(steps)
     a0 = (spec.axis0_impl if spec.axis0_impl != "auto"
           else switches.axis0_impl)
     f2 = spec.f2_impl if spec.f2_impl != "auto" else switches.f2_impl
@@ -695,7 +713,8 @@ def _real_route(spec: PlanSpec, backend: str, steps, device=None,
     return RealRoute(axis, n, other, route, packed, fn, note)
 
 
-def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
+def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int,
+                    f64: bool = False):
     """The (length, stage-list function) pair of every twiddle table the
     kernels of a plan read, in step order, the real axis's last: a
     ``stockham2``, ``stockham_gap`` or ``fused2_ring`` step's two axes take
@@ -711,8 +730,10 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
     both four-step stages (``fourstep_ring``: r1 and r2); Bluestein's
     padded length m takes ``last_stages`` where its inner transforms run
     ``fft_last`` (a ``general`` step's, or the ``einsum`` real route's
-    core, whose ``kernel_m`` is m).  ``ndim`` is the rank of the planes
-    the steps transform."""
+    core, whose ``kernel_m`` is m), except in an ``f64`` plan, whose kernels
+    are the f64 instances of its ``stockham`` steps (Bluestein's inner pair
+    runs no kernel on f64 planes).  ``ndim`` is the rank of the planes the
+    steps transform."""
     cs, ls, fs2 = _sk.cols_stages, _sk.last_stages, _sk.fused2_stages
     out = []
     for kind_, a, arg in steps:
@@ -730,8 +751,11 @@ def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int):
             out.append((arg, ls))
         elif kind_ in ("stockham", "dma_ring"):
             out.append((arg, cs))
-        elif kind_ == "general" and getattr(arg, "kernel_m", None):
+        elif (kind_ == "general" and getattr(arg, "kernel_m", None)
+                and not f64):
             out.append((arg.kernel_m, ls))
+    if f64:
+        return out
     if real is not None and getattr(real.fn, "kernel_m", None):
         out.append((real.fn.kernel_m, ls))
     if real is not None and real.route == "half":
@@ -784,11 +808,14 @@ class Plan:
         self.trace_log = {i: _step_name(exec_spec, k, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
         # the kernels' twiddle tables go to the card now, not on first call
+        # (float64 ones for the f64 instances)
         sign = int(spec.direction)
+        f64 = self.cdtype == torch.float64
+        tdt = torch.float64 if f64 else torch.float32
         self.tables = [] if self.device.type != "cuda" else [
-            _sk.device_tables(n, sign, self.device, stages)
+            _sk.device_tables(n, sign, self.device, stages, tdt)
             for n, stages in _kernel_lengths(self.steps, self.real,
-                                             len(step_shape))]
+                                             len(step_shape), f64)]
         # and the contraction steps' operands, on any device
         self.contract_tables = [
             t for k, _, arg in self.steps

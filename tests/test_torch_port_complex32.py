@@ -181,8 +181,8 @@ def test_dtype_vocabulary_matches_jax():
 
 
 def test_bf16_planes_reject_other_dtypes():
-    x = torch.zeros(4, 64, dtype=torch.float64)
-    with pytest.raises(ValueError, match="float64"):
+    x = torch.zeros(4, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
         tsk.fft_last(x, x, -1)
     b = torch.zeros(2, 64, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16"):

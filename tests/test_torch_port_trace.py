@@ -214,8 +214,8 @@ def stubbed_launch(monkeypatch):
             return lambda *a: 0
     monkeypatch.setattr(_build, "load", lambda: Lib())
     monkeypatch.setattr(sk, "device_tables",
-                        lambda n, sign, device, stages=None:
-                        (torch.zeros((1, 2)), None, 1))
+                        lambda n, sign, device, stages=None, dtype=F32:
+                        (torch.zeros((1, 2), dtype=dtype), None, 1))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: type("S", (), {"cuda_stream": 0}))
@@ -256,6 +256,18 @@ def test_launch_bytes_bf16(stubbed_launch, name, call, shape):
     assert sk.LAUNCHES[name + "_bf16"] == 1
     assert sk.LAUNCH_BYTES[name + "_bf16"] == _c2c(shape, BF16)
     assert sum(sk.LAUNCH_BYTES.values()) == _c2c(shape, BF16)
+
+
+@pytest.mark.parametrize("name,call,shape", CASES[:2],
+                         ids=[c[0] for c in CASES[:2]])
+def test_launch_bytes_f64(stubbed_launch, name, call, shape):
+    """The f64 instances of the column and row kernels count under their
+    own names, 32 B a complex element a pass."""
+    call(_planes(torch.float64))
+    assert sk.LAUNCHES[name + "_f64"] == 1
+    assert sk.LAUNCH_BYTES[name + "_f64"] == _c2c(shape, torch.float64)
+    assert _c2c(shape, torch.float64) == 32 * int(np.prod(shape))
+    assert sum(sk.LAUNCH_BYTES.values()) == _c2c(shape, torch.float64)
 
 
 @pytest.mark.parametrize("packed", [False, True])
