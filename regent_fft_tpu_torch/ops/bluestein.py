@@ -75,8 +75,9 @@ def _inner_kernel_pair(m: int, device):
         return None
     pair = kernel_pair(m)
     if pair is not None:
+        keys = _sk.axis_keys((1, m), -1, torch.float32)
         for d in Direction:
-            _sk.device_tables(m, int(d), torch.device(device), _sk.last_stages)
+            _sk.fetch_tables(keys, int(d), torch.device(device))
     return pair
 
 

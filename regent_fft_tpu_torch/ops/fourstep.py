@@ -208,10 +208,10 @@ def fft_cols_tw(xr, xi, sign: int) -> Pair:
     from . import _build
     b, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = _sk.device_tables(n1, sign, xr.device, _sk.cols_stages)
     _sk._launch("fft_cols_tw", _build.load().fft_cols_tw, xr.device,
                 xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                b, n1, n2, sign, tw.data_ptr(), k, rad,
+                b, n1, n2, sign,
+                *_sk._table_args(_sk.cols_keys(n1), sign, xr.device),
                 nbytes=4 * xr.nbytes)
     return yr, yi
 
@@ -232,17 +232,19 @@ def a0fs_stage(stage: str, xr, xi, sign: int, scale: float = 1.0) -> Pair:
     pre, n, post = xr.shape
     r1, r2 = _sk._a0fs_split(n)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr())
-    if stage == "a":
-        tw, rad, k = _sk.device_tables(r1, sign, xr.device, _sk.cols_stages)
-        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
-                    post, sign, tw.data_ptr(), k, rad, nbytes=4 * xr.nbytes)
-    else:
-        tw, rad, k = _sk.device_tables(r2, sign, xr.device, _sk.cols_stages)
-        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, r1, r2,
-                    post, sign, float(scale), tw.data_ptr(), k, rad,
-                    nbytes=4 * xr.nbytes)
+    scale_arg = () if stage == "a" else (float(scale),)
+    keys = [axis0_fourstep_keys(n)[stage == "b"]]
+    _sk._launch(*_sk._c2c_entry(name, xr), xr.device,
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                pre, r1, r2, post, sign, *scale_arg,
+                *_sk._table_args(keys, sign, xr.device),
+                nbytes=4 * xr.nbytes)
     return yr, yi
+
+
+def axis_ring_keys(n: int, post: int, fuse_last: bool) -> list:
+    """The tables :func:`fft_axis_ring` reads on (pre, n, post) planes."""
+    return _sk.walk_keys(n, post) if fuse_last else _sk.cols_keys(n)
 
 
 def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
@@ -270,21 +272,14 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
         raise ValueError(f"{name}: TMA copies need the last extent a "
                          f"multiple of {per} and 16-byte aligned planes")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr())
-    if fuse_last:
-        c = _sk.fused2_cluster(n, post, pre, _sk._sm_count(xr.device))
-        tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device,
-                                          _sk.fused2_stages)
-        tw2, rad2, k2 = _sk.device_tables(post, sign, xr.device,
-                                          _sk.fused2_stages)
-        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n,
-                    post, c, sign, float(scale), tw1.data_ptr(), k1, rad1,
-                    tw2.data_ptr(), k2, rad2, nbytes=4 * xr.nbytes)
-    else:
-        tw1, rad1, k1 = _sk.device_tables(n, sign, xr.device, _sk.cols_stages)
-        _sk._launch(*_sk._c2c_entry(name, xr), xr.device, *ptrs, pre, n, post,
-                    sign, float(scale), tw1.data_ptr(), k1, rad1,
-                    nbytes=4 * xr.nbytes)
+    cluster = ((_sk.fused2_cluster(n, post, pre, _sk._sm_count(xr.device)),)
+               if fuse_last else ())
+    _sk._launch(*_sk._c2c_entry(name, xr), xr.device,
+                xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                pre, n, post, *cluster, sign, float(scale),
+                *_sk._table_args(axis_ring_keys(n, post, fuse_last), sign,
+                                 xr.device),
+                nbytes=4 * xr.nbytes)
     return yr, yi
 
 
@@ -294,6 +289,13 @@ def fft_axis_ring(xr, xi, sign: int, scale: float = 1.0,
 def _pre_post(shape, axis: int):
     pre = int(np.prod(shape[:axis])) if axis else 1
     return pre, int(np.prod(shape[axis + 1:]))
+
+
+def last_four_step_keys(n: int) -> list:
+    """The tables :func:`fft_last_four_step` reads at length n:
+    ``fft_cols_tw``'s at n1, then ``fft_last``'s at n2."""
+    n1, n2 = _sk._four_step_split(n)
+    return _sk.cols_keys(n1) + _sk.last_keys(n2)
 
 
 def fft_last_four_step(xr, xi, direction: Direction,
@@ -324,6 +326,12 @@ def fft_last_four_step(xr, xi, direction: Direction,
     yr = br.reshape(b, n1, n2).transpose(1, 2).reshape(shape)
     yi = bi.reshape(b, n1, n2).transpose(1, 2).reshape(shape)
     return yr, yi
+
+
+def axis0_fourstep_keys(n: int) -> list:
+    """The tables :func:`fft_axis0_fourstep` reads along an axis of n: the
+    column body's at r1 (stage a), then at r2 (stage b)."""
+    return [k for r in _sk._a0fs_split(n) for k in _sk.cols_keys(r)]
 
 
 def fft_axis0_fourstep(xr, xi, axis: int, direction: Direction,

@@ -14,7 +14,7 @@ included, built for the plan's ``device`` and plane ``dtype``.
 
 Every function is unscaled (DFT / n-times-inverse-DFT); the plan applies
 the norm once.  Each carries its complex core's ``kernel_m`` (Bluestein's
-inner length on ``fft_last``, or None) for the plan's table prefetch.
+inner length on ``fft_last``, or None), which names the route.
 """
 from __future__ import annotations
 

@@ -80,18 +80,13 @@ to f32 and round the scaled output to bf16 once.  The gap-fused pass runs
 ``_stockham_tile`` on both block types.  Every product is ``torch.matmul``
 at full f32.  The kernels compute the same DFT with FFMA butterflies all
 the way down, for both block types and every ``REGENT_FFT_MXU_IMPL`` (see
-the source notes in ``csrc/stockham.cu``), from their own
-float64-generated tables
-(:func:`_stage_tables`) of their stage lists: :func:`fused2_regs_stages`
-for the register body of ``fft_fused2`` (persistent clusters, both passes
-in registers, at the geometries of ``FUSED2_REGS``) and
-:func:`fused2_stages` for its stage walk (every other geometry, the gap
-pass and the fuse_last ring), :func:`last_stages` for the
-register-resident rows of ``fft_last`` and of the real pair kernels
-``fft_last_r2c`` and ``ifft_last_c2r`` (one row body, ``csrc/last.cuh``),
-:func:`cols_stages` for the register-resident columns of ``fft_cols``,
-``fft_axis0``, the axis ring and the four-step passes (one column body,
-``csrc/cols.cuh``).
+the source notes in ``csrc/stockham.cu``), from their own float64-generated
+tables (:func:`_stage_tables`) of their stage lists.  Each wrapper takes
+the keys of the tables it reads from one key function beside it
+(:func:`last_keys`: the row body of ``csrc/last.cuh``; :func:`cols_keys`:
+the column body of ``csrc/cols.cuh``; :func:`fused2_keys`,
+:func:`walk_keys`: the cluster kernel's register body and stage walk), and
+a plan asks the same functions for the tables it keeps on the card.
 
 The gates (``kernel_len_ok``, ``fused2_supported``,
 ``fused_gap_supported``, the ``r2c_*`` gates, the four-step and ring
@@ -263,12 +258,6 @@ def fused2_regs_stages(n: int) -> Tuple[int, ...]:
     if n not in (256, 512):
         raise ValueError(f"no register-body schedule for n={n}")
     return (32, n // 32)
-
-
-def fused2_regs_pair(n1: int, n2: int) -> bool:
-    """Does the register body have an instance at (n1, n2) planes, for some
-    cluster size?"""
-    return any(k[:2] == (n1, n2) for k in FUSED2_REGS)
 
 
 def fused2_regs_geometry(n1: int, n2: int, c: int) -> Optional[dict]:
@@ -1129,6 +1118,18 @@ def device_tables(n: int, sign: int, device: torch.device, stages,
     return hit
 
 
+def fetch_tables(keys, sign: int, device: torch.device) -> list:
+    """:func:`device_tables` of each (length, stage list, table dtype) key."""
+    return [device_tables(n, sign, device, stages, dt)
+            for n, stages, dt in keys]
+
+
+def _table_args(keys, sign: int, device) -> list:
+    """(twiddle pointer, stage count, radix array) of each table, fetched."""
+    return [a for tw, rad, k in fetch_tables(keys, sign, device)
+            for a in (tw.data_ptr(), k, rad)]
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -1211,10 +1212,9 @@ def _launch(name: str, fn, device, *args, nbytes: int):
     LAUNCH_BYTES[name] += nbytes
 
 
-def _table_dtype(xr) -> torch.dtype:
-    """The twiddle tables the kernel for these planes reads: float64 for
-    f64 planes, else f32."""
-    return torch.float64 if xr.dtype == torch.float64 else torch.float32
+def _table_dtype(dtype) -> torch.dtype:
+    """Kernels on f64 planes read float64 tables, all others f32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _c2c_entry(name: str, xr):
@@ -1338,6 +1338,12 @@ def fourstep_residency(n: int, dtype=torch.float32, tw: bool = True) -> dict:
                      "threads_per_block", "registers", "smem_bytes"), out))
 
 
+def last_keys(n: int, dtype=torch.float32) -> list:
+    """The row body's table at length n on planes of ``dtype``
+    (:func:`fft_last`, and in f32 the real pair kernels)."""
+    return [(n, last_stages, _table_dtype(dtype))]
+
+
 def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along the last axis of (B, n) f32, bf16 or f64 planes, scale
     fused, output in the input's dtype.
@@ -1355,13 +1361,18 @@ def fft_last(xr, xi, sign: int, scale: float = 1.0) -> Pair:
         return fft_last_plain(xr, xi, sign, scale)
     b, n = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device, last_stages,
-                               _table_dtype(xr))
     _launch(*_c2c_entry("fft_last", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            b, n, sign, scale, tw.data_ptr(), k, rad,
+            b, n, sign, scale,
+            *_table_args(last_keys(n, xr.dtype), sign, xr.device),
             nbytes=4 * xr.nbytes)
     return yr, yi
+
+
+def cols_keys(n: int, dtype=torch.float32) -> list:
+    """The column body's table at length n on planes of ``dtype``
+    (:func:`fft_cols`, :func:`fft_axis0`, the four-step and ring passes)."""
+    return [(n, cols_stages, _table_dtype(dtype))]
 
 
 def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
@@ -1381,13 +1392,23 @@ def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
         return fft_cols_plain(xr, xi, sign, scale)
     p, n, v = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device, cols_stages,
-                               _table_dtype(xr))
     _launch(*_c2c_entry("fft_cols", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            p, n, v, sign, scale, tw.data_ptr(), k, rad,
+            p, n, v, sign, scale,
+            *_table_args(cols_keys(n, xr.dtype), sign, xr.device),
             nbytes=4 * xr.nbytes)
     return yr, yi
+
+
+def fused2_keys(shape, sms: int = 132) -> list:
+    """:func:`fft_fused2`'s tables on planes of ``shape`` (..., n1, n2) over
+    a card of ``sms`` SMs: the register body's where it has an instance at
+    the cluster size :func:`fused2_cluster` picks, else the stage walk's."""
+    n1, n2 = shape[-2:]
+    c = fused2_cluster(n1, n2, int(np.prod(shape[:-2])), sms)
+    if fused2_regs_geometry(n1, n2, c) is None:
+        return walk_keys(n1, n2)
+    return [(n, fused2_regs_stages, torch.float32) for n in (n1, n2)]
 
 
 def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
@@ -1410,19 +1431,21 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
         return fft_fused2_plain(xr, xi, sign, scale)
     p, n1, n2 = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    c = fused2_cluster(n1, n2, p, _sm_count(xr.device))
-    regs = fused2_regs_geometry(n1, n2, c) is not None
-    stages = fused2_regs_stages if regs else fused2_stages
-    tw1, rad1, k1 = device_tables(n1, sign, xr.device, stages)
-    tw2, rad2, k2 = device_tables(n2, sign, xr.device, stages)
+    sms = _sm_count(xr.device)
+    c, keys = fused2_cluster(n1, n2, p, sms), fused2_keys(xr.shape, sms)
     _launch(*_c2c_entry("fft_fused2", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            p, n1, n2, c, sign, scale,
-            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2,
+            p, n1, n2, c, sign, scale, *_table_args(keys, sign, xr.device),
             nbytes=4 * xr.nbytes)
-    if regs:
+    if keys[0][1] is fused2_regs_stages:
         _trace.COUNTS["fused2_planes"] += p
     return yr, yi
+
+
+def walk_keys(n1: int, n2: int) -> list:
+    """The cluster stage walk's tables on (n1, n2) planes (the gap pass, the
+    fuse_last ring, :func:`fft_fused2` without a register body)."""
+    return [(n, fused2_stages, torch.float32) for n in (n1, n2)]
 
 
 def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
@@ -1443,12 +1466,10 @@ def fft_axes_gap(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     b, z, y, x = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     c = fused2_cluster(z, x, b * y, _sm_count(xr.device))
-    tw1, rad1, k1 = device_tables(z, sign, xr.device, fused2_stages)
-    tw2, rad2, k2 = device_tables(x, sign, xr.device, fused2_stages)
     _launch(*_c2c_entry("fft_gap", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             b, z, y, x, c, sign, scale,
-            tw1.data_ptr(), k1, rad1, tw2.data_ptr(), k2, rad2,
+            *_table_args(walk_keys(z, x), sign, xr.device),
             nbytes=4 * xr.nbytes)
     return yr, yi
 
@@ -1467,10 +1488,9 @@ def fft_axis0(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     if not kernel_len_ok(n, False) or n > MAX_STOCKHAM_N:
         raise ValueError(f"fft_axis0: no kernel schedule for n={n}")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    tw, rad, k = device_tables(n, sign, xr.device, cols_stages)
     _launch("fft_axis0", _build.load().fft_axis0, xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            n, v, sign, scale, tw.data_ptr(), k, rad,
+            n, v, sign, scale, *_table_args(cols_keys(n), sign, xr.device),
             nbytes=4 * xr.nbytes)
     return yr, yi
 
@@ -1490,10 +1510,10 @@ def fft_last_r2c(x, packed: bool = False, scale: float = 1.0) -> Pair:
     b, n = x.shape
     w = n // 2 if packed else n // 2 + 1
     yr, yi = x.new_empty((b, w)), x.new_empty((b, w))
-    tw, rad, k = device_tables(n, -1, x.device, last_stages)
     _launch("fft_last_r2c", _build.load().fft_last_r2c, x.device,
             x.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, n, int(packed),
-            scale, tw.data_ptr(), k, rad, nbytes=x.nbytes + 2 * yr.nbytes)
+            scale, *_table_args(last_keys(n), -1, x.device),
+            nbytes=x.nbytes + 2 * yr.nbytes)
     return yr, yi
 
 
@@ -1511,16 +1531,29 @@ def ifft_last_c2r(xr, xi, n: int, packed: bool = False,
     from . import _build
     b = xr.shape[0]
     y = xr.new_empty((b, n))
-    tw, rad, k = device_tables(n, 1, xr.device, last_stages)
     _launch("ifft_last_c2r", _build.load().ifft_last_c2r, xr.device,
             xr.data_ptr(), xi.data_ptr(), y.data_ptr(), b, n, int(packed),
-            scale, tw.data_ptr(), k, rad, nbytes=2 * xr.nbytes + y.nbytes)
+            scale, *_table_args(last_keys(n), 1, xr.device),
+            nbytes=2 * xr.nbytes + y.nbytes)
     return y
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+def _last_axis(shape, axis: int) -> bool:
+    """Does :func:`fft_axis_stockham` run ``axis`` (>= 0) on the rows?"""
+    return axis == len(shape) - 1 and len(shape) > 1
+
+
+def axis_keys(shape, axis: int, dtype) -> list:
+    """The table :func:`fft_axis_stockham` reads along ``axis`` of planes
+    of ``shape`` and ``dtype``."""
+    axis %= len(shape)
+    keys = last_keys if _last_axis(shape, axis) else cols_keys
+    return keys(shape[axis], dtype)
+
+
 def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
                       scale: float = 1.0) -> Pair:
     """FFT along ``axis`` of N-D split planes in one kernel pass.
@@ -1535,7 +1568,7 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
     ndim = xr.ndim
     axis = axis % ndim
     n = xr.shape[axis]
-    is_last = axis == ndim - 1 and ndim > 1
+    is_last = _last_axis(xr.shape, axis)
     cap = MAX_LAST_N if is_last else MAX_STOCKHAM_N
     if not kernel_len_ok(n, is_last) or n > cap:
         raise ValueError(

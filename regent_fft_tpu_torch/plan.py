@@ -34,6 +34,9 @@ plan's device:
   complex128 axis (those kernels compute in f32), takes the dense
   pipeline.
 
+Each kind is one record of :data:`STEPS`; what the steps keep on the
+plan's device is fetched into one list, ``Plan.tables``, as it is made.
+
 A real plan (R2C/C2R) transforms its last listed axis as the real axis
 and the others with the steps above.  The real axis takes one of three
 routes, chosen as in the JAX package: the row-pair r2c/c2r kernels
@@ -433,11 +436,6 @@ class Switches:
                    mxu_impl=env("REGENT_FFT_MXU_IMPL", "direct"))
 
 
-# Step kinds that end in a kernel write, so the norm scale can ride it.
-KERNEL_STEPS = ("stockham", "stockham2", "stockham4", "fourstep_ring",
-                "dma_ring", "fused2_ring", "stockham_gap")
-
-
 def route_steps(spec: PlanSpec, steps, shape, switches: Switches):
     """The kernel route of each butterfly step, on the planes of ``shape``
     the steps transform.  Counterpart: the route choice inside
@@ -502,36 +500,73 @@ def _pallas_general(spec: PlanSpec, n: int, device=None) -> Callable:
     return fn if fn is not None else _general(spec, n, device)
 
 
-def _step_name(spec: PlanSpec, kind_: str, a: int, arg) -> str:
-    """The JAX package's trace-log string for a step (plan.py:439-553)."""
-    if kind_ == "direct":
-        return f"direct-einsum(n={arg})"
-    if kind_ == "stockham":
-        return f"kernel-butterfly(n={arg})"
-    if kind_ == "stockham2":
-        return f"kernel-fused2{arg}"
-    if kind_ == "stockham4":
-        return f"kernel-fourstep-last(n={arg})"
-    if kind_ == "fourstep_ring":
-        return f"kernel-fourstep-ring(n={arg})"
-    if kind_ == "dma_ring":
-        return f"kernel-dma-ring(n={arg})"
-    if kind_ == "fused2_ring":
-        return f"kernel-fused2-ring{arg}"
-    if kind_ == "stockham_gap":
-        return f"kernel-gap-fused{arg}"
-    if kind_ == "general":
-        desc = _stockham.schedule_description(
-            spec.shape[a], spec.max_radix, _factor.device_type(spec.device))
-        return f"1d-pipeline[{desc}]"
-    n, n1 = arg
-    return f"einsum-mixed2({n}={n1}x{n // n1})"
+class StepKind(NamedTuple):
+    """One kind of plan step.  A ``general`` step keeps nothing on the
+    plan's device: its build function fetched what it reads."""
+
+    run: Callable      # (xr, xi, axis, arg, direction, use_3m, scale)
+    name: Callable     # (spec, axis, arg) -> the JAX trace-log string
+    kernel: bool = True   # ends in a kernel write: the norm scale rides it
+    # (shape, dtype, axis, arg, sms) -> its kernels' twiddle-table keys
+    keys: Callable = lambda *_: []
+    # (arg, sign, dtype, device, use_3m) -> its contraction operands
+    operands: Callable = lambda *_: []
 
 
-# The span of each step kind (``utils/trace.py``).
-_STEP_SPANS = {k: "rft.step." + k for k in (
-    "direct", "stockham", "stockham2", "stockham4", "fourstep_ring",
-    "dma_ring", "fused2_ring", "stockham_gap", "general", "mixed2")}
+STEPS = {
+    "stockham": StepKind(
+        lambda x, y, a, arg, d, _, sc: _sk.fft_axis_stockham(x, y, a, d, sc),
+        lambda spec, a, arg: f"kernel-butterfly(n={arg})",
+        keys=lambda sh, dt, a, arg, sms: _sk.axis_keys(sh, a, dt)),
+    "stockham2": StepKind(
+        lambda x, y, a, arg, d, _, sc: _sk.fft_axes2_stockham(x, y, d, sc),
+        lambda spec, a, arg: f"kernel-fused2{arg}",
+        keys=lambda sh, dt, a, arg, sms: _sk.fused2_keys(sh, sms)),
+    "stockham_gap": StepKind(
+        lambda x, y, a, arg, d, _, sc: _sk.fft_axes_gap_stockham(x, y, d, sc),
+        lambda spec, a, arg: f"kernel-gap-fused{arg}",
+        keys=lambda sh, dt, a, arg, sms: _sk.walk_keys(*arg)),
+    "stockham4": StepKind(
+        lambda x, y, a, arg, d, _, sc: _fs.fft_last_four_step(x, y, d, sc),
+        lambda spec, a, arg: f"kernel-fourstep-last(n={arg})",
+        keys=lambda sh, dt, a, arg, sms: _fs.last_four_step_keys(arg)),
+    "fourstep_ring": StepKind(
+        lambda x, y, a, arg, d, _, sc: _fs.fft_axis0_fourstep(x, y, a, d, sc),
+        lambda spec, a, arg: f"kernel-fourstep-ring(n={arg})",
+        keys=lambda sh, dt, a, arg, sms: _fs.axis0_fourstep_keys(arg)),
+    "dma_ring": StepKind(
+        lambda x, y, a, arg, d, _, sc: _fs.fft_axis_dma(x, y, a, d, sc),
+        lambda spec, a, arg: f"kernel-dma-ring(n={arg})",
+        keys=lambda sh, dt, a, arg, sms: _fs.axis_ring_keys(arg, 0, False)),
+    "fused2_ring": StepKind(
+        lambda x, y, a, arg, d, _, sc: _fs.fft_axes2_ring(x, y, d, sc),
+        lambda spec, a, arg: f"kernel-fused2-ring{arg}",
+        keys=lambda sh, dt, a, arg, sms: _fs.axis_ring_keys(*arg, True)),
+    "direct": StepKind(
+        lambda x, y, a, arg, d, m3, _: _stockham.direct_dft_axis(
+            x, y, a, arg, int(d), m3),
+        lambda spec, a, arg: f"direct-einsum(n={arg})", kernel=False,
+        operands=lambda *a: _stockham.step_tables("direct", *a)),
+    "mixed2": StepKind(
+        lambda x, y, a, arg, d, m3, _: _stockham.mixed_radix_fft_axis(
+            x, y, a, *arg, int(d), m3),
+        lambda spec, a, arg: "einsum-mixed2({0}={1}x{2})".format(
+            *arg, arg[0] // arg[1]), kernel=False,
+        operands=lambda *a: _stockham.step_tables("mixed2", *a)),
+    "general": StepKind(
+        lambda x, y, a, arg, *_: _nd.apply_along_axis(arg, a, x, y),
+        lambda spec, a, arg: "1d-pipeline[{}]".format(
+            _stockham.schedule_description(spec.shape[a], spec.max_radix,
+                                           _factor.device_type(spec.device))),
+        kernel=False),
+}
+
+
+def kernel_keys(steps, shape, dtype: torch.dtype, sms: int = 132) -> list:
+    """The (length, stage list, table dtype) key of each twiddle table the
+    kernels of ``steps`` read on planes of ``shape`` and ``dtype``."""
+    return [key for kind_, a, arg in steps
+            for key in STEPS[kind_].keys(tuple(shape), dtype, a, arg, sms)]
 
 
 def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
@@ -541,51 +576,17 @@ def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
     bf16 planes go through the contraction steps as f32 and come back bf16
     (plan.py:450-455, 554-555).
     Counterpart: ``regent_fft_tpu/plan.py:439``."""
-    s = int(direction)
-    last_fusable = (len(steps) - 1 if steps
-                    and steps[-1][0] in KERNEL_STEPS else -1)
     for idx, (kind_, a, arg) in enumerate(steps):
-        ksc = fuse_scale if idx == last_fusable else 1.0
-        bf = (xr.dtype == torch.bfloat16
-              and kind_ in ("direct", "mixed2", "general"))
-        with _trace.span(_STEP_SPANS[kind_]):
+        step = STEPS[kind_]
+        ksc = fuse_scale if idx == len(steps) - 1 else 1.0
+        bf = xr.dtype == torch.bfloat16 and not step.kernel
+        with _trace.span("rft.step." + kind_):
             if bf:
                 xr, xi = xr.float(), xi.float()
-            if kind_ == "direct":
-                xr, xi = _stockham.direct_dft_axis(xr, xi, a, arg, s, use_3m)
-            elif kind_ == "stockham":
-                xr, xi = _sk.fft_axis_stockham(xr, xi, a, direction,
-                                               scale=ksc)
-            elif kind_ == "stockham2":
-                xr, xi = _sk.fft_axes2_stockham(xr, xi, direction, scale=ksc)
-            elif kind_ == "stockham4":
-                xr, xi = _fs.fft_last_four_step(xr, xi, direction, scale=ksc)
-            elif kind_ == "fourstep_ring":
-                xr, xi = _fs.fft_axis0_fourstep(xr, xi, a, direction,
-                                                scale=ksc)
-            elif kind_ == "dma_ring":
-                xr, xi = _fs.fft_axis_dma(xr, xi, a, direction, scale=ksc)
-            elif kind_ == "fused2_ring":
-                xr, xi = _fs.fft_axes2_ring(xr, xi, direction, scale=ksc)
-            elif kind_ == "stockham_gap":
-                xr, xi = _sk.fft_axes_gap_stockham(xr, xi, direction,
-                                                   scale=ksc)
-            elif kind_ == "general":
-                xr, xi = _nd.apply_along_axis(arg, a, xr, xi)
-            else:
-                n, n1 = arg
-                xr, xi = _stockham.mixed_radix_fft_axis(xr, xi, a, n, n1, s,
-                                                        use_3m)
+            xr, xi = step.run(xr, xi, a, arg, direction, use_3m, ksc)
             if bf:
                 xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
     return xr, xi
-
-
-def _apply_scale(y, scale: float):
-    """``y`` times the norm scale rounded to its dtype, as the JAX plan's
-    ``y * jnp.asarray(scale, y.dtype)``, in an ``rft.scale`` span."""
-    with _trace.span("rft.scale"):
-        return y * float(torch.tensor(scale, dtype=y.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -662,6 +663,7 @@ class RealRoute(NamedTuple):
     packed: bool           # Nyquist-packed planes between kernel and steps
     fn: Optional[Callable]  # the 1-D r2c/c2r of the half and einsum routes
     note: str              # describe()'s real-axis note
+    keys: list             # the twiddle tables its kernel reads (kernel_keys)
 
 
 def _real_route(spec: PlanSpec, backend: str, steps, device=None,
@@ -692,6 +694,8 @@ def _real_route(spec: PlanSpec, backend: str, steps, device=None,
             "stockham/hybrid backend (pass backend='stockham' explicitly "
             "on the CPU)")
     fn = None
+    keys = (_sk.last_keys(n) if kernel else _sk.axis_keys(
+        (1, n // 2), -1, _general_dtype(spec)) if half else [])
     if not kernel:
         core = None
         if half:
@@ -710,59 +714,7 @@ def _real_route(spec: PlanSpec, backend: str, steps, device=None,
         route, note = "half", f"half-length conjugate-even kernel {tag}"
     else:
         route, note = "einsum", f"conjugate-even einsum {tag}"
-    return RealRoute(axis, n, other, route, packed, fn, note)
-
-
-def _kernel_lengths(steps, real: Optional[RealRoute], ndim: int,
-                    f64: bool = False):
-    """The (length, stage-list function) pair of every twiddle table the
-    kernels of a plan read, in step order, the real axis's last: a
-    ``stockham2``, ``stockham_gap`` or ``fused2_ring`` step's two axes take
-    ``fused2_stages`` (all run the cluster body), a ``stockham2`` step's
-    also ``fused2_regs_stages`` where ``fft_fused2``'s register body has an
-    instance for the pair (its cluster size follows the batch); ``fft_last``
-    (a ``stockham`` step on the last axis of a rank >= 2 array, the n2 of a
-    ``stockham4`` step, the half-length core of the real ``half`` route)
-    and the real row-pair kernels of the ``kernel`` route take
-    ``last_stages``; the column kernels ``cols_stages``: ``fft_cols`` and
-    ``fft_axis0`` (every other ``stockham`` step), the axis ring
-    (``dma_ring``), ``fft_cols_tw`` (the n1 of a ``stockham4`` step) and
-    both four-step stages (``fourstep_ring``: r1 and r2); Bluestein's
-    padded length m takes ``last_stages`` where its inner transforms run
-    ``fft_last`` (a ``general`` step's, or the ``einsum`` real route's
-    core, whose ``kernel_m`` is m), except in an ``f64`` plan, whose kernels
-    are the f64 instances of its ``stockham`` steps (Bluestein's inner pair
-    runs no kernel on f64 planes).  ``ndim`` is the rank of the planes the
-    steps transform."""
-    cs, ls, fs2 = _sk.cols_stages, _sk.last_stages, _sk.fused2_stages
-    out = []
-    for kind_, a, arg in steps:
-        if kind_ in ("stockham2", "stockham_gap", "fused2_ring"):
-            out += [(arg[0], fs2), (arg[1], fs2)]
-            if kind_ == "stockham2" and _sk.fused2_regs_pair(*arg):
-                rs = _sk.fused2_regs_stages
-                out += [(arg[0], rs), (arg[1], rs)]
-        elif kind_ == "stockham4":
-            n1, n2 = _sk._four_step_split(arg)
-            out += [(n1, cs), (n2, ls)]
-        elif kind_ == "fourstep_ring":
-            out += [(r, cs) for r in _sk._a0fs_split(arg)]
-        elif kind_ == "stockham" and a == ndim - 1 and ndim > 1:
-            out.append((arg, ls))
-        elif kind_ in ("stockham", "dma_ring"):
-            out.append((arg, cs))
-        elif (kind_ == "general" and getattr(arg, "kernel_m", None)
-                and not f64):
-            out.append((arg.kernel_m, ls))
-    if f64:
-        return out
-    if real is not None and getattr(real.fn, "kernel_m", None):
-        out.append((real.fn.kernel_m, ls))
-    if real is not None and real.route == "half":
-        out.append((real.n // 2, ls))
-    elif real is not None and real.route == "kernel":
-        out.append((real.n, ls))
-    return out
+    return RealRoute(axis, n, other, route, packed, fn, note, keys)
 
 
 class Plan:
@@ -805,24 +757,24 @@ class Plan:
         self.steps = route_steps(exec_spec, steps, step_shape,
                                  self.switches)
         self.cdtype = _compute_dtype(spec)
-        self.trace_log = {i: _step_name(exec_spec, k, a, arg)
+        self.trace_log = {i: STEPS[k].name(exec_spec, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
-        # the kernels' twiddle tables go to the card now, not on first call
-        # (float64 ones for the f64 instances)
+        cuda = self.device.type == "cuda"
+        self.table_keys = kernel_keys(
+            self.steps, step_shape, self.cdtype,
+            _sk._sm_count(self.device) if cuda else 132) + (
+                self.real.keys if self.real else [])
+        # what the plan keeps on its device, fetched now: its kernels' twiddle
+        # tables on a card, its contraction steps' operands on any device
         sign = int(spec.direction)
-        f64 = self.cdtype == torch.float64
-        tdt = torch.float64 if f64 else torch.float32
-        self.tables = [] if self.device.type != "cuda" else [
-            _sk.device_tables(n, sign, self.device, stages, tdt)
-            for n, stages in _kernel_lengths(self.steps, self.real,
-                                             len(step_shape), f64)]
-        # and the contraction steps' operands, on any device
-        self.contract_tables = [
-            t for k, _, arg in self.steps
-            for t in _stockham.step_tables(k, arg, sign, _general_dtype(spec),
-                                           self.device, spec.use_3m)]
+        self.tables = (
+            (_sk.fetch_tables(self.table_keys, sign, self.device)
+             if cuda else [])
+            + [t for k, _, arg in self.steps
+               for t in STEPS[k].operands(arg, sign, _general_dtype(spec),
+                                          self.device, spec.use_3m)])
         self.scale = _norm_scale(spec)
-        self.fused = bool(self.steps) and self.steps[-1][0] in KERNEL_STEPS
+        self.fused = bool(self.steps) and STEPS[self.steps[-1][0]].kernel
         self._destroyed = False
 
     @property
@@ -1030,6 +982,18 @@ class Plan:
                              self.spec.use_3m,
                              fuse_scale=self.scale if self.fused else 1.0)
 
+    def _scaled(self, *ys):
+        """``ys`` times the norm scale where no kernel write took it, each
+        in an ``rft.scale`` span, as the JAX plan's ``y * jnp.asarray(scale,
+        y.dtype)``."""
+        if self.fused or self.scale == 1.0:
+            return ys
+        out = []
+        for y in ys:
+            with _trace.span("rft.scale"):
+                out.append(y * float(torch.tensor(self.scale, dtype=y.dtype)))
+        return tuple(out)
+
     def execute_split(self, xr: torch.Tensor, xi: torch.Tensor):
         """Run a C2C or C2R plan on contiguous planes of the plan's compute
         dtype (``cdtype``) already on the plan's device: returns the output
@@ -1044,11 +1008,7 @@ class Plan:
             raise TypeError("an R2C plan takes one real plane: execute_real")
         r = self.real
         if r is None:
-            yr, yi = self._steps(xr, xi)
-            if self.scale != 1.0 and not self.fused:
-                yr = _apply_scale(yr, self.scale)
-                yi = _apply_scale(yi, self.scale)
-            return yr, yi
+            return self._scaled(*self._steps(xr, xi))
         if r.route == "kernel":
             if r.packed and not self.spec.packed_layout:
                 xr, xi = _pack_nyquist(xr, xi, r.other)
@@ -1060,8 +1020,7 @@ class Plan:
         xr, xi = self._steps(xr, xi)
         with _trace.span("rft.step.c2r"):
             y = _nd.apply_along_axis_real_out(r.fn, r.axis, xr, xi)
-        return (y if self.fused or self.scale == 1.0
-                else _apply_scale(y, self.scale))
+        return self._scaled(y)[0]
 
     def execute_real(self, x: torch.Tensor):
         """Run an R2C plan on one contiguous real plane of the plan's
@@ -1087,11 +1046,7 @@ class Plan:
             return yr, yi
         with _trace.span("rft.step.r2c"):
             zr, zi = _nd.apply_along_axis_real_in(r.fn, r.axis, x)
-        yr, yi = self._steps(zr, zi)
-        if self.scale != 1.0 and not self.fused:
-            yr = _apply_scale(yr, self.scale)
-            yi = _apply_scale(yi, self.scale)
-        return yr, yi
+        return self._scaled(*self._steps(zr, zi))
 
     def __call__(self, x):
         """Transform ``x`` on the plan's device.
@@ -1206,7 +1161,7 @@ def destroy_plan(plan: Plan):
     """
     _PLAN_CACHE.pop((plan.spec, plan.switches), None)
     plan._destroyed = True
-    plan.tables, plan.contract_tables = [], []
+    plan.tables = []
 
 
 def clear_plan_cache():

@@ -19,7 +19,7 @@ import torch
 
 import regent_fft_tpu_torch as rt
 from regent_fft_tpu_torch.dtypes import Direction, Kind, Norm
-from regent_fft_tpu_torch.plan import KERNEL_STEPS, _norm_scale
+from regent_fft_tpu_torch.plan import STEPS, _norm_scale
 from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
 
 REPO = Path(__file__).resolve().parent.parent
@@ -34,7 +34,7 @@ def _crand(shape, seed):
 
 def _no_kernel_step(plan):
     assert plan.cdtype == torch.float64
-    assert plan.steps and not any(k in KERNEL_STEPS for k, _, _ in plan.steps)
+    assert plan.steps and not any(STEPS[k].kernel for k, _, _ in plan.steps)
     assert plan.real is None or plan.real.route == "einsum"
     assert "kernel" not in plan.describe()
 

@@ -78,7 +78,7 @@ def test_cuda_complex128_fuses_nothing(switches):
 @pytest.mark.parametrize("backend", ["hybrid", "stockham", "xla"])
 def test_cpu_complex128_keeps_the_contraction_route(shape, backend):
     got = _steps(shape, "complex128", CPU, backend)
-    assert got and not any(k in tplan.KERNEL_STEPS for k, _, _ in got)
+    assert got and not any(tplan.STEPS[k].kernel for k, _, _ in got)
     if backend == "xla":     # and the card's xla route takes no kernel
         assert _steps(shape, "complex128", CUDA, backend) == got
 
@@ -105,10 +105,11 @@ def test_f64_plan_prefetches_float64_tables_of_its_kernels():
     (the plan uploads them as float64 tables)."""
     spec = _spec((512, 512, 512), "complex128")
     steps = tplan.axis_steps(spec, "hybrid", [2, 1, 0], False, CUDA)
-    got = [(n, f.__name__) for n, f in
-           tplan._kernel_lengths(steps, None, 3, True)]
-    assert got == [(512, "last_stages"), (512, "cols_stages"),
-                   (512, "cols_stages")]
+    got = [(n, f.__name__, dt) for n, f, dt in
+           tplan.kernel_keys(steps, (512, 512, 512), torch.float64)]
+    assert got == [(512, "last_stages", torch.float64),
+                   (512, "cols_stages", torch.float64),
+                   (512, "cols_stages", torch.float64)]
 
 
 @pytest.mark.parametrize("norm", [Norm.BACKWARD, Norm.ORTHO])
@@ -126,7 +127,7 @@ def test_cuda_route_runs_on_host_planes(shape, norm):
                                                         reverse=True),
                                  False, CUDA)
         scale = tplan._norm_scale(spec)
-        fused = steps[-1][0] in tplan.KERNEL_STEPS
+        fused = tplan.STEPS[steps[-1][0]].kernel
         yr, yi = tplan.run_steps(steps, torch.from_numpy(x.real.copy()),
                                  torch.from_numpy(x.imag.copy()), direction,
                                  False, fuse_scale=scale if fused else 1.0)

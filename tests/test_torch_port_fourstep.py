@@ -306,7 +306,7 @@ def test_four_step_last_plans(shape, backend):
     assert _lines(tp) == [f"(axis 1: kernel-fourstep-last(n={n}))"]
     assert _lines(tp) == [ln.strip() for ln in jp.describe().splitlines()
                           if ln.startswith("  (axis")]
-    assert tp.steps[-1][0] in rt.plan.KERNEL_STEPS and tp.fused
+    assert rt.plan.STEPS[tp.steps[-1][0]].kernel and tp.fused
     _check_plan(tp, _crand(shape, 21), (1,))
 
 

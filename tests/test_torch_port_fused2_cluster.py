@@ -558,7 +558,8 @@ def test_wrapper_counts_register_body_planes(monkeypatch):
     monkeypatch.setattr(sk, "_on_cuda", lambda *a, **k: True)
     monkeypatch.setattr(sk, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(sk, "device_tables",
-                        lambda n, sign, dev, stages: (torch.zeros(1), None, 0))
+                        lambda n, sign, dev, stages, dtype=None:
+                        (torch.zeros(1), None, 0))
     monkeypatch.setattr(sk, "_c2c_entry", lambda name, xr: (name, None))
     monkeypatch.setattr(sk, "_launch",
                         lambda name, fn, dev, *a, nbytes: calls.append(

@@ -31,7 +31,6 @@ from regent_fft_tpu.dtypes import Direction as JDirection
 from regent_fft_tpu.ops import pallas_stockham as jps
 
 import regent_fft_tpu_torch as rt
-from regent_fft_tpu_torch import plan as tplan
 from regent_fft_tpu_torch.ops import _build
 from regent_fft_tpu_torch.ops import stockham_kernels as sk
 from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
@@ -338,9 +337,9 @@ def test_gap_plans_prefetch_the_cluster_tables(monkeypatch):
         p = rt.make_plan((2, 16, 8, 256), axes=(1, 2, 3), backend="stockham",
                          device="cpu")
         assert p.steps[0][0] == "stockham_gap"
-        got = [(n, f.__name__)
-               for n, f in tplan._kernel_lengths(p.steps, p.real, 4)]
-        assert got == [(16, "fused2_stages"), (256, "fused2_stages"),
-                       (8, "cols_stages")]
+        got = [(n, f.__name__, dt) for n, f, dt in p.table_keys]
+        assert got == [(16, "fused2_stages", torch.float32),
+                       (256, "fused2_stages", torch.float32),
+                       (8, "cols_stages", torch.float32)]
     finally:
         rt.clear_plan_cache()

@@ -29,13 +29,16 @@ float64.
 The stage lists and block size that csrc/last.cuh compiles (its
 ``LAST_CASE`` table and ``LAST_BLOCK``) are read from the source and held
 against ``last_stages`` and ``LAST_BLOCK``; and the plans' table prefetch
-(``plan._kernel_lengths``) names ``last_stages`` for every step that runs
-``fft_last`` or the real row-pair kernels, ``cols_stages`` for the column
-kernels (the mid-axis ``stockham`` steps' ``fft_cols`` and ``fft_axis0``,
-the axis ring, ``fft_cols_tw`` and both four-step stages), and
-``fused2_stages`` for both axes of the two-axis ring (and of the fused
-pair, with ``fused2_regs_stages`` where its register body runs).
+(``Plan.table_keys``, from the kernel modules' key functions) names
+``last_stages`` for every step that runs ``fft_last`` or the real row-pair
+kernels, ``cols_stages`` for the column kernels (the mid-axis ``stockham``
+steps' ``fft_cols`` and ``fft_axis0``, the axis ring, ``fft_cols_tw`` and
+both four-step stages), ``fused2_stages`` for both axes of the two-axis
+ring, and for the fused pair the list of the body it runs
+(``fused2_regs_stages`` at 512^2).  With the launches stubbed, every plan
+fetches exactly the tables it prefetches.
 """
+import contextlib
 import re
 from pathlib import Path
 
@@ -46,8 +49,9 @@ import torch
 
 from regent_fft_tpu.ops import pallas_stockham as jps
 
-import regent_fft_tpu_torch as rt
 from regent_fft_tpu_torch import plan as tplan
+from regent_fft_tpu_torch.dtypes import Direction, Kind
+from regent_fft_tpu_torch.ops import _build
 from regent_fft_tpu_torch.ops import stockham_kernels as sk
 from regent_fft_tpu_torch.utils.verify import rel_l2, tolerance
 
@@ -309,26 +313,29 @@ def test_wrapper_cpu_planes_run_the_plain_version():
     assert torch.equal(yr, pr) and torch.equal(yi, pi)
 
 
-def _tables(shape, axes, kind="c2c", **kw):
+def _plan(shape, axes, kind="c2c", switches=None, **kw):
     direction = 1 if kind == "c2r" else -1
-    p = rt.make_plan(shape, axes=axes, kind=kind, direction=direction,
-                     backend="stockham", device="cpu", **kw)
-    return [(n, f.__name__) for n, f in
-            tplan._kernel_lengths(p.steps, p.real, len(shape))]
+    spec = tplan.PlanSpec(shape=shape, axes=axes, kind=Kind(kind),
+                          direction=Direction(direction), backend="stockham",
+                          device="cpu", **kw)
+    return tplan.Plan(spec, switches or tplan.Switches())
 
 
-@pytest.mark.parametrize("shape,axes,kind,want", [
+def _tables(shape, axes, kind="c2c", **kw):
+    return [(n, f.__name__)
+            for n, f, _ in _plan(shape, axes, kind, **kw).table_keys]
+
+
+PREFETCH_CASES = [
     # 1-D C2C rows: fft_last
     ((4096, 1024), (1,), "c2c", [(1024, "last_stages")]),
     ((4096, 640), (1,), "c2c", [(640, "last_stages")]),
     # the four-step last axis: fft_cols_tw over n1, fft_last over n2
     ((64, 1 << 20), (1,), "c2c", [(512, "cols_stages"),
                                   (2048, "last_stages")]),
-    # 3-D: the fused pair, then the leading axis on fft_cols
-    # (and the register body's lists, which it runs at 512^2 planes)
-    ((512, 512, 512), (0, 1, 2), "c2c", [(512, "fused2_stages"),
-                                         (512, "fused2_stages"),
-                                         (512, "fused2_regs_stages"),
+    # 3-D: the fused pair on the register body (512^2 planes), then the
+    # leading axis on fft_cols
+    ((512, 512, 512), (0, 1, 2), "c2c", [(512, "fused2_regs_stages"),
                                          (512, "fused2_regs_stages"),
                                          (512, "cols_stages")]),
     # a 3-D grid whose last axis is too short to fuse: fft_last, then the
@@ -354,20 +361,21 @@ def _tables(shape, axes, kind="c2c", **kw):
     ((512, 4096), (0,), "c2c", [(512, "cols_stages")]),
     # the ring and four-step routes (kind with the plan's route fields):
     # the axis ring and both four-step stages run fft_cols' column body,
-    # the two-axis ring the cluster body (the leading axis after it runs
-    # fft_cols)
+    # the two-axis ring the cluster body's stage walk (the leading axis
+    # after it runs fft_cols)
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "dma"}),
-     [(512, "fused2_stages"), (512, "fused2_stages"),
-      (512, "fused2_regs_stages"), (512, "fused2_regs_stages"),
+     [(512, "fused2_regs_stages"), (512, "fused2_regs_stages"),
       (512, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"axis0_impl": "fourstep"}),
-     [(512, "fused2_stages"), (512, "fused2_stages"),
-      (512, "fused2_regs_stages"), (512, "fused2_regs_stages"),
+     [(512, "fused2_regs_stages"), (512, "fused2_regs_stages"),
       (16, "cols_stages"), (32, "cols_stages")]),
     ((512, 512, 512), (0, 1, 2), ("c2c", {"f2_impl": "ring"}),
      [(512, "fused2_stages"), (512, "fused2_stages"),
       (512, "cols_stages")]),
-])
+]
+
+
+@pytest.mark.parametrize("shape,axes,kind,want", PREFETCH_CASES)
 def test_plans_prefetch_the_tables_their_kernels_read(shape, axes, kind,
                                                       want):
     kind, kw = kind if isinstance(kind, tuple) else (kind, {})
@@ -381,3 +389,85 @@ def test_complex32_four_step_prefetch():
             == [(512, "cols_stages"), (2048, "last_stages")])
     assert (_tables((4096, 1024), (1,), dtype="complex32")
             == [(1024, "last_stages")])
+
+
+@pytest.fixture
+def fetched(monkeypatch):
+    """The wrappers' CUDA side stubbed (planes count as the card's, every C
+    entry returns 0, the launch itself runs and counts), and every table
+    they fetch recorded as (n, sign, stage list name, table dtype)."""
+    got = []
+    monkeypatch.setattr(sk, "_on_cuda", lambda *a, **k: True)
+    monkeypatch.setattr(sk, "_sm_count", lambda dev: 132)
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: 0
+
+    def tables(n, sign, device, stages, dtype):
+        got.append((n, sign, stages.__name__, dtype))
+        return torch.zeros((1, 2), dtype=dtype), None, 1
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(sk, "device_tables", tables)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    yield got
+    sk.reset_launches()
+
+
+def _named(keys, sign):
+    return sorted(((n, sign, f.__name__, dt) for n, f, dt in keys),
+                  key=str)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+CUDA = torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape,axes,kind", [
+    c[:3] for c in PREFETCH_CASES] + [
+    # complex32: the four-step on f32 planes, fft_last_bf16 on f32 tables
+    ((64, 1 << 20), (1,), ("c2c", {"dtype": "complex32"})),
+    ((8, 16, 64), (0, 1, 2), ("c2c", {"dtype": "complex32"})),
+    # the gap-fused pass (the cluster body's stage walk) and its mid axis
+    ((2, 16, 8, 256), (1, 2, 3), ("c2c", {"switches": tplan.Switches(
+        gap_fused=True)})),
+])
+def test_plans_fetch_exactly_the_tables_they_prefetch(fetched, shape, axes,
+                                                      kind):
+    """Each plan run on its kernels' path (meta planes, launches stubbed)
+    asks ``device_tables`` for exactly the keys it prefetches."""
+    kind, kw = kind if isinstance(kind, tuple) else (kind, {})
+    p = _plan(shape, axes, kind, **kw)
+    fetched.clear()
+    if kind == "r2c":
+        p.execute_real(_meta(shape, p.cdtype))
+    else:
+        planes = shape if kind == "c2c" else tplan._half_shape(p.spec)
+        p.execute_split(_meta(planes, p.cdtype), _meta(planes, p.cdtype))
+    assert fetched and _named(p.table_keys, int(p.spec.direction)) == sorted(
+        fetched, key=str)
+    assert sum(sk.LAUNCHES.values()) >= len(p.steps)
+
+
+@pytest.mark.parametrize("shape", [(512, 512, 512), (4, 256, 256, 256),
+                                   (2, 1024)])
+def test_complex128_steps_fetch_the_float64_tables_they_list(fetched, shape):
+    """A complex128 plan's steps for the card (the f64 instances of
+    fft_cols and fft_last) fetch exactly the float64 tables that
+    ``kernel_keys`` lists for them."""
+    spec = tplan.PlanSpec(shape=shape, axes=tuple(range(len(shape))),
+                          kind=Kind.C2C, direction=Direction.FORWARD,
+                          dtype="complex128", device="cpu")
+    steps = tplan.axis_steps(spec, "hybrid",
+                             sorted(spec.axes, reverse=True), False, CUDA)
+    keys = tplan.kernel_keys(steps, shape, torch.float64)
+    assert {dt for _, _, dt in keys} == {torch.float64}
+    x = _meta(shape, torch.float64)
+    tplan.run_steps(steps, x, x, Direction.FORWARD, False)
+    assert _named(keys, -1) == sorted(fetched, key=str)

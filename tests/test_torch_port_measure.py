@@ -311,8 +311,8 @@ def test_cpu_schedule_race_leaves_cuda_plan_steps_unchanged(monkeypatch):
                            device=device)
         steps = tplan.axis_steps(s, "xla", [1], False, torch.device(device))
         return [(k, a, arg if k != "general" else None)
-                for k, a, arg in steps], [tplan._step_name(s, *st)
-                                          for st in steps]
+                for k, a, arg in steps], [tplan.STEPS[k].name(s, a, arg)
+                                          for k, a, arg in steps]
     n = 1000
     cuda_before = step(n, "cuda")
     factors_before = factor.plan_factors(n, device="cuda")

@@ -180,7 +180,7 @@ def test_steps_upload_nothing_after_the_plan_is_made(count_uploads, dtype,
     fwd = rt.make_plan(shape, dtype=dtype, backend="xla", device="cpu")
     bwd = fwd.inverse()
     assert {k for k, _, _ in fwd.steps} == kinds
-    assert count_uploads and fwd.contract_tables and bwd.contract_tables
+    assert count_uploads and fwd.tables and bwd.tables
     count_uploads.clear()
     u0, xr, xi = _field(shape)
     if dtype == "complex64":
@@ -207,9 +207,9 @@ def test_destroy_and_clear_drop_the_tables():
     p = rt.make_plan(SHAPE, dtype="complex128", device="cpu")
     key = ("h4", 16, -1, torch.float64, torch.device("cpu"))
     assert key in st._CONTRACT_TABLES
-    assert any(t is st._CONTRACT_TABLES[key] for t in p.contract_tables)
+    assert any(t is st._CONTRACT_TABLES[key] for t in p.tables)
     rt.destroy_plan(p)
-    assert p.contract_tables == [] and p.tables == []
+    assert p.tables == []
     q = rt.make_plan(SHAPE, dtype="complex128", device="cpu")
     rt.clear_plan_cache()
     assert st._CONTRACT_TABLES == {}
@@ -249,7 +249,7 @@ def test_kernel_routes_count_no_contraction():
     sk.reset_launches()
     p(torch.ones((4, 8, 256), dtype=torch.complex64))
     assert not any(sk.LAUNCHES.values())
-    assert p.contract_tables == []
+    assert p.tables == []
 
 
 def _tree(prof):

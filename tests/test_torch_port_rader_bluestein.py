@@ -174,7 +174,8 @@ def test_inner_kernel_gate_is_the_device(monkeypatch):
     fetches its twiddle tables for both signs; the CPU and no device give
     the dense pipeline."""
     fetched = []
-    monkeypatch.setattr(sk, "device_tables", lambda n, sign, dev, stages:
+    monkeypatch.setattr(sk, "device_tables",
+                        lambda n, sign, dev, stages, dtype=torch.float32:
                         fetched.append((n, sign, str(dev), stages)))
     assert bluestein._inner_kernel_pair(2048, None) is None
     assert bluestein._inner_kernel_pair(2048, "cpu") is None
@@ -415,8 +416,12 @@ def test_plan_bluestein_runs_fft_last_twice(dtype, calls, kernel_inner,
     assert kind_ == "general"
     want_m = None if dtype == "complex128" else m
     assert fn.kernel_m == want_m
-    assert tplan._kernel_lengths(tp.steps, None, 2) == (
-        [] if want_m is None else [(m, sk.last_stages)])
+    # the plan lists no table for the general step: on a card
+    # build_bluestein_1d's inner pair fetches m's itself, as
+    # fft_axis_stockham names them (test_inner_kernel_gate_is_the_device)
+    assert tp.table_keys == []
+    assert sk.axis_keys((3, m), -1, torch.float32) == [
+        (m, sk.last_stages, torch.float32)]
     tx, jx, xd = _inputs((3, n), Kind.C2C, dtype, 11)
     y = tp(tx)
     assert len(fft_last_calls) == calls
@@ -439,8 +444,7 @@ def test_real_plan_half_length_bluestein_on_the_kernel(kernel_inner,
         tp = Plan(PlanSpec(shape=(3, 2018), axes=(1,), kind=kind,
                            direction=direction, device="cpu"))
         assert tp.real.route == "einsum" and tp.real.fn.kernel_m == 2048
-        assert tplan._kernel_lengths(tp.steps, tp.real, 2) == [
-            (2048, sk.last_stages)]
+        assert tp.real.keys == [] and tp.table_keys == []
         in_shape = (3, 1010) if kind == Kind.C2R else (3, 2018)
         tx, _, xd = _inputs(in_shape, kind, "complex64", 3)
         y = tp(tx)

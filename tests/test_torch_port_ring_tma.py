@@ -350,7 +350,7 @@ def test_wrapper_allocates_only_the_output(monkeypatch, dtype, fuse):
                         lambda name, fn, dev, *args, nbytes: calls.append(
                             (name, args, nbytes)))
 
-    def fake_tables(n, sign, device, stages=None):
+    def fake_tables(n, sign, device, stages=None, dtype=None):
         tables.append((n, stages.__name__ if stages else None))
         return torch.zeros((1, 2)), None, 1
     monkeypatch.setattr(sk, "device_tables", fake_tables)
