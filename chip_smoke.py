@@ -10,8 +10,11 @@ Phases (any failure raises and the script exits non-zero):
 2. build: the CUDA kernels from ``regent_fft_tpu_torch/csrc`` with nvcc,
    one process per source, started together; the ptxas lines (the cluster
    kernel's four instances, fft_fused2's and the gap pass's in f32 and
-   bf16, the matmul kernel, the 42 instances of fft_last's row kernel, the
-   58 of fft_cols's column kernel (each with its 10 f64 instances, whose
+   bf16, fft_fused2's register body (f32, bf16 and f32 reading
+   interleaved complex64 at each of its two geometries), the matmul
+   kernel, the 42 instances of fft_last's row kernel, the 58 of
+   fft_cols's column kernel and its 10 f32 interleaved-output instances
+   (each with its 10 f64 instances, whose
    registers are printed; the f32 and bf16 instances' registers must equal
    the parent build's, ``PARENT_REGISTERS``), the 10 each of the real pair
    kernels
@@ -74,7 +77,11 @@ Phases (any failure raises and the script exits non-zero):
    against torch.fft in complex128 within tolerance(n, "complex128"),
    bound 32 B an element), held against
    its plain PyTorch version on the card (rel_l2 <= tolerance(n), or
-   ``PLAIN_LIMIT`` = 1e-3 for the bf16 kernels) and timed
+   ``PLAIN_LIMIT`` = 1e-3 for the bf16 kernels), the interleaved ends
+   (fft_fused2's register body reading a complex64 tensor at 512^3, 256^3
+   and a ragged last wave, fft_cols writing one at every power of two up
+   to 1024 and the 512^3 and 256^3 axis-0 shapes, both signs) equal to
+   the planar instances bit for bit, and timed
    (median of CUDA-event runs with the L2 flushed before each) beside its
    bound, its plain version and one torch.fft call over the same rows or
    axes where one computes the same function (a yardstick the port never
@@ -95,7 +102,11 @@ Phases (any failure raises and the script exits non-zero):
    4096 x 1024 and 2-D 16 x 512^2 -- with the default device and backend.
    The kernel launch counts are zeroed just before the three plans run
    once and read just after: each kernel step must have launched its
-   kernel exactly once.  Results are held against torch.fft (and a small
+   kernel exactly once, and the 512^3 and 16 x 512^2 inputs must have
+   reached their first kernels as they are and the 512^3 output come from
+   its last (``trace.COUNTS["interleaved_in"]`` 2, ``["interleaved_out"]``
+   1), each output equal bit for bit to ``execute_split``'s on the same
+   planes.  Results are held against torch.fft (and a small
    input against numpy in float64), the inverse plan must round-trip,
    then each plan's peak device memory is read and each plan is timed;
 5. main path, real: the R2C and C2R plans of 4096 x 1024 (axis 1) and
@@ -870,12 +881,16 @@ def main() -> int:
                 for ln in lines):
             raise AssertionError(f"{kname} ptxas: {lines}")
     # fft_fused2's register body: one instance per FUSED2_REGS geometry and
-    # plane type; none may spill
+    # plane type, and an f32 one reading interleaved complex64 input (its
+    # IL template argument true: Lb1E); none may spill
     regs_ptxas = [ln for ln in _ptxas(_build.build_log)
                   if "fft_fused2_regs_kernel" in ln.split(":")[0]]
     for ln in regs_ptxas:
-        print("ptxas fft_fused2 (register body): " + ln)
-    if len(regs_ptxas) != 2 * len(sk.FUSED2_REGS) or not all(
+        tag = ", interleaved in" if "Lb1E" in ln.split(":")[0] else ""
+        print(f"ptxas fft_fused2 (register body{tag}): " + ln)
+    if len(regs_ptxas) != 3 * len(sk.FUSED2_REGS) or sum(
+            "Lb1E" in ln.split(":")[0] for ln in regs_ptxas) != len(
+                sk.FUSED2_REGS) or not all(
             re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
             for ln in regs_ptxas):
         raise AssertionError(f"fft_fused2_regs_kernel ptxas: {regs_ptxas}")
@@ -900,17 +915,28 @@ def main() -> int:
     print(f"ptxas fft_last_kernel: {len(last_ptxas)} instances (f32, bf16 "
           f"and f64), 0 spill bytes in each")
     # the column kernel of fft_cols/fft_axis0: one instance per length the
-    # mid-axis gate admits and plane type, none may spill
-    cols_ptxas = [ln for ln in _ptxas(_build.build_log)
-                  if "fft_cols_kernel" in ln]
+    # mid-axis gate admits and plane type, and an f32 one per power of two
+    # writing interleaved complex64 (its IO ColsIlIO); none may spill
+    cols_all = [ln for ln in _ptxas(_build.build_log)
+                if "fft_cols_kernel" in ln]
+    cols_il = [ln for ln in cols_all if "ColsIlIO" in ln.split(":")[0]]
+    cols_ptxas = [ln for ln in cols_all if ln not in cols_il]
     cols_lengths = [n for n in range(2, sk.MAX_STOCKHAM_N + 1)
                     if sk.kernel_len_ok(n, False)]
-    if len(cols_ptxas) != 2 * len(cols_lengths) + len(f64_lengths) or not all(
+    il_lengths = [n for n in cols_lengths
+                  if sk.cols_writes_complex(n, torch.float32)]
+    if len(cols_ptxas) != 2 * len(cols_lengths) + len(f64_lengths) or len(
+            cols_il) != len(il_lengths) or not all(
             re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)
-            for ln in cols_ptxas):
-        raise AssertionError(f"fft_cols ptxas: {cols_ptxas}")
+            for ln in cols_all):
+        raise AssertionError(f"fft_cols ptxas: {cols_all}")
     print(f"ptxas fft_cols_kernel: {len(cols_ptxas)} instances (f32, bf16 "
-          f"and f64), 0 spill bytes in each")
+          f"and f64) and {len(cols_il)} interleaved-out (f32), 0 spill bytes "
+          f"in each")
+    print("ptxas fft_cols_kernel interleaved out, registers by n: "
+          + str(dict(sorted((int(re.search(r"Li(\d+)E", ln.split(
+              "fft_cols_kernel", 1)[1]).group(1)), int(re.search(
+                  r"Used (\d+) registers", ln).group(1))) for ln in cols_il))))
     # the f64 instances' registers and spills, and the f32 and bf16
     # instances' registers held to the parent's build (the f64 instances
     # share their templated bodies, which must compile to the same code)
@@ -2266,6 +2292,68 @@ def main() -> int:
                   f"{str(dt)[6:]}: {q_} clusters at once, planes {counts}, "
                   f"both signs: worst rel_l2 vs plain "
                   f"{regs_worst[f'{n1}x{n2} {str(dt)[6:]}']:.3e}")
+    # the interleaved ends: fft_fused2's register body reading a complex64
+    # tensor (fft_fused2_interleaved_in) at its two geometries, 512^3 and
+    # 256^3 and a ragged last wave (2Q + 1 planes, which still take the
+    # register body's cluster size), and fft_cols writing one
+    # (fft_cols_interleaved_out) at every length it takes (3 x n x 37: a
+    # ragged tile) and the main path's 512^3 and 256^3 axis-0 shapes; both
+    # signs, each bit for bit against the planar instance it shares its
+    # algorithm with and within tolerance(n) of the plain version
+    il_worst = {}
+    for (n1, n2, c_) in sorted(sk.FUSED2_REGS):
+        q_ = sk.fused2_active_clusters(n1, n2, c_)
+        for p_ in (n1, 2 * q_ + 1):
+            if not sk.fused2_reads_complex((p_, n1, n2), torch.float32, sms):
+                raise AssertionError(f"{(p_, n1, n2)}: not the register body")
+            x = torch.complex(*planes((p_, n1, n2)))
+            xr, xi = x.real.contiguous(), x.imag.contiguous()
+            for sign in (-1, 1):
+                trace.reset_counts()
+                yr, yi = sk.fft_fused2(x, None, sign, 0.5)
+                if trace.COUNTS["fused2_planes"] != p_:
+                    raise AssertionError(f"fused2_planes {trace.COUNTS}")
+                pr, pi = sk.fft_fused2(xr, xi, sign, 0.5)
+                if not (torch.equal(yr, pr) and torch.equal(yi, pi)):
+                    raise AssertionError(
+                        f"fft_fused2 interleaved in {(p_, n1, n2)} sign "
+                        f"{sign}: differs from the planar instance by "
+                        f"{dev_rel(torch.complex(yr, yi), torch.complex(pr, pi))}")
+                e = dev_rel(torch.complex(yr, yi), torch.complex(
+                    *sk.fft_fused2_plain(xr, xi, sign, 0.5)))
+                if not e <= tolerance(n1 * n2):
+                    raise AssertionError(f"fft_fused2 interleaved in "
+                                         f"{(p_, n1, n2)}: rel_l2 vs plain {e}")
+                key = f"fft_fused2 in {n1}x{n2}"
+                il_worst[key] = max(il_worst.get(key, 0.0), e)
+                del yr, yi, pr, pi
+            del x, xr, xi
+            torch.cuda.empty_cache()
+    il_shapes = [(3, n, 37) for n in range(2, sk.MAX_STOCKHAM_N + 1)
+                 if sk.cols_writes_complex(n, torch.float32)]
+    for shape in il_shapes + [(1, 512, 512 * 512), (1, 256, 256 * 256)]:
+        xr, xi = planes(shape)
+        for sign in (-1, 1):
+            y, _ = sk.fft_cols(xr, xi, sign, 0.5, complex_out=True)
+            pr, pi = sk.fft_cols(xr, xi, sign, 0.5)
+            if not torch.equal(y, torch.complex(pr, pi)):
+                raise AssertionError(
+                    f"fft_cols interleaved out {shape} sign {sign}: differs "
+                    f"from the planar instance by "
+                    f"{dev_rel(y, torch.complex(pr, pi))}")
+            e = dev_rel(y, torch.complex(*sk.fft_cols_plain(xr, xi, sign,
+                                                            0.5)))
+            if not e <= tolerance(shape[1]):
+                raise AssertionError(f"fft_cols interleaved out {shape}: "
+                                     f"rel_l2 vs plain {e}")
+            key = f"fft_cols out n={shape[1]}"
+            il_worst[key] = max(il_worst.get(key, 0.0), e)
+            del y, pr, pi
+        del xr, xi
+    torch.cuda.empty_cache()
+    print("interleaved ends, bit for bit with the planar instances, worst "
+          "rel_l2 vs plain: " + "; ".join(f"{k} {v:.3e}"
+                                          for k, v in il_worst.items()))
     trace.reset_counts()
     phase("3b (kernels at the main-path shapes)")
 
@@ -2296,7 +2384,17 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(seed)
         inputs.append(torch.complex(torch.randn(shape, device=dev, generator=g),
                                     torch.randn(shape, device=dev, generator=g)))
+    trace.reset_counts()
     outs, launches = run_counted("c2c", plans, inputs, C2C_LAUNCHES)
+    # the complex64 inputs reach the kernels as they are where the plan's
+    # first step reads them (512^3 and 16 x 512^2: fft_fused2's register
+    # body) and its last step writes the output (512^3: fft_cols on axis 0)
+    ends = [p.complex_ends for p in plans]
+    print(f"interleaved ends {ends}, counts {trace.COUNTS}")
+    if ends != [(True, True), (False, False), (True, False)] or (
+            trace.COUNTS["interleaved_in"], trace.COUNTS["interleaved_out"]
+    ) != (2, 1):
+        raise AssertionError(f"interleaved ends {ends} {trace.COUNTS}")
     for kname, row in rows.items():
         row["launches_by_path"]["c2c"] = launches[kname]
         row["launches"] += launches[kname]
@@ -2315,6 +2413,10 @@ def main() -> int:
             raise AssertionError(f"{s.shape}: rel_l2 {err}, roundtrip {back}, "
                                  f"tolerance {tol}")
         xr, xi = x.real.contiguous(), x.imag.contiguous()
+        # the same arithmetic as the split path's: equal bit for bit
+        if not torch.equal(y, torch.complex(*p.execute_split(xr, xi))):
+            raise AssertionError(f"{s.shape}: Plan.__call__ differs from "
+                                 f"execute_split on the same planes")
         peak, rise = peak_bytes(lambda: p(x))
         print(f"peak memory c2c {s.shape}: {peak} B ({rise} B over the "
               f"{peak - rise} B resident before the call)")

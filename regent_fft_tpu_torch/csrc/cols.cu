@@ -2,8 +2,10 @@
 // (complex64) or bf16 (complex32), and f64 (complex128; see the f64 note
 // below):
 //
-//   fft_cols_kernel<T,G,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
-//                             (C entries fft_cols, fft_cols_bf16)
+//   fft_cols_kernel<T,G,IO,R...> replaces regent_fft_tpu/ops/pallas_stockham.py:_runner_cols
+//                             (C entries fft_cols, fft_cols_bf16, and in f32
+//                             at the powers of two up to 1024, writing
+//                             interleaved complex64, fft_cols_interleaved_out)
 //                         and regent_fft_tpu/ops/pallas_stockham.py:_runner_axis0
 //                             (C entry fft_axis0: f32, P = 1)
 //
@@ -83,7 +85,7 @@
 // The f64 instances (C entry fft_cols_f64; the COLS64_CASE table in
 // cols.cuh: every power of two from 2 to 1024):
 //
-//   fft_cols_kernel<double,G,R...> replaces no TPU kernel.  The JAX package
+//   fft_cols_kernel<double,G,IO,R...> replaces no TPU kernel.  The JAX package
 //                         runs a complex128 axis as a dense contraction,
 //                         since the TPU has no f64 unit; this card has FP64
 //                         FMA units (34 TFLOP/s without tensor cores), so a
@@ -128,8 +130,9 @@
 
 namespace {
 
-// Block b takes columns [(b % ntiles)*C, +C) of plane b / ntiles.
-template <typename T, class G, int... R>
+// Block b takes columns [(b % ntiles)*C, +C) of plane b / ntiles; IO is
+// ColsIO<T> (planes out), or ColsIlIO (f32: interleaved complex64 out).
+template <typename T, class G, class IO, int... R>
 __global__ void __launch_bounds__(G::THREADS, G::MINB)
 fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                 T* __restrict__ yr, T* __restrict__ yi, long long V,
@@ -141,7 +144,7 @@ fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   const unsigned pre = blockIdx.x / (unsigned)ntiles;
   const long long col =
       (long long)(blockIdx.x - pre * (unsigned)ntiles) * G::C + c;
-  ColsIO<T> io;
+  IO io;
   io.xr = xr;
   io.xi = xi;
   io.yr = yr;
@@ -158,11 +161,11 @@ fft_cols_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   io.tw = tw;
   io.s = s;
   io.scale = scale;
-  cols_stage<ColsIO<T>, G, 0, 1, 0, R...>(io);
+  cols_stage<IO, G, 0, 1, 0, R...>(io);
 }
-// Launch the instance on P (n, V) planes; the host's stage list must be the
-// instance's (the C-side check of cols_stages).
-template <typename T, int N, int E, int CF, int CB, int... R>
+// Launch the instance on P (n, V) planes with store policy IO; the host's
+// stage list must be the instance's (the C-side check of cols_stages).
+template <class IO, typename T, int N, int E, int CF, int CB, int... R>
 cudaError_t launch_cols_list(ColsList<N, E, CF, CB, R...> list,
                              const T* xr, const T* xi, T* yr, T* yi,
                              long long P, long long V, int sign,
@@ -173,11 +176,11 @@ cudaError_t launch_cols_list(ColsList<N, E, CF, CB, R...> list,
   using G = ColsGeoOf<T, N, E, CF, CB, R...>;
   const long long ntiles = (V + G::C - 1) / G::C;
   if (P * ntiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const void* fn = (const void*)fft_cols_kernel<T, G, R...>;
+  const void* fn = (const void*)fft_cols_kernel<T, G, IO, R...>;
   cudaError_t e = set_smem(fn, G::SMEM);
   if (e != cudaSuccess) return e;
-  fft_cols_kernel<T, G, R...><<<(unsigned)(P * ntiles), G::THREADS, G::SMEM,
-                                (cudaStream_t)stream>>>(
+  fft_cols_kernel<T, G, IO, R...><<<(unsigned)(P * ntiles), G::THREADS,
+                                    G::SMEM, (cudaStream_t)stream>>>(
       xr, xi, yr, yi, V, (int)ntiles, tw, (calc_t<T>)sign, scale);
   return cudaGetLastError();
 }
@@ -188,8 +191,8 @@ cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
                         const pair_t<calc_t<T>>* tw, int nstages,
                         const int* radices, void* stream) {
   return with_cols_list_of<T>(n, [&](auto list) {
-    return launch_cols_list(list, xr, xi, yr, yi, P, V, sign, scale, tw,
-                            nstages, radices, stream);
+    return launch_cols_list<ColsIO<T>>(list, xr, xi, yr, yi, P, V, sign,
+                                       scale, tw, nstages, radices, stream);
   });
 }
 
@@ -197,8 +200,8 @@ cudaError_t launch_cols(const T* xr, const T* xi, T* yr, T* yi, long long P,
 template <typename T, int N, int E, int CF, int CB, int... R>
 cudaError_t cols_residency_list(ColsList<N, E, CF, CB, R...>, int* out) {
   using G = ColsGeoOf<T, N, E, CF, CB, R...>;
-  return cols_residency_of((const void*)fft_cols_kernel<T, G, R...>,
-                           G::THREADS, G::C, G::SMEM, out);
+  const void* fn = (const void*)fft_cols_kernel<T, G, ColsIO<T>, R...>;
+  return cols_residency_of(fn, G::THREADS, G::C, G::SMEM, out);
 }
 
 }  // namespace
@@ -222,6 +225,32 @@ int fft_cols_bf16(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
                   int nstages, const int* radices, void* stream) {
   return launch_cols(xr, xi, yr, yi, P, n, (long long)V, sign, scale, tw,
                      nstages, radices, stream);
+}
+
+// FFT along the middle axis of (P, n, V) f32 planes into a complex64 tensor
+// (y: interleaved re, im, 8-byte aligned), n a power of two from 2 to
+// COLS_IL_MAX_N; radices from cols_stages.  The f32 instances' geometry and
+// algorithm with ColsIlIO's store.  At n = 2048 (8 columns, 128 registers)
+// that store's addressing spilled 8 bytes, so no instance is compiled
+// there.
+constexpr int COLS_IL_MAX_N = 1024;
+
+int fft_cols_interleaved_out(const float* xr, const float* xi, float2* y,
+                             long long P, int n, int V, int sign,
+                             float scale, const float2* tw, int nstages,
+                             const int* radices, void* stream) {
+  if ((n & (n - 1)) || n > COLS_IL_MAX_N || (uintptr_t)y % sizeof(float2))
+    return cudaErrorInvalidValue;
+  float* yf = reinterpret_cast<float*>(y);
+  return with_cols_list(n, [&](auto list) {
+    constexpr int N = ColsLen<decltype(list)>::value;
+    if constexpr ((N & (N - 1)) == 0 && N <= COLS_IL_MAX_N)
+      return launch_cols_list<ColsIlIO>(list, xr, xi, yf, (float*)nullptr,
+                                        P, (long long)V, sign, scale, tw,
+                                        nstages, radices, stream);
+    else
+      return cudaErrorInvalidValue;
+  });
 }
 
 // FFT along axis 0 of (n, V) f32 planes, V < 2^31.

@@ -10,10 +10,10 @@
 // IO::RING a slab that bulk copies landed in shared memory) and where the
 // last stage writes (the input's layout times the scale, or with IO::STORE
 // where io.store places it: FsIO, the four-step kernels' own offset, row
-// stride and twiddle).  Here: the geometry (ColsGeo), the IO types, the
-// stage recursion (cols_stage), the instance table (COLS_CASE,
-// with_cols_list) and the host-side list check and residency query every
-// column kernel's launcher shares.  Included after stockham_tile.cuh and
+// stride and twiddle; ColsIlIO, interleaved complex64 output).  Here: the
+// geometry (ColsGeo), the IO types, the stage recursion (cols_stage), the
+// instance table (COLS_CASE, with_cols_list) and the host-side list check
+// and residency query every column kernel's launcher shares.  Included after stockham_tile.cuh and
 // radix.cuh; internal linkage, as they.
 
 #pragma once
@@ -123,6 +123,20 @@ struct FsIO : ColsIO<T> {
     const size_t o = ooff + (size_t)k * old;
     this->yr[o] = from_calc<T>(re);
     this->yi[o] = from_calc<T>(im);
+  }
+};
+
+// The store policy of interleaved complex64 output (cols.cu's
+// fft_cols_interleaved_out): the last stage writes output element k of the
+// thread's column as one 8-byte (re, im) pair at pair off + k*ld of the
+// tensor whose first word is yr (yi unused), times the scale as the planar
+// store computes it; a warp's 32 neighbouring columns are 256 contiguous
+// bytes.  Planar f32 input.
+struct ColsIlIO : ColsIO<float> {
+  static constexpr bool STORE = true;
+  __device__ __forceinline__ void store(int k, float re, float im) const {
+    reinterpret_cast<float2*>(yr)[off + (size_t)k * ld] =
+        make_float2(re * scale, im * scale);
   }
 };
 

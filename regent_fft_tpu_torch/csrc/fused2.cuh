@@ -13,8 +13,9 @@
 //   - the register body (fft_fused2_regs_kernel in stockham.cu: fft_fused2):
 //     cols.cuh's column recursion with one buffer on both axes
 //     (f2_regs_stage), the column pass's last stage storing into the owning
-//     CTA's row buffer (F2ColIO), the row pass reading it (F2RowIO); its
-//     geometry (F2Geo) and instance table (with_f2_geo).
+//     CTA's row buffer (F2ColIO; F2ColIlIO reads interleaved complex64
+//     input), the row pass reading it (F2RowIO); its geometry (F2Geo) and
+//     instance table (with_f2_geo).
 // Both share the host's cluster-occupancy query.  stockham.cu's notes say
 // how the kernels use them.  Included after stockham_tile.cuh and
 // radix.cuh; internal linkage, as they.
@@ -24,6 +25,7 @@
 #include <cooperative_groups.h>
 
 #include <mutex>
+#include <type_traits>
 
 #include "stockham_tile.cuh"
 #include "radix.cuh"
@@ -367,6 +369,21 @@ struct F2ColIO : F2IO {
   }
 };
 
+// The column pass's IO on interleaved complex64 input (fft_fused2's
+// interleaved entry): element x of the thread's column is the (re, im) pair
+// at pair off + x*LD of the caller's tensor, xr its first word, one 8-byte
+// load (a warp's 32 neighbouring columns: 256 contiguous bytes).  Only the
+// load differs from F2ColIO.
+template <class GR, int LD, int H>
+struct F2ColIlIO : F2ColIO<float, GR, LD, H> {
+  __device__ __forceinline__ void load(int k, float& re, float& im) const {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(this->xr)
+                           + this->off + (size_t)k * LD);
+    re = v.x;
+    im = v.y;
+  }
+};
+
 // The row pass's IO: stage 0 reads element x of the thread's row from the
 // buffer; the last stage writes element k to device memory with the
 // scale (the row's first element at `off`).
@@ -407,8 +424,10 @@ struct F2Geo<C_, E_, LastList<N1_, R1...>, LastList<N2_, R2...>> {
   static constexpr size_t SMEM = 2 * sizeof(float) * PART;
   static_assert(N1 % C == 0 && N2 % C == 0 && G2::THREADS == THREADS
                 && THREADS <= 1024 && SMEM <= F2_MAX_SMEM, "F2Geo");
-  template <typename T>
-  using ColIO = F2ColIO<T, G2, N2, H>;
+  // the column pass's IO: planes, or with IL the interleaved input (f32)
+  template <typename T, bool IL = false>
+  using ColIO = std::conditional_t<IL, F2ColIlIO<G2, N2, H>,
+                                   F2ColIO<T, G2, N2, H>>;
   template <typename T>
   using RowIO = F2RowIO<T, G2>;
   template <class IO>

@@ -448,8 +448,13 @@ cudaError_t launch_fused2(const T* xr, const T* xi, T* yr, T* yi, long long P,
 // shared memory ~0.65 ms, the DSMEM stores and cluster barriers ~0.4, the
 // device-memory loads and stores ~0.45: a plane's phases run one after the
 // other on its SM, so the kernel stays below half of its bound.
+// The IL instances (f32, C entry fft_fused2_interleaved_in) read the
+// caller's complex64 tensor as it is (F2ColIlIO: one 8-byte (re, im) load
+// an element, xr its first word, xi unused) and write planes: a plan whose
+// first step this is takes no split copy of its input (plan.py).  Same
+// algorithm, same bytes; only stage 0's addressing differs.
 // --------------------------------------------------------------------------
-template <typename T, class F>
+template <typename T, class F, bool IL = false>
 __global__ void __launch_bounds__(F::THREADS, 1)
 fft_fused2_regs_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
                        T* __restrict__ yr, T* __restrict__ yi, long long P,
@@ -466,7 +471,7 @@ fft_fused2_regs_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   // across the loop
   for (long long q = blockIdx.x / F::C; q < P; q += Q) {
     const int t = f2_tid();
-    typename F::template ColIO<T> ci;
+    typename F::template ColIO<T, IL> ci;
     ci.line = t % F::W;
     ci.lane = t / F::W;
     ci.sr = smem;
@@ -497,8 +502,9 @@ fft_fused2_regs_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
   }
 }
 
-// The register body over P (n1, n2) planes at instance F.
-template <typename T, class F>
+// The register body over P (n1, n2) planes at instance F (IL: xr is
+// interleaved complex64 input, xi unused).
+template <bool IL = false, typename T, class F>
 cudaError_t launch_fused2_regs(F, const T* xr, const T* xi, T* yr, T* yi,
                                long long P, int sign, float scale,
                                const float2* tw1, int nstages1,
@@ -508,7 +514,7 @@ cudaError_t launch_fused2_regs(F, const T* xr, const T* xi, T* yr, T* yi,
   if (!F::lists_ok(nstages1, radices1, nstages2, radices2))
     return cudaErrorInvalidValue;
   if (P <= 0) return cudaSuccess;
-  const void* fn = (const void*)fft_fused2_regs_kernel<T, F>;
+  const void* fn = (const void*)fft_fused2_regs_kernel<T, F, IL>;
   int active = 0;
   cudaError_t e = fused2_clusters(fn, F::C, F::SMEM, &active, F::THREADS);
   if (e != cudaSuccess) return e;
@@ -617,6 +623,26 @@ int fft_fused2(const float* xr, const float* xi, float* yr, float* yi,
   return launch_fused2_any(xr, xi, yr, yi, P, n1, n2, C, sign, scale, tw1,
                            nstages1, radices1, tw2, nstages2, radices2,
                            stream);
+}
+
+// FFT along both trailing axes of (P, n1, n2) complex64 data read as it is
+// (x: interleaved re, im, 8-byte aligned) into f32 planes, at the register
+// body's instances only (cudaErrorInvalidValue elsewhere); radices from
+// fused2_regs_stages.
+int fft_fused2_interleaved_in(const float2* x, float* yr, float* yi,
+                              long long P, int n1, int n2, int C, int sign,
+                              float scale, const float2* tw1, int nstages1,
+                              const int* radices1, const float2* tw2,
+                              int nstages2, const int* radices2,
+                              void* stream) {
+  if (!fused2_regs(n1, n2, C) || (uintptr_t)x % sizeof(float2))
+    return cudaErrorInvalidValue;
+  const float* xf = reinterpret_cast<const float*>(x);
+  return with_f2_geo(n1, n2, C, [&](auto f) {
+    return launch_fused2_regs<true>(f, xf, (const float*)nullptr, yr, yi, P,
+                                    sign, scale, tw1, nstages1, radices1,
+                                    tw2, nstages2, radices2, stream);
+  });
 }
 
 // The same on bf16 planes (f32 compute, f32 intermediate).

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "fft_fused2": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
                    _P, _I, _IP, _P, _I, _IP, _P],
     "fft_fused2_clusters": [_I, _I, _I, _I, _I],
+    # interleaved complex64 in (the register body) and out (the f32 columns)
+    "fft_fused2_interleaved_in": [_P, _P, _P, _L, _I, _I, _I, _I, _F,
+                                  _P, _I, _IP, _P, _I, _IP, _P],
+    "fft_cols_interleaved_out": [_P, _P, _P, _L, _I, _I, _I, _F, _P, _I,
+                                 _IP, _P],
     "fft_last_residency": [_I, _I, _IP],
     "fft_last_real_residency": [_I, _I, _IP],
     "fft_cols_residency": [_I, _I, _IP],

@@ -1375,7 +1375,22 @@ def cols_keys(n: int, dtype=torch.float32) -> list:
     return [(n, cols_stages, _table_dtype(dtype))]
 
 
-def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
+# The longest column fft_cols writes as interleaved complex64 (csrc/cols.cu,
+# COLS_IL_MAX_N: at 2048 that instance spilled).
+MAX_COLS_IL_N = 1024
+
+
+def cols_writes_complex(n: int, dtype) -> bool:
+    """Can :func:`fft_cols` write its output at length n on planes of
+    ``dtype`` as one complex64 tensor (``complex_out``): f32 planes and a
+    power of two up to ``MAX_COLS_IL_N`` (csrc/cols.cu,
+    fft_cols_interleaved_out)."""
+    return (dtype == torch.float32 and 2 <= n <= MAX_COLS_IL_N
+            and n & (n - 1) == 0)
+
+
+def fft_cols(xr, xi, sign: int, scale: float = 1.0,
+             complex_out: bool = False) -> Pair:
     """FFT along the middle axis of (P, n, V) f32, bf16 or f64 planes,
     scale fused, output in the input's dtype.
 
@@ -1386,11 +1401,29 @@ def fft_cols(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     (``f64_len_ok`` for f64 planes, which read the float64 tables; the C
     entry refuses any other).  Its accesses are element-wise, so any
     contiguous planes will do.  CPU planes run :func:`fft_cols_plain`.
+    With ``complex_out`` (where :func:`cols_writes_complex` holds) the
+    output is one complex64 tensor, returned as (it, None): on the card the
+    f32 instance's store writes each (re, im) pair as it is (C entry
+    ``fft_cols_interleaved_out``, counted as ``fft_cols``, the same bytes).
     Counterpart: ``pallas_stockham.py:787`` (f32 and bf16).
     """
-    if not _on_cuda("fft_cols", xr, xi, dtypes=tuple(C2C_DTYPES)):
-        return fft_cols_plain(xr, xi, sign, scale)
+    cuda = _on_cuda("fft_cols", xr, xi, dtypes=tuple(C2C_DTYPES))
     p, n, v = xr.shape
+    if complex_out and not cols_writes_complex(n, xr.dtype):
+        raise ValueError(f"fft_cols: no complex64 output at n={n} on "
+                         f"{xr.dtype} planes")
+    if not cuda:
+        yr, yi = fft_cols_plain(xr, xi, sign, scale)
+        return (torch.complex(yr, yi), None) if complex_out else (yr, yi)
+    if complex_out:
+        from . import _build
+        y = torch.empty(xr.shape, dtype=torch.complex64, device=xr.device)
+        _launch("fft_cols", _build.load().fft_cols_interleaved_out,
+                xr.device, xr.data_ptr(), xi.data_ptr(), y.data_ptr(),
+                p, n, v, sign, scale,
+                *_table_args(cols_keys(n), sign, xr.device),
+                nbytes=4 * xr.nbytes)
+        return y, None
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch(*_c2c_entry("fft_cols", xr), xr.device,
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -1411,6 +1444,17 @@ def fused2_keys(shape, sms: int = 132) -> list:
     return [(n, fused2_regs_stages, torch.float32) for n in (n1, n2)]
 
 
+def fused2_reads_complex(shape, dtype, sms: int = 132) -> bool:
+    """Can :func:`fft_fused2` read (..., n1, n2) data whose planes would be
+    of ``dtype`` as one complex64 tensor (``xi`` None) on a card of ``sms``
+    SMs: f32, and the register body at the cluster size
+    :func:`fused2_cluster` picks (csrc/stockham.cu,
+    fft_fused2_interleaved_in)."""
+    n1, n2 = shape[-2:]
+    return (dtype == torch.float32 and fused2_supported(n1, n2)
+            and fused2_keys(shape, sms)[0][1] is fused2_regs_stages)
+
+
 def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     """FFT along both trailing axes of (P, n1, n2) f32 or bf16 planes,
     scale fused, output in the input's dtype.
@@ -1425,8 +1469,16 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
     has an instance, else the stage walk (``fft_fused2_kernel``, one plane a
     cluster).  The C entry refuses a cluster size the card cannot hold
     (:func:`fused2_active_clusters` 0) and this raises.  CPU planes run
-    :func:`fft_fused2_plain`.  Counterpart: ``pallas_stockham.py:875``.
+    :func:`fft_fused2_plain`.  With ``xi`` None, ``xr`` is a contiguous
+    complex64 (P, n1, n2) tensor, read as it is where
+    :func:`fused2_reads_complex` holds: the register body's f32 instance
+    with one 8-byte (re, im) load an element (C entry
+    ``fft_fused2_interleaved_in``, counted as ``fft_fused2``, the same
+    bytes), f32 planes out; on the CPU its real and imaginary parts go to
+    the plain version.  Counterpart: ``pallas_stockham.py:875``.
     """
+    if xi is None:
+        return _fused2_complex_in(xr, sign, scale)
     if not _on_cuda("fft_fused2", xr, xi, dtypes=F32_BF16):
         return fft_fused2_plain(xr, xi, sign, scale)
     p, n1, n2 = xr.shape
@@ -1439,6 +1491,27 @@ def fft_fused2(xr, xi, sign: int, scale: float = 1.0) -> Pair:
             nbytes=4 * xr.nbytes)
     if keys[0][1] is fused2_regs_stages:
         _trace.COUNTS["fused2_planes"] += p
+    return yr, yi
+
+
+def _fused2_complex_in(x, sign: int, scale: float) -> Pair:
+    """:func:`fft_fused2` on a complex64 tensor read as it is."""
+    if not _on_cuda("fft_fused2", x, dtypes=(torch.complex64,)):
+        return fft_fused2_plain(x.real, x.imag, sign, scale)
+    p, n1, n2 = x.shape
+    sms = _sm_count(x.device)
+    if not fused2_reads_complex(x.shape, torch.float32, sms):
+        raise ValueError(f"fft_fused2: no complex64 input at {(n1, n2)} "
+                         f"on {p} planes")
+    from . import _build
+    yr = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    yi = torch.empty_like(yr)
+    c = fused2_cluster(n1, n2, p, sms)
+    _launch("fft_fused2", _build.load().fft_fused2_interleaved_in, x.device,
+            x.data_ptr(), yr.data_ptr(), yi.data_ptr(), p, n1, n2, c, sign,
+            scale, *_table_args(fused2_keys(x.shape, sms), sign, x.device),
+            nbytes=2 * x.nbytes)
+    _trace.COUNTS["fused2_planes"] += p
     return yr, yi
 
 
@@ -1554,14 +1627,26 @@ def axis_keys(shape, axis: int, dtype) -> list:
     return keys(shape[axis], dtype)
 
 
+def axis_writes_complex(shape, axis: int, dtype) -> bool:
+    """Can :func:`fft_axis_stockham` along ``axis`` of planes of ``shape``
+    and ``dtype`` write one complex64 tensor (``complex_out``): where it
+    runs :func:`fft_cols` (a non-last axis of rank >= 3 planes) and
+    :func:`cols_writes_complex` holds."""
+    axis %= len(shape)
+    return (len(shape) >= 3 and axis != len(shape) - 1
+            and cols_writes_complex(shape[axis], dtype))
+
+
 def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
-                      scale: float = 1.0) -> Pair:
+                      scale: float = 1.0, complex_out: bool = False) -> Pair:
     """FFT along ``axis`` of N-D split planes in one kernel pass.
 
     The last axis of a rank >= 2 array goes to :func:`fft_last` as (B, n);
     axis 0 of a rank-2 f32 array to :func:`fft_axis0`; any other axis (and
     a rank-1 array) to :func:`fft_cols` as (pre, n, post).  f64 planes take
-    the lengths :func:`f64_len_ok` admits.
+    the lengths :func:`f64_len_ok` admits.  ``complex_out`` (where
+    :func:`axis_writes_complex` holds) returns (one complex64 tensor,
+    None).
     Counterpart: ``pallas_stockham.py:2735`` (whose axis 0 of a rank-2
     array takes ``_runner_cols``).
     """
@@ -1579,6 +1664,9 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
                          f"got {n}")
     sign = int(direction)
     shape = xr.shape
+    if complex_out and not axis_writes_complex(shape, axis, xr.dtype):
+        raise ValueError(f"no complex64 output along axis {axis} of "
+                         f"{tuple(shape)} {xr.dtype} planes")
     if is_last:
         yr, yi = fft_last(xr.reshape(-1, n), xi.reshape(-1, n), sign,
                           float(scale))
@@ -1588,13 +1676,15 @@ def fft_axis_stockham(xr, xi, axis: int, direction: Direction,
         pre = int(np.prod(shape[:axis])) if axis else 1
         post = int(np.prod(shape[axis + 1:]))
         yr, yi = fft_cols(xr.reshape(pre, n, post), xi.reshape(pre, n, post),
-                          sign, float(scale))
-    return yr.reshape(shape), yi.reshape(shape)
+                          sign, float(scale), complex_out)
+    return yr.reshape(shape), None if yi is None else yi.reshape(shape)
 
 
 def fft_axes2_stockham(xr, xi, direction: Direction,
                        scale: float = 1.0) -> Pair:
-    """FFT along the last two axes of N-D split planes in one kernel.
+    """FFT along the last two axes of N-D split planes in one kernel; with
+    ``xi`` None, of a complex64 tensor ``xr`` read as it is
+    (:func:`fused2_reads_complex`), planes out.
 
     Counterpart: ``pallas_stockham.py:1251``.
     """
@@ -1602,7 +1692,8 @@ def fft_axes2_stockham(xr, xi, direction: Direction,
     n1, n2 = shape[-2], shape[-1]
     if not fused2_supported(n1, n2):
         raise ValueError(f"fused2 unsupported for trailing axes {(n1, n2)}")
-    yr, yi = fft_fused2(xr.reshape(-1, n1, n2), xi.reshape(-1, n1, n2),
+    yr, yi = fft_fused2(xr.reshape(-1, n1, n2),
+                        None if xi is None else xi.reshape(-1, n1, n2),
                         int(direction), float(scale))
     return yr.reshape(shape), yi.reshape(shape)
 

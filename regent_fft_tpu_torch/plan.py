@@ -36,6 +36,11 @@ plan's device:
 
 Each kind is one record of :data:`STEPS`; what the steps keep on the
 plan's device is fetched into one list, ``Plan.tables``, as it is made.
+A record also says whether its kernel reads a complex64 tensor as it is
+and whether it writes one (``StepKind.ends``): a C2C complex64 plan on a
+card hands the caller's tensor to its first step where that step reads it
+(:func:`reads_complex`) and returns its last step's tensor where that step
+writes one, with no split or combine copy at those ends.
 
 A real plan (R2C/C2R) transforms its last listed axis as the real axis
 and the others with the steps above.  The real axis takes one of three
@@ -502,53 +507,69 @@ def _pallas_general(spec: PlanSpec, n: int, device=None) -> Callable:
 
 class StepKind(NamedTuple):
     """One kind of plan step.  A ``general`` step keeps nothing on the
-    plan's device: its build function fetched what it reads."""
+    plan's device: its build function fetched what it reads.  Where
+    ``ends`` says its kernel can, ``run`` takes ``xi`` None and ``xr`` a
+    complex64 tensor read as it is, and with ``complex_out`` returns (one
+    complex64 tensor, None)."""
 
-    run: Callable      # (xr, xi, axis, arg, direction, use_3m, scale)
+    # (xr, xi, axis, arg, direction, use_3m, scale, complex_out)
+    run: Callable
     name: Callable     # (spec, axis, arg) -> the JAX trace-log string
     kernel: bool = True   # ends in a kernel write: the norm scale rides it
     # (shape, dtype, axis, arg, sms) -> its kernels' twiddle-table keys
     keys: Callable = lambda *_: []
     # (arg, sign, dtype, device, use_3m) -> its contraction operands
     operands: Callable = lambda *_: []
+    # (shape, dtype, axis, arg, sms) -> (reads a complex64 tensor as it is,
+    # writes its output as one) on planes of that shape and dtype
+    ends: Callable = lambda *_: (False, False)
 
 
 STEPS = {
     "stockham": StepKind(
-        lambda x, y, a, arg, d, _, sc: _sk.fft_axis_stockham(x, y, a, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _sk.fft_axis_stockham(
+            x, y, a, d, sc, co),
         lambda spec, a, arg: f"kernel-butterfly(n={arg})",
-        keys=lambda sh, dt, a, arg, sms: _sk.axis_keys(sh, a, dt)),
+        keys=lambda sh, dt, a, arg, sms: _sk.axis_keys(sh, a, dt),
+        ends=lambda sh, dt, a, arg, sms: (
+            False, _sk.axis_writes_complex(sh, a, dt))),
     "stockham2": StepKind(
-        lambda x, y, a, arg, d, _, sc: _sk.fft_axes2_stockham(x, y, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _sk.fft_axes2_stockham(
+            x, y, d, sc),
         lambda spec, a, arg: f"kernel-fused2{arg}",
-        keys=lambda sh, dt, a, arg, sms: _sk.fused2_keys(sh, sms)),
+        keys=lambda sh, dt, a, arg, sms: _sk.fused2_keys(sh, sms),
+        ends=lambda sh, dt, a, arg, sms: (
+            _sk.fused2_reads_complex(sh, dt, sms), False)),
     "stockham_gap": StepKind(
-        lambda x, y, a, arg, d, _, sc: _sk.fft_axes_gap_stockham(x, y, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _sk.fft_axes_gap_stockham(
+            x, y, d, sc),
         lambda spec, a, arg: f"kernel-gap-fused{arg}",
         keys=lambda sh, dt, a, arg, sms: _sk.walk_keys(*arg)),
     "stockham4": StepKind(
-        lambda x, y, a, arg, d, _, sc: _fs.fft_last_four_step(x, y, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _fs.fft_last_four_step(
+            x, y, d, sc),
         lambda spec, a, arg: f"kernel-fourstep-last(n={arg})",
         keys=lambda sh, dt, a, arg, sms: _fs.last_four_step_keys(arg)),
     "fourstep_ring": StepKind(
-        lambda x, y, a, arg, d, _, sc: _fs.fft_axis0_fourstep(x, y, a, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _fs.fft_axis0_fourstep(
+            x, y, a, d, sc),
         lambda spec, a, arg: f"kernel-fourstep-ring(n={arg})",
         keys=lambda sh, dt, a, arg, sms: _fs.axis0_fourstep_keys(arg)),
     "dma_ring": StepKind(
-        lambda x, y, a, arg, d, _, sc: _fs.fft_axis_dma(x, y, a, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _fs.fft_axis_dma(x, y, a, d, sc),
         lambda spec, a, arg: f"kernel-dma-ring(n={arg})",
         keys=lambda sh, dt, a, arg, sms: _fs.axis_ring_keys(arg, 0, False)),
     "fused2_ring": StepKind(
-        lambda x, y, a, arg, d, _, sc: _fs.fft_axes2_ring(x, y, d, sc),
+        lambda x, y, a, arg, d, _, sc, co: _fs.fft_axes2_ring(x, y, d, sc),
         lambda spec, a, arg: f"kernel-fused2-ring{arg}",
         keys=lambda sh, dt, a, arg, sms: _fs.axis_ring_keys(*arg, True)),
     "direct": StepKind(
-        lambda x, y, a, arg, d, m3, _: _stockham.direct_dft_axis(
+        lambda x, y, a, arg, d, m3, *_: _stockham.direct_dft_axis(
             x, y, a, arg, int(d), m3),
         lambda spec, a, arg: f"direct-einsum(n={arg})", kernel=False,
         operands=lambda *a: _stockham.step_tables("direct", *a)),
     "mixed2": StepKind(
-        lambda x, y, a, arg, d, m3, _: _stockham.mixed_radix_fft_axis(
+        lambda x, y, a, arg, d, m3, *_: _stockham.mixed_radix_fft_axis(
             x, y, a, *arg, int(d), m3),
         lambda spec, a, arg: "einsum-mixed2({0}={1}x{2})".format(
             *arg, arg[0] // arg[1]), kernel=False,
@@ -569,21 +590,49 @@ def kernel_keys(steps, shape, dtype: torch.dtype, sms: int = 132) -> list:
             for key in STEPS[kind_].keys(tuple(shape), dtype, a, arg, sms)]
 
 
+def complex_ends(steps, shape, dtype: torch.dtype,
+                 sms: int = 132) -> Tuple[bool, bool]:
+    """Can the first of ``steps`` read the caller's complex64 tensor as it
+    is, and can the last write the complex64 tensor the plan returns, on
+    planes of ``shape`` and ``dtype`` over a card of ``sms`` SMs?  Each end
+    is its kind's own (``StepKind.ends``); the steps between keep planes."""
+    if not steps:
+        return False, False
+    (k0, a0, g0), (k1, a1, g1) = steps[0], steps[-1]
+    return (STEPS[k0].ends(tuple(shape), dtype, a0, g0, sms)[0],
+            STEPS[k1].ends(tuple(shape), dtype, a1, g1, sms)[1])
+
+
+def reads_complex(x, device: torch.device, shape) -> bool:
+    """Is ``x`` a tensor a kernel can read as it is: complex64 of ``shape``
+    on ``device``, contiguous, with no conjugate or negative bit, its first
+    element 8-byte aligned (one (re, im) load an element)?"""
+    return (isinstance(x, torch.Tensor) and x.dtype == torch.complex64
+            and x.device == device and tuple(x.shape) == tuple(shape)
+            and x.is_contiguous() and not x.is_conj() and not x.is_neg()
+            and x.data_ptr() % 8 == 0)
+
+
 def run_steps(steps, xr, xi, direction: Direction, use_3m: bool,
-              fuse_scale: float = 1.0):
+              fuse_scale: float = 1.0, complex_out: bool = False):
     """Execute the steps, each inside its ``rft.step.<kind>`` span;
     ``fuse_scale`` rides the last step's write when that step is a kernel.
     bf16 planes go through the contraction steps as f32 and come back bf16
-    (plan.py:450-455, 554-555).
+    (plan.py:450-455, 554-555).  With ``xi`` None the first step reads the
+    complex64 tensor ``xr`` as it is, and with ``complex_out`` the last
+    writes one and the result is (it, None); :func:`complex_ends` says
+    where the steps can.
     Counterpart: ``regent_fft_tpu/plan.py:439``."""
     for idx, (kind_, a, arg) in enumerate(steps):
         step = STEPS[kind_]
-        ksc = fuse_scale if idx == len(steps) - 1 else 1.0
+        last = idx == len(steps) - 1
+        ksc = fuse_scale if last else 1.0
         bf = xr.dtype == torch.bfloat16 and not step.kernel
         with _trace.span("rft.step." + kind_):
             if bf:
                 xr, xi = xr.float(), xi.float()
-            xr, xi = step.run(xr, xi, a, arg, direction, use_3m, ksc)
+            xr, xi = step.run(xr, xi, a, arg, direction, use_3m, ksc,
+                              complex_out and last)
             if bf:
                 xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
     return xr, xi
@@ -760,10 +809,17 @@ class Plan:
         self.trace_log = {i: STEPS[k].name(exec_spec, a, arg)
                           for i, (k, a, arg) in enumerate(self.steps)}
         cuda = self.device.type == "cuda"
+        sms = _sk._sm_count(self.device) if cuda else 132
         self.table_keys = kernel_keys(
-            self.steps, step_shape, self.cdtype,
-            _sk._sm_count(self.device) if cuda else 132) + (
+            self.steps, step_shape, self.cdtype, sms) + (
                 self.real.keys if self.real else [])
+        # which ends of a C2C complex64 plan on a card take the caller's
+        # tensor and give the returned one as they are (no split or combine
+        # copy there): the first step's and the last step's kernels decide
+        self.complex_ends = (
+            complex_ends(self.steps, step_shape, self.cdtype, sms)
+            if cuda and spec.kind == Kind.C2C and spec.dtype == "complex64"
+            else (False, False))
         # what the plan keeps on its device, fetched now: its kernels' twiddle
         # tables on a card, its contraction steps' operands on any device
         sign = int(spec.direction)
@@ -976,11 +1032,12 @@ class Plan:
         return out
 
     # -- execution -------------------------------------------------------
-    def _steps(self, xr, xi):
+    def _steps(self, xr, xi, complex_out: bool = False):
         with _sk.mxu_impl_scope(self.switches.mxu_impl):
             return run_steps(self.steps, xr, xi, self.spec.direction,
                              self.spec.use_3m,
-                             fuse_scale=self.scale if self.fused else 1.0)
+                             fuse_scale=self.scale if self.fused else 1.0,
+                             complex_out=complex_out)
 
     def _scaled(self, *ys):
         """``ys`` times the norm scale where no kernel write took it, each
@@ -1003,12 +1060,12 @@ class Plan:
         with _trace.span("rft.plan"):
             return self._split(xr, xi)
 
-    def _split(self, xr, xi):
+    def _split(self, xr, xi, complex_out: bool = False):
         if self.spec.kind == Kind.R2C:
             raise TypeError("an R2C plan takes one real plane: execute_real")
         r = self.real
         if r is None:
-            return self._scaled(*self._steps(xr, xi))
+            return self._scaled(*self._steps(xr, xi, complex_out))
         if r.route == "kernel":
             if r.packed and not self.spec.packed_layout:
                 xr, xi = _pack_nyquist(xr, xi, r.other)
@@ -1057,6 +1114,12 @@ class Plan:
         planes.  R2C takes a real array or tensor and returns the half
         spectrum in the same representation; C2R takes the half spectrum
         and returns float32, float64 or bfloat16.
+
+        A C2C complex64 plan on a card reads a contiguous complex64 input
+        on its device as it is where its first kernel can
+        (:func:`reads_complex`, ``complex_ends``), and its last kernel
+        writes the returned tensor where it can; elsewhere the input is
+        split into planes and the output combined from them.
         Counterpart: ``regent_fft_tpu/plan.py:1056``.
         """
         if self._destroyed:
@@ -1073,16 +1136,24 @@ class Plan:
                 with _trace.span("rft.layout.combine"):
                     return from_split(SplitComplex(*y), s.dtype)
             with _trace.span("rft.layout.split"):
-                sx = as_split(x, self.device, self.cdtype)
+                cin = self.complex_ends[0] and reads_complex(
+                    x, self.device, s.shape)
+                sx = (x, None) if cin else as_split(x, self.device,
+                                                    self.cdtype)
             expect = s.shape if s.kind == Kind.C2C else _half_shape(s)
-            if sx.shape != expect:
-                raise ValueError(f"input shape {sx.shape} != planned "
-                                 f"{expect}")
-            y = self._split(sx.re, sx.im)
+            if tuple(sx[0].shape) != expect:
+                raise ValueError(f"input shape {tuple(sx[0].shape)} != "
+                                 f"planned {expect}")
+            y = self._split(*sx, complex_out=self.complex_ends[1])
+            if cin:     # the first kernel read x
+                _trace.COUNTS["interleaved_in"] += 1
             with _trace.span("rft.layout.combine"):
                 if s.kind == Kind.C2R:
                     return (y.to(torch.bfloat16) if s.dtype == "complex32"
                             else y)
+                if y[1] is None:    # the last kernel wrote it
+                    _trace.COUNTS["interleaved_out"] += 1
+                    return y[0]
                 return from_split(SplitComplex(*y), s.dtype)
 
     execute = __call__

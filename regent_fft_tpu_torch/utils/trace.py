@@ -37,7 +37,11 @@ Every span name starts with ``rft.``:
 Counters (always on): ``COUNTS["exchange_bytes"]``, the bytes this rank
 sends to other ranks through the distributed plans' collectives;
 ``COUNTS["fused2_planes"]``, the planes ``fft_fused2`` ran through its
-register body (``ops/stockham_kernels.py``); the launch counters
+register body (``ops/stockham_kernels.py``); ``COUNTS["interleaved_in"]``
+and ``COUNTS["interleaved_out"]``, the transforms ``Plan.__call__`` ran
+whose first kernel read the caller's complex64 tensor as it is, and whose
+last kernel wrote the complex64 tensor it returned (``plan.py``, no split
+or combine copy); the launch counters
 ``LAUNCHES``/``LAUNCH_BYTES`` live beside the launches in
 ``ops/stockham_kernels.py``, and count the contraction steps' products
 under ``contract_gemm``.
@@ -58,7 +62,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 ON = False
-COUNTS = {"exchange_bytes": 0, "fused2_planes": 0}
+COUNTS = {"exchange_bytes": 0, "fused2_planes": 0, "interleaved_in": 0,
+          "interleaved_out": 0}
 
 
 class _Off:

@@ -32,6 +32,11 @@ figures the spans and counters read, a mean over ranks:
   ``contract_gemm`` (the contraction steps' products, cuBLAS's kernels);
 * ``fused2_planes_per_step``: the planes ``fft_fused2``'s register body
   took a step (``trace.COUNTS["fused2_planes"]``);
+  ``interleaved_in_per_step``/``interleaved_out_per_step``: the
+  transforms a step whose first kernel read the caller's complex64 tensor
+  and whose last kernel wrote the returned one
+  (``trace.COUNTS["interleaved_in"]``/``["interleaved_out"]``; 2 a step
+  where both of a C2C step's transforms take both ends);
 * ``attributed_pct``: the share of device µs under some ``rft.`` span;
   ``port_records`` against ``launches``: the port-class kernel records
   in the trace against the launches counted, ``contract_gemm`` left out
@@ -156,6 +161,10 @@ def figures(recs) -> dict:
             "exchange_gib_per_step": xb / 2 ** 30,
             "fused2_planes_per_step": tr["counts"].get("fused2_planes", 0)
             / steps,
+            "interleaved_in_per_step": tr["counts"].get("interleaved_in", 0)
+            / steps,
+            "interleaved_out_per_step": tr["counts"].get("interleaved_out",
+                                                         0) / steps,
             "attributed_pct": 100.0 * (1 - by.get("unattributed", 0.0)
                                        / total) if total else None,
             "port_records": tr["port_records"],

@@ -166,9 +166,12 @@ def _threads(n, dtype):
     return g, tid % g["C"], tid // g["C"]
 
 
-def _emulate_cols(xr, xi, sign, scale):
+def _emulate_cols(xr, xi, sign, scale, interleaved=False):
     """fft_cols_kernel's index scheme on (P, n, V) planes, every block and
-    thread at once: (block, thread, butterfly, r) index tensors."""
+    thread at once: (block, thread, butterfly, r) index tensors; with
+    ``interleaved`` the f32 instance's ColsIlIO store, output element
+    (p, j, v) the (re, im) word pair at pair (p*n + j)*V + v of one
+    complex64 tensor."""
     p_, n, v_ = xr.shape
     rad = sk.cols_stages(n)
     g, c, lane = _threads(n, xr.dtype)
@@ -184,6 +187,7 @@ def _emulate_cols(xr, xi, sign, scale):
     x = torch.complex(xr.float(), xi.float()).reshape(-1)
     nan = complex(float("nan"), float("nan"))
     y = torch.full((p_ * n * v_,), nan, dtype=torch.complex64)
+    yw = torch.full((2 * p_ * n * v_,), float("nan"))   # interleaved words
     bufs = [torch.full((len(blk), n * cols), nan, dtype=torch.complex64)
             for _ in range(max(1, g["BUFS"]))]
     tab = sk._stage_tables(rad, sign)
@@ -221,6 +225,20 @@ def _emulate_cols(xr, xi, sign, scale):
             got = flat[sel]
             assert len(set(got.tolist())) == len(got) == p_ * n * v_
             y[got] = v[sel] * scale
+            if interleaved:
+                # one 8-byte store a value, words 2*flat and 2*flat + 1; a
+                # warp's lanes on min(C, 32) neighbouring columns store runs
+                # of that many consecutive pairs (256 B at C >= 32) in every
+                # whole tile (a ragged tile stores fewer)
+                run = min(cols, 32)
+                whole = flat[valid.all(1)]
+                lanes = whole.reshape(len(whole), -1, run, *flat.shape[2:])
+                step = (lanes - lanes[:, :, :1]).movedim(2, -1)
+                assert bool((step == torch.arange(run)).all()), "runs"
+                byte = 8 * got
+                assert bool((byte % 8 == 0).all())
+                yw[byte // 4] = (v[sel] * scale).real
+                yw[byte // 4 + 1] = (v[sel] * scale).imag
         else:
             base = (j - k) * r + k
             a = _at(base[..., None] + torch.arange(r) * ns, c[:, None, None],
@@ -234,6 +252,9 @@ def _emulate_cols(xr, xi, sign, scale):
         off_tw += (r - 1) * ns
         ns *= r
     assert off_tw == len(tw)
+    if interleaved:
+        assert not bool(torch.isnan(yw).any()), "every word written"
+        return torch.view_as_complex(yw.reshape(p_, n, v_, 2))
     y = y.reshape(p_, n, v_)
     return y.real.to(xr.dtype), y.imag.to(xr.dtype)
 
@@ -337,6 +358,39 @@ def test_column_emulation_matches_plain_and_jax(n, sign, dtype):
         assert rel_l2(emu, ref) <= tol
 
 
+@pytest.mark.parametrize("n", [n for n in LENGTHS if n & (n - 1) == 0])
+def test_interleaved_output_emulation(n):
+    """The f32 instances' interleaved store (fft_cols_interleaved_out) at
+    every power of two (csrc/cols.cu compiles them up to COLS_IL_MAX_N,
+    which is MAX_COLS_IL_N; the addressing is the same at 2048): P = 3 and
+    a ragged last tile, one sign a length
+    (alternating); every store an aligned 8-byte pair, runs of min(C, 32)
+    pairs a warp, every word written once, the planar store's values, so
+    the tensor equals the planar output bit for bit, and numpy within
+    tolerance."""
+    sign = -1 if n.bit_length() % 2 else 1
+    rng = np.random.default_rng(n + 7)
+    v_ = _geometry(n, torch.float32)["C"] + 5
+    xr = torch.from_numpy(rng.standard_normal((3, n, v_)).astype(np.float32))
+    xi = torch.from_numpy(rng.standard_normal((3, n, v_)).astype(np.float32))
+    y = _emulate_cols(xr, xi, sign, 0.5, interleaved=True)
+    assert y.dtype == torch.complex64 and tuple(y.shape) == (3, n, v_)
+    er, ei = _emulate_cols(xr, xi, sign, 0.5)
+    assert torch.equal(y, torch.complex(er, ei))
+    xd = _c(xr, xi)
+    ref = (np.fft.fft(xd, axis=1) if sign < 0
+           else np.fft.ifft(xd, axis=1, norm="forward")) * 0.5
+    assert rel_l2(y.numpy(), ref) <= tolerance(n)
+    cap = re.search(r"constexpr int COLS_IL_MAX_N = (\d+);",
+                    (COLS_CU.parent / "cols.cu").read_text())
+    assert int(cap.group(1)) == sk.MAX_COLS_IL_N
+    assert sk.cols_writes_complex(n, torch.float32) == (
+        n <= sk.MAX_COLS_IL_N)
+    assert not sk.cols_writes_complex(n, torch.bfloat16)
+    assert not sk.cols_writes_complex(n, torch.float64)
+    assert not sk.cols_writes_complex(3 * n, torch.float32)
+
+
 @pytest.mark.parametrize("n", [512, 640, 2048])
 def test_axis0_emulation_matches_plain(n):
     """fft_axis0 is the f32 instance with P = 1: the emulation of (1, n, V)
@@ -363,3 +417,34 @@ def test_wrapper_cpu_planes_run_the_plain_version(name):
     assert sk.LAUNCHES == before
     pr, pi = getattr(sk, name + "_plain")(xr, xi, 1, 0.25)
     assert torch.equal(yr, pr) and torch.equal(yi, pi)
+
+
+def test_wrapper_interleaved_output(monkeypatch):
+    """complex_out: on the card the f32 planes launch the interleaved entry
+    into a new complex64 tensor, counted as fft_cols with the planar
+    launch's bytes; on the CPU the plain version's planes are combined.
+    Lengths with no such instance raise on both.  The card's launch is
+    stubbed: nothing reaches a card."""
+    rng = np.random.default_rng(12)
+    xr = torch.from_numpy(rng.standard_normal((3, 512, 37)).astype(np.float32))
+    xi = torch.from_numpy(rng.standard_normal((3, 512, 37)).astype(np.float32))
+    y, none = sk.fft_cols(xr, xi, -1, 0.5, complex_out=True)
+    assert none is None and y.dtype == torch.complex64
+    assert torch.equal(y, torch.complex(*sk.fft_cols_plain(xr, xi, -1, 0.5)))
+    with pytest.raises(ValueError, match="no complex64 output"):
+        sk.fft_cols(xr[:, :384], xi[:, :384], -1, complex_out=True)
+    calls = []
+    monkeypatch.setattr(sk, "_on_cuda", lambda *a, **k: True)
+    monkeypatch.setattr(sk, "device_tables",
+                        lambda n, sign, dev, stages, dtype=None:
+                        (torch.zeros(1), None, 0))
+    from regent_fft_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "load", lambda: type(
+        "Lib", (), {"fft_cols_interleaved_out": "il"}))
+    monkeypatch.setattr(sk, "_launch",
+                        lambda name, fn, dev, *a, nbytes: calls.append(
+                            (name, fn, a[3:6], nbytes)))
+    x = torch.empty((1, 512, 262144), device="meta")
+    y, none = sk.fft_cols(x, x, 1, 1.0 / 512, complex_out=True)
+    assert calls == [("fft_cols", "il", (1, 512, 262144), 16 * 512 * 262144)]
+    assert none is None and y.dtype == torch.complex64 and y.shape == x.shape

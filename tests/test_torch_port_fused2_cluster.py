@@ -258,9 +258,12 @@ def _round_robin(p, clusters):
     return [(q0, q) for q0 in range(clusters) for q in range(q0, p, clusters)]
 
 
-def _emulate_regs(xr, xi, sign, scale, c, clusters):
+def _emulate_regs(xr, xi, sign, scale, c, clusters, interleaved=False):
     """fft_fused2_regs_kernel on (P, n1, n2) planes, clusters of c CTAs, a
-    persistent grid of ``clusters`` clusters."""
+    persistent grid of ``clusters`` clusters; with ``interleaved`` its IL
+    instance (F2ColIlIO), which reads the planes' values from one complex64
+    tensor, element (j, i) of a plane the (re, im) word pair at pair
+    j*n2 + i."""
     p, n1, n2 = xr.shape
     g = sk.fused2_regs_geometry(n1, n2, c)
     w, h, nt = g["w"], g["h"], g["threads"]
@@ -273,6 +276,7 @@ def _emulate_regs(xr, xi, sign, scale, c, clusters):
     row, lane2 = t // tpc2, t % tpc2
     cta = torch.arange(c)
     x = torch.complex(xr.float(), xi.float()).reshape(-1)
+    xw = torch.view_as_real(x).reshape(-1)   # the interleaved tensor
     y = torch.full((p * n1 * n2,), NAN, dtype=torch.complex64)
     written = torch.zeros(p * n1 * n2, dtype=torch.int32)
     plane_words = n1 * n2
@@ -287,7 +291,17 @@ def _emulate_regs(xr, xi, sign, scale, c, clusters):
             flat = (lo + idx[None] * n2
                     + (cta[:, None] * w + col)[:, :, None, None])
             assert bool(((flat >= lo) & (flat < lo + plane_words)).all())
-            return x[flat]
+            if not interleaved:
+                return x[flat]
+            # one 8-byte load a value: words 2*flat and 2*flat + 1, 8-byte
+            # aligned; the 32 lanes of a warp read 32 consecutive pairs, 256
+            # contiguous bytes
+            lanes = flat.reshape(c, nt // 32, 32, *flat.shape[2:])
+            step = (lanes - lanes[:, :, :1]).movedim(2, -1)
+            assert bool((step == torch.arange(32)).all()), "warp runs"
+            byte = 8 * flat
+            assert bool((byte % 8 == 0).all())
+            return torch.complex(xw[byte // 4], xw[byte // 4 + 1])
 
         def scatter(k, keep, v):     # element (k, i) -> CTA k // h, row k % h
             i = (cta[:, None] * w + col)[:, :, None, None].expand(v.shape)
@@ -329,14 +343,17 @@ def _emulate_regs(xr, xi, sign, scale, c, clusters):
     return y.real.to(xr.dtype), y.imag.to(xr.dtype)
 
 
-def _emulate_cluster(xr, xi, sign, scale, c=None, clusters=8):
+def _emulate_cluster(xr, xi, sign, scale, c=None, clusters=8,
+                     interleaved=False):
     """What fft_fused2 runs on (P, n1, n2) planes with clusters of c CTAs
     (the host's pick for P planes when None): the register body where it
-    has an instance, the stage walk elsewhere."""
+    has an instance (``interleaved``: its IL instance), the stage walk
+    elsewhere."""
     p, n1, n2 = xr.shape
     c = sk.fused2_cluster(n1, n2, p) if c is None else c
     if sk.fused2_regs_geometry(n1, n2, c) is not None:
-        return _emulate_regs(xr, xi, sign, scale, c, clusters)
+        return _emulate_regs(xr, xi, sign, scale, c, clusters, interleaved)
+    assert not interleaved, "the stage walk has no interleaved instance"
     return _emulate_stage_walk(xr, xi, sign, scale, c)
 
 
@@ -534,6 +551,43 @@ def test_regs_emulation_512(sign):
     _check(er, ei, tr, ti, sign, 1.0 / 512, torch.float32)
 
 
+@pytest.mark.parametrize("case", [(256, 3, 2, -1), (256, 3, 2, 1),
+                                  (256, 1, 1, 1), (512, 2, 1, -1)])
+def test_regs_emulation_interleaved_input(case):
+    """The register body's interleaved-input instance
+    (fft_fused2_interleaved_in) at both geometries, a ragged round robin at
+    256^2: every load an aligned 8-byte (re, im) pair, a warp's 32 columns
+    256 contiguous bytes, the values the planar load reads, so the output
+    equals the planar instance's bit for bit, and the plain version's and
+    numpy's within tolerance."""
+    n, p, clusters, sign = case
+    c = {256: 4, 512: 16}[n]
+    tr, ti = _planes((p, n, n), torch.float32, n + p + sign)
+    er, ei = _emulate_cluster(tr, ti, sign, 0.5, c=c, clusters=clusters,
+                              interleaved=True)
+    pr, pi = _emulate_cluster(tr, ti, sign, 0.5, c=c, clusters=clusters)
+    assert torch.equal(er, pr) and torch.equal(ei, pi)
+    _check(er, ei, tr, ti, sign, 0.5, torch.float32)
+
+
+def test_interleaved_input_only_at_the_register_body():
+    """fused2_reads_complex: f32 planes at the register body's instances
+    (the cluster size a batch picks), nowhere else: bf16 and f64 planes,
+    the stage walk's pairs and a batch too small for the register body's
+    cluster size read planes."""
+    f32 = torch.float32
+    assert sk.fused2_reads_complex((512, 512, 512), f32)
+    assert sk.fused2_reads_complex((1, 512, 512), f32)
+    assert sk.fused2_reads_complex((256, 256, 256), f32)
+    assert not sk.fused2_reads_complex((16, 256, 256), f32)   # C = 8
+    assert not sk.fused2_reads_complex((512, 512, 512), torch.bfloat16)
+    assert not sk.fused2_reads_complex((512, 512, 512), torch.float64)
+    for n1, n2 in PAIRS:
+        got = sk.fused2_reads_complex((4096, n1, n2), f32)
+        assert got == (sk.fused2_regs_geometry(
+            n1, n2, sk.fused2_cluster(n1, n2, 4096)) is not None)
+
+
 @pytest.mark.parametrize("first", FIRST)
 def test_dispatched_body_every_admitted_pair(first):
     """At every admitted pair, on one plane with the cluster size a batch
@@ -574,6 +628,38 @@ def test_wrapper_counts_register_body_planes(monkeypatch):
                                        (256, 256, 8)]
     assert trace.COUNTS["fused2_planes"] == 1024 + 1024
     assert [c_[2] for c_ in calls][:2] == [4 * 4 * 512 ** 3] * 2
+    trace.reset_counts()
+
+
+def test_wrapper_interleaved_input_launch(monkeypatch):
+    """On the card a complex64 tensor (xi None) launches the interleaved
+    entry at the register body's cluster size, counted as fft_fused2 with
+    the planar launch's bytes (16 B an element) and its planes in
+    trace.COUNTS["fused2_planes"]; f32 planes come back.  Where the
+    register body has no instance the wrapper raises.  The launch is
+    stubbed: nothing reaches a card."""
+    calls = []
+    monkeypatch.setattr(sk, "_on_cuda", lambda *a, **k: True)
+    monkeypatch.setattr(sk, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(sk, "device_tables",
+                        lambda n, sign, dev, stages, dtype=None:
+                        (torch.zeros(1), None, 0))
+    from regent_fft_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "load", lambda: type(
+        "Lib", (), {"fft_fused2_interleaved_in": "il"}))
+    monkeypatch.setattr(sk, "_launch",
+                        lambda name, fn, dev, *a, nbytes: calls.append(
+                            (name, fn, a[3:7], nbytes)))
+    trace.reset_counts()
+    x = torch.empty((512, 512, 512), dtype=torch.complex64, device="meta")
+    yr, yi = sk.fft_fused2(x, None, -1)
+    assert calls == [("fft_fused2", "il", (512, 512, 512, 16),
+                      16 * 512 ** 3)]
+    assert yr.dtype == yi.dtype == torch.float32 and yr.shape == x.shape
+    assert trace.COUNTS["fused2_planes"] == 512
+    with pytest.raises(ValueError, match="no complex64 input"):
+        sk.fft_fused2(torch.empty((3, 128, 1024), dtype=torch.complex64,
+                                  device="meta"), None, -1)
     trace.reset_counts()
 
 

@@ -90,7 +90,8 @@ PORT_TESTS = {
     "test_torch_port_distributed_real.py",
     "test_torch_port_distributed_r2r.py", "test_torch_port_switches.py",
     "test_torch_port_trace.py", "test_torch_port_npb_ft.py",
-    "test_torch_port_f64_bodies.py", "test_torch_port_complex128_route.py"}
+    "test_torch_port_f64_bodies.py", "test_torch_port_complex128_route.py",
+    "test_torch_port_interleaved.py"}
 # The rank pool of the distributed tests: every rank imports it, so it
 # stands alone like the port.
 POOL = "tests/torch_dist_pool.py"
